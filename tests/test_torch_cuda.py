@@ -1,0 +1,245 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+Tests marked `gpu` need a CUDA card: each decides inside its fixture whether
+one is present and skips otherwise.  The card's machine has no JAX, so run
+them there without the repository's conftest (which imports JAX):
+
+    python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
+
+The unmarked tests run anywhere: they check the C interface statically
+(there is no nvcc on a CPU-only machine).
+
+Tolerances are those of `utils.testing.compare`, which states the reason for
+each: float32 1e-4 per element (summation order only); bfloat16 per element
+within atol + 2^-6·|plain| (atol 2 % of the plain output's rms for attention
+and GEGLU, 5e-2 for the spacetime blend) and within 1e-2 in relative norm.
+"""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_lib, cuda_mha, cuda_spacetime
+from diffusion_spacetime_attn_tpu_torch.ops.masks import flat_circular_mask
+from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, dev, dtype, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _check(got, want, kind):
+    torch.cuda.synchronize()
+    cmp = compare(got, want, kind)
+    assert cmp["ok"], cmp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Lq,Lk,H,dh", [
+    (2, 256, 256, 8, 40), (1, 128, 128, 4, 80), (2, 64, 64, 8, 160),
+    (1, 100, 100, 2, 16),        # ragged query and key tiles
+    (2, 70, 130, 2, 24),         # Lq != Lk
+    (1, 50, 50, 3, 20),          # head width not a multiple of 8 (element loads)
+])
+def test_mha_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, dh):
+    g = torch.Generator(device=cuda).manual_seed(dh + Lq)
+    q = _randn(g, cuda, dtype, B, Lq, H * dh)
+    k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
+    _check(cuda_mha.mha_attention(q, k, v, H), cuda_mha.mha_attention_plain(q, k, v, H), "mha")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", [
+    (1, 4, 1024, 77, 640, 8), (2, 2, 256, 77, 1280, 8),
+    (1, 3, 100, 12, 32, 2),      # ragged query tile, short context
+    (2, 1, 64, 80, 64, 4),       # the longest context the kernel takes
+])
+def test_spacetime_kernel_matches_plain(cuda, dtype, B, N, Lq, Lk, inner, H):
+    g = torch.Generator(device=cuda).manual_seed(Lq + N)
+    q_c, g_u = (_randn(g, cuda, dtype, B, Lq, inner) for _ in range(2))
+    kc, vc = (_randn(g, cuda, dtype, B, Lk, inner) for _ in range(2))
+    lk, lv = (_randn(g, cuda, dtype, B, N, Lk, inner) for _ in range(2))
+    dim = int(round(Lq ** 0.5))
+    masks = flat_circular_mask(torch.rand((B, N, 2), generator=g, device=cuda), dim, 0.3)
+    masks = torch.nn.functional.pad(masks, (0, Lq - dim * dim))
+    coef = torch.rand((B, N), generator=g, device=cuda) * 2
+    args = (q_c, g_u, kc, vc, lk, lv, masks, coef, H)
+    _check(cuda_spacetime.fused_spacetime_attention(*args), cuda_spacetime.spacetime_plain(*args),
+           "spacetime")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("M,dim", [
+    (512, 320), (256, 640), (128, 1280), (100, 32), (7, 48),
+    (16384, 48),                 # a 128-wide inner chunk that runs past inner = 192
+    (64, 36),                    # width not a multiple of 8: float32 only
+])
+def test_geglu_kernel_matches_plain(cuda, dtype, residual, M, dim):
+    g = torch.Generator(device=cuda).manual_seed(M + dim)
+    inner = 4 * dim
+    x = _randn(g, cuda, dtype, M, dim)
+    w1 = _randn(g, cuda, dtype, 2 * inner, dim, scale=dim ** -0.5)
+    b1 = _randn(g, cuda, dtype, 2 * inner, scale=0.1)
+    w2 = _randn(g, cuda, dtype, dim, inner, scale=inner ** -0.5)
+    b2 = _randn(g, cuda, dtype, dim, scale=0.1)
+    res = _randn(g, cuda, dtype, M, dim) if residual else None
+    if dtype == torch.bfloat16 and dim % 8:
+        # the tensor-core kernel takes widths that are multiples of 8 only
+        with pytest.raises(ValueError):
+            cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)
+        return
+    got = cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)
+    _check(got, cuda_geglu.geglu_plain(x, w1, b1, w2, b2, res), "geglu")
+    # each inner chunk's partial product is summed in a fixed order
+    assert torch.equal(got, cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res))
+
+
+@pytest.mark.gpu
+def test_wrappers_count_launches_and_reject_bad_input(cuda):
+    q = torch.randn(1, 64, 64, device=cuda)
+    before = cuda_mha.mha_attention.launches
+    cuda_mha.mha_attention(q, q, q, 2)
+    assert cuda_mha.mha_attention.launches == before + 1
+    with pytest.raises(TypeError):
+        cuda_mha.mha_attention(q.half(), q.half(), q.half(), 2)
+    with pytest.raises(ValueError):
+        cuda_mha.mha_attention(q.transpose(1, 2), q, q, 2)
+    wide = torch.zeros(1, 8, 400, device=cuda)   # head width 200 > 160
+    with pytest.raises(ValueError):
+        cuda_mha.mha_attention(wide, wide, wide, 2)
+    assert cuda_mha.mha_attention.launches == before + 1
+    # bfloat16 GEGLU on the tensor cores needs 16-byte aligned operands
+    dim, inner = 64, 256
+    x = torch.zeros(4 * dim + 1, dtype=torch.bfloat16, device=cuda)[1:].view(4, dim)
+    w1 = torch.zeros(2 * inner, dim, dtype=torch.bfloat16, device=cuda)
+    w2 = torch.zeros(dim, inner, dtype=torch.bfloat16, device=cuda)
+    b1, b2 = w1[:, 0].contiguous(), w2[:, 0].contiguous()
+    ff_before = cuda_geglu.geglu_ff.launches
+    with pytest.raises(ValueError):
+        cuda_geglu.geglu_ff(x, w1, b1, w2, b2)
+    assert cuda_geglu.geglu_ff.launches == ff_before
+
+
+@pytest.mark.gpu
+def test_unet_kernels_on_matches_off(cuda):
+    """A small UNet in float32 with the three kernel flags on and off."""
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.ops.attention import SpatialControl
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    small = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                 attention_resolutions=(1, 2), num_heads=2, context_dim=32)
+    with torch.device(cuda):
+        on = UNet(UNetConfig(use_mha=True, use_fused_ff=True, use_fused_control=True, **small))
+        off = UNet(UNetConfig(**small))
+    randomize_(on, seed=3, scale=0.2)
+    off.load_state_dict(on.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 16, 16, 4), generator=g, device=cuda)
+    t = torch.full((4,), 501, dtype=torch.int32, device=cuda)
+    ctx = torch.randn((4, 12, 32), generator=g, device=cuda)
+    ctl = SpatialControl(torch.randn((2, 2, 12, 32), generator=g, device=cuda),
+                         torch.rand((2, 2, 2), generator=g, device=cuda),
+                         torch.full((2, 2), 1.5, device=cuda), torch.ones((2, 2), device=cuda))
+    counts = [w.launches for w in (cuda_mha.mha_attention, cuda_geglu.geglu_ff,
+                                   cuda_spacetime.fused_spacetime_attention)]
+    with torch.inference_mode():
+        a, b = on(x, t, ctx, ctl), off(x, t, ctx, ctl)
+    after = [w.launches for w in (cuda_mha.mha_attention, cuda_geglu.geglu_ff,
+                                  cuda_spacetime.fused_spacetime_attention)]
+    assert [y - x_ for x_, y in zip(counts, after)] == [7, 7, 7]  # 7 transformer sites
+    _check(a, b, "unet")  # float32: 1e-4 per element
+
+
+# ------------------------------------------------------------ no card needed
+
+
+def _bf16(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16)
+
+
+def _bf16_cases(kind):
+    """(plain bfloat16 output, the same math in float32 rounded once, and
+    outputs with planted faults) at small shapes on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    if kind == "mha":
+        q, k, v = (_bf16(gen, 2, 256, 320) for _ in range(3))
+        plain = lambda q_, k_, v_: cuda_mha.mha_attention_plain(q_, k_, v_, 8)  # noqa: E731
+        faults = {"skip_key_tile": plain(q, k[:, :192].contiguous(), v[:, :192].contiguous()),
+                  "scale_x1.05": plain((q.float() * 1.05).bfloat16(), k, v)}
+        return plain(q, k, v), plain(*f32((q, k, v))).bfloat16(), faults
+    if kind == "geglu":
+        M, dim, inner = 256, 64, 256
+        args = (_bf16(gen, M, dim), _bf16(gen, 2 * inner, dim, scale=dim ** -0.5),
+                _bf16(gen, 2 * inner, scale=0.1), _bf16(gen, dim, inner, scale=inner ** -0.5),
+                _bf16(gen, dim, scale=0.1), _bf16(gen, M, dim))
+        w2 = args[3].clone()
+        w2[:, :64] = 0
+        faults = {"skip_inner_tile": cuda_geglu.geglu_plain(*args[:3], w2, *args[4:])}
+        return (cuda_geglu.geglu_plain(*args), cuda_geglu.geglu_plain(*f32(args)).bfloat16(),
+                faults)
+    B, N, Lq, inner = 1, 4, 256, 320
+    ts = [_bf16(gen, B, Lq, inner), _bf16(gen, B, Lq, inner), _bf16(gen, B, 77, inner),
+          _bf16(gen, B, 77, inner), _bf16(gen, B, N, 77, inner), _bf16(gen, B, N, 77, inner)]
+    masks = flat_circular_mask(torch.rand((B, N, 2), generator=gen), 16, 0.2)
+    rest = (masks, torch.full((B, N), 1.25), 8)
+    ctx = [t[..., :64, :].contiguous() for t in ts[2:]]
+    faults = {"first_key_tile_only": cuda_spacetime.spacetime_plain(*ts[:2], *ctx, *rest)}
+    return (cuda_spacetime.spacetime_plain(*ts, *rest),
+            cuda_spacetime.spacetime_plain(*f32(ts), *rest).bfloat16(), faults)
+
+
+@pytest.mark.parametrize("kind", ["mha", "geglu", "spacetime"])
+def test_bf16_comparison_passes_one_rounding_and_rejects_planted_faults(kind):
+    """The kernels compute in float32 and round once; `compare` must take
+    that rounding difference and reject a dropped key or inner tile or a
+    wrong softmax scale (the card's smoke test repeats this at SD shapes)."""
+    want, rounded_once, faults = _bf16_cases(kind)
+    cmp = compare(rounded_once, want, kind)
+    assert cmp["ok"], cmp
+    assert cmp["rel_norm"] < cmp["rel_norm_limit"] / 2, cmp    # a margin of 2x at least
+    for name, out in faults.items():
+        assert not compare(out, want, kind)["ok"], name
+
+
+def test_c_entry_points_match_ctypes_signatures():
+    """Every `extern "C"` entry in csrc has a ctypes signature with as many
+    arguments, and every signature names an entry (no nvcc here to check)."""
+    found = {}
+    for src in sorted(cuda_lib.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[m.group(1)] = len([a for a in m.group(2).split(",") if a.strip()])
+    assert found == {k: len(v) for k, v in cuda_lib.SIGNATURES.items()}
+
+
+def test_importing_the_kernels_builds_nothing():
+    code = ("import diffusion_spacetime_attn_tpu_torch.models.unet\n"
+            "from diffusion_spacetime_attn_tpu_torch.ops import cuda_lib\n"
+            "print('lib' in cuda_lib._state)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, cwd=Path(__file__).resolve().parent.parent)
+    assert out.stdout.strip() == "False"
+    assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
+        "mha_fwd.cu", "spacetime_fwd.cu", "geglu_fwd.cu"}
+    assert Path(cuda_lib.BUILD_DIR).name == "_build"
