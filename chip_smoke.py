@@ -11,8 +11,8 @@ script exits non-zero without its final line:
   1. device: the card's name and power limit; TF32 off for the comparisons.
   2. build:  the CUDA kernels from `diffusion_spacetime_attn_tpu_torch/csrc`,
              with nvcc's register / shared-memory / spill report.
-  3. kernels: each kernel against its plain PyTorch version at every shape
-             of the SD v1-4 serving path, in bfloat16 at one prompt (CFG
+  3. kernels: each forward kernel against its plain PyTorch version at every
+             shape of the SD v1-4 serving path, in bfloat16 at one prompt (CFG
              rows = 2) and at the engine's batch of 2 prompts, and in
              float32 at one prompt (tolerances in `utils/testing.py`), with
              times (CUDA events), the plain version's time, the roofline
@@ -21,20 +21,39 @@ script exits non-zero without its final line:
              give the same bits when launched twice on the same inputs, and
              the comparison must reject planted faults (a skipped key tile,
              a 5 % wrong scale, a skipped inner tile) at every shape.
+     kernels_bwd: each backward kernel the same way at every chain shape, in
+             bf16 and float32 at 1 and 2 prompts, every cotangent (dK/dV
+             included); planted faults: one object's blend products zeroed,
+             the last key tile dropped from dKc, a skipped inner tile in dx.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
   5. slice:  the full-width pipeline in float32 (text encoder, controlled
              PLMS with 4 steps, VAE decode), kernels on vs off.
-  6. serve:  TextToImageEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
+  6. chain:  the optimization's loss and its gradient in the blend weights
+             (full-width SD v1-4 and the ViT-B/32 loss CLIP in float32, one
+             prompt, 4 objects, PLMS-4 under remat), kernels on vs off, within
+             1e-3 relative.
+  7. serve:  TextToImageEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
              tower), PLMS-50, batch 2, 4 objects per prompt: 3 requests in
              two batches, the second padded; it repeats the first request
              (prompt, seed) beside a pad row, which must give the same bytes.
-             Every kernel must be launched 816 times per batch (16 sites x
-             51 UNet evaluations).
-  7. profile: where a serving batch's time goes (host clock per part, and
+             Every forward kernel must be launched 816 times per batch (16
+             sites x 51 UNet evaluations).
+  8. profile: where a serving batch's time goes (host clock per part, and
              device time by kernel family under torch.profiler).
-  8. the `kernels` summary line (times per UNet evaluation at the engine's
-     batch), the nvidia-smi line, and the final {"ok": true, ...} line.
+  9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
+             same width with the ViT-B/32 loss CLIP, bf16, PLMS-50, batch 2,
+             4 objects, 3 Adam epochs (the last forward only): 2 requests,
+             then the first again beside a pad row (same bytes).  Each
+             forward kernel must be launched 4080 times per batch (2 epochs x
+             51 evaluations x 2 for the remat recompute x 16 sites, + 51 x 16
+             in the last epoch) and each backward kernel 1632 (2 x 51 x 16);
+             losses finite; coef moved on active slots, 0 on padded ones.
+ 10. profile_train: one training UNet evaluation (forward, recompute,
+             backward) by kernel family.
+ 11. the `kernels` summary line (times per UNet evaluation at the engine's
+     batch; launches of the optimization run), the nvidia-smi line, and the
+     final {"ok": true, ...} line.
 
 The weights are random (no checkpoint is loaded): N(0, 0.02²) per parameter
 from a seed, as the JAX package's bench does.
@@ -57,15 +76,26 @@ SITES = [("level0", 4096, 320, 5), ("level1", 1024, 640, 5),
 HEADS, OBJECTS, CONTEXT_LEN = 8, 4, 77
 SERVE_PROMPTS = 2               # the engine's batch size
 LAUNCHES_PER_BATCH = 16 * 51
-SLICE_STEPS = 4                 # PLMS steps of the float32 on-vs-off check
+SLICE_STEPS = 4                 # PLMS steps of the float32 on-vs-off checks
+# the optimization (3 epochs, the last forward only; remat recomputes every
+# UNet evaluation in the backward): launches per batch
+OPT_FWD_LAUNCHES = 2 * 51 * 2 * 16 + 51 * 16    # 4080
+OPT_BWD_LAUNCHES = 2 * 51 * 16                  # 1632
+BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
 
 KERNELS = {
     "spacetime_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:44"),
+    "spacetime_bwd": dict(
+        route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_bwd.cu",
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152"),
     "geglu_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126"),
+    "geglu_bwd": dict(
+        route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_bwd.cu",
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:244"),
     "mha_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/mha_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_mha.py:79"),
@@ -266,6 +296,132 @@ def phase_kernels():
     return agg
 
 
+def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
+    """Backward outputs with a planted fault, which the comparison with the
+    plain version must reject: one object's blend products t zeroed, or the
+    last key tile (keys 64-76) dropped from dKc, for the spacetime backward;
+    a skipped 64-wide inner tile for the GEGLU dx."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_spacetime
+
+    if kind == "geglu":
+        x, w1, b1, w2, dy = args
+        w2 = w2.clone()
+        w2[:, :64] = 0
+        return {"skip_inner_tile": (cuda_geglu.geglu_dx(x, w1, b1, w2, dy),)}
+    q_c, g_u, kc, vc, lk, lv, masks, coef, g = args
+    dq, t, dkc, dvc, dlk, dlv = cuda_spacetime.spacetime_bwd_raw(
+        q_c, g_u, kc, vc, lk, lv, masks, coef, heads, g)
+
+    def cotangents(t_, dkc_):
+        dg_u, dmasks, dcoef = cuda_spacetime._blend_cotangents(t_, masks, coef, g, g_u)
+        return (dq.to(q_c.dtype), dg_u, dkc_.to(kc.dtype), dvc.to(vc.dtype), dlk.to(lk.dtype),
+                dlv.to(lv.dtype), dmasks, dcoef)
+
+    t0, cut = t.clone(), dkc.clone()
+    t0[:, :, 0] = 0
+    cut[:, 64:] = 0
+    return {"object0_t_zeroed": cotangents(t0, dkc),
+            "last_key_tile_dropped_from_dkc": cotangents(t, cut)}
+
+
+def phase_kernels_bwd():
+    """Each backward kernel vs its plain version at every chain shape, in
+    bf16 and f32 at 1 and 2 prompts, every cotangent compared (dK/dV too);
+    planted faults must fail and a repeat must give the same bits.  Returns
+    per-kernel aggregates over one UNet evaluation's backward at the
+    optimization batch (2 prompts, bf16, the chain's form: no dK/dV); emits
+    the plain MHA backward's time per evaluation at that batch beside them."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_mha, cuda_spacetime
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
+
+    def st_bwd(a, need_kv=True):
+        return cuda_spacetime.spacetime_bwd(*a[:8], HEADS, a[8], need_kv=need_kv)
+
+    impl = {
+        "spacetime": ("spacetime_bwd", "spacetime_bwd", st_bwd,
+                      lambda a: cuda_spacetime.spacetime_bwd_plain(*a[:8], HEADS, a[8]),
+                      lambda a, it: cuda_spacetime.spacetime_bwd_cost(
+                          a[0].shape[0], OBJECTS, a[0].shape[1], CONTEXT_LEN, a[0].shape[2],
+                          HEADS, it, need_kv=False)),
+        "geglu": ("geglu_bwd", "geglu", lambda a, need_kv=True: (cuda_geglu.geglu_dx(*a),),
+                  lambda a: (cuda_geglu.geglu_dx_plain(*a),),
+                  lambda a, it: cuda_geglu.geglu_dx_cost(a[0].shape[0], a[0].shape[1],
+                                                         a[3].shape[1], it)),
+    }
+    cases = [("bfloat16", 1), ("bfloat16", SERVE_PROMPTS), ("float32", 1),
+             ("float32", SERVE_PROMPTS)]
+    agg, mha_bwd_ms = {}, 0.0
+    gen = torch.Generator(device="cuda")
+    case = 1000
+    for kind, (name, cmp_kind, kern, plain, cost) in impl.items():
+        a_ = agg.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                   "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
+                                   "library_ms": None})
+        for dtype_name, prompts in cases:
+            dtype = getattr(torch, dtype_name)
+            for level, Lq, inner, count in SITES:
+                case += 1
+                gen.manual_seed(case)
+                fwd = _inputs(kind, prompts, Lq, inner, dtype, gen)
+                cot = (torch.randn(fwd[0].shape, generator=gen, device="cuda")).to(dtype)
+                args = fwd[:4] + (cot,) if kind == "geglu" else fwd + (cot,)
+                got, again, want = kern(args), kern(args), plain(args)
+                torch.cuda.synchronize()
+                names = BWD_NAMES if kind == "spacetime" else ("dx",)
+                errs = {}
+                for n_, g_, a2, w_ in zip(names, got, again, want):
+                    cmp = compare(g_, w_, cmp_kind)
+                    if not cmp["ok"]:
+                        fail(f"{name} {level} {dtype_name} {prompts} prompt(s) {n_}: {cmp}")
+                    if not torch.equal(g_, a2):
+                        fail(f"{name} {level} {dtype_name} {n_}: two launches differ")
+                    errs[n_] = {"max_abs_err": cmp["max_abs_err"], "rel_norm": cmp["rel_norm"]}
+                faults = {}
+                for fault, outs in _bwd_planted_faults(kind, args).items():
+                    fc = [compare(o, w_, cmp_kind) for o, w_ in zip(outs, want)]
+                    if all(c["ok"] for c in fc):
+                        fail(f"{name} {level} {dtype_name}: planted fault {fault} passes")
+                    faults[fault] = max(c["rel_norm"] for c in fc)
+                max_err = max(e["max_abs_err"] for e in errs.values())
+                ms = cuda_ms(lambda: kern(args, need_kv=False), 10)
+                kv_ms = cuda_ms(lambda: kern(args, need_kv=True), 5) if kind == "spacetime" \
+                    else None
+                plain_ms = cuda_ms(lambda: plain(args), 3)
+                flops, nbytes = cost(args, args[0].element_size())
+                b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+                row = {"phase": "kernel_bwd", "name": name, "site": level, "dtype": dtype_name,
+                       "prompts": prompts, "Lq": Lq, "inner": inner, "errors": errs,
+                       "max_abs_err": max_err, "deterministic": True,
+                       "planted_faults_rejected_rel_norm": faults, "kernel_ms": ms,
+                       "kernel_ms_with_dkv": kv_ms, "plain_ms": plain_ms,
+                       "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
+                       "bytes": nbytes, "fraction_of_bound": b_ms / ms}
+                if kind == "spacetime" and dtype_name == "bfloat16":
+                    # the chain's self-attention backward at this level: plain
+                    # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
+                    # of what a hand-written flash backward would replace
+                    rows = 2 * prompts
+                    q, k, v, g = (torch.randn((rows, Lq, inner), generator=gen,
+                                              device="cuda").to(dtype) for _ in range(4))
+                    row["mha_bwd_plain_ms"] = cuda_ms(
+                        lambda: cuda_mha.mha_bwd_plain(q, k, v, g, HEADS), 3)
+                    if prompts == SERVE_PROMPTS:
+                        mha_bwd_ms += count * row["mha_bwd_plain_ms"]
+                emit(row)
+                a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
+                if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):
+                    a_["ms"] += count * ms
+                    a_["plain_ms"] += count * plain_ms
+                    a_["bound_ms"] += count * b_ms
+                    a_["flops_ms"] += count * 1e3 * flops / PEAK_FLOPS[dtype_name]
+                    a_["bytes_ms"] += count * 1e3 * nbytes / PEAK_BYTES
+    emit({"phase": "kernels_bwd", "per_unet_eval_ms": {k: v["ms"] for k, v in agg.items()},
+          "mha_bwd_plain_ms_per_unet_eval": mha_bwd_ms})
+    return agg
+
+
 def _control(B, dev, gen, width=768):
     import torch
 
@@ -458,6 +614,271 @@ def phase_serve():
     return launches, sd
 
 
+def _wrappers():
+    """{kernel name: its wrapper, which carries the launch count}."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_mha, cuda_spacetime
+
+    return {"spacetime_fwd": cuda_spacetime.fused_spacetime_attention,
+            "spacetime_bwd": cuda_spacetime.spacetime_bwd, "geglu_fwd": cuda_geglu.geglu_ff,
+            "geglu_bwd": cuda_geglu.geglu_dx, "mha_fwd": cuda_mha.mha_attention}
+
+
+OBJECT_NAMES = ["cat", "dog", "tree", "car"]
+OBJECT_CENTERS = [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]]
+
+
+def _spacetime_engine(sd, clip_loss, batch_size):
+    import numpy as np
+
+    from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
+
+    tok = make_clip_tokenizer(max_len=CONTEXT_LEN)
+
+    def prepare_host(prompt):
+        return {"centers": np.array(OBJECT_CENTERS, np.float32),
+                "active": np.ones(OBJECTS, np.float32),
+                "local_texts": [f"a photo of {o}" for o in OBJECT_NAMES],
+                "object_texts": [f"A photo of {o}" for o in OBJECT_NAMES]}
+
+    def tokenize(t):
+        return tok.pad_to(tok.encode(t), CONTEXT_LEN)
+
+    return SpaceTimeEngine(sd=sd, clip_loss=clip_loss, tokenize=tokenize, clip_tokenize=tokenize,
+                           prepare_host=prepare_host, batch_size=batch_size)
+
+
+def phase_chain():
+    """The optimization's gradient against its plain path: the full-width
+    SD v1-4 bundle and the ViT-B/32 loss CLIP in float32, one prompt with 4
+    objects, generation_loss through PLMS with SLICE_STEPS steps (remat on)
+    and its gradient in the blend weights, kernels on vs off."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        CLIPConfig,
+        PipelineConfig,
+        SpaceTimeConfig,
+        UNetConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline.losses import DCLIPLoss
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.pipeline.spacetime import generation_loss, init_coef
+
+    dev = torch.device("cuda")
+    clip_loss = DCLIPLoss.create(CLIPConfig(), seed=4, device=dev)
+    wrappers = _wrappers()
+    evals = SLICE_STEPS + 1
+    out = {}
+    for on in (True, False):
+        cfg = PipelineConfig(unet=UNetConfig(use_mha=on, use_fused_ff=on, use_fused_control=on),
+                             spacetime=SpaceTimeConfig(num_steps=SLICE_STEPS))
+        sd = StableDiffusion.create(cfg, seed=0, device=dev)
+        with torch.no_grad():
+            inputs = _spacetime_engine(sd, clip_loss, 1)._inputs(["a cat and a dog near a tree"],
+                                                                 [21])
+        coef = init_coef(inputs.active, SLICE_STEPS, cfg.spacetime.init_coef).requires_grad_()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        loss, images = generation_loss(coef, sd, clip_loss, inputs, cfg.spacetime)
+        loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: w.launches for k, w in wrappers.items()}
+        want = {k: (16 * evals * (1 if k.endswith("bwd") else 2) if on else 0) for k in wrappers}
+        if launched != want:
+            fail(f"chain kernels {'on' if on else 'off'}: launches {launched}, expected {want}")
+        if not (torch.isfinite(loss) and torch.isfinite(coef.grad).all()):
+            fail(f"chain kernels {'on' if on else 'off'}: loss or gradient not finite")
+        out[on] = (loss.detach(), coef.grad.clone(), seconds)
+        del sd, loss, images
+        torch.cuda.empty_cache()
+    (l1, g1, s1), (l0, g0, s0) = out[True], out[False]
+    loss_rel = float((l1 - l0).abs() / l0.abs())
+    grad_rel = float(torch.linalg.vector_norm(g1 - g0) / torch.linalg.vector_norm(g0))
+    emit({"phase": "chain", "dtype": "float32", "steps": SLICE_STEPS, "objects": OBJECTS,
+          "loss": float(l1), "loss_rel_diff": loss_rel, "dcoef_rel_norm": grad_rel,
+          "limit": 1e-3, "dcoef_norm": float(torch.linalg.vector_norm(g0)),
+          "launches_per_kernel": {"fwd": 2 * 16 * evals, "bwd": 16 * evals},
+          "s_kernels": s1, "s_plain": s0})
+    if not (loss_rel <= 1e-3 and grad_rel <= 1e-3 and float(g0.abs().max()) > 0):
+        fail(f"chain: kernels on vs off, loss rel {loss_rel}, dcoef rel norm {grad_rel} > 1e-3")
+
+
+def phase_optimize():
+    """SpaceTimeEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
+    tower; ViT-B/32 loss CLIP), bf16, PLMS-50, batch 2, 4 objects, 3 epochs
+    with the last forward only: two requests, then the first (prompt, seed)
+    again beside a pad row, which must give the same bytes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        CLIPConfig,
+        CLIPVisionConfig,
+        PipelineConfig,
+        UNetConfig,
+        VAEConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline.losses import DCLIPLoss
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.pipeline.spacetime import init_coef
+
+    cfg = PipelineConfig(
+        unet=UNetConfig(dtype="bfloat16", use_mha=True, use_fused_ff=True,
+                        use_fused_control=True),
+        vae=VAEConfig(dtype="bfloat16"))
+    clip_cfg = CLIPConfig(vision=CLIPVisionConfig(dtype="bfloat16"),
+                          text=dataclasses.replace(CLIPConfig().text, dtype="bfloat16"))
+    t0 = time.perf_counter()
+    sd = StableDiffusion.create(cfg, seed=0, device="cuda")
+    engine = _spacetime_engine(sd, DCLIPLoss.create(clip_cfg, seed=4, device="cuda"),
+                               SERVE_PROMPTS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wrappers = _wrappers()
+    requests = [["a cat and a dog near a tree and a car", "a dog left of a car"],
+                ["a cat and a dog near a tree and a car"]]
+    seeds = [[11, 12], [11]]
+    images, launches, batch_s = [], {k: 0 for k in wrappers}, []
+    torch.cuda.reset_peak_memory_stats()
+    for prompts, sds in zip(requests, seeds):
+        for w in wrappers.values():
+            w.launches = 0
+        marks = []
+
+        def on_epoch(e, imgs):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs, coef, losses = engine.optimize_batch(prompts, sds, on_epoch=on_epoch)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, n in counts.items():
+            launches[k] += n
+            want = OPT_BWD_LAUNCHES if k.endswith("bwd") else OPT_FWD_LAUNCHES
+            if n != want:
+                fail(f"optimize {k}: {n} launches in a batch, expected {want}")
+        if not bool(torch.isfinite(losses).all()) or not bool(torch.isfinite(imgs).all()):
+            fail(f"optimize: losses {losses.tolist()} or images not finite")
+        active = torch.zeros(SERVE_PROMPTS, OBJECTS, device=coef.device)
+        active[:len(prompts)] = 1.0
+        init = init_coef(active, sd.schedule.num_steps, sd.cfg.spacetime.init_coef)
+        # random N(0, 0.02²) weights give gradients of ~1e-10 (phase chain), so
+        # Adam's eps (1e-8) dominates and an entry whose gradient is below
+        # ~1e-13 moves less than one f32 ulp of 1.25: every active object must
+        # move at some step, every padded one nowhere
+        moved = (coef - init).abs()
+        obj_moved = moved.amax(dim=-1)                      # [B, N]
+        min_obj_moved = float(obj_moved[active > 0].min())
+        moved_share = float((moved[active > 0] > 0).float().mean())
+        pad_max = float(coef[active == 0].abs().max()) if bool((active == 0).any()) else 0.0
+        stats = {"coef_min_object_moved": min_obj_moved, "coef_moved_share": moved_share,
+                 "coef_max_moved": float(moved.max()), "coef_max_padded": pad_max}
+        if not (min_obj_moved > 0 and pad_max == 0.0):
+            fail(f"optimize: coef did not move as expected: {stats}")
+        u8 = engine.to_uint8(imgs[:len(prompts)])
+        if u8.shape != (len(prompts), 512, 512, 3) or float(u8.std()) == 0.0:
+            fail(f"optimize: output {u8.shape}, std {float(u8.std())}")
+        images.append(u8)
+        epoch_s = np.diff([t0] + marks).tolist()
+        emit({"phase": "optimize_batch", "prompts": len(prompts),
+              "pad_rows": SERVE_PROMPTS - len(prompts), "seconds": batch_s[-1],
+              "s_per_epoch": epoch_s, "losses": losses.tolist(), "launches": counts,
+              **stats, "coef_range": [float(coef.min()), float(coef.max())],
+              "image_mean": float(u8.mean()), "image_std": float(u8.std())})
+    repeat_equal = bool(np.array_equal(images[0][0], images[1][0]))
+    if not repeat_equal:
+        diff = np.abs(images[0][0].astype(int) - images[1][0].astype(int))
+        fail(f"optimize: request (prompt, seed 11) served twice differs: "
+             f"{int((diff > 0).sum())} bytes, max {int(diff.max())}")
+    emit({"phase": "optimize", "requests": sum(map(len, requests)), "batches": len(requests),
+          "batch_size": SERVE_PROMPTS, "steps": 50, "epochs": sd.cfg.spacetime.epochs,
+          "repeat_request_same_bytes": repeat_equal, "setup_s": setup_s,
+          "s_per_batch": batch_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    return launches, engine
+
+
+def phase_profile_train(sd):
+    """Where a training UNet evaluation's time goes at the optimization's
+    shapes (batch 2 = 4 CFG rows): one checkpointed evaluation, forward,
+    recompute and backward into x and the blend weights, on the host clock
+    and under torch.profiler by kernel family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import checkpoint
+
+    dev, B = sd.device, SERVE_PROMPTS
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x0 = torch.randn((2 * B, 64, 64, 4), generator=gen, device=dev)
+    t = torch.full((2 * B,), 981, dtype=torch.int32, device=dev)
+    ctx = torch.randn((2 * B, CONTEXT_LEN, 768), generator=gen, device=dev)
+    ctl = _control(B, dev, gen)
+    w = torch.randn((2 * B, 64, 64, 4), generator=gen, device=dev)
+
+    def step():
+        x = x0.clone().requires_grad_(True)
+        coef = ctl.coef.clone().requires_grad_(True)
+        eps = checkpoint(lambda x_: sd.unet(x_, t, ctx, ctl._replace(coef=coef)), x,
+                         use_reentrant=False)
+        (eps * w).sum().backward()
+
+    # as SpaceTimeEngine runs it: cuDNN's deterministic algorithms
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        host_s = (time.perf_counter() - t0) / 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    groups, kernels = _families(prof)
+    busy = sum(v for k, v in groups.items() if not k.startswith("("))
+    emit({"phase": "profile_train", "train_eval_s": host_s, "device_ms_by_family": groups or None,
+          "device_busy_ms": busy if groups else None, "device_kernels": kernels,
+          "device_idle_share": (1.0 - busy / (1e3 * host_s)) if groups else None})
+
+
+FAMILIES = [("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
+            ("spacetime_bwd", ("spacetime_bwd_",)), ("geglu_fwd", ("geglu_partial",)),
+            ("geglu_bwd", ("geglu_dx_partial",)), ("geglu_sum_slices", ("sum_slices",)),
+            ("convolution", ("conv", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
+            ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma")),
+            ("softmax", ("softmax",)), ("norm", ("norm",))]
+
+
+def _families(prof):
+    """Device ms by kernel family, and the number of device kernels.  The
+    device time under the `mha_bwd_plain` range (the plain self-attention
+    backward, whose kernels also sit in matmul / softmax / other) is added
+    as its own key."""
+    import torch
+
+    groups, kernels = {}, 0
+    for e in prof.key_averages():
+        if e.key == "mha_bwd_plain":
+            groups["(of which mha_bwd_plain)"] = getattr(e, "device_time_total", 0.0) / 1e3
+            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0)
+        name = e.key.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        groups[fam] = groups.get(fam, 0.0) + us / 1e3
+        kernels += e.count
+    return groups, kernels
+
+
 def phase_profile(sd):
     """Where a serving batch's time goes: host-clock times of its parts at
     the engine's shapes (batch 2 = 4 CFG rows), and one UNet evaluation under
@@ -492,21 +913,8 @@ def phase_profile(sd):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             sd.unet(x, t, ctx, ctl)
             torch.cuda.synchronize()
-    families = [("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
-                ("geglu_fwd", ("geglu_partial", "geglu_finalize")),
-                ("convolution", ("conv", "implicit", "cudnn", "xmma", "fprop")),
-                ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
-                ("softmax", ("softmax",)), ("norm", ("norm",))]
-    groups, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0.0)
-        name = e.key.lower()
-        fam = next((f for f, keys in families if any(k in name for k in keys)), "other")
-        groups[fam] = groups.get(fam, 0.0) + us / 1e3
-        launches += e.count
-    busy = sum(groups.values())
+    groups, launches = _families(prof)
+    busy = sum(v for k, v in groups.items() if not k.startswith("("))
     evals = sd.schedule.num_steps + 1  # two at step 0, then one per step
     emit({"phase": "profile", "unet_eval_s": unet_s, "decode_s": decode_s, "text_s": text_s,
           "evals_per_batch": evals, "device_ms_by_family": groups or None,
@@ -518,21 +926,34 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     agg = phase_kernels()
+    agg.update(phase_kernels_bwd())
     phase_unet()
     phase_slice()
-    launches, sd = phase_serve()
+    phase_chain()
+    serve_launches, sd = phase_serve()
     phase_profile(sd)
+    del sd
     import torch
+
+    torch.cuda.empty_cache()
+    launches, engine = phase_optimize()
+    phase_profile_train(engine.sd)
+    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"kernels never launched on the optimization path: {missing}")
 
     rows = []
     for kname, meta in KERNELS.items():
         a = agg[kname]
         rows.append({"name": kname, **meta, "launches": launches[kname],
+                     "serve_launches": serve_launches.get(kname, 0),
                      "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                      "bound_ms": a["bound_ms"],
                      "bound_by": "operations" if a["flops_ms"] >= a["bytes_ms"] else "bytes",
                      "library_ms": a["library_ms"]})
-    # times: per UNet evaluation at the engine's batch (all 16 sites, bfloat16)
+    # times: per UNet evaluation at the engine's batch of 2 prompts (all 16
+    # sites, bfloat16; the backwards in the chain's form, without dK/dV);
+    # launches: the optimization run (2 batches), serve_launches: the serving run
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -89,8 +89,8 @@ class CLIPTextConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CLIPVisionConfig:
-    """CLIP vision transformer (ViT-B/32 defaults).  The port has no vision
-    tower yet; the dataclass keeps `PipelineConfig` field-for-field."""
+    """CLIP vision transformer (ViT-B/32 defaults), the image tower of the
+    loss CLIP (`models/clip.py:CLIPVisionTower`)."""
 
     image_size: int = 224
     patch_size: int = 32
@@ -103,7 +103,8 @@ class CLIPVisionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    """Dual-tower CLIP behind the DCLIP loss (not ported yet)."""
+    """Dual-tower CLIP behind the DCLIP loss (`models/clip.py:CLIP`,
+    `pipeline/losses.py`)."""
 
     vision: CLIPVisionConfig = CLIPVisionConfig()
     text: CLIPTextConfig = CLIPTextConfig(width=512, heads=8, layers=12)

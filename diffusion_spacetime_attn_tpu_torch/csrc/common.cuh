@@ -106,4 +106,55 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// ---- GEGLU forward and dx: per-chunk f32 slices, summed in chunk order ----
+
+// Inner columns per block of the GEGLU kernels: for bf16 the widest chunk
+// (256, 128 or 64) whose grid of 64-row tiles still has two blocks per SM
+// (132 SMs); for float32 the CUDA-core tile of 64.
+inline int geglu_chunk_width(int dtype, int M, int inner) {
+  if (dtype != kBF16) return 64;
+  const long rows = (M + 63) / 64;
+  auto blocks = [&](int bi) { return rows * ((inner + bi - 1) / bi); };
+  if (blocks(256) >= 264) return 256;
+  if (blocks(128) >= 264) return 128;
+  return 64;
+}
+
+namespace {
+
+// out = Σ_c scratch[c] (in chunk order) (+ bias[idx % dim]) (+ res), rounded
+// to T; bias and res may be null.
+template <typename T>
+__global__ void sum_slices_kernel(const float* __restrict__ scratch, const T* __restrict__ bias,
+                                  const T* __restrict__ res, T* __restrict__ out, size_t n,
+                                  int dim, int chunks) {
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int c = 0; c < chunks; ++c) v += scratch[(size_t)c * n + idx];
+    if (bias != nullptr) v += to_f32(bias[idx % dim]);
+    if (res != nullptr) v += to_f32(res[idx]);
+    out[idx] = from_f32<T>(v);
+  }
+}
+
+inline cudaError_t launch_sum_slices(int dtype, const float* scratch, const void* bias,
+                                     const void* res, void* out, size_t n, int dim, int chunks,
+                                     cudaStream_t stream) {
+  const int threads = 256;
+  const size_t want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 65535 ? want : 65535);
+  if (dtype == kF32)
+    sum_slices_kernel<float><<<blocks, threads, 0, stream>>>(
+        scratch, static_cast<const float*>(bias), static_cast<const float*>(res),
+        static_cast<float*>(out), n, dim, chunks);
+  else
+    sum_slices_kernel<bf16><<<blocks, threads, 0, stream>>>(
+        scratch, static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
+        static_cast<bf16*>(out), n, dim, chunks);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 }  // namespace dsta

@@ -21,7 +21,8 @@
 // and the inner dimension: block (row tile, inner chunk) computes its gated
 // tile u in shared memory, multiplies it by the matching columns of W2, and
 // stores its partial [rows, dim] product into its own f32 slice of the
-// scratch ([chunks, M, dim]).  A second small kernel sums the slices in
+// scratch ([chunks, M, dim]).  A second small kernel (`sum_slices_kernel`,
+// common.cuh) sums the slices in
 // chunk order, adds b2 and the residual and rounds to the output dtype, so
 // the result is a fixed function of the inputs (no atomics, no run-to-run
 // change of summation order).
@@ -158,21 +159,6 @@ geglu_partial_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         if (d < dim) partial[(size_t)r * dim + d] = acc[i][j];
       }
     }
-  }
-}
-
-// out = Σ_c scratch[c] (in chunk order) + b2 (+ res), rounded to T.
-template <typename T>
-__global__ void geglu_finalize_kernel(const float* __restrict__ scratch, const T* __restrict__ b2,
-                                      const T* __restrict__ res, T* __restrict__ out,
-                                      size_t n, int dim, int chunks) {
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int c = 0; c < chunks; ++c) v += scratch[(size_t)c * n + idx];
-    v += dsta::to_f32(b2[idx % dim]);
-    if (res != nullptr) v += dsta::to_f32(res[idx]);
-    out[idx] = dsta::from_f32<T>(v);
   }
 }
 
@@ -316,17 +302,6 @@ cudaError_t launch_mma_bi(const bf16* x, const bf16* w1, const bf16* b1, const b
   return cudaGetLastError();
 }
 
-// Inner columns per block: for bf16 the widest chunk whose grid still has two
-// blocks per SM (132 SMs); for float32 the CUDA-core tile.
-int chunk_width(int dtype, int M, int inner) {
-  if (dtype != dsta::kBF16) return BI;
-  const long rows = (M + TC_BM - 1) / TC_BM;
-  auto blocks = [&](int bi) { return rows * ((inner + bi - 1) / bi); };
-  if (blocks(256) >= 264) return 256;
-  if (blocks(128) >= 264) return 128;
-  return 64;
-}
-
 bool tensor_core_ok(const void* x, const void* w1, const void* w2, int dim, int inner) {
   return dim % 8 == 0 && inner % 8 == 0 && dsta::aligned16(x) && dsta::aligned16(w1) &&
          dsta::aligned16(w2);
@@ -345,22 +320,11 @@ cudaError_t launch_partials(int dtype, const void* x, const void* w1, const void
   if (!tensor_core_ok(x, w1, w2, dim, inner)) return cudaErrorInvalidValue;
   const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1);
   const bf16 *b1b = static_cast<const bf16*>(b1), *w2b = static_cast<const bf16*>(w2);
-  switch (chunk_width(dtype, M, inner)) {
+  switch (dsta::geglu_chunk_width(dtype, M, inner)) {
     case 256: return launch_mma_bi<256>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
     case 128: return launch_mma_bi<128>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
     default: return launch_mma_bi<64>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
   }
-}
-
-template <typename T>
-cudaError_t launch_finalize(const float* scratch, const void* b2, const void* res, void* out,
-                            size_t n, int dim, int chunks, cudaStream_t stream) {
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads < 65535 ? (n + threads - 1) / threads : 65535);
-  geglu_finalize_kernel<T><<<blocks, threads, 0, stream>>>(
-      scratch, static_cast<const T*>(b2), static_cast<const T*>(res), static_cast<T*>(out), n,
-      dim, chunks);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -369,7 +333,7 @@ cudaError_t launch_finalize(const float* scratch, const void* b2, const void* re
 // (one per inner chunk), or -1 for a dtype the kernel does not take.
 extern "C" int dsta_geglu_chunks(int dtype, int M, int inner) {
   if (M < 1 || inner < 1 || (dtype != dsta::kF32 && dtype != dsta::kBF16)) return -1;
-  const int bi = chunk_width(dtype, M, inner);
+  const int bi = dsta::geglu_chunk_width(dtype, M, inner);
   return (inner + bi - 1) / bi;
 }
 
@@ -388,8 +352,5 @@ extern "C" int dsta_geglu_fwd(int dtype, const void* x, const void* w1, const vo
   cudaError_t err = launch_partials(dtype, x, w1, b1, w2, sc, M, dim, inner, s);
   if (err != cudaSuccess) return (int)err;
   const int chunks = dsta_geglu_chunks(dtype, M, inner);
-  const size_t n = (size_t)M * dim;
-  if (dtype == dsta::kF32)
-    return (int)launch_finalize<float>(sc, b2, res, out, n, dim, chunks, s);
-  return (int)launch_finalize<__nv_bfloat16>(sc, b2, res, out, n, dim, chunks, s);
+  return (int)dsta::launch_sum_slices(dtype, sc, b2, res, out, (size_t)M * dim, dim, chunks, s);
 }

@@ -50,14 +50,14 @@ class Conv(nn.Conv2d):
     """NCHW convolution computing in `compute_dtype`."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.float32):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=padding)
+                 padding: int = 0, dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
 
 
 def cast_matmul_weights(model: nn.Module) -> nn.Module:

@@ -10,8 +10,13 @@ tiles and keeps every score on chip: bfloat16 on the tensor cores
 was measured on a TPU and is not carried over: every call on a CUDA tensor
 goes through the kernel.
 
-`mha_attention` takes the plain version (`ops.attention.attention`) for CPU
-tensors only; for a CUDA tensor it launches the kernel or raises.
+`mha_attention` is a `torch.autograd.Function`.  Its forward takes the plain
+version (`ops.attention.attention`) for CPU tensors only; for a CUDA tensor
+it launches the kernel or raises.  Its backward is plain PyTorch on every
+device, with the numerics of the JAX package's `_mha_bh_bwd`
+(`pallas_mha.py:151-165`), which JAX too computes outside any kernel; it
+works on a few (batch, head) slices at a time so that its f32 [L, L]
+intermediates stay small.
 """
 from __future__ import annotations
 
@@ -38,13 +43,44 @@ def mha_cost(B: int, Lq: int, Lk: int, inner: int, itemsize: int):
     return flops, nbytes
 
 
-def mha_attention(q, k, v, num_heads: int, *, out_dtype=None):
-    """q: [B, Lq, H*dh]; k/v: [B, Lk, H*dh] -> [B, Lq, H*dh] in q's dtype
-    (then out_dtype).  Full non-causal softmax per query row."""
-    if q.device.type == "cpu":
-        return mha_attention_plain(q, k, v, num_heads, out_dtype=out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha_attention: unsupported device {q.device}")
+# f32 bytes of one [slices, Lq, Lk] intermediate of the plain backward
+BWD_CHUNK_BYTES = 1 << 28
+
+
+def mha_bwd_plain(q, k, v, g, num_heads: int):
+    """(dq, dk, dv) of softmax attention for the output cotangent g, with the
+    numerics of `_mha_bh_bwd`: p recomputed in f32, rounded to V's dtype for
+    dv; ds rounded to q's dtype; f32 products; each cotangent in its
+    input's dtype."""
+    B, Lq, inner = q.shape
+    Lk = k.shape[1]
+    dh = inner // num_heads
+    scale = dh ** -0.5
+
+    def fold(t, L):  # [B, L, H*dh] -> [B*H, L, dh]
+        return t.reshape(B, L, num_heads, dh).transpose(1, 2).reshape(B * num_heads, L, dh)
+
+    qf, kf, vf, gf = fold(q, Lq), fold(k, Lk), fold(v, Lk), fold(g, Lq)
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (qf, kf, vf))
+    step = max(1, BWD_CHUNK_BYTES // (4 * Lq * Lk))
+    for i in range(0, B * num_heads, step):
+        sl = slice(i, i + step)
+        qs, ks, vs, gs = qf[sl].float(), kf[sl].float(), vf[sl].float(), gf[sl].float()
+        p = torch.softmax((qs @ ks.transpose(1, 2)) * scale, dim=-1)
+        dv[sl] = (p.to(v.dtype).float().transpose(1, 2) @ gs).to(v.dtype)
+        dp = gs @ vs.transpose(1, 2)
+        ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale).to(q.dtype).float()
+        dq[sl] = (ds @ ks).to(q.dtype)
+        dk[sl] = (ds.transpose(1, 2) @ qs).to(k.dtype)
+
+    def unfold(t, L):
+        return t.reshape(B, num_heads, L, dh).transpose(1, 2).reshape(B, L, inner)
+
+    return unfold(dq, Lq), unfold(dk, Lk), unfold(dv, Lk)
+
+
+def _forward(q, k, v, num_heads):
+    """The forward kernel on CUDA tensors; counts a launch of `mha_attention`."""
     cuda_lib.require_cuda("mha_attention", q, k, v)
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"mha_attention: bad shapes {q.shape} {k.shape} {v.shape}")
@@ -63,6 +99,38 @@ def mha_attention(q, k, v, num_heads: int, *, out_dtype=None):
         cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, "dsta_mha_fwd")
     mha_attention.launches += 1
+    return out
+
+
+class _MhaFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        if q.device.type == "cpu":
+            out = mha_attention_plain(q, k, v, num_heads)
+        elif q.device.type == "cuda":
+            out = _forward(q, k, v, num_heads)
+        else:
+            raise ValueError(f"mha_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if not any(need[:3]):
+            return None, None, None, None
+        with torch.profiler.record_function("mha_bwd_plain"):   # read by chip_smoke.py
+            dq, dk, dv = mha_bwd_plain(q, k, v, g.contiguous(), ctx.num_heads)
+        return (dq if need[0] else None, dk if need[1] else None, dv if need[2] else None, None)
+
+
+def mha_attention(q, k, v, num_heads: int, *, out_dtype=None):
+    """q: [B, Lq, H*dh]; k/v: [B, Lk, H*dh] -> [B, Lq, H*dh] in q's dtype
+    (then out_dtype).  Full non-causal softmax per query row.
+    Differentiable in q, k and v."""
+    out = _MhaFn.apply(q, k, v, num_heads)
     return out if out_dtype is None else out.to(out_dtype)
 
 

@@ -28,3 +28,27 @@ def flat_circular_mask(centers: torch.Tensor, dim: int, radius: float,
     if active is not None:
         m = m * active[..., None].to(m.dtype)
     return m
+
+
+def crop_window(center: torch.Tensor, image_size: int, crop_half: float):
+    """Fixed-size crop window for the per-object CLIP loss (JAX
+    `masks.py:57-73`): size int(2·crop_half·image_size), start clamped to
+    [0, image_size − size] so the window stays inside the image (the
+    reference crops a variable-size clamped box; identical away from
+    borders).  center [..., 2] (x, y) in [0, 1] -> (start (y, x) int32
+    [..., 2], size)."""
+    size = int(2 * crop_half * image_size)
+    c = center.to(torch.float32) * image_size
+    start = torch.clamp(c - size // 2, 0, image_size - size).to(torch.int32)
+    return start.flip(-1), size
+
+
+def dynamic_crop(image: torch.Tensor, start_yx, size: int) -> torch.Tensor:
+    """[H, W, C] -> [size, size, C] at (y, x), with `lax.dynamic_slice`'s
+    index rule (a negative start counts from the end, then the start is
+    clamped into the image); a slice, so differentiable into the image."""
+    H, W = image.shape[0], image.shape[1]
+    y, x = (int(v) for v in start_yx)
+    y, x = y + H if y < 0 else y, x + W if x < 0 else x
+    y, x = min(max(y, 0), H - size), min(max(x, 0), W - size)
+    return image[y:y + size, x:x + size]

@@ -104,17 +104,19 @@ class StableDiffusion:
         return eps_fn
 
     # ---- sampling ----
-    def sample_from(self, eps_fn, x_T: torch.Tensor, sampler: str = "plms"):
+    def sample_from(self, eps_fn, x_T: torch.Tensor, sampler: str = "plms", remat=True):
+        """The sampler's chain from x_T; `remat=True` (the JAX default)
+        checkpoints every UNet evaluation for a backward through the chain."""
         if sampler != "plms":
             raise NotImplementedError(f"sampler {sampler!r}: the port has PLMS only")
-        return plms_sample(eps_fn, x_T, self.schedule)
+        return plms_sample(eps_fn, x_T, self.schedule, remat=remat)
 
     def sample_latents(self, eps_fn, generator: torch.Generator, batch: int = 1,
-                       sampler: str = "plms"):
+                       sampler: str = "plms", remat=True):
         latent = self.cfg.spacetime.latent_size
         x_T = torch.randn((batch, latent, latent, self.cfg.unet.in_channels),
                           generator=generator, device=self.device)
-        return self.sample_from(eps_fn, x_T, sampler)
+        return self.sample_from(eps_fn, x_T, sampler, remat)
 
     @torch.inference_mode()
     def txt2img(self, cond, uncond, generator: torch.Generator,
@@ -125,5 +127,6 @@ class StableDiffusion:
         vanilla path, a fixed coef_schedule the spatial-only path."""
         gs = self.cfg.spacetime.guidance_scale if guidance_scale is None else guidance_scale
         eps_fn = self.make_eps_fn(cond, uncond, gs, control, coef_schedule)
-        z = self.sample_latents(eps_fn, generator, batch=cond.shape[0], sampler=sampler)
+        z = self.sample_latents(eps_fn, generator, batch=cond.shape[0], sampler=sampler,
+                                remat=False)
         return self.decode_latents(z)

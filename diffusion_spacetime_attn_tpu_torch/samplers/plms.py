@@ -1,10 +1,13 @@
-"""PLMS (pseudo linear multistep) sampler, forward only.
+"""PLMS (pseudo linear multistep) sampler, differentiable through the chain.
 
 Port of the JAX package's `samplers/plms.py` (reference
 `ldm/models/diffusion/plms.py:296-358`): a pseudo-improved-Euler first step
 (two model evaluations, both at loop position 0), then Adams-Bashforth of
 order 2, 3 and 4 over the eps history.  `eps_fn(x, t, i)` takes the loop
-position i so per-step control weights reach the model.
+position i so per-step control weights reach the model.  The loop is a
+Python loop; autograd differentiates it as the reference does, and
+`remat=True` checkpoints every UNet evaluation (`samplers/remat.py`),
+both evaluations of the first step included.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Callable
 import torch
 
 from ..ops.schedule import DiffusionSchedule
+from .remat import maybe_remat
 
 EpsFn = Callable[[torch.Tensor, int, int], torch.Tensor]
 
@@ -23,7 +27,9 @@ def _x_prev(x, e, a_t, a_prev, sqrt_one_minus_at):
     return torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * e
 
 
-def plms_sample(eps_fn: EpsFn, x_T: torch.Tensor, sched: DiffusionSchedule) -> torch.Tensor:
+def plms_sample(eps_fn: EpsFn, x_T: torch.Tensor, sched: DiffusionSchedule,
+                remat=False) -> torch.Tensor:
+    eps_fn = maybe_remat(eps_fn, remat)
     S = sched.num_steps
     ts = [int(t) for t in sched.timesteps.tolist()]
     ts_next = [int(t) for t in sched.timesteps_next.tolist()]

@@ -38,7 +38,10 @@ def randomize_(module: nn.Module, seed: int, scale: float = 0.02) -> nn.Module:
 #   bfloat16, spacetime: the plain version rounds every blend term (loc_n,
 #     w·loc_n, g_c + blend, (Σ w)·g_u) while the kernel rounds once, so an
 #     output near zero carries a few ulps of terms of magnitude up to ~10.
-BF16_ATOL_RMS = {"mha": 0.02, "geglu": 0.02}
+#   bfloat16, spacetime_bwd: both backwards compute in float32 and round each
+#     cotangent once, like mha (the f32 dmasks and dcoef take the f32 rule).
+#     The GEGLU dx uses "geglu": both round dh and dg at the same point.
+BF16_ATOL_RMS = {"mha": 0.02, "geglu": 0.02, "spacetime_bwd": 0.02}
 BF16_ABS = {"spacetime": (5e-2, 2e-2)}
 BF16_RTOL, BF16_REL_NORM = 2.0 ** -6, 1e-2
 F32_TOL = 1e-4
@@ -46,7 +49,7 @@ F32_TOL = 1e-4
 
 def compare(got: torch.Tensor, want: torch.Tensor, kind: str) -> dict:
     """Hold a kernel's output against its plain version (`kind`: "mha",
-    "geglu" or "spacetime").  Returns the errors, the limits and "ok"."""
+    "geglu", "spacetime" or "spacetime_bwd").  Returns the errors, the limits and "ok"."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     rel_norm = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))

@@ -13,7 +13,10 @@ four rules:
   * `scale` (norms) and `embedding` (`nn.Embed`) become `weight`;
   * every other leaf keeps its name.
 
-`bridge` raises on a missing, unexpected, duplicate or mis-shaped key.
+`bridge` raises on a missing, unexpected, duplicate or mis-shaped key.  The
+same rules cover the SD trees (UNet, VAE, text tower) and the dual-tower
+loss CLIP (`vision/...`, `text/...`, `class_embedding`,
+`position_embedding`, `visual_projection/kernel`, `text_projection/kernel`).
 """
 from __future__ import annotations
 

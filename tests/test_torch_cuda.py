@@ -11,8 +11,11 @@ The unmarked tests run anywhere: they check the C interface statically
 
 Tolerances are those of `utils.testing.compare`, which states the reason for
 each: float32 1e-4 per element (summation order only); bfloat16 per element
-within atol + 2^-6·|plain| (atol 2 % of the plain output's rms for attention
-and GEGLU, 5e-2 for the spacetime blend) and within 1e-2 in relative norm.
+within atol + 2^-6·|plain| (atol 2 % of the plain output's rms for attention,
+GEGLU, its dx and the spacetime backward; 5e-2 for the spacetime blend) and
+within 1e-2 in relative norm.  The autograd Functions' gradients are held
+against autograd of the plain forwards in float32 (bf16 autograd of a plain
+forward rounds at other points than either backward).
 """
 import re
 import subprocess
@@ -110,6 +113,132 @@ def test_geglu_kernel_matches_plain(cuda, dtype, residual, M, dim):
     _check(got, cuda_geglu.geglu_plain(x, w1, b1, w2, b2, res), "geglu")
     # each inner chunk's partial product is summed in a fixed order
     assert torch.equal(got, cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res))
+
+
+BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
+
+
+def _spacetime_args(g, dev, dtype, B, N, Lq, Lk, inner):
+    q_c, g_u = (_randn(g, dev, dtype, B, Lq, inner) for _ in range(2))
+    kc, vc = (_randn(g, dev, dtype, B, Lk, inner) for _ in range(2))
+    lk, lv = (_randn(g, dev, dtype, B, N, Lk, inner) for _ in range(2))
+    dim = int(round(Lq ** 0.5))
+    masks = flat_circular_mask(torch.rand((B, N, 2), generator=g, device=dev), dim, 0.3)
+    masks = torch.nn.functional.pad(masks, (0, Lq - dim * dim))
+    coef = torch.rand((B, N), generator=g, device=dev) * 2
+    return q_c, g_u, kc, vc, lk, lv, masks, coef
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_kv", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", [
+    (1, 4, 1024, 77, 640, 8), (2, 2, 256, 77, 1280, 8),
+    (1, 3, 100, 12, 32, 2),      # ragged query tile, short context
+    (2, 1, 64, 80, 64, 4),       # the longest context the kernel takes
+])
+def test_spacetime_bwd_kernel_matches_plain(cuda, need_kv, dtype, B, N, Lq, Lk, inner, H):
+    g = torch.Generator(device=cuda).manual_seed(Lq + N + 7)
+    args = _spacetime_args(g, cuda, dtype, B, N, Lq, Lk, inner)
+    gbar = _randn(g, cuda, dtype, B, Lq, inner)
+    before = cuda_spacetime.spacetime_bwd.launches
+    got = cuda_spacetime.spacetime_bwd(*args, H, gbar, need_kv=need_kv)
+    assert cuda_spacetime.spacetime_bwd.launches == before + 1
+    want = cuda_spacetime.spacetime_bwd_plain(*args, H, gbar)
+    for name, a, b in zip(BWD_NAMES, got, want):
+        if a is None:
+            assert not need_kv and name in ("dkc", "dvc", "dlk", "dlv")
+            continue
+        torch.cuda.synchronize()
+        cmp = compare(a, b, "spacetime_bwd")
+        assert cmp["ok"], (name, cmp)
+    again = cuda_spacetime.spacetime_bwd(*args, H, gbar, need_kv=need_kv)
+    for a, b in zip(got, again):   # no atomics: the same bits on a repeat
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,dim", [
+    (512, 320), (256, 640), (128, 1280), (100, 32), (7, 48),
+    (16384, 48),                 # a 128-wide inner chunk that runs past inner = 192
+    (64, 36),                    # width not a multiple of 8: float32 only
+])
+def test_geglu_dx_kernel_matches_plain(cuda, dtype, M, dim):
+    g = torch.Generator(device=cuda).manual_seed(M + dim + 1)
+    inner = 4 * dim
+    x, dy = _randn(g, cuda, dtype, M, dim), _randn(g, cuda, dtype, M, dim)
+    w1 = _randn(g, cuda, dtype, 2 * inner, dim, scale=dim ** -0.5)
+    b1 = _randn(g, cuda, dtype, 2 * inner, scale=0.1)
+    w2 = _randn(g, cuda, dtype, dim, inner, scale=inner ** -0.5)
+    if dtype == torch.bfloat16 and dim % 8:
+        with pytest.raises(ValueError):
+            cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
+        return
+    before = cuda_geglu.geglu_dx.launches
+    got = cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
+    assert cuda_geglu.geglu_dx.launches == before + 1
+    _check(got, cuda_geglu.geglu_dx_plain(x, w1, b1, w2, dy), "geglu")
+    assert torch.equal(got, cuda_geglu.geglu_dx(x, w1, b1, w2, dy))
+
+
+def _grads(fn, args, seed=3):
+    """Gradients of sum(fn(*args) * w) with respect to every float tensor."""
+    leaves = [a.detach().clone().requires_grad_(True) if torch.is_tensor(a) else a
+              for a in args]
+    out = fn(*leaves)
+    w = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(seed),
+                    device=out.device).to(out.dtype)
+    (out * w).sum().backward()
+    return [a.grad for a in leaves if torch.is_tensor(a)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["spacetime", "geglu", "mha"])
+def test_autograd_functions_match_plain_autograd(cuda, kind):
+    """float32 on the card: the gradient through each kernel wrapper (kernel
+    forward, kernel or plain backward) equals autograd of its plain forward
+    within 1e-4 + 1e-4·|plain|, and the backward kernel is launched."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    dt = torch.float32
+    if kind == "spacetime":
+        args = _spacetime_args(g, cuda, dt, 2, 3, 256, 77, 320)
+        kern = lambda *a: cuda_spacetime.fused_spacetime_attention(*a, 8)  # noqa: E731
+        plain = lambda *a: cuda_spacetime.spacetime_plain(*a, 8)  # noqa: E731
+        counter = cuda_spacetime.spacetime_bwd
+    elif kind == "geglu":
+        dim, inner = 64, 256
+        args = (_randn(g, cuda, dt, 2, 50, dim), _randn(g, cuda, dt, 2 * inner, dim, scale=0.1),
+                _randn(g, cuda, dt, 2 * inner, scale=0.1), _randn(g, cuda, dt, dim, inner,
+                                                                    scale=0.05),
+                _randn(g, cuda, dt, dim, scale=0.1), _randn(g, cuda, dt, 2, 50, dim))
+        kern, plain, counter = cuda_geglu.geglu_ff, cuda_geglu.geglu_plain, cuda_geglu.geglu_dx
+    else:
+        args = tuple(_randn(g, cuda, dt, 2, 128, 64) for _ in range(3))
+        kern = lambda *a: cuda_mha.mha_attention(*a, 2)  # noqa: E731
+        plain = lambda *a: cuda_mha.mha_attention_plain(*a, 2)  # noqa: E731
+        counter = None
+    before = None if counter is None else counter.launches
+    got, want = _grads(kern, args), _grads(plain, args)
+    if counter is not None:
+        assert counter.launches == before + 1
+    for a, b in zip(got, want):
+        _check(a, b, kind)
+
+
+@pytest.mark.gpu
+def test_kernel_outputs_carry_a_gradient(cuda):
+    """The fault the wrappers had before they became autograd Functions: a
+    kernel output on a CUDA tensor that requires grad had no grad_fn, and
+    the gradient was dropped without an error."""
+    x = torch.randn(2, 64, 64, device=cuda, requires_grad=True)
+    w1 = torch.randn(512, 64, device=cuda) * 0.1
+    b1, w2, b2 = torch.zeros(512, device=cuda), torch.randn(64, 256, device=cuda) * 0.1, \
+        torch.zeros(64, device=cuda)
+    for out in (cuda_mha.mha_attention(x, x, x, 2), cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x)):
+        assert out.grad_fn is not None
+        (grad,) = torch.autograd.grad(out.sum(), x)
+        assert float(grad.abs().sum()) > 0
 
 
 @pytest.mark.gpu
@@ -241,5 +370,5 @@ def test_importing_the_kernels_builds_nothing():
                          check=True, cwd=Path(__file__).resolve().parent.parent)
     assert out.stdout.strip() == "False"
     assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
-        "mha_fwd.cu", "spacetime_fwd.cu", "geglu_fwd.cu"}
+        "mha_fwd.cu", "spacetime_fwd.cu", "spacetime_bwd.cu", "geglu_fwd.cu", "geglu_bwd.cu"}
     assert Path(cuda_lib.BUILD_DIR).name == "_build"

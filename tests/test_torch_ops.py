@@ -1,5 +1,7 @@
 """PyTorch port, ops layer: schedule, masks, attention and the plain versions
-of the three CUDA kernels, each held against the JAX package on the CPU.
+of the CUDA kernels (forwards and backwards), each held against the JAX
+package on the CPU, and the kernel wrappers' autograd Functions held against
+autograd of their plain forwards.
 
 Inputs are made with numpy from a seed and handed to both sides.  f32
 tolerances: the schedule and masks must match bit for bit (same float64 host
@@ -24,11 +26,26 @@ from diffusion_spacetime_attn_tpu_torch import config as tcfg
 from diffusion_spacetime_attn_tpu_torch.ops import attention as tatt
 from diffusion_spacetime_attn_tpu_torch.ops import masks as tmasks
 from diffusion_spacetime_attn_tpu_torch.ops import schedule as tsched
-from diffusion_spacetime_attn_tpu_torch.ops.cuda_geglu import geglu_cost, geglu_ff, geglu_plain
-from diffusion_spacetime_attn_tpu_torch.ops.cuda_mha import mha_attention, mha_cost
+from diffusion_spacetime_attn_tpu_torch.ops.cuda_geglu import (
+    geglu_cost,
+    geglu_dx,
+    geglu_dx_cost,
+    geglu_dx_plain,
+    geglu_ff,
+    geglu_plain,
+)
+from diffusion_spacetime_attn_tpu_torch.ops.cuda_mha import (
+    mha_attention,
+    mha_attention_plain,
+    mha_cost,
+)
 from diffusion_spacetime_attn_tpu_torch.ops.cuda_spacetime import (
     fused_spacetime_attention,
+    spacetime_bwd,
+    spacetime_bwd_cost,
+    spacetime_bwd_plain,
     spacetime_cost,
+    spacetime_plain,
 )
 
 # the JAX package's ops/__init__ re-exports functions named like its modules
@@ -205,6 +222,122 @@ def test_mha_plain_matches_pallas_interpret(dh, L):
     _close(mha_attention(_t(q), _t(k), _t(v), H), want)
 
 
+# ------------------------------------------- backwards against the JAX kernels
+
+
+BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
+
+
+@pytest.mark.parametrize("kw,heads", [
+    (dict(), 4),
+    (dict(B=2, N=2, Lq=1024, inner=80, seed=1), 8),
+    (dict(B=1, N=3, Lq=64, inner=32, seed=5), 2),
+])
+def test_spacetime_bwd_plain_matches_pallas_interpret(kw, heads):
+    """All 8 cotangents of `_backward` (interpret mode), in order, f32 1e-4."""
+    from diffusion_spacetime_attn_tpu.ops import pallas_spacetime as ps
+
+    args = _spacetime_inputs(**kw)
+    g = (np.random.RandomState(9).randn(*args[0].shape) * 0.1).astype(np.float32)
+    want = ps._backward(*map(_j, args), heads, _j(g), interpret=True)
+    got = spacetime_bwd_plain(*map(_t, args), heads, _t(g))
+    assert len(got) == len(want) == 8
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
+        _close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("M,dim", [(64, 320), (128, 640), (32, 1280)])
+def test_geglu_dx_plain_matches_pallas_interpret(M, dim):
+    from diffusion_spacetime_attn_tpu.ops.pallas_geglu import _ff_dx_local
+
+    x, w1, b1, w2, _, dy = _geglu_inputs(M, dim, seed=dim + 7)
+    want = _ff_dx_local(_j(x), _j(w1), _j(b1), _j(w2), _j(dy), interpret=True)
+    got = geglu_dx_plain(_t(x), _t(w1.T.copy()), _t(b1), _t(w2.T.copy()), _t(dy))
+    _close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dh,L", [(40, 256), (80, 128), (160, 64)])
+def test_mha_grad_matches_jax_grad(dh, L):
+    """Gradient of mha_attention (kernel forward, `_mha_bh_bwd` backward) vs
+    jax.grad of the JAX `mha_attention` in interpret mode."""
+    import jax
+
+    B, H = 2, 2
+    q, k, v = _qkv(B, L, L, H * dh, seed=dh + 1)
+    w = np.random.RandomState(3).randn(B, L, H * dh).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(j_mha_attention(*a, H, interpret=True) * _j(w)),
+                    argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    ts = [_t(a).requires_grad_(True) for a in (q, k, v)]
+    (mha_attention(*ts, H) * _t(w)).sum().backward()
+    for a, b in zip(ts, want):
+        _close(a.grad, b, atol=1e-4, rtol=1e-4)
+
+
+def _grads(fn, args, seed=4):
+    leaves = [a.clone().requires_grad_(True) if torch.is_tensor(a) else a for a in args]
+    out = fn(*leaves)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed))
+    (out * w).sum().backward()
+    return [a.grad for a in leaves if torch.is_tensor(a)]
+
+
+@pytest.mark.parametrize("kind", ["spacetime", "geglu", "mha"])
+def test_autograd_function_grads_match_plain_autograd(kind):
+    """Each wrapper is a torch.autograd.Function whose backward (the plain
+    backward on the CPU) gives autograd's gradient of the plain forward, in
+    every tensor argument."""
+    if kind == "spacetime":
+        args = list(map(_t, _spacetime_inputs(B=2, N=3, Lq=64, inner=32, seed=2)))
+        kern = lambda *a: fused_spacetime_attention(*a, 2)  # noqa: E731
+        plain = lambda *a: spacetime_plain(*a, 2)  # noqa: E731
+    elif kind == "geglu":
+        x, w1, b1, w2, b2, res = map(_t, _geglu_inputs(16, 32, seed=6))
+        args = [x.reshape(2, 8, 32), w1.T.contiguous(), b1, w2.T.contiguous(), b2,
+                res.reshape(2, 8, 32)]
+        kern, plain = geglu_ff, geglu_plain
+    else:
+        args = list(map(_t, _qkv(2, 24, 24, 32, seed=8)))
+        kern = lambda *a: mha_attention(*a, 2)  # noqa: E731
+        plain = lambda *a: mha_attention_plain(*a, 2)  # noqa: E731
+    got, want = _grads(kern, args), _grads(plain, args)
+    assert len(got) == len(want) == len(args)
+    for a, b in zip(got, want):
+        _close(a, b.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_outputs_come_from_their_autograd_functions():
+    """The gradient of a wrapper's output goes through its own backward (the
+    kernel's on the card).  Before, the CUDA path built its output outside
+    autograd, so a requires-grad input got no gradient and no error."""
+    q = torch.randn(1, 16, 32, requires_grad=True)
+    x = torch.randn(4, 32, requires_grad=True)
+    w1, b1 = torch.randn(256, 32) * 0.1, torch.zeros(256)
+    w2, b2 = torch.randn(32, 128) * 0.1, torch.zeros(32)
+    args = [_t(a) for a in _spacetime_inputs(Lq=64, inner=32, seed=3)]
+    args[0].requires_grad_(True)
+    outs = {"_MhaFnBackward": mha_attention(q, q, q, 2),
+            "_GegluFnBackward": geglu_ff(x, w1, b1, w2, b2, x),
+            "_SpacetimeFnBackward": fused_spacetime_attention(*args, 2)}
+    for name, out in outs.items():
+        assert type(out.grad_fn).__name__ == name
+
+
+def test_backward_entry_points_take_plain_path_on_cpu_without_counting():
+    before = (spacetime_bwd.launches, geglu_dx.launches)
+    args = list(map(_t, _spacetime_inputs(Lq=64, inner=32, seed=4)))
+    g = torch.randn(args[0].shape)
+    full = spacetime_bwd(*args, 2, g)
+    short = spacetime_bwd(*args, 2, g, need_kv=False)
+    assert short[2:6] == (None,) * 4
+    for a, b in zip(full[:2] + full[6:], short[:2] + short[6:]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    x, w1, b1, w2, _, dy = map(_t, _geglu_inputs(8, 32, seed=5))
+    torch.testing.assert_close(geglu_dx(x, w1.T, b1, w2.T, dy),
+                               geglu_dx_plain(x, w1.T, b1, w2.T, dy), atol=0, rtol=0)
+    assert (spacetime_bwd.launches, geglu_dx.launches) == before
+
+
 # ------------------------------------------- wrappers on CPU tensors
 
 
@@ -243,6 +376,9 @@ def test_plain_versions_keep_working_dtype():
     (geglu_cost, (128, 1280, 5120, 2), 5.03e9, 40.3e6),
     (spacetime_cost, (1, 4, 4096, 77, 320, 2), 2.02e9, 8.42e6),
     (spacetime_cost, (1, 4, 64, 77, 1280, 2), 0.126e9, 2.464e6),
+    # backwards at the chain's shapes (2 prompts): 10·M·dim·inner FLOPs for dx
+    (geglu_dx_cost, (16384, 320, 1280, 2), 67.1e9, 33.9e6),
+    (spacetime_bwd_cost, (2, 4, 4096, 77, 320, 8, 2, False), 6.06e9, 28.38e6),
 ])
 def test_cost_model_matches_main_path_table(fn, args, flops, nbytes):
     f, b = fn(*args)
@@ -267,8 +403,8 @@ def test_config_defaults_match_jax():
 
     from diffusion_spacetime_attn_tpu import config as jcfg
 
-    for name in ("UNetConfig", "VAEConfig", "CLIPTextConfig", "ScheduleConfig",
-                 "SpaceTimeConfig", "PipelineConfig"):
+    for name in ("UNetConfig", "VAEConfig", "CLIPTextConfig", "CLIPVisionConfig", "CLIPConfig",
+                 "ScheduleConfig", "SpaceTimeConfig", "PipelineConfig"):
         a = dataclasses.asdict(getattr(jcfg, name)())
         b = dataclasses.asdict(getattr(tcfg, name)())
         assert a == b, name
