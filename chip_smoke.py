@@ -12,27 +12,32 @@ script exits non-zero without its final line:
   2. build:  the CUDA kernels from `diffusion_spacetime_attn_tpu_torch/csrc`,
              with nvcc's register / shared-memory / spill report.
   3. kernels: each forward kernel against its plain PyTorch version at every
-             shape of the SD v1-4 serving path, in bfloat16 at one prompt (CFG
-             rows = 2) and at the engine's batch of 2 prompts, and in
-             float32 at one prompt (tolerances in `utils/testing.py`), with
+             shape of the SD v1-4 serving path (flash: the level-0 and level-1
+             self-attention sites that pass `flash_ok`), in bfloat16 at one
+             prompt (CFG rows = 2) and at the engine's batch of 2 prompts, and
+             in float32 at one prompt (tolerances in `utils/testing.py`), with
              times (CUDA events), the plain version's time, the roofline
              bound and, for attention, the time of
              `scaled_dot_product_attention` as a yardstick.  Each kernel must
              give the same bits when launched twice on the same inputs, and
              the comparison must reject planted faults (a skipped key tile,
-             a 5 % wrong scale, a skipped inner tile) at every shape.
+             a 5 % wrong scale, a skipped inner tile, the flash log-sum-exp
+             off by log 2 on one query tile) at every shape.
      kernels_bwd: each backward kernel the same way at every chain shape, in
-             bf16 and float32 at 1 and 2 prompts, every cotangent (dK/dV
-             included); planted faults: one object's blend products zeroed,
-             the last key tile dropped from dKc, a skipped inner tile in dx.
+             bf16 and float32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32
+             at 1), every cotangent (dK/dV included); planted faults: one
+             object's blend products zeroed, the last key tile dropped from
+             dKc or dK, a skipped inner tile in dx, di zeroed on one query
+             tile of the flash backward.  The flash backward's yardstick is
+             the backward of `scaled_dot_product_attention` under autograd.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
   5. slice:  the full-width pipeline in float32 (text encoder, controlled
              PLMS with 4 steps, VAE decode), kernels on vs off.
   6. chain:  the optimization's loss and its gradient in the blend weights
              (full-width SD v1-4 and the ViT-B/32 loss CLIP in float32, one
-             prompt, 4 objects, PLMS-4 under remat), kernels on vs off, within
-             1e-3 relative.
+             prompt, 4 objects, PLMS-4 under remat), the four kernel flags
+             (use_flash too) on vs off, within 1e-3 relative.
   7. serve:  TextToImageEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
              tower), PLMS-50, batch 2, 4 objects per prompt: 3 requests in
              two batches, the second padded; it repeats the first request
@@ -43,14 +48,19 @@ script exits non-zero without its final line:
              device time by kernel family under torch.profiler).
   9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
              same width with the ViT-B/32 loss CLIP, bf16, PLMS-50, batch 2,
-             4 objects, 3 Adam epochs (the last forward only): 2 requests,
-             then the first again beside a pad row (same bytes).  Each
-             forward kernel must be launched 4080 times per batch (2 epochs x
-             51 evaluations x 2 for the remat recompute x 16 sites, + 51 x 16
-             in the last epoch) and each backward kernel 1632 (2 x 51 x 16);
-             losses finite; coef moved on active slots, 0 on padded ones.
+             4 objects, 3 Adam epochs (the last forward only), use_flash on as
+             in the JAX package's spacetime mode: 2 requests, then the first
+             again beside a pad row (same bytes).  A forward kernel at n sites
+             per evaluation must be launched 2 x 51 x 2 x n + 51 x n times per
+             batch (2 training epochs x 51 evaluations x 2 for the remat
+             recompute, + the forward-only epoch) and a backward kernel
+             2 x 51 x n: n = 16 for spacetime and GEGLU (4080 / 1632), 10 for
+             flash (2550 / 1018: the first self-attention of each chain sees
+             only x_T and gets no backward), 6 for MHA (1530); losses finite;
+             coef moved on active slots, 0 on padded ones.
  10. profile_train: one training UNet evaluation (forward, recompute,
-             backward) by kernel family.
+             backward) by kernel family, and the plain MHA backward that is
+             left (levels 2 and mid).
  11. the `kernels` summary line (times per UNet evaluation at the engine's
      batch; launches of the optimization run), the nvidia-smi line, and the
      final {"ok": true, ...} line.
@@ -61,6 +71,7 @@ from a seed, as the JAX package's bench does.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,15 +84,39 @@ PEAK_BYTES = 3.35e12
 # one prompt's sites per UNet evaluation: (level, Lq, inner, count)
 SITES = [("level0", 4096, 320, 5), ("level1", 1024, 640, 5),
          ("level2", 256, 1280, 5), ("mid", 64, 1280, 1)]
+FLASH_LEVELS = ("level0", "level1")    # the self-attention sites that pass flash_ok
 HEADS, OBJECTS, CONTEXT_LEN = 8, 4, 77
 SERVE_PROMPTS = 2               # the engine's batch size
 LAUNCHES_PER_BATCH = 16 * 51
 SLICE_STEPS = 4                 # PLMS steps of the float32 on-vs-off checks
-# the optimization (3 epochs, the last forward only; remat recomputes every
-# UNet evaluation in the backward): launches per batch
-OPT_FWD_LAUNCHES = 2 * 51 * 2 * 16 + 51 * 16    # 4080
-OPT_BWD_LAUNCHES = 2 * 51 * 16                  # 1632
+# sites per UNet evaluation of each kernel with the four flags on: flash
+# takes the self-attention of levels 0 and 1, MHA that of level 2 and mid
+SITES_PER_EVAL = {"spacetime_fwd": 16, "spacetime_bwd": 16, "geglu_fwd": 16, "geglu_bwd": 16,
+                  "flash_fwd": 10, "flash_bwd": 10, "mha_fwd": 6}
+# backward sites per chain that get no gradient: the first self-attention of
+# the first evaluation sees only x_T and the timestep, so autograd records no
+# backward there; every other site depends on the blend weights
+NO_GRAD_SITES = {"flash_bwd": 1}
+
+
+def chain_launches(kernel: str, evals: int) -> int:
+    """Launches of one chain of `evals` UNet evaluations under remat, forward
+    (run again by the recompute) and backward."""
+    n = SITES_PER_EVAL[kernel]
+    if kernel.endswith("bwd"):
+        return n * evals - NO_GRAD_SITES.get(kernel, 0)
+    return 2 * n * evals
+
+
+def opt_launches(kernel: str) -> int:
+    """Launches per optimization batch: 2 training epochs of 51 evaluations,
+    then the forward-only epoch."""
+    return 2 * chain_launches(kernel, 51) + (0 if kernel.endswith("bwd")
+                                             else 51 * SITES_PER_EVAL[kernel])
+
+
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
+SPLASH = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 
 KERNELS = {
     "spacetime_fwd": dict(
@@ -99,6 +134,15 @@ KERNELS = {
     "mha_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/mha_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_mha.py:79"),
+    "flash_fwd": dict(
+        route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/flash_fwd.cu",
+        replaces=f"diffusion_spacetime_attn_tpu/ops/attention.py:194 "
+                 f"({SPLASH}:696 flash_attention_kernel)"),
+    "flash_bwd": dict(
+        route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/flash_bwd.cu",
+        replaces=f"diffusion_spacetime_attn_tpu/ops/attention.py:194 "
+                 f"({SPLASH}:1307 _flash_attention_dq_kernel, "
+                 f":1669 _flash_attention_dkv_kernel)"),
 }
 
 
@@ -159,18 +203,30 @@ def phase_build():
           "ptxas": keep})
 
 
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def _planted_faults(kind: str, args, kern):
     """Outputs of the kernel with a planted fault, which the comparison with
     the plain version must reject: a skipped key tile (the last 64 keys; 32
-    at L = 64) or a 5 % wrong softmax scale for attention, a skipped 64-wide
-    inner tile for GEGLU, and only the first 64 of the 77 context keys for
-    the spacetime blend."""
-    if kind == "mha":
+    at L = 64) or a 5 % wrong softmax scale for attention, the log-sum-exp
+    off by log 2 on the first query tile for flash, a skipped 64-wide inner
+    tile for GEGLU, and only the first 64 of the 77 context keys for the
+    spacetime blend."""
+    if kind in ("mha", "flash"):
         q, k, v = args
         L = k.shape[1]
         keep = L - (64 if L > 64 else 32)
-        return {"skip_key_tile": kern((q, k[:, :keep].contiguous(), v[:, :keep].contiguous())),
-                "scale_x1.05": kern(((q.float() * 1.05).to(q.dtype), k, v))}
+        faults = {"skip_key_tile": kern((q, k[:, :keep].contiguous(), v[:, :keep].contiguous()))}
+        if kind == "mha":
+            faults["scale_x1.05"] = kern(((q.float() * 1.05).to(q.dtype), k, v))
+        else:
+            o, lse = kern(args)
+            lse = lse.clone()
+            lse[:, :64] += math.log(2.0)
+            faults["lse_off_by_log2_on_one_query_tile"] = (o, lse)
+        return faults
     if kind == "geglu":
         w2 = args[3].clone()
         w2[:, :64] = 0
@@ -192,7 +248,7 @@ def _inputs(kind: str, prompts: int, Lq: int, inner: int, dtype, gen):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     rows = 2 * prompts
-    if kind == "mha":
+    if kind in ("mha", "flash"):
         return (randn(rows, Lq, inner), randn(rows, Lq, inner), randn(rows, Lq, inner))
     if kind == "geglu":
         M, dim, hid = rows * Lq, inner, 4 * inner
@@ -208,6 +264,11 @@ def _inputs(kind: str, prompts: int, Lq: int, inner: int, dtype, gen):
             torch.full((B, OBJECTS), 1.25, device=dev))
 
 
+def _sites(kind: str):
+    """The main-path sites of a kernel kind: flash takes levels 0 and 1."""
+    return [s for s in SITES if not kind.startswith("flash") or s[0] in FLASH_LEVELS]
+
+
 def phase_kernels():
     """Every kernel vs its plain version at every main-path shape: in bf16 at
     one prompt (CFG rows = 2) and at the serving batch of SERVE_PROMPTS, and
@@ -216,7 +277,12 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
 
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_mha, cuda_spacetime
+    from diffusion_spacetime_attn_tpu_torch.ops import (
+        cuda_flash,
+        cuda_geglu,
+        cuda_mha,
+        cuda_spacetime,
+    )
     from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
 
     impl = {
@@ -224,6 +290,10 @@ def phase_kernels():
                 lambda a: cuda_mha.mha_attention_plain(*a, HEADS),
                 lambda a, it: cuda_mha.mha_cost(a[0].shape[0], a[0].shape[1], a[1].shape[1],
                                                 a[0].shape[2], it)),
+        "flash": ("flash_fwd", lambda a: cuda_flash.flash_fwd(*a, HEADS),
+                  lambda a: cuda_flash.flash_attention_plain(*a, HEADS),
+                  lambda a, it: cuda_flash.flash_cost(a[0].shape[0], a[0].shape[1],
+                                                      a[1].shape[1], a[0].shape[2], HEADS, it)),
         "geglu": ("geglu_fwd", lambda a: cuda_geglu.geglu_ff(*a),
                   lambda a: cuda_geglu.geglu_plain(*a),
                   lambda a, it: cuda_geglu.geglu_cost(a[0].shape[0], a[0].shape[1],
@@ -245,33 +315,34 @@ def phase_kernels():
                                    "library_ms": None})
         for dtype_name, prompts in cases:
             dtype = getattr(torch, dtype_name)
-            for level, Lq, inner, count in SITES:
+            for level, Lq, inner, count in _sites(kind):
                 case += 1
                 gen.manual_seed(case)
                 args = _inputs(kind, prompts, Lq, inner, dtype, gen)
-                got = kern(args)
-                again = kern(args)
-                want = plain(args)
+                got = _outs(kern(args))
+                again = _outs(kern(args))
+                want = _outs(plain(args))
                 torch.cuda.synchronize()
-                cmp = compare(got, want, kind)
-                if not cmp["ok"]:
-                    fail(f"{name} {level} {dtype_name} {prompts} prompt(s): {cmp}")
-                if not torch.equal(got, again):
+                cmps = [compare(g_, w_, kind) for g_, w_ in zip(got, want)]
+                if not all(c["ok"] for c in cmps):
+                    fail(f"{name} {level} {dtype_name} {prompts} prompt(s): {cmps}")
+                if not all(torch.equal(g_, a2) for g_, a2 in zip(got, again)):
                     fail(f"{name} {level} {dtype_name}: two launches on the same inputs differ")
                 faults = {}
-                for fault, out in _planted_faults(kind, args, kern).items():
-                    fcmp = compare(out, want, kind)
-                    if fcmp["ok"]:
-                        fail(f"{name} {level} {dtype_name}: planted fault {fault} passes {fcmp}")
-                    faults[fault] = {"rel_norm": fcmp["rel_norm"],
-                                     "max_abs_err": fcmp["max_abs_err"]}
-                max_err = cmp["max_abs_err"]
+                for fault, outs in _planted_faults(kind, args, kern).items():
+                    fc = [compare(o, w_, kind) for o, w_ in zip(_outs(outs), want)]
+                    if all(c["ok"] for c in fc):
+                        fail(f"{name} {level} {dtype_name}: planted fault {fault} passes {fc}")
+                    faults[fault] = {"rel_norm": max(c["rel_norm"] for c in fc),
+                                     "max_abs_err": max(c["max_abs_err"] for c in fc)}
+                cmp = cmps[0]
+                max_err = max(c["max_abs_err"] for c in cmps)
                 ms = cuda_ms(lambda: kern(args), 20)
                 plain_ms = cuda_ms(lambda: plain(args), 5)
                 flops, nbytes = cost(args, args[0].element_size())
                 b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
                 lib_ms = None
-                if kind == "mha":
+                if kind in ("mha", "flash"):
                     B, L, _ = args[0].shape
                     qh, kh, vh = (t.view(B, L, HEADS, -1).transpose(1, 2) for t in args)
                     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
@@ -283,6 +354,8 @@ def phase_kernels():
                        "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
                        "bytes": nbytes, "library_ms": lib_ms,
                        "fraction_of_bound": b_ms / ms}
+                if kind == "flash":
+                    row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
                 if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):  # the serving shapes
@@ -300,9 +373,21 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
     """Backward outputs with a planted fault, which the comparison with the
     plain version must reject: one object's blend products t zeroed, or the
     last key tile (keys 64-76) dropped from dKc, for the spacetime backward;
-    a skipped 64-wide inner tile for the GEGLU dx."""
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_spacetime
+    a skipped 64-wide inner tile for the GEGLU dx; the last key tile dropped
+    from dK, or di zeroed on the first query tile, for the flash backward."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_spacetime
 
+    if kind == "flash":
+        q, k, v, o, lse, g = args
+        dq, dk, dv = cuda_flash.flash_bwd(q, k, v, o, lse, g, heads)
+        cut = dk.clone()
+        cut[:, -64:] = 0
+        di = cuda_flash.row_dot(o, g, heads)
+        di[:, :64] = 0
+        return {"last_key_tile_dropped_from_dk": (dq, cut, dv),
+                "di_zeroed_on_one_query_tile": cuda_flash.flash_bwd_raw(
+                    cuda_flash.scaled_query(q, k, heads), k, v, g, lse, di, heads,
+                    cuda_flash.query_scale(q, heads))}
     if kind == "geglu":
         x, w1, b1, w2, dy = args
         w2 = w2.clone()
@@ -326,14 +411,26 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
 
 def phase_kernels_bwd():
     """Each backward kernel vs its plain version at every chain shape, in
-    bf16 and f32 at 1 and 2 prompts, every cotangent compared (dK/dV too);
-    planted faults must fail and a repeat must give the same bits.  Returns
-    per-kernel aggregates over one UNet evaluation's backward at the
-    optimization batch (2 prompts, bf16, the chain's form: no dK/dV); emits
-    the plain MHA backward's time per evaluation at that batch beside them."""
-    import torch
+    bf16 and f32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32 at 1),
+    every cotangent compared (dK/dV too); planted faults must fail and a
+    repeat must give the same bits.  Returns per-kernel aggregates over one
+    UNet evaluation's backward at the optimization batch (2 prompts, bf16,
+    the chain's form: no spacetime dK/dV); emits the plain MHA backward's
+    time per evaluation at that batch beside them.
 
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_mha, cuda_spacetime
+    The flash backward's V has mean 1: with zero-mean random V the softmax
+    averages V away, the output o and with it di = rowsum(o ⊙ ḡ) are near
+    zero, and the comparison could not see di.  Its `library_ms` is the
+    backward of `scaled_dot_product_attention` under autograd, timed alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_spacetime_attn_tpu_torch.ops import (
+        cuda_flash,
+        cuda_geglu,
+        cuda_mha,
+        cuda_spacetime,
+    )
     from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
 
     def st_bwd(a, need_kv=True):
@@ -349,9 +446,16 @@ def phase_kernels_bwd():
                   lambda a: (cuda_geglu.geglu_dx_plain(*a),),
                   lambda a, it: cuda_geglu.geglu_dx_cost(a[0].shape[0], a[0].shape[1],
                                                          a[3].shape[1], it)),
+        "flash": ("flash_bwd", "flash",
+                  lambda a, need_kv=True: cuda_flash.flash_bwd(*a, HEADS),
+                  lambda a: cuda_flash.flash_bwd_plain(*a, HEADS),
+                  lambda a, it: cuda_flash.flash_bwd_cost(a[0].shape[0], a[0].shape[1],
+                                                          a[1].shape[1], a[0].shape[2], HEADS,
+                                                          it)),
     }
     cases = [("bfloat16", 1), ("bfloat16", SERVE_PROMPTS), ("float32", 1),
              ("float32", SERVE_PROMPTS)]
+    names_of = {"spacetime": BWD_NAMES, "geglu": ("dx",), "flash": ("dq", "dk", "dv")}
     agg, mha_bwd_ms = {}, 0.0
     gen = torch.Generator(device="cuda")
     case = 1000
@@ -359,17 +463,23 @@ def phase_kernels_bwd():
         a_ = agg.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
                                    "library_ms": None})
-        for dtype_name, prompts in cases:
+        for dtype_name, prompts in cases[:3] if kind == "flash" else cases:
             dtype = getattr(torch, dtype_name)
-            for level, Lq, inner, count in SITES:
+            for level, Lq, inner, count in _sites(kind):
                 case += 1
                 gen.manual_seed(case)
                 fwd = _inputs(kind, prompts, Lq, inner, dtype, gen)
                 cot = (torch.randn(fwd[0].shape, generator=gen, device="cuda")).to(dtype)
-                args = fwd[:4] + (cot,) if kind == "geglu" else fwd + (cot,)
+                if kind == "flash":
+                    q, k, v = fwd[0], fwd[1], (fwd[2].float() + 1.0).to(dtype)
+                    args = (q, k, v) + cuda_flash.flash_attention_plain(q, k, v, HEADS) + (cot,)
+                elif kind == "geglu":
+                    args = fwd[:4] + (cot,)
+                else:
+                    args = fwd + (cot,)
                 got, again, want = kern(args), kern(args), plain(args)
                 torch.cuda.synchronize()
-                names = BWD_NAMES if kind == "spacetime" else ("dx",)
+                names = names_of[kind]
                 errs = {}
                 for n_, g_, a2, w_ in zip(names, got, again, want):
                     cmp = compare(g_, w_, cmp_kind)
@@ -391,13 +501,23 @@ def phase_kernels_bwd():
                 plain_ms = cuda_ms(lambda: plain(args), 3)
                 flops, nbytes = cost(args, args[0].element_size())
                 b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+                lib_ms = None
+                if kind == "flash":
+                    B, L, _ = args[0].shape
+                    qh, kh, vh = (t.view(B, L, HEADS, -1).transpose(1, 2).detach()
+                                  .requires_grad_(True) for t in args[:3])
+                    oh = F.scaled_dot_product_attention(qh, kh, vh)
+                    gh = args[5].view(B, L, HEADS, -1).transpose(1, 2)
+                    lib_ms = cuda_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), gh,
+                                                                 retain_graph=True), 10)
+                    del oh
                 row = {"phase": "kernel_bwd", "name": name, "site": level, "dtype": dtype_name,
                        "prompts": prompts, "Lq": Lq, "inner": inner, "errors": errs,
                        "max_abs_err": max_err, "deterministic": True,
                        "planted_faults_rejected_rel_norm": faults, "kernel_ms": ms,
                        "kernel_ms_with_dkv": kv_ms, "plain_ms": plain_ms,
                        "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
-                       "bytes": nbytes, "fraction_of_bound": b_ms / ms}
+                       "bytes": nbytes, "library_ms": lib_ms, "fraction_of_bound": b_ms / ms}
                 if kind == "spacetime" and dtype_name == "bfloat16":
                     # the chain's self-attention backward at this level: plain
                     # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
@@ -417,6 +537,8 @@ def phase_kernels_bwd():
                     a_["bound_ms"] += count * b_ms
                     a_["flops_ms"] += count * 1e3 * flops / PEAK_FLOPS[dtype_name]
                     a_["bytes_ms"] += count * 1e3 * nbytes / PEAK_BYTES
+                    if lib_ms is not None:
+                        a_["library_ms"] = (a_["library_ms"] or 0.0) + count * lib_ms
     emit({"phase": "kernels_bwd", "per_unet_eval_ms": {k: v["ms"] for k, v in agg.items()},
           "mha_bwd_plain_ms_per_unet_eval": mha_bwd_ms})
     return agg
@@ -616,11 +738,17 @@ def phase_serve():
 
 def _wrappers():
     """{kernel name: its wrapper, which carries the launch count}."""
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_mha, cuda_spacetime
+    from diffusion_spacetime_attn_tpu_torch.ops import (
+        cuda_flash,
+        cuda_geglu,
+        cuda_mha,
+        cuda_spacetime,
+    )
 
     return {"spacetime_fwd": cuda_spacetime.fused_spacetime_attention,
             "spacetime_bwd": cuda_spacetime.spacetime_bwd, "geglu_fwd": cuda_geglu.geglu_ff,
-            "geglu_bwd": cuda_geglu.geglu_dx, "mha_fwd": cuda_mha.mha_attention}
+            "geglu_bwd": cuda_geglu.geglu_dx, "mha_fwd": cuda_mha.mha_attention,
+            "flash_fwd": cuda_flash.flash_attention, "flash_bwd": cuda_flash.flash_bwd}
 
 
 OBJECT_NAMES = ["cat", "dog", "tree", "car"]
@@ -652,7 +780,8 @@ def phase_chain():
     """The optimization's gradient against its plain path: the full-width
     SD v1-4 bundle and the ViT-B/32 loss CLIP in float32, one prompt with 4
     objects, generation_loss through PLMS with SLICE_STEPS steps (remat on)
-    and its gradient in the blend weights, kernels on vs off."""
+    and its gradient in the blend weights, kernels on (the four flags, flash
+    at levels 0 and 1, MHA at level 2 and mid) vs off."""
     import torch
 
     from diffusion_spacetime_attn_tpu_torch.config import (
@@ -671,7 +800,8 @@ def phase_chain():
     evals = SLICE_STEPS + 1
     out = {}
     for on in (True, False):
-        cfg = PipelineConfig(unet=UNetConfig(use_mha=on, use_fused_ff=on, use_fused_control=on),
+        cfg = PipelineConfig(unet=UNetConfig(use_flash=on, use_mha=on, use_fused_ff=on,
+                                             use_fused_control=on),
                              spacetime=SpaceTimeConfig(num_steps=SLICE_STEPS))
         sd = StableDiffusion.create(cfg, seed=0, device=dev)
         with torch.no_grad():
@@ -686,7 +816,7 @@ def phase_chain():
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launched = {k: w.launches for k, w in wrappers.items()}
-        want = {k: (16 * evals * (1 if k.endswith("bwd") else 2) if on else 0) for k in wrappers}
+        want = {k: (chain_launches(k, evals) if on else 0) for k in wrappers}
         if launched != want:
             fail(f"chain kernels {'on' if on else 'off'}: launches {launched}, expected {want}")
         if not (torch.isfinite(loss) and torch.isfinite(coef.grad).all()):
@@ -700,7 +830,7 @@ def phase_chain():
     emit({"phase": "chain", "dtype": "float32", "steps": SLICE_STEPS, "objects": OBJECTS,
           "loss": float(l1), "loss_rel_diff": loss_rel, "dcoef_rel_norm": grad_rel,
           "limit": 1e-3, "dcoef_norm": float(torch.linalg.vector_norm(g0)),
-          "launches_per_kernel": {"fwd": 2 * 16 * evals, "bwd": 16 * evals},
+          "launches": launched,
           "s_kernels": s1, "s_plain": s0})
     if not (loss_rel <= 1e-3 and grad_rel <= 1e-3 and float(g0.abs().max()) > 0):
         fail(f"chain: kernels on vs off, loss rel {loss_rel}, dcoef rel norm {grad_rel} > 1e-3")
@@ -709,8 +839,9 @@ def phase_chain():
 def phase_optimize():
     """SpaceTimeEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
     tower; ViT-B/32 loss CLIP), bf16, PLMS-50, batch 2, 4 objects, 3 epochs
-    with the last forward only: two requests, then the first (prompt, seed)
-    again beside a pad row, which must give the same bytes."""
+    with the last forward only, the four kernel flags on (use_flash, as the
+    JAX package's spacetime mode sets it): two requests, then the first
+    (prompt, seed) again beside a pad row, which must give the same bytes."""
     import dataclasses
 
     import numpy as np
@@ -728,7 +859,7 @@ def phase_optimize():
     from diffusion_spacetime_attn_tpu_torch.pipeline.spacetime import init_coef
 
     cfg = PipelineConfig(
-        unet=UNetConfig(dtype="bfloat16", use_mha=True, use_fused_ff=True,
+        unet=UNetConfig(dtype="bfloat16", use_flash=True, use_mha=True, use_fused_ff=True,
                         use_fused_control=True),
         vae=VAEConfig(dtype="bfloat16"))
     clip_cfg = CLIPConfig(vision=CLIPVisionConfig(dtype="bfloat16"),
@@ -762,7 +893,7 @@ def phase_optimize():
         counts = {k: w.launches for k, w in wrappers.items()}
         for k, n in counts.items():
             launches[k] += n
-            want = OPT_BWD_LAUNCHES if k.endswith("bwd") else OPT_FWD_LAUNCHES
+            want = opt_launches(k)
             if n != want:
                 fail(f"optimize {k}: {n} launches in a batch, expected {want}")
         if not bool(torch.isfinite(losses).all()) or not bool(torch.isfinite(imgs).all()):
@@ -810,7 +941,8 @@ def phase_profile_train(sd):
     """Where a training UNet evaluation's time goes at the optimization's
     shapes (batch 2 = 4 CFG rows): one checkpointed evaluation, forward,
     recompute and backward into x and the blend weights, on the host clock
-    and under torch.profiler by kernel family."""
+    and under torch.profiler by kernel family (flash forward and backward at
+    levels 0 and 1; the plain MHA backward left at level 2 and mid)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.checkpoint import checkpoint
@@ -849,7 +981,8 @@ def phase_profile_train(sd):
           "device_idle_share": (1.0 - busy / (1e3 * host_s)) if groups else None})
 
 
-FAMILIES = [("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
+FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
+            ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
             ("spacetime_bwd", ("spacetime_bwd_",)), ("geglu_fwd", ("geglu_partial",)),
             ("geglu_bwd", ("geglu_dx_partial",)), ("geglu_sum_slices", ("sum_slices",)),
             ("convolution", ("conv", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
@@ -951,9 +1084,10 @@ def main() -> int:
                      "bound_ms": a["bound_ms"],
                      "bound_by": "operations" if a["flops_ms"] >= a["bytes_ms"] else "bytes",
                      "library_ms": a["library_ms"]})
-    # times: per UNet evaluation at the engine's batch of 2 prompts (all 16
-    # sites, bfloat16; the backwards in the chain's form, without dK/dV);
-    # launches: the optimization run (2 batches), serve_launches: the serving run
+    # times: per UNet evaluation at the engine's batch of 2 prompts (each
+    # kernel's sites: 16, flash 10 at levels 0 and 1, MHA timed at all 16;
+    # bfloat16; the spacetime backward without dK/dV); launches: the
+    # optimization run (2 batches), serve_launches: the serving run
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

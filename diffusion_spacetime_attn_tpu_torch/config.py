@@ -29,7 +29,9 @@ class UNetConfig:
     dropout: float = 0.0
     # compute dtype name ("bfloat16" or "float32")
     dtype: str = "float32"
-    # long self-attention through a flash kernel: not in the port yet
+    # long self-attention (the sites that pass `flash_ok`) through the CUDA
+    # flash kernels, forward and backward (ops/cuda_flash.py); wins over
+    # use_mha where both apply
     use_flash: bool = False
     # self-attention (attn1) through the CUDA MHA kernel (ops/cuda_mha.py)
     use_mha: bool = False
@@ -45,7 +47,6 @@ class UNetConfig:
 
     def __post_init__(self):
         unsupported = {
-            "use_flash": self.use_flash,
             "attn_q_chunk": self.attn_q_chunk != 0,
             "attn_scores_dtype": self.attn_scores_dtype != "float32",
             "conv_norm_barrier": self.conv_norm_barrier,

@@ -106,6 +106,18 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// Launch `kern` with `smem` bytes of dynamic shared memory (above 48 KB only
+// after the attribute is raised); returns the launch's error.
+template <typename... P, typename... A>
+cudaError_t launch_smem(void (*kern)(P...), dim3 grid, int threads, size_t smem,
+                        cudaStream_t stream, A... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 // ---- GEGLU forward and dx: per-chunk f32 slices, summed in chunk order ----
 
 // Inner columns per block of the GEGLU kernels: for bf16 the widest chunk

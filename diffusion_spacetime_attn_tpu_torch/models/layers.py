@@ -120,8 +120,8 @@ class CrossAttention(nn.Module):
     """QKV projections + attention; no bias on q/k/v, bias on out."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
-                 heads: int = 8, dtype=torch.float32, mha: bool = False,
-                 fused_control: bool = False):
+                 heads: int = 8, dtype=torch.float32, flash: bool = False,
+                 mha: bool = False, fused_control: bool = False):
         super().__init__()
         inner = query_dim
         cdim = query_dim if context_dim is None else context_dim
@@ -129,12 +129,13 @@ class CrossAttention(nn.Module):
         self.to_k = Dense(cdim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(cdim, inner, bias=False, dtype=dtype)
         self.to_out = Dense(inner, query_dim, dtype=dtype)
-        self.heads, self.mha, self.fused_control = heads, mha, fused_control
+        self.heads, self.flash, self.mha = heads, flash, mha
+        self.fused_control = fused_control
 
     def forward(self, x, context=None):
         context = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
-        return self.to_out(attention(q, k, v, self.heads, mha=self.mha))
+        return self.to_out(attention(q, k, v, self.heads, flash=self.flash, mha=self.mha))
 
     def controlled(self, x, context, control: Optional[SpatialControl], radius: float):
         """Cross-attention with the spatial blend on the cond rows."""
@@ -152,10 +153,10 @@ class BasicTransformerBlock(nn.Module):
     """Self-attn -> controlled cross-attn -> GEGLU FF, pre-LN residuals."""
 
     def __init__(self, dim: int, heads: int, context_dim: int, radius: float = 0.2,
-                 dtype=torch.float32, mha: bool = False, fused_control: bool = False,
-                 fused_ff: bool = False):
+                 dtype=torch.float32, flash: bool = False, mha: bool = False,
+                 fused_control: bool = False, fused_ff: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, heads=heads, dtype=dtype, mha=mha)
+        self.attn1 = CrossAttention(dim, heads=heads, dtype=dtype, flash=flash, mha=mha)
         self.attn2 = CrossAttention(dim, context_dim=context_dim, heads=heads,
                                     dtype=dtype, fused_control=fused_control)
         self.norm1, self.norm2, self.norm3 = (LayerNorm32(dim) for _ in range(3))
@@ -173,16 +174,16 @@ class SpatialTransformer(nn.Module):
     1×1 proj_out, residual.  x: [B, C, H, W]."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1,
-                 radius: float = 0.2, dtype=torch.float32, mha: bool = False,
-                 fused_control: bool = False, fused_ff: bool = False):
+                 radius: float = 0.2, dtype=torch.float32, flash: bool = False,
+                 mha: bool = False, fused_control: bool = False, fused_ff: bool = False):
         super().__init__()
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Conv(channels, channels, 1, dtype=dtype)
         self.depth = depth
         for d in range(depth):
             self.add_module(f"block_{d}", BasicTransformerBlock(
-                channels, heads, context_dim, radius=radius, dtype=dtype, mha=mha,
-                fused_control=fused_control, fused_ff=fused_ff))
+                channels, heads, context_dim, radius=radius, dtype=dtype, flash=flash,
+                mha=mha, fused_control=fused_control, fused_ff=fused_ff))
         self.proj_out = Conv(channels, channels, 1, dtype=dtype)
 
     def forward(self, x, context, control=None):

@@ -51,8 +51,8 @@ class UNet(nn.Module):
             heads = ch // cfg.num_head_channels if cfg.num_head_channels else cfg.num_heads
             return SpatialTransformer(
                 ch, heads, cfg.context_dim, depth=cfg.transformer_depth, radius=radius,
-                dtype=dt, mha=cfg.use_mha, fused_control=cfg.use_fused_control,
-                fused_ff=cfg.use_fused_ff)
+                dtype=dt, flash=cfg.use_flash, mha=cfg.use_mha,
+                fused_control=cfg.use_fused_control, fused_ff=cfg.use_fused_ff)
 
         self.in_conv = Conv(cfg.in_channels, mc, 3, padding=1, dtype=dt)
         skips = [mc]

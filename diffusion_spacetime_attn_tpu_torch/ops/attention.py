@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .cuda_flash import flash_attention, flash_ok
 from .masks import flat_circular_mask
 
 
@@ -35,14 +36,20 @@ class SpatialControl(NamedTuple):
     active: torch.Tensor          # [B, N] 1.0 = real object, 0.0 = padding
 
 
-def attention(q, k, v, num_heads: int, *, out_dtype=None, mha: bool = False):
+def attention(q, k, v, num_heads: int, *, out_dtype=None, flash: bool = False,
+              mha: bool = False):
     """Softmax attention.  q: [B, Lq, H*Dh], k/v: [B, Lk, H*Dh].
 
-    mha=True routes self-attention (Lq == Lk) through the CUDA MHA kernel's
-    wrapper (`ops/cuda_mha.py`), which takes this plain path for CPU tensors.
+    flash=True routes the shapes that pass `flash_ok` through the CUDA flash
+    kernels' wrapper (`ops/cuda_flash.py`, forward and backward).  mha=True
+    routes self-attention (Lq == Lk) through the CUDA MHA kernel's wrapper
+    (`ops/cuda_mha.py`); flash wins where both apply, as in the JAX package.
+    Both wrappers take plain PyTorch versions for CPU tensors.
     """
     B, Lq, inner = q.shape
     Lk = k.shape[-2]
+    if flash and flash_ok(Lq, Lk, inner // num_heads):
+        return flash_attention(q, k, v, num_heads, out_dtype=out_dtype)
     if mha and Lq == Lk:
         from .cuda_mha import mha_attention
 

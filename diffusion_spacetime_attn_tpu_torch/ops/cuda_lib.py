@@ -39,6 +39,8 @@ SIGNATURES = {
     "dsta_geglu_chunks": [_I, _I, _I],
     "dsta_spacetime_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F, _P],
     "dsta_geglu_dx": [_I] + [_P] * 7 + [_I] * 3 + [_P],
+    "dsta_flash_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "dsta_flash_bwd": [_I] + [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -43,7 +43,8 @@ def mha_cost(B: int, Lq: int, Lk: int, inner: int, itemsize: int):
     return flops, nbytes
 
 
-# f32 bytes of one [slices, Lq, Lk] intermediate of the plain backward
+# f32 bytes of one [slices, Lq, Lk] intermediate of the plain backward (and
+# of the plain flash versions, `cuda_flash.py`)
 BWD_CHUNK_BYTES = 1 << 28
 
 

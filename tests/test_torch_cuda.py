@@ -25,7 +25,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_lib, cuda_mha, cuda_spacetime
+from diffusion_spacetime_attn_tpu_torch.ops import (
+    cuda_flash,
+    cuda_geglu,
+    cuda_lib,
+    cuda_mha,
+    cuda_spacetime,
+)
 from diffusion_spacetime_attn_tpu_torch.ops.masks import flat_circular_mask
 from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
 
@@ -115,6 +121,37 @@ def test_geglu_kernel_matches_plain(cuda, dtype, residual, M, dim):
     assert torch.equal(got, cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Lq,Lk,H,dh", [
+    (2, 4096, 4096, 8, 40),      # SD level 0, one prompt (2 CFG rows)
+    (2, 1024, 1024, 8, 80),      # SD level 1
+    (1, 100, 130, 2, 24),        # ragged query and key tiles, Lq != Lk
+    (1, 64, 64, 3, 20),          # head width not a multiple of 8 (element loads)
+    (1, 128, 128, 2, 128),       # the widest head flash_ok routes
+])
+def test_flash_kernels_match_plain(cuda, dtype, B, Lq, Lk, H, dh):
+    """Forward (o, lse) and backward (dq, dk, dv) kernels against the plain
+    versions; each launch counted; a repeat gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(Lq + dh)
+    q, gbar = (_randn(g, cuda, dtype, B, Lq, H * dh) for _ in range(2))
+    k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
+    fwd, bwd = cuda_flash.flash_attention.launches, cuda_flash.flash_bwd.launches
+    o, lse = cuda_flash.flash_fwd(q, k, v, H)
+    assert cuda_flash.flash_attention.launches == fwd + 1
+    o_p, lse_p = cuda_flash.flash_attention_plain(q, k, v, H)
+    _check(o, o_p, "flash")
+    _check(lse, lse_p, "flash")                      # float32: 1e-4
+    grads = cuda_flash.flash_bwd(q, k, v, o_p, lse_p, gbar, H)
+    assert cuda_flash.flash_bwd.launches == bwd + 1
+    for got, want in zip(grads, cuda_flash.flash_bwd_plain(q, k, v, o_p, lse_p, gbar, H)):
+        _check(got, want, "flash")
+    again = (cuda_flash.flash_fwd(q, k, v, H)
+             + cuda_flash.flash_bwd(q, k, v, o_p, lse_p, gbar, H))
+    for a, b in zip((o, lse) + grads, again):        # no atomics
+        assert torch.equal(a, b)
+
+
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
 
 
@@ -194,7 +231,7 @@ def _grads(fn, args, seed=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["spacetime", "geglu", "mha"])
+@pytest.mark.parametrize("kind", ["spacetime", "geglu", "mha", "flash"])
 def test_autograd_functions_match_plain_autograd(cuda, kind):
     """float32 on the card: the gradient through each kernel wrapper (kernel
     forward, kernel or plain backward) equals autograd of its plain forward
@@ -213,11 +250,16 @@ def test_autograd_functions_match_plain_autograd(cuda, kind):
                                                                     scale=0.05),
                 _randn(g, cuda, dt, dim, scale=0.1), _randn(g, cuda, dt, 2, 50, dim))
         kern, plain, counter = cuda_geglu.geglu_ff, cuda_geglu.geglu_plain, cuda_geglu.geglu_dx
-    else:
+    elif kind == "mha":
         args = tuple(_randn(g, cuda, dt, 2, 128, 64) for _ in range(3))
         kern = lambda *a: cuda_mha.mha_attention(*a, 2)  # noqa: E731
         plain = lambda *a: cuda_mha.mha_attention_plain(*a, 2)  # noqa: E731
         counter = None
+    else:
+        args = tuple(_randn(g, cuda, dt, 2, 1024, 64) for _ in range(3))
+        kern = lambda *a: cuda_flash.flash_attention(*a, 2)  # noqa: E731
+        plain = lambda *a: cuda_mha.mha_attention_plain(*a, 2)  # noqa: E731
+        counter = cuda_flash.flash_bwd
     before = None if counter is None else counter.launches
     got, want = _grads(kern, args), _grads(plain, args)
     if counter is not None:
@@ -235,10 +277,20 @@ def test_kernel_outputs_carry_a_gradient(cuda):
     w1 = torch.randn(512, 64, device=cuda) * 0.1
     b1, w2, b2 = torch.zeros(512, device=cuda), torch.randn(64, 256, device=cuda) * 0.1, \
         torch.zeros(64, device=cuda)
-    for out in (cuda_mha.mha_attention(x, x, x, 2), cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x)):
+    for out in (cuda_mha.mha_attention(x, x, x, 2), cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x),
+                cuda_flash.flash_attention(x, x, x, 2)):
         assert out.grad_fn is not None
         (grad,) = torch.autograd.grad(out.sum(), x)
         assert float(grad.abs().sum()) > 0
+    # the flash backward returns dq, dk and dv, with the same bits on a repeat
+    xb = x.detach().bfloat16().requires_grad_(True)
+    kb, vb = (torch.randn(2, 64, 64, device=cuda).bfloat16().requires_grad_(True)
+              for _ in range(2))
+    gbar = torch.randn(2, 64, 64, device=cuda).bfloat16()
+    first = torch.autograd.grad(cuda_flash.flash_attention(xb, kb, vb, 2), (xb, kb, vb), gbar)
+    second = torch.autograd.grad(cuda_flash.flash_attention(xb, kb, vb, 2), (xb, kb, vb), gbar)
+    for a, b in zip(first, second):
+        assert float(a.float().abs().sum()) > 0 and torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -255,6 +307,12 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         cuda_mha.mha_attention(wide, wide, wide, 2)
     assert cuda_mha.mha_attention.launches == before + 1
+    flash_before = cuda_flash.flash_attention.launches
+    with pytest.raises(ValueError):              # head width 160 > 128
+        cuda_flash.flash_attention(wide[..., :320], wide[..., :320], wide[..., :320], 2)
+    with pytest.raises(TypeError):
+        cuda_flash.flash_attention(q, q.bfloat16(), q.bfloat16(), 2)
+    assert cuda_flash.flash_attention.launches == flash_before
     # bfloat16 GEGLU on the tensor cores needs 16-byte aligned operands
     dim, inner = 64, 256
     x = torch.zeros(4 * dim + 1, dtype=torch.bfloat16, device=cuda)[1:].view(4, dim)
@@ -327,6 +385,22 @@ def _bf16_cases(kind):
         faults = {"skip_inner_tile": cuda_geglu.geglu_plain(*args[:3], w2, *args[4:])}
         return (cuda_geglu.geglu_plain(*args), cuda_geglu.geglu_plain(*f32(args)).bfloat16(),
                 faults)
+    if kind == "flash":
+        # the kernel's forward rounds p to bf16 before the PV product (its
+        # running max taken over the whole row here); splash keeps p in f32
+        q, k, v = (_bf16(gen, 2, 1024, 320) for _ in range(3))
+
+        def p_rounded(q_, k_, v_):
+            qf, kf, vf = (cuda_flash._fold(t, 8).float()
+                          for t in (cuda_flash.scaled_query(q_, k_, 8), k_, v_))
+            s = qf @ kf.transpose(1, 2)
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            o = (p.bfloat16().float() @ vf) / p.sum(dim=-1, keepdim=True)
+            return cuda_flash._unfold(o.bfloat16(), 2)
+
+        plain = lambda *a: cuda_flash.flash_attention_plain(*a, 8)[0]  # noqa: E731
+        faults = {"skip_key_tile": plain(q, k[:, :-64].contiguous(), v[:, :-64].contiguous())}
+        return plain(q, k, v), p_rounded(q, k, v), faults
     B, N, Lq, inner = 1, 4, 256, 320
     ts = [_bf16(gen, B, Lq, inner), _bf16(gen, B, Lq, inner), _bf16(gen, B, 77, inner),
           _bf16(gen, B, 77, inner), _bf16(gen, B, N, 77, inner), _bf16(gen, B, N, 77, inner)]
@@ -338,11 +412,12 @@ def _bf16_cases(kind):
             cuda_spacetime.spacetime_plain(*f32(ts), *rest).bfloat16(), faults)
 
 
-@pytest.mark.parametrize("kind", ["mha", "geglu", "spacetime"])
+@pytest.mark.parametrize("kind", ["mha", "geglu", "spacetime", "flash"])
 def test_bf16_comparison_passes_one_rounding_and_rejects_planted_faults(kind):
-    """The kernels compute in float32 and round once; `compare` must take
-    that rounding difference and reject a dropped key or inner tile or a
-    wrong softmax scale (the card's smoke test repeats this at SD shapes)."""
+    """The kernels compute in float32 and round once (the flash forward also
+    rounds p); `compare` must take that rounding difference and reject a
+    dropped key or inner tile or a wrong softmax scale (the card's smoke test
+    repeats this at SD shapes)."""
     want, rounded_once, faults = _bf16_cases(kind)
     cmp = compare(rounded_once, want, kind)
     assert cmp["ok"], cmp
@@ -370,5 +445,6 @@ def test_importing_the_kernels_builds_nothing():
                          check=True, cwd=Path(__file__).resolve().parent.parent)
     assert out.stdout.strip() == "False"
     assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
-        "mha_fwd.cu", "spacetime_fwd.cu", "spacetime_bwd.cu", "geglu_fwd.cu", "geglu_bwd.cu"}
+        "mha_fwd.cu", "spacetime_fwd.cu", "spacetime_bwd.cu", "geglu_fwd.cu", "geglu_bwd.cu",
+        "flash_fwd.cu", "flash_bwd.cu"}
     assert Path(cuda_lib.BUILD_DIR).name == "_build"

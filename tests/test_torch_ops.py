@@ -390,12 +390,36 @@ def test_cost_model_matches_main_path_table(fn, args, flops, nbytes):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_flash", True), ("attn_q_chunk", 512),
-    ("attn_scores_dtype", "bfloat16"), ("conv_norm_barrier", True),
+    ("attn_q_chunk", 512), ("attn_scores_dtype", "bfloat16"), ("conv_norm_barrier", True),
 ])
 def test_unimplemented_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tcfg.UNetConfig(**{field: value})
+
+
+def test_use_flash_unet_routes_level0_attn1_through_flash(monkeypatch):
+    """UNetConfig(use_flash=True): the level-0 self-attention sites (1024
+    tokens) go to flash, the level-1 ones (256 tokens) and every
+    cross-attention do not."""
+    cfg = tcfg.UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                          attention_resolutions=(1, 2), num_heads=2, context_dim=32,
+                          use_flash=True)
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+
+    unet = UNet(cfg)
+    assert unet.down_attn_0.block_0.attn1.flash and not unet.down_attn_0.block_0.attn2.flash
+    seen = []
+    real = tatt.flash_attention
+
+    def spy(q, k, v, num_heads, *, out_dtype=None):
+        seen.append(q.shape[1])
+        return real(q, k, v, num_heads, out_dtype=out_dtype)
+
+    monkeypatch.setattr(tatt, "flash_attention", spy)
+    with torch.no_grad():
+        eps = unet(torch.randn(2, 32, 32, 4), torch.full((2,), 501), torch.randn(2, 7, 32))
+    assert eps.shape == (2, 32, 32, 4)
+    assert seen == [1024] * 3      # down_attn_0, up_attn_2, up_attn_3
 
 
 def test_config_defaults_match_jax():
