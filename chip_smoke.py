@@ -4,13 +4,18 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare DIR   # DIR: another checkout (e.g. the parent
+                                          # commit); times both trees in turns
 
 Phases, each printed as one JSON object per line; any failure raises and the
 script exits non-zero without its final line:
 
   1. device: the card's name and power limit; TF32 off for the comparisons.
   2. build:  the CUDA kernels from `diffusion_spacetime_attn_tpu_torch/csrc`,
-             with nvcc's register / shared-memory / spill report.
+             with nvcc's register / shared-memory / spill report and, per
+             kernel function of the built library, its count of wgmma
+             (HGMMA) and TMA / bulk-copy (UTMALDG, UBLKCP) instructions from
+             `cuobjdump -sass`; the wgmma attention kernels must have both.
   3. kernels: each forward kernel against its plain PyTorch version at every
              shape of the SD v1-4 serving path (flash: the level-0 and level-1
              self-attention sites that pass `flash_ok`), in bfloat16 at one
@@ -22,14 +27,25 @@ script exits non-zero without its final line:
              give the same bits when launched twice on the same inputs, and
              the comparison must reject planted faults (a skipped key tile,
              a 5 % wrong scale, a skipped inner tile, the flash log-sum-exp
-             off by log 2 on one query tile) at every shape.
+             off by log 2 on one query tile; for the wgmma attention loop,
+             one key tile replaced by the previous ring stage's tile) at every
+             shape.  Each attention row names its kernel design; every flash
+             site and MHA's level-0/1 sites must run the wgmma design.  In
+             bf16 each attention row (and each flash backward row) also
+             carries `device_ms`: the kernels' own time through the C entry
+             (CUDA events, no wrapper work) for each design the shape can
+             take (the wgmma kernels and the synchronous mma_sync loop, same
+             inputs).
      kernels_bwd: each backward kernel the same way at every chain shape, in
              bf16 and float32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32
              at 1), every cotangent (dK/dV included); planted faults: one
              object's blend products zeroed, the last key tile dropped from
-             dKc or dK, a skipped inner tile in dx, di zeroed on one query
-             tile of the flash backward.  The flash backward's yardstick is
-             the backward of `scaled_dot_product_attention` under autograd.
+             dKc or dK, a skipped inner tile in dx, o zeroed on one query
+             tile of the flash backward (di comes from o on the card), and for
+             its wgmma passes one key tile (dq pass) or one query tile (dK/dV
+             pass) replaced by the previous ring stage's tile.  The flash
+             backward's yardstick is the backward of
+             `scaled_dot_product_attention` under autograd.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
   5. slice:  the full-width pipeline in float32 (text encoder, controlled
@@ -62,8 +78,14 @@ script exits non-zero without its final line:
              backward) by kernel family, and the plain MHA backward that is
              left (levels 2 and mid).
  11. the `kernels` summary line (times per UNet evaluation at the engine's
-     batch; launches of the optimization run), the nvidia-smi line, and the
-     final {"ok": true, ...} line.
+     batch; launches of the optimization run; each kernel's design and, for
+     the attention kernels, launches by design), the nvidia-smi line, and
+     the final {"ok": true, ...} line.
+
+With `--compare DIR` the script runs only phases device, build, kernels,
+kernels_bwd, profile and profile_train, in four fresh processes: DIR, this
+tree, this tree, DIR (each tree builds its own kernels), and prints their
+lines tagged with turn and tree, then one `compare` summary line per turn.
 
 The weights are random (no checkpoint is loaded): N(0, 0.02²) per parameter
 from a seed, as the JAX package's bench does.
@@ -115,22 +137,31 @@ def opt_launches(kernel: str) -> int:
                                              else 51 * SITES_PER_EVAL[kernel])
 
 
+# rows the planted "stale ring stage" faults replace: one ring stage of the
+# wgmma forward at dh > 48 (128 keys, `csrc/attn_fwd.cuh` FwdWgmma::BK; two
+# 64-key stages at dh <= 48) and of the backward passes (`csrc/flash_bwd.cu`
+# DQ_TILE, DKV_TILE)
+WGMMA_FWD_TILE, WGMMA_BWD_TILE = 128, 64
+# the wgmma kernel functions of the built library (`cuobjdump -sass`)
+WGMMA_FUNCTIONS = ("flash_fwd_wgmma_kernel", "mha_fwd_wgmma_kernel",
+                   "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
 SPLASH = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
 
 KERNELS = {
     "spacetime_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_fwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:44"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:44", design="simt"),
     "spacetime_bwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_bwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152", design="simt"),
     "geglu_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_fwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126", design="mma_sync"),
     "geglu_bwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_bwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:244"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:244", design="mma_sync"),
     "mha_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/mha_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_mha.py:79"),
@@ -170,6 +201,46 @@ def cuda_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _design_device_ms(kind: str, args) -> dict:
+    """{design: ms per call} of a bf16 attention call straight through the C
+    entry (CUDA events over 20 back-to-back calls, the host ahead of the
+    card: the kernels' own time, without the wrapper's host work or PyTorch
+    ops), for each design this shape can take: the wgmma kernels and the
+    synchronous mma_sync loop they replace, on the same inputs."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_lib, cuda_mha
+
+    lib, code = cuda_lib.library(), cuda_mha.DESIGN_CODES
+    q, k, v = args[:3]
+    B, L, inner = q.shape
+    dh = inner // HEADS
+    designs = ["mma_sync"] + (["wgmma"] if cuda_mha.attention_design(q.dtype, dh) == "wgmma"
+                              else [])
+    qs = cuda_flash.scaled_query(q, k, HEADS)
+    out = torch.empty_like(q)
+    if kind == "mha":
+        entry, ptrs, rest = "dsta_mha_fwd", (q, k, v, out), (dh ** -0.5,)
+    elif kind == "flash":
+        lse = torch.empty((B * HEADS, L), dtype=torch.float32, device="cuda")
+        entry, ptrs, rest = "dsta_flash_fwd", (qs, k, v, out, lse), ()
+    else:
+        o, lse, g = args[3:]
+        rows = -(-L // cuda_flash.SCRATCH_ROWS) * cuda_flash.SCRATCH_ROWS
+        scratch = torch.empty(2 * B * HEADS * rows, dtype=torch.float32, device="cuda")
+        entry, ptrs, rest = ("dsta_flash_bwd", (qs, k, v, g, o, lse, scratch, out,
+                                                torch.empty_like(k), torch.empty_like(v)),
+                             (cuda_flash.query_scale(q, HEADS),))
+    fn = getattr(lib, entry)
+
+    def launch(design):
+        c_args = (1, code[design], *(t.data_ptr() for t in ptrs), B, L, L, HEADS, dh, *rest,
+                  cuda_lib.stream_ptr(q))
+        return lambda: cuda_lib.check(fn(*c_args), entry)
+
+    return {d: cuda_ms(launch(d), 20) for d in designs}
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -198,22 +269,62 @@ def phase_build():
     cuda_lib.library()
     keep = [ln.strip() for ln in info["ptxas"].splitlines()
             if ln.startswith("==") or "registers" in ln or "spill" in ln
-            or "Compiling entry" in ln]
+            or "Compiling entry" in ln or "arning" in ln]
+    sass = sass_counts(info["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "path": info["path"],
-          "ptxas": keep})
+          "ptxas": keep, "sass": sass})
+    for fn in WGMMA_FUNCTIONS:
+        found = {k: v for k, v in sass.items() if fn in k}
+        if not found:
+            fail(f"build: no kernel function {fn} in the library")
+        for name, c in found.items():
+            if c["HGMMA"] == 0 or c["UTMALDG"] + c["UBLKCP"] == 0:
+                fail(f"build: {name} has {c}: no wgmma or no TMA copy")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """{kernel function: counts of HGMMA, UTMALDG and UBLKCP instructions}
+    from `cuobjdump -sass` of the built library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                         check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG", "UBLKCP"):
+                if op in ln:
+                    counts[fn][op] += 1
+    return {k: v for k, v in counts.items() if sum(v.values()) or "wgmma" in k}
 
 
 def _outs(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+def _stale_tile(t, tile: int):
+    """t [B, L, ...] with rows [tile, 2·tile) replaced by rows [0, tile): what
+    a ring that served the previous stage's tile in place of the second
+    would compute on."""
+    t = t.clone()
+    t[:, tile:2 * tile] = t[:, :tile]
+    return t
+
+
 def _planted_faults(kind: str, args, kern):
     """Outputs of the kernel with a planted fault, which the comparison with
     the plain version must reject: a skipped key tile (the last 64 keys; 32
     at L = 64) or a 5 % wrong softmax scale for attention, the log-sum-exp
-    off by log 2 on the first query tile for flash, a skipped 64-wide inner
-    tile for GEGLU, and only the first 64 of the 77 context keys for the
-    spacetime blend."""
+    off by log 2 on the first query tile for flash, the second 128-key tile
+    replaced by the first (a stale ring stage) where the wgmma loop runs, a
+    skipped 64-wide inner tile for GEGLU, and only the first 64 of the 77
+    context keys for the spacetime blend."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_mha
+
     if kind in ("mha", "flash"):
         q, k, v = args
         L = k.shape[1]
@@ -226,6 +337,9 @@ def _planted_faults(kind: str, args, kern):
             lse = lse.clone()
             lse[:, :64] += math.log(2.0)
             faults["lse_off_by_log2_on_one_query_tile"] = (o, lse)
+        if cuda_mha.attention_design(q.dtype, q.shape[2] // HEADS) == "wgmma":
+            faults["stale_ring_stage_for_one_key_tile"] = kern(
+                (q, _stale_tile(k, WGMMA_FWD_TILE), _stale_tile(v, WGMMA_FWD_TILE)))
         return faults
     if kind == "geglu":
         w2 = args[3].clone()
@@ -267,6 +381,25 @@ def _inputs(kind: str, prompts: int, Lq: int, inner: int, dtype, gen):
 def _sites(kind: str):
     """The main-path sites of a kernel kind: flash takes levels 0 and 1."""
     return [s for s in SITES if not kind.startswith("flash") or s[0] in FLASH_LEVELS]
+
+
+def _design_counter(kind: str):
+    """The launches-by-design counter of an attention kernel kind, or None."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_mha
+
+    wrapper = {"mha": cuda_mha.mha_attention, "flash": cuda_flash.flash_attention,
+               "flash_bwd": cuda_flash.flash_bwd}.get(kind)
+    return None if wrapper is None else wrapper.launches_by_design
+
+
+def _design_ran(name: str, counter, before):
+    """The one design whose count moved since `before` (None without a counter)."""
+    if counter is None:
+        return None
+    ran = [d for d, n in counter.items() if n != before[d]]
+    if len(ran) != 1:
+        fail(f"{name}: one launch moved the design counts {before} -> {counter}")
+    return ran[0]
 
 
 def phase_kernels():
@@ -319,7 +452,12 @@ def phase_kernels():
                 case += 1
                 gen.manual_seed(case)
                 args = _inputs(kind, prompts, Lq, inner, dtype, gen)
+                counter = _design_counter(kind)
+                before = dict(counter or {})
                 got = _outs(kern(args))
+                design = _design_ran(name, counter, before)
+                if design == "mma_sync" and (kind == "flash" or level in FLASH_LEVELS):
+                    fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync loop")
                 again = _outs(kern(args))
                 want = _outs(plain(args))
                 torch.cuda.synchronize()
@@ -347,7 +485,8 @@ def phase_kernels():
                     qh, kh, vh = (t.view(B, L, HEADS, -1).transpose(1, 2) for t in args)
                     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
                 row = {"phase": "kernel", "name": name, "site": level, "dtype": dtype_name,
-                       "prompts": prompts, "Lq": Lq, "inner": inner, "max_abs_err": max_err,
+                       "prompts": prompts, "Lq": Lq, "inner": inner, "design": design,
+                       "max_abs_err": max_err,
                        "rel_norm": cmp["rel_norm"], "atol": cmp["atol"], "rtol": cmp["rtol"],
                        "rel_norm_limit": cmp["rel_norm_limit"], "deterministic": True,
                        "planted_faults_rejected": faults, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -356,6 +495,8 @@ def phase_kernels():
                        "fraction_of_bound": b_ms / ms}
                 if kind == "flash":
                     row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
+                if kind in ("mha", "flash") and dtype_name == "bfloat16":
+                    row["device_ms"] = _design_device_ms(kind, args)
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
                 if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):  # the serving shapes
@@ -374,20 +515,28 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
     plain version must reject: one object's blend products t zeroed, or the
     last key tile (keys 64-76) dropped from dKc, for the spacetime backward;
     a skipped 64-wide inner tile for the GEGLU dx; the last key tile dropped
-    from dK, or di zeroed on the first query tile, for the flash backward."""
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_spacetime
+    from dK, or the forward's output o (and with it di) zeroed on the first
+    query tile, for the flash backward, and where its wgmma passes run, the
+    second 64-key tile of the dq pass or the second 64-query tile of the
+    dK/dV pass replaced by the first (a stale ring stage)."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_mha, cuda_spacetime
 
     if kind == "flash":
         q, k, v, o, lse, g = args
         dq, dk, dv = cuda_flash.flash_bwd(q, k, v, o, lse, g, heads)
         cut = dk.clone()
         cut[:, -64:] = 0
-        di = cuda_flash.row_dot(o, g, heads)
-        di[:, :64] = 0
-        return {"last_key_tile_dropped_from_dk": (dq, cut, dv),
-                "di_zeroed_on_one_query_tile": cuda_flash.flash_bwd_raw(
-                    cuda_flash.scaled_query(q, k, heads), k, v, g, lse, di, heads,
-                    cuda_flash.query_scale(q, heads))}
+        o0 = o.clone()
+        o0[:, :64] = 0
+        faults = {"last_key_tile_dropped_from_dk": (dq, cut, dv),
+                  "o_zeroed_on_one_query_tile": cuda_flash.flash_bwd(q, k, v, o0, lse, g, heads)}
+        if cuda_mha.attention_design(q.dtype, q.shape[2] // heads) == "wgmma":
+            T = WGMMA_BWD_TILE
+            faults["stale_ring_stage_for_one_key_tile_dq_pass"] = cuda_flash.flash_bwd(
+                q, _stale_tile(k, T), _stale_tile(v, T), o, lse, g, heads)
+            faults["stale_ring_stage_for_one_query_tile_dkv_pass"] = cuda_flash.flash_bwd(
+                _stale_tile(q, T), k, v, o, lse, _stale_tile(g, T), heads)
+        return faults
     if kind == "geglu":
         x, w1, b1, w2, dy = args
         w2 = w2.clone()
@@ -477,7 +626,13 @@ def phase_kernels_bwd():
                     args = fwd[:4] + (cot,)
                 else:
                     args = fwd + (cot,)
-                got, again, want = kern(args), kern(args), plain(args)
+                counter = _design_counter("flash_bwd" if kind == "flash" else kind)
+                before = dict(counter or {})
+                got = kern(args)
+                design = _design_ran(name, counter, before)
+                if design == "mma_sync":
+                    fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync kernels")
+                again, want = kern(args), plain(args)
                 torch.cuda.synchronize()
                 names = names_of[kind]
                 errs = {}
@@ -512,12 +667,15 @@ def phase_kernels_bwd():
                                                                  retain_graph=True), 10)
                     del oh
                 row = {"phase": "kernel_bwd", "name": name, "site": level, "dtype": dtype_name,
-                       "prompts": prompts, "Lq": Lq, "inner": inner, "errors": errs,
+                       "prompts": prompts, "Lq": Lq, "inner": inner, "design": design,
+                       "errors": errs,
                        "max_abs_err": max_err, "deterministic": True,
                        "planted_faults_rejected_rel_norm": faults, "kernel_ms": ms,
                        "kernel_ms_with_dkv": kv_ms, "plain_ms": plain_ms,
                        "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
                        "bytes": nbytes, "library_ms": lib_ms, "fraction_of_bound": b_ms / ms}
+                if kind == "flash" and dtype_name == "bfloat16":
+                    row["device_ms"] = _design_device_ms("flash_bwd", args)
                 if kind == "spacetime" and dtype_name == "bfloat16":
                     # the chain's self-attention backward at this level: plain
                     # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
@@ -697,9 +855,9 @@ def phase_serve():
     launches = {k: 0 for k in wrappers}
     torch.cuda.reset_peak_memory_stats()
     batch_s = []
+    by_design = {}
     for prompts, sds in zip(requests, seeds):
-        for w in wrappers.values():
-            w.launches = 0
+        _reset_counts(wrappers.values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         imgs = engine.generate_batch(prompts, sds)
@@ -711,6 +869,11 @@ def phase_serve():
             launches[k] += n
             if n != LAUNCHES_PER_BATCH:
                 fail(f"{k}: {n} launches in a batch, expected {LAUNCHES_PER_BATCH}")
+        # MHA: levels 0 and 1 (10 sites) on the wgmma loop, dh 160 (6) on mma_sync
+        mha = dict(cuda_mha.mha_attention.launches_by_design)
+        if mha != {"wgmma": 10 * 51, "mma_sync": 6 * 51, "simt": 0}:
+            fail(f"serve: MHA launches by design {mha}")
+        _add_counts(by_design, {"mha_fwd": mha})
         if imgs.shape != (len(prompts), 512, 512, 3) or imgs.dtype != np.uint8:
             fail(f"engine output {imgs.shape} {imgs.dtype}")
         if float(imgs.std()) == 0.0:
@@ -732,8 +895,23 @@ def phase_serve():
           "batch_size": SERVE_PROMPTS, "steps": 50, "repeat_request_same_bytes": repeat_equal,
           "setup_s": setup_s, "s_per_batch": batch_s,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
-    return launches, sd
+          "launches": launches, "launches_by_design": by_design})
+    return launches, by_design, sd
+
+
+def _reset_counts(wrappers):
+    """Every launch count to 0, by design too."""
+    for w in wrappers:
+        w.launches = 0
+        for d in getattr(w, "launches_by_design", {}):
+            w.launches_by_design[d] = 0
+
+
+def _add_counts(total: dict, counts: dict):
+    for name, by in counts.items():
+        for d, n in by.items():
+            total.setdefault(name, {}).setdefault(d, 0)
+            total[name][d] += n
 
 
 def _wrappers():
@@ -808,8 +986,7 @@ def phase_chain():
             inputs = _spacetime_engine(sd, clip_loss, 1)._inputs(["a cat and a dog near a tree"],
                                                                  [21])
         coef = init_coef(inputs.active, SLICE_STEPS, cfg.spacetime.init_coef).requires_grad_()
-        for w in wrappers.values():
-            w.launches = 0
+        _reset_counts(wrappers.values())
         t0 = time.perf_counter()
         loss, images = generation_loss(coef, sd, clip_loss, inputs, cfg.spacetime)
         loss.backward()
@@ -874,11 +1051,10 @@ def phase_optimize():
     requests = [["a cat and a dog near a tree and a car", "a dog left of a car"],
                 ["a cat and a dog near a tree and a car"]]
     seeds = [[11, 12], [11]]
-    images, launches, batch_s = [], {k: 0 for k in wrappers}, []
+    images, launches, batch_s, by_design = [], {k: 0 for k in wrappers}, [], {}
     torch.cuda.reset_peak_memory_stats()
     for prompts, sds in zip(requests, seeds):
-        for w in wrappers.values():
-            w.launches = 0
+        _reset_counts(wrappers.values())
         marks = []
 
         def on_epoch(e, imgs):
@@ -896,6 +1072,13 @@ def phase_optimize():
             want = opt_launches(k)
             if n != want:
                 fail(f"optimize {k}: {n} launches in a batch, expected {want}")
+        # flash (levels 0 and 1) on the wgmma kernels; MHA (dh 160) on mma_sync
+        designs = {k: dict(wrappers[k].launches_by_design)
+                   for k in ("flash_fwd", "flash_bwd", "mha_fwd")}
+        for k, d in (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync")):
+            if designs[k][d] != counts[k]:
+                fail(f"optimize {k}: launches by design {designs[k]}, all expected on {d}")
+        _add_counts(by_design, designs)
         if not bool(torch.isfinite(losses).all()) or not bool(torch.isfinite(imgs).all()):
             fail(f"optimize: losses {losses.tolist()} or images not finite")
         active = torch.zeros(SERVE_PROMPTS, OBJECTS, device=coef.device)
@@ -922,6 +1105,7 @@ def phase_optimize():
         emit({"phase": "optimize_batch", "prompts": len(prompts),
               "pad_rows": SERVE_PROMPTS - len(prompts), "seconds": batch_s[-1],
               "s_per_epoch": epoch_s, "losses": losses.tolist(), "launches": counts,
+              "launches_by_design": designs,
               **stats, "coef_range": [float(coef.min()), float(coef.max())],
               "image_mean": float(u8.mean()), "image_std": float(u8.std())})
     repeat_equal = bool(np.array_equal(images[0][0], images[1][0]))
@@ -933,8 +1117,8 @@ def phase_optimize():
           "batch_size": SERVE_PROMPTS, "steps": 50, "epochs": sd.cfg.spacetime.epochs,
           "repeat_request_same_bytes": repeat_equal, "setup_s": setup_s,
           "s_per_batch": batch_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
-    return launches, engine
+          "launches": launches, "launches_by_design": by_design})
+    return launches, by_design, engine
 
 
 def phase_profile_train(sd):
@@ -1055,7 +1239,73 @@ def phase_profile(sd):
           "device_idle_share": (1.0 - busy / (1e3 * unet_s)) if groups else None})
 
 
+# one turn of `--compare`: phases that both trees have, in a fresh process
+COMPARE_TURN = """
+import json, sys
+sys.path.insert(0, '.')
+import torch
+import chip_smoke as c
+from diffusion_spacetime_attn_tpu_torch.config import PipelineConfig, UNetConfig, VAEConfig
+from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+
+def bundle(**flags):
+    cfg = PipelineConfig(unet=UNetConfig(dtype='bfloat16', use_mha=True, use_fused_ff=True,
+                                         use_fused_control=True, **flags),
+                         vae=VAEConfig(dtype='bfloat16'))
+    return StableDiffusion.create(cfg, seed=0, device='cuda')
+
+c.phase_device()
+c.phase_build()
+agg = c.phase_kernels()
+agg.update(c.phase_kernels_bwd())
+print(json.dumps({'phase': 'agg', 'agg': agg}), flush=True)
+sd = bundle()
+c.phase_profile(sd)
+del sd
+torch.cuda.empty_cache()
+c.phase_profile_train(bundle(use_flash=True))
+"""
+
+
+def compare_trees(other: str) -> int:
+    """Phases device, build, kernels, kernels_bwd, profile and profile_train
+    of `other` and of this tree in turns (other, this, this, other), each in
+    a fresh process; prints every line of each turn tagged with the turn and
+    the tree, then a summary per turn."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    summary = []
+    for turn, tree in enumerate([other, here, here, other], 1):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", COMPARE_TURN], cwd=tree,
+                             capture_output=True, text=True)
+        lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
+        for ln in lines:
+            emit({"turn": turn, "tree": tree, **ln})
+        if run.returncode != 0:
+            print(run.stdout[-3000:], run.stderr[-3000:], flush=True)
+            fail(f"compare turn {turn} ({tree}) exited with {run.returncode}")
+        by = {ln["phase"]: ln for ln in lines if ln["phase"] in ("agg", "profile",
+                                                                  "profile_train")}
+        sites = {f"{ln['name']} {ln['site']}": ln["kernel_ms"] for ln in lines
+                 if ln["phase"] in ("kernel", "kernel_bwd") and ln["dtype"] == "bfloat16"
+                 and ln["prompts"] == SERVE_PROMPTS and ln["name"].startswith(("flash", "mha"))}
+        summary.append({"phase": "compare", "turn": turn, "tree": tree,
+                        "seconds": time.perf_counter() - t0,
+                        "per_unet_eval_ms": {k: v["ms"] for k, v in by["agg"]["agg"].items()},
+                        "site_ms": sites,
+                        "serve_eval_busy_ms": by["profile"]["device_busy_ms"],
+                        "serve_eval_family_ms": by["profile"]["device_ms_by_family"],
+                        "train_eval_s": by["profile_train"]["train_eval_s"],
+                        "train_eval_busy_ms": by["profile_train"]["device_busy_ms"],
+                        "train_eval_family_ms": by["profile_train"]["device_ms_by_family"]})
+    for row in summary:
+        emit(row)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        return compare_trees(os.path.abspath(sys.argv[2]))
     name, smi = phase_device()
     phase_build()
     agg = phase_kernels()
@@ -1063,31 +1313,39 @@ def main() -> int:
     phase_unet()
     phase_slice()
     phase_chain()
-    serve_launches, sd = phase_serve()
+    serve_launches, serve_designs, sd = phase_serve()
     phase_profile(sd)
     del sd
     import torch
 
     torch.cuda.empty_cache()
-    launches, engine = phase_optimize()
+    launches, opt_designs, engine = phase_optimize()
     phase_profile_train(engine.sd)
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels never launched on the optimization path: {missing}")
+    by_design = {}
+    for counts in (serve_designs, opt_designs):
+        _add_counts(by_design, counts)
 
     rows = []
     for kname, meta in KERNELS.items():
         a = agg[kname]
-        rows.append({"name": kname, **meta, "launches": launches[kname],
-                     "serve_launches": serve_launches.get(kname, 0),
-                     "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
-                     "bound_ms": a["bound_ms"],
-                     "bound_by": "operations" if a["flops_ms"] >= a["bytes_ms"] else "bytes",
-                     "library_ms": a["library_ms"]})
+        row = {"name": kname, **meta, "launches": launches[kname],
+               "serve_launches": serve_launches.get(kname, 0),
+               "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+               "bound_ms": a["bound_ms"],
+               "bound_by": "operations" if a["flops_ms"] >= a["bytes_ms"] else "bytes",
+               "library_ms": a["library_ms"]}
+        if kname in by_design:   # the designs the serving and optimization runs took
+            row["design"] = "+".join(d for d, n in sorted(by_design[kname].items()) if n)
+            row["launches_by_design"] = by_design[kname]
+        rows.append(row)
     # times: per UNet evaluation at the engine's batch of 2 prompts (each
     # kernel's sites: 16, flash 10 at levels 0 and 1, MHA timed at all 16;
     # bfloat16; the spacetime backward without dK/dV); launches: the
-    # optimization run (2 batches), serve_launches: the serving run
+    # optimization run (2 batches), serve_launches: the serving run;
+    # launches_by_design: both runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,25 +1,47 @@
 // Self-attention forward loops shared by `mha_fwd.cu` and `flash_fwd.cu`.
 //
-// o = softmax(q·Kᵀ·scale)·V per (batch, head, 64-query tile), with a running
-// max and sum over 64-key tiles (flash-attention style), so no score leaves
+// o = softmax(q·Kᵀ·scale)·V per (batch, head, query tile), with a running
+// max and sum over key tiles (flash-attention style), so no score leaves
 // the chip.  Layouts: q [B, Lq, H*dh], k/v [B, Lk, H*dh], out like q.  When
 // `lse` is not null, the row log-sum-exp of the scaled scores is written to
-// lse [B*H, Lq] in f32 (the residual of the flash backward).
+// lse [B*H, Lq] in f32 (the residual of the flash backward).  The running
+// max and sum are kept in log2 units (2^x on the exp unit).  Three designs,
+// chosen by the Python wrappers from the shape before launch:
 //
-// float32 runs on the CUDA cores (`attn_fwd_simt`): each of 256 threads owns
-// a 4x4 block of the 64x64 score tile and 4 rows x ceil(dh/16) columns of the
-// output accumulator; p is rounded to T before the PV product.
+// wgmma (bf16; head widths 40, 64, 80, 128; 16-byte aligned tensors):
+//   `attn_fwd_wgmma`.  A block owns 128 queries: two consumer warpgroups of
+//   64 rows and one producer warpgroup.  The producer loads the Q tile once
+//   and keeps K and V tiles (64 keys at dh <= 48, 128 above) in flight
+//   through a ring of 2 stages in shared memory (TMA, full/empty mbarriers;
+//   layout in `hopper.cuh`).  Each
+//   consumer computes S = Q·Kᵀ with wgmma from shared memory, the online
+//   softmax in registers, and O += P·V with P as bf16 in registers (the
+//   register A operand) and V as an MN-major B operand, each product a
+//   wgmma stage of its own (fence, issue, wait), which ptxas keeps
+//   asynchronous.  The two consumers take turns issuing S (named barriers 1
+//   and 2), so that one's exponentials run while the other's products do:
+//   at dh = 40 the softmax needs more time on the exp units than the
+//   products need on the tensor cores.  setmaxnreg gives the producer's
+//   registers to the consumers; at dh <= 48 two blocks share an SM
+//   (`FwdWgmma`).  dh = 160 (MHA at SD level 2 and mid) is not built: its Q
+//   tile and two 128-key K/V stages (48 + 2 x 96 KB) exceed a block's 227 KB
+//   of shared memory.
 //
-// bf16 runs on the tensor cores (`attn_fwd_mma`): mma.sync m16n8k16 with f32
-// accumulation, 4 warps of 16 queries each.  The head width is padded with
-// zeros to a multiple of 16 in shared memory (the depth of one product), so
-// dh = 40 costs the QKᵀ work of 48.  The scores stay in the accumulator
-// registers, where their layout is that of the PV product's A operand, so p
-// goes to bf16 in registers; V's B operand is read with ldmatrix.trans.  The
-// running max and sum are kept in log2 units (exp2f).
+// mma_sync (bf16, every other shape): `attn_fwd_mma`: mma.sync m16n8k16
+//   with f32 accumulation, 4 warps of 16 queries, synchronous 64-key tiles.
+//   The head width is padded with zeros to a multiple of 16 in shared
+//   memory (the depth of one product), so dh = 40 costs the QKᵀ work of 48.
+//   The scores stay in the accumulator registers, where their layout is that
+//   of the PV product's A operand, so p goes to bf16 in registers; V's B
+//   operand is read with ldmatrix.trans.
+//
+// simt (float32): `attn_fwd_simt` on the CUDA cores: each of 256 threads
+//   owns a 4x4 block of the 64x64 score tile and 4 rows x ceil(dh/16)
+//   columns of the output accumulator; p is rounded to T before the PV
+//   product.
 #pragma once
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace dsta {
 
@@ -290,6 +312,192 @@ __device__ __forceinline__ void attn_fwd_mma(const bf16* __restrict__ q, const b
     if (lse != nullptr && t == 0)
       lse[((size_t)b * H + h) * Lq + r] = 0.6931471805599453f * (m_i[i] + log2f(l_i[i]));
   }
+}
+
+// ---- wgmma fed by a TMA ring (bf16, sm_90a) ----
+
+constexpr int WG_BQ = 128;       // queries per block: two consumer warpgroups of 64
+constexpr int WG_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int WG_STAGES = 2;     // ring stages (4 measured no faster on the H100)
+
+// Per head width.  dh <= 48 (SD level 0) streams 64-key stages and runs two
+// blocks on an SM, so four consumer warpgroups interleave their products
+// and exponentials; setmaxnreg moves registers only within a block's launch
+// quota (384 x 80 at two blocks), so a consumer gets 104 (256 x 104 + 128 x
+// 24 <= 384 x 80).  At dh = 64 those 104 spill; wider heads stream 128-key
+// stages, one block per SM, 240 registers a consumer (384 x 168).
+template <int DH> struct FwdWgmma {
+  static constexpr int NB = (DH + 63) / 64;         // 64-column boxes per row
+  static constexpr int KS = (DH + 15) / 16;         // k-steps of S = Q·Kᵀ
+  static constexpr bool PAIR = DH <= 48;            // two blocks per SM
+  static constexpr int BK = PAIR ? 64 : 128;        // keys per ring stage
+  static constexpr int BLOCKS = PAIR ? 2 : 1;
+  static constexpr int CONSUMER_REGS = PAIR ? 104 : 240;
+  static constexpr int Q_BYTES = WG_BQ * 128 * NB;
+  static constexpr int KV_BYTES = BK * 128 * NB;    // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + WG_STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 64 + 1024;  // barriers, alignment slack
+};
+
+template <int DH>
+__device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                                               const CUtensorMap& tv, bf16* __restrict__ out,
+                                               float* __restrict__ lse, int Lq, int Lk, int H,
+                                               float scale_log2) {
+  using C = FwdWgmma<DH>;
+  constexpr int NB = C::NB, BK = C::BK, KT = BK / 16, NS = BK / 2, ND = DH / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const base = hop::align1024(smem_raw);
+  unsigned char* const qs = base;                 // [NB][WG_BQ rows][128 B]
+  unsigned char* const ring = base + C::Q_BYTES;  // stage s: K at s·2·KV, V after it
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* const empty = full + WG_STAGES;
+  uint64_t* const qfull = empty + WG_STAGES;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WG_BQ;
+  const int nk = (Lk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 256);  // every consumer thread releases the stage
+    }
+    hop::mbar_init(qfull, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every copy
+    hop::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hop::mbar_expect_tx(qfull, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) hop::tma_load_4d(qs + c * WG_BQ * 128, &tq, qfull, 64 * c, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % WG_STAGES;
+        if (j >= WG_STAGES) hop::mbar_wait(&empty[s], (j / WG_STAGES - 1) & 1);
+        unsigned char* const kt = ring + s * 2 * C::KV_BYTES;
+        hop::mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_4d(kt + c * BK * 128, &tk, &full[s], 64 * c, h, j * BK, b);
+          hop::tma_load_4d(kt + C::KV_BYTES + c * BK * 128, &tv, &full[s], 64 * c, h, j * BK,
+                           b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns queries q0 + 64 wg + [0, 64)
+    hop::reg_alloc<C::CONSUMER_REGS>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, t = lane % 4;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+    const unsigned char* const qw = qs + wg * 64 * 128;
+    const int me = 1 + wg, other = 2 - wg;  // named barriers: "warpgroup wg may issue"
+    float s[NS], o[ND];
+    uint32_t p[KT][4] = {};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) o[i] = 0.f;
+    float m_i[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_i[2] = {0.f, 0.f};
+    if (wg == 1) hop::named_arrive(1, 256);  // warpgroup 0 issues first
+    hop::mbar_wait(qfull, 0);
+
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % WG_STAGES;
+      const unsigned char* const kt = ring + st * 2 * C::KV_BYTES;
+      hop::mbar_wait(&full[st], (j / WG_STAGES) & 1);
+      // S = Q·Kᵀ, issued in this warpgroup's turn; the other warpgroup's
+      // turn starts as soon as it is issued
+      hop::named_sync(me, 256);
+      hop::fence_regs(s);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks)
+        hop::Wgmma<BK>::ss(s, hop::desc_kmajor(qw, WG_BQ, ks), hop::desc_kmajor(kt, BK, ks),
+                              ks > 0);
+      hop::wgmma_commit();
+      if (!(wg == 1 && j == nk - 1)) hop::named_arrive(other, 256);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(s);
+
+      // online softmax of tile j; element i: row row0 + 8·((i >> 1) & 1),
+      // key 8·(i / 4) + 2t + (i & 1) of the tile.  The row max is taken on
+      // the unscaled scores (scale > 0).
+      const int k0 = j * BK;
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      if (k0 + BK > Lk) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= Lk) s[i] = -CUDART_INF_F;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float alpha[2], ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);  // finite: every tile holds a key
+        alpha[r] = hop::exp2_ftz(m_i[r] - m_new);
+        m_i[r] = m_new;
+        ms[r] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        s[i] = hop::exp2_ftz(fmaf(s[i], scale_log2, ms[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l_i[r] = l_i[r] * alpha[r] + rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i) o[i] *= alpha[(i >> 1) & 1];
+      hop::acc_to_a(p, s);
+
+      // O += P·V; then the stage goes back to the producer
+      const unsigned char* const vt = kt + C::KV_BYTES;
+      hop::fence_regs(o);
+      hop::fence_regs(p);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(o, p[kk], hop::desc_mnmajor(vt, BK, kk));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+      hop::fence_regs(p);
+      hop::mbar_arrive(&empty[st]);
+    }
+
+    const size_t inner = (size_t)H * DH;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Lq) continue;
+      const float inv = 1.f / l_i[r];
+      bf16* const ob = out + ((size_t)blockIdx.z * Lq + row) * inner + (size_t)h * DH + 2 * t;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<uint32_t*>(ob + 8 * c) =
+            pack_bf16(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+      // m and l are in log2 units: ln Σ exp(s) = ln 2 · (m + log2 l)
+      if (lse != nullptr && t == 0)
+        lse[((size_t)b * H + h) * Lq + row] = 0.6931471805599453f * (m_i[r] + log2f(l_i[r]));
+    }
+  }
+}
+
+// The q, k and v maps of one launch of `attn_fwd_wgmma<DH>`.
+template <int DH>
+inline cudaError_t attn_fwd_maps(CUtensorMap (&m)[3], const void* q, const void* k, const void* v,
+                                 int B, int Lq, int Lk, int H) {
+  cudaError_t err = hop::head_map(&m[0], q, B, Lq, H, DH, WG_BQ);
+  if (err == cudaSuccess) err = hop::head_map(&m[1], k, B, Lk, H, DH, FwdWgmma<DH>::BK);
+  if (err == cudaSuccess) err = hop::head_map(&m[2], v, B, Lk, H, DH, FwdWgmma<DH>::BK);
+  return err;
 }
 
 }  // namespace dsta

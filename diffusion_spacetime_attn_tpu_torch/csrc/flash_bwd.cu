@@ -7,10 +7,10 @@
 // which the JAX package differentiates through at the self-attention sites
 // that pass `flash_ok` (`ops/attention.py:194-214,238-239`).  With q already
 // scaled by dh^-½ (as in the forward, `flash_fwd.cu`), ḡ the output
-// cotangent, lse the forward's row log-sum-exp and di = rowsum(o ⊙ ḡ) (f32,
-// computed by the caller from the forward's output, as splash's
-// `_splash_attention_bwd` does outside its kernels):
+// cotangent, o the forward's output and lse its row log-sum-exp:
 //
+//   di = Σ_d o ⊙ ḡ              f32 per query row (splash computes it outside
+//                               its kernels; here the first pass does)
 //   p  = exp(q·Kᵀ − lse)        recomputed in f32 per tile
 //   dp = ḡ·Vᵀ                   f32
 //   ds = p ⊙ (dp − di)          rounded to K's dtype before both products
@@ -27,22 +27,36 @@
 // Two passes and no atomics.  The TPU kernels accumulated dq, and dK/dV, in
 // VMEM across a sequential grid; on the H100 blocks run in no order, and
 // atomics would change the bits from run to run.  So:
-//   flash_bwd_dq_*:  one block per (b, head, 64-query tile) walks the key
-//                    tiles in order and keeps its dq rows in registers
-//                    (products q·Kᵀ, ḡ·Vᵀ, ds·K);
-//   flash_bwd_dkv_*: one block per (b, head, 64-key tile) walks the query
-//                    tiles in order and keeps its dK/dV rows in registers
-//                    (products K·qᵀ, V·ḡᵀ, pᵀ·ḡ, dsᵀ·q).
+//   dq pass:   one block per (b, head, query tile) walks the key tiles in
+//              order and keeps its dq rows in registers (products q·Kᵀ,
+//              ḡ·Vᵀ, ds·K);
+//   dK/dV pass: one block per (b, head, key tile) walks the query tiles in
+//              order and keeps its dK/dV rows in registers (products K·qᵀ,
+//              V·ḡᵀ, pᵀ·ḡ, dsᵀ·q).
 // Both recompute p and dp, so the two passes run 7 products where the
-// bound counts 5.
+// bound counts 5.  The dK/dV pass runs after the dq pass on the same stream.
 //
-// bf16 runs on the tensor cores: mma.sync m16n8k16 with f32 accumulation, 4
-// warps of 16 rows, dh zero-padded to a multiple of 16, 16 columns of p / ds
-// at a time turned from accumulators into the next product's A operand in
-// registers; the NN products read their B operand with ldmatrix.trans.
-// float32 runs on the CUDA cores, 256 threads each owning a 4x4 block of the
-// 64x64 tile, p / ds staged in shared memory.
-#include "common.cuh"
+// The caller picks a design by `design`:
+// 1, wgmma (bf16 at head widths 40, 64, 80, 128; 16-byte aligned tensors),
+//   in the shape of the forward (`attn_fwd.cuh`): 384 threads, two consumer
+//   warpgroups and a producer warpgroup that feeds a ring of 2 stages by TMA
+//   (full/empty mbarriers; tile layout in `hopper.cuh`).  dq pass: each
+//   consumer owns 64 query rows, Q and ḡ loaded once, 64-key K/V tiles
+//   streamed; it computes di from o and ḡ for its rows and writes di and
+//   lse·log2(e) to a scratch [2, B·H, Lpad] f32 (Lpad = Lq rounded up to
+//   64).  dK/dV pass: each consumer owns 64 keys, K and V loaded once,
+//   64-query q/ḡ tiles streamed with their lse/di slices from the scratch
+//   (1-D bulk copies).  S and dP are wgmma products of shared-memory
+//   operands; ds·K, pᵀ·ḡ and dsᵀ·q take the previous accumulator as the
+//   register A operand and an MN-major B tile.
+// 0, the synchronous designs: di by `flash_bwd_di_kernel` into the scratch
+//   ([B·H, Lq]), then bf16 on the tensor cores with mma.sync m16n8k16 (4
+//   warps of 16 rows, dh zero-padded to a multiple of 16, 16 columns of p /
+//   ds at a time turned from accumulators into the next product's A operand
+//   in registers; the NN products read their B operand with
+//   ldmatrix.trans), or float32 on the CUDA cores (256 threads each owning a
+//   4x4 block of the 64x64 tile, p / ds staged in shared memory).
+#include "hopper.cuh"
 
 namespace {
 
@@ -538,35 +552,430 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* 
   }
 }
 
+// ---- di for the synchronous designs ----
+
+// di[(b·H + h)·Lq + r] = Σ_d o·ḡ in f32: one warp per (b, row, head).
+template <typename T>
+__global__ void flash_bwd_di_kernel(const T* __restrict__ o, const T* __restrict__ g,
+                                    float* __restrict__ di, int B, int Lq, int H, int dh) {
+  const size_t w = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (size_t)B * Lq * H) return;
+  const T* op = o + w * dh;  // [B, Lq, H, dh]: (b, r, h) is row w
+  const T* gp = g + w * dh;
+  float acc = 0.f;
+  for (int d = lane; d < dh; d += 32) acc = fmaf(dsta::to_f32(op[d]), dsta::to_f32(gp[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const int h = (int)(w % H), r = (int)((w / H) % Lq), b = (int)(w / ((size_t)H * Lq));
+  if (lane == 0) di[((size_t)b * H + h) * Lq + r] = acc;
+}
+
+template <typename T>
+cudaError_t launch_di(const T* o, const T* g, float* di, int B, int Lq, int H, int dh,
+                      cudaStream_t s) {
+  const size_t warps = (size_t)B * Lq * H;
+  flash_bwd_di_kernel<T><<<(unsigned)((warps + 7) / 8), 256, 0, s>>>(o, g, di, B, Lq, H, dh);
+  return cudaGetLastError();
+}
+
+// ---- bfloat16, wgmma fed by a TMA ring (sm_90a) ----
+namespace hop = dsta::hop;
+
+constexpr int WG_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int WG_ROWS = 128;     // rows a block owns: queries (dq pass) or keys (dK/dV pass)
+constexpr int DQ_TILE = 64;      // keys per ring stage of the dq pass
+constexpr int DKV_TILE = 64;     // queries per ring stage of the dK/dV pass
+constexpr int WG_STAGES = 2;     // ring stages (4 measured no faster on the H100)
+constexpr int WG_LPAD = 64;      // the scratch's rows are padded to a multiple of this
+                                 // (the wrapper allocates it: cuda_flash.SCRATCH_ROWS)
+
+template <int DH, int TILE> struct BwdWgmma {
+  static constexpr int NB = (DH + 63) / 64;
+  static constexpr int KS = (DH + 15) / 16;
+  static constexpr int OWN_BYTES = WG_ROWS * 128 * NB;  // one of the two tiles a block owns
+  static constexpr int TILE_BYTES = TILE * 128 * NB;     // one of the two streamed tiles
+  // a stage: the two streamed tiles, then (dK/dV pass) lse·log2(e) and di of
+  // the tile's queries
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 1024;
+  static constexpr int BAR_OFF = 2 * OWN_BYTES + WG_STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 64 + WG_ROWS * 4 + 1024;  // barriers, di, slack
+};
+
+// The ring of both passes: full / empty barriers per stage, one for the owned tiles.
+struct Ring {
+  uint64_t *full, *empty, *own;
+};
+
+__device__ __forceinline__ Ring ring_init(unsigned char* bars) {
+  Ring r{reinterpret_cast<uint64_t*>(bars), reinterpret_cast<uint64_t*>(bars) + WG_STAGES,
+         reinterpret_cast<uint64_t*>(bars) + 2 * WG_STAGES};
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hop::mbar_init(&r.full[s], 1);
+      hop::mbar_init(&r.empty[s], 256);  // every consumer thread releases the stage
+    }
+    hop::mbar_init(r.own, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                          const bf16* __restrict__ o, const bf16* __restrict__ g,
+                          const float* __restrict__ lse, float* __restrict__ scratch,
+                          bf16* __restrict__ dq, int Lq, int Lk, int H, int Lpad, float scale) {
+  using C = BwdWgmma<DH, DQ_TILE>;
+  constexpr int NB = C::NB, NS = DQ_TILE / 2, ND = DH / 2, KT = DQ_TILE / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const base = hop::align1024(smem_raw);
+  unsigned char* const qs = base;                  // [NB][128 rows][128 B]
+  unsigned char* const gs = base + C::OWN_BYTES;
+  unsigned char* const ring = base + 2 * C::OWN_BYTES;  // stage s: K, then V
+  float* const dis = reinterpret_cast<float*>(base + C::BAR_OFF + 64);  // [128] di of the rows
+  const Ring r = ring_init(base + C::BAR_OFF);
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WG_ROWS;
+  const int nk = (Lk + DQ_TILE - 1) / DQ_TILE;
+  const int wg = threadIdx.x / 128;
+  const size_t bh = (size_t)b * H + h, BH = (size_t)gridDim.z * H;
+
+  if (wg == 2) {  // producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hop::mbar_expect_tx(r.own, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        hop::tma_load_4d(qs + c * WG_ROWS * 128, &tq, r.own, 64 * c, h, q0, b);
+        hop::tma_load_4d(gs + c * WG_ROWS * 128, &tg, r.own, 64 * c, h, q0, b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % WG_STAGES;
+        if (j >= WG_STAGES) hop::mbar_wait(&r.empty[s], (j / WG_STAGES - 1) & 1);
+        unsigned char* const kt = ring + s * C::STAGE_BYTES;
+        hop::mbar_expect_tx(&r.full[s], 2 * C::TILE_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_4d(kt + c * DQ_TILE * 128, &tk, &r.full[s], 64 * c, h, j * DQ_TILE, b);
+          hop::tma_load_4d(kt + C::TILE_BYTES + c * DQ_TILE * 128, &tv, &r.full[s], 64 * c, h,
+                           j * DQ_TILE, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns queries q0 + 64 wg + [0, 64)
+    hop::reg_alloc<240>();
+    const size_t inner = (size_t)H * DH;
+    {  // di = Σ_d o·ḡ of the block's 128 rows: two threads per row
+      const int row = q0 + threadIdx.x / 2, half = threadIdx.x % 2;
+      float acc = 0.f;
+      if (row < Lq) {
+        const size_t off = ((size_t)b * Lq + row) * inner + (size_t)h * DH + half * (DH / 2);
+#pragma unroll
+        for (int d = 0; d < DH / 2; d += 2) {
+          const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off + d));
+          const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g + off + d));
+          acc = fmaf(of.x, gf.x, acc);
+          acc = fmaf(of.y, gf.y, acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        dis[threadIdx.x / 2] = acc;
+        if (row < Lpad) {
+          scratch[bh * Lpad + row] = row < Lq ? lse[bh * Lq + row] * LOG2E : 0.f;
+          scratch[(BH + bh) * Lpad + row] = acc;
+        }
+      }
+      hop::named_sync(1, 256);
+    }
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, t = lane % 4;
+    const int lr = wg * 64 + warp * 16 + lane / 4;  // block rows lr, lr + 8
+    const unsigned char* const qw = qs + wg * 64 * 128;
+    const unsigned char* const gw = gs + wg * 64 * 128;
+    float lse2[2], di_r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + lr + 8 * i;
+      lse2[i] = row < Lq ? lse[bh * Lq + row] * LOG2E : 0.f;
+      di_r[i] = dis[lr + 8 * i];
+    }
+    float sc[NS], dp[NS], acc[ND];
+    uint32_t da[KT][4] = {};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    hop::mbar_wait(r.own, 0);
+
+    for (int j = 0; j < nk; ++j) {
+      const int st = j % WG_STAGES;
+      const unsigned char* const kt = ring + st * C::STAGE_BYTES;
+      const unsigned char* const vt = kt + C::TILE_BYTES;
+      hop::mbar_wait(&r.full[st], (j / WG_STAGES) & 1);
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks)
+        hop::Wgmma<DQ_TILE>::ss(sc, hop::desc_kmajor(qw, WG_ROWS, ks),
+                                hop::desc_kmajor(kt, DQ_TILE, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks)
+        hop::Wgmma<DQ_TILE>::ss(dp, hop::desc_kmajor(gw, WG_ROWS, ks),
+                                hop::desc_kmajor(vt, DQ_TILE, ks), ks > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+      // element i: row lr + 8·((i >> 1) & 1), key 8·(i / 4) + 2t + (i & 1) of the tile
+      const int k0 = j * DQ_TILE;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int rr = (i >> 1) & 1;
+        const bool ok = k0 + 8 * (i / 4) + 2 * t + (i & 1) < Lk;
+        const float pe = ok ? hop::exp2_ftz(fmaf(sc[i], LOG2E, -lse2[rr])) : 0.f;
+        sc[i] = pe * (dp[i] - di_r[rr]);  // ds
+      }
+      hop::acc_to_a(da, sc);
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(acc, da[kk], hop::desc_mnmajor(kt, DQ_TILE, kk));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      hop::mbar_arrive(&r.empty[st]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + lr + 8 * i;
+      if (row >= Lq) continue;
+      bf16* const out = dq + ((size_t)b * Lq + row) * inner + (size_t)h * DH + 2 * t;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c)
+        *reinterpret_cast<uint32_t*>(out + 8 * c) =
+            pack_bf16(dsta::round_to<bf16>(acc[4 * c + 2 * i]) * scale,
+                      dsta::round_to<bf16>(acc[4 * c + 2 * i + 1]) * scale);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                           const float* __restrict__ scratch, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, int Lq, int Lk, int H, int Lpad) {
+  using C = BwdWgmma<DH, DKV_TILE>;
+  constexpr int NB = C::NB, NS = DKV_TILE / 2, ND = DH / 2, KT = DKV_TILE / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const base = hop::align1024(smem_raw);
+  unsigned char* const ks = base;                  // [NB][128 keys][128 B]
+  unsigned char* const vs = base + C::OWN_BYTES;
+  unsigned char* const ring = base + 2 * C::OWN_BYTES;  // stage s: q, ḡ, lse·log2(e), di
+  const Ring r = ring_init(base + C::BAR_OFF);
+
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * WG_ROWS;
+  const int nq = (Lq + DKV_TILE - 1) / DKV_TILE;
+  const int wg = threadIdx.x / 128;
+  const size_t bh = (size_t)b * H + h, BH = (size_t)gridDim.z * H;
+
+  if (wg == 2) {  // producer
+    hop::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hop::mbar_expect_tx(r.own, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        hop::tma_load_4d(ks + c * WG_ROWS * 128, &tk, r.own, 64 * c, h, k0, b);
+        hop::tma_load_4d(vs + c * WG_ROWS * 128, &tv, r.own, 64 * c, h, k0, b);
+      }
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % WG_STAGES;
+        if (i >= WG_STAGES) hop::mbar_wait(&r.empty[s], (i / WG_STAGES - 1) & 1);
+        unsigned char* const qt = ring + s * C::STAGE_BYTES;
+        hop::mbar_expect_tx(&r.full[s], 2 * C::TILE_BYTES + 2 * DKV_TILE * 4);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_4d(qt + c * DKV_TILE * 128, &tq, &r.full[s], 64 * c, h, i * DKV_TILE, b);
+          hop::tma_load_4d(qt + C::TILE_BYTES + c * DKV_TILE * 128, &tg, &r.full[s], 64 * c, h,
+                           i * DKV_TILE, b);
+        }
+        unsigned char* const sl = qt + 2 * C::TILE_BYTES;
+        hop::bulk_load(sl, scratch + bh * Lpad + i * DKV_TILE, DKV_TILE * 4, &r.full[s]);
+        hop::bulk_load(sl + 512, scratch + (BH + bh) * Lpad + i * DKV_TILE, DKV_TILE * 4, &r.full[s]);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg + [0, 64)
+    hop::reg_alloc<240>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, t = lane % 4;
+    const int lr = wg * 64 + warp * 16 + lane / 4;  // block rows (keys) lr, lr + 8
+    const unsigned char* const kw = ks + wg * 64 * 128;
+    const unsigned char* const vw = vs + wg * 64 * 128;
+    float sc[NS], dp[NS], acc_k[ND], acc_v[ND];
+    uint32_t pa[KT][4] = {}, da[KT][4] = {};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc_k[i] = acc_v[i] = 0.f;
+    hop::mbar_wait(r.own, 0);
+
+    for (int i = 0; i < nq; ++i) {
+      const int st = i % WG_STAGES;
+      const unsigned char* const qt = ring + st * C::STAGE_BYTES;
+      const unsigned char* const gt = qt + C::TILE_BYTES;
+      const float* const ls = reinterpret_cast<const float*>(qt + 2 * C::TILE_BYTES);
+      const float* const dis = ls + 128;
+      hop::mbar_wait(&r.full[st], (i / WG_STAGES) & 1);
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < C::KS; ++s)
+        hop::Wgmma<DKV_TILE>::ss(sc, hop::desc_kmajor(kw, WG_ROWS, s),
+                                hop::desc_kmajor(qt, DKV_TILE, s), s > 0);
+#pragma unroll
+      for (int s = 0; s < C::KS; ++s)
+        hop::Wgmma<DKV_TILE>::ss(dp, hop::desc_kmajor(vw, WG_ROWS, s),
+                                hop::desc_kmajor(gt, DKV_TILE, s), s > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(dp);
+      // element e: key lr + 8·((e >> 1) & 1), query c = 8·(e / 4) + 2t + (e & 1) of the tile
+      const int q0 = i * DKV_TILE;
+#pragma unroll
+      for (int e = 0; e < NS; ++e) {
+        const int c = 8 * (e / 4) + 2 * t + (e & 1);
+        const float pe = q0 + c < Lq ? hop::exp2_ftz(fmaf(sc[e], LOG2E, -ls[c])) : 0.f;
+        sc[e] = pe;
+        dp[e] = pe * (dp[e] - dis[c]);  // ds
+      }
+      hop::acc_to_a(pa, sc);
+      hop::acc_to_a(da, dp);
+      hop::fence_regs(acc_k);
+      hop::fence_regs(acc_v);
+      hop::fence_regs(pa);
+      hop::fence_regs(da);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(acc_v, pa[kk], hop::desc_mnmajor(gt, DKV_TILE, kk));
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(acc_k, da[kk], hop::desc_mnmajor(qt, DKV_TILE, kk));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc_k);
+      hop::fence_regs(acc_v);
+      hop::fence_regs(pa);
+      hop::fence_regs(da);
+      hop::mbar_arrive(&r.empty[st]);
+    }
+
+    const size_t inner = (size_t)H * DH;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + lr + 8 * i;
+      if (row >= Lk) continue;
+      const size_t off = ((size_t)b * Lk + row) * inner + (size_t)h * DH + 2 * t;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * c) =
+            pack_bf16(acc_k[4 * c + 2 * i], acc_k[4 * c + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * c) =
+            pack_bf16(acc_v[4 * c + 2 * i], acc_v[4 * c + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_wgmma_dh(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
+                            const bf16* o, const float* lse, float* scratch, bf16* dq, bf16* dk,
+                            bf16* dv, int B, int Lq, int Lk, int H, float scale, cudaStream_t s) {
+  CUtensorMap own_q, own_g, tile_k, tile_v, own_k, own_v, tile_q, tile_g;
+  cudaError_t err = hop::head_map(&own_q, q, B, Lq, H, DH, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&own_g, g, B, Lq, H, DH, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&tile_k, k, B, Lk, H, DH, DQ_TILE);
+  if (err == cudaSuccess) err = hop::head_map(&tile_v, v, B, Lk, H, DH, DQ_TILE);
+  if (err == cudaSuccess) err = hop::head_map(&own_k, k, B, Lk, H, DH, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&own_v, v, B, Lk, H, DH, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&tile_q, q, B, Lq, H, DH, DKV_TILE);
+  if (err == cudaSuccess) err = hop::head_map(&tile_g, g, B, Lq, H, DH, DKV_TILE);
+  if (err != cudaSuccess) return err;
+  const int Lpad = (Lq + WG_LPAD - 1) / WG_LPAD * WG_LPAD;
+  err = dsta::launch_smem(flash_bwd_dq_wgmma_kernel<DH>, dim3((Lq + WG_ROWS - 1) / WG_ROWS, H, B),
+                          WG_THREADS, BwdWgmma<DH, DQ_TILE>::SMEM, s, own_q, own_g, tile_k, tile_v, o, g, lse,
+                          scratch, dq, Lq, Lk, H, Lpad, scale);
+  if (err != cudaSuccess) return err;
+  return dsta::launch_smem(flash_bwd_dkv_wgmma_kernel<DH>, dim3((Lk + WG_ROWS - 1) / WG_ROWS, H, B),
+                           WG_THREADS, BwdWgmma<DH, DKV_TILE>::SMEM, s, own_k, own_v, tile_q, tile_g,
+                           static_cast<const float*>(scratch), dk, dv, Lq, Lk, H, Lpad);
+}
+
+cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const bf16* o,
+                         const float* lse, float* scratch, bf16* dq, bf16* dk, bf16* dv, int B,
+                         int Lq, int Lk, int H, int dh, float scale, cudaStream_t s) {
+  switch (dh) {
+    case 40: return launch_wgmma_dh<40>(q, k, v, g, o, lse, scratch, dq, dk, dv, B, Lq, Lk, H, scale, s);
+    case 64: return launch_wgmma_dh<64>(q, k, v, g, o, lse, scratch, dq, dk, dv, B, Lq, Lk, H, scale, s);
+    case 80: return launch_wgmma_dh<80>(q, k, v, g, o, lse, scratch, dq, dk, dv, B, Lq, Lk, H, scale, s);
+    case 128: return launch_wgmma_dh<128>(q, k, v, g, o, lse, scratch, dq, dk, dv, B, Lq, Lk, H, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q (pre-scaled), g [B, Lq, H*dh]; k, v [B, Lk, H*dh]; lse, di [B*H, Lq] f32;
+// q (pre-scaled), g, o [B, Lq, H*dh]; k, v [B, Lk, H*dh]; lse [B*H, Lq] f32;
 // dq like q, dk / dv like k, in the inputs' dtype; all contiguous.  `scale`
-// is the pre-scale of q, applied to dq (its chain rule).
-extern "C" int dsta_flash_bwd(int dtype, const void* q, const void* k, const void* v,
-                              const void* g, const void* lse, const void* di, void* dq, void* dk,
-                              void* dv, int B, int Lq, int Lk, int H, int dh, float scale,
-                              void* stream) {
+// is the pre-scale of q, applied to dq (its chain rule).  scratch: f32,
+// 2·B·H·Lpad floats (Lpad = Lq rounded up to 64), for di (and lse·log2(e)).
+// design: 1 wgmma (bf16 only), 0 the synchronous designs.
+extern "C" int dsta_flash_bwd(int dtype, int design, const void* q, const void* k, const void* v,
+                              const void* g, const void* o, const void* lse, void* scratch,
+                              void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H, int dh,
+                              float scale, void* stream) {
   if (dh < 1 || dh > DMAX || Lq < 1 || Lk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(di);
+  float* d = static_cast<float*>(scratch);
+  if (design == 1) {
+    if (dtype != dsta::kBF16) return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                             static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+                             static_cast<const bf16*>(o), l, d, static_cast<bf16*>(dq),
+                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, Lq, Lk, H, dh,
+                             scale, s);
+  }
   if (dtype == dsta::kF32) {
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
                 *vf = static_cast<const float*>(v), *gf = static_cast<const float*>(g);
+    cudaError_t err = launch_di(static_cast<const float*>(o), gf, d, B, Lq, H, dh, s);
+    if (err != cudaSuccess) return (int)err;
     const size_t smem = simt_smem_bytes(dh);
-    cudaError_t err = dsta::launch_smem(flash_bwd_dq_simt_kernel, dim3((Lq + BT - 1) / BT, H, B),
-                                        NT, smem, s, qf, kf, vf, gf, l, d,
-                                        static_cast<float*>(dq), Lq, Lk, H, dh, scale);
+    err = dsta::launch_smem(flash_bwd_dq_simt_kernel, dim3((Lq + BT - 1) / BT, H, B), NT, smem, s,
+                            qf, kf, vf, gf, l, static_cast<const float*>(d),
+                            static_cast<float*>(dq), Lq, Lk, H, dh, scale);
     if (err != cudaSuccess) return (int)err;
     return (int)dsta::launch_smem(flash_bwd_dkv_simt_kernel, dim3((Lk + BT - 1) / BT, H, B), NT,
-                                  smem, s, qf, kf, vf, gf, l, d, static_cast<float*>(dk),
-                                  static_cast<float*>(dv), Lq, Lk, H, dh);
+                                  smem, s, qf, kf, vf, gf, l, static_cast<const float*>(d),
+                                  static_cast<float*>(dk), static_cast<float*>(dv), Lq, Lk, H, dh);
   }
-  if (dtype == dsta::kBF16)
+  if (dtype == dsta::kBF16) {
+    const cudaError_t err = launch_di(static_cast<const bf16*>(o), static_cast<const bf16*>(g), d,
+                                      B, Lq, H, dh, s);
+    if (err != cudaSuccess) return (int)err;
     return (int)launch_mma(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                            static_cast<const bf16*>(v), static_cast<const bf16*>(g), l, d,
                            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                            B, Lq, Lk, H, dh, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,14 +16,18 @@
 // (L = 4096, dh = 40; L = 1024, dh = 80).  Splash kept its running max, sum
 // and accumulator in VMEM across a sequential grid over key blocks; here a
 // loop inside the block walks 64-key tiles and keeps them in registers, and
-// no [Lq, Lk] tensor reaches device memory.  The loop is the one of
-// `mha_fwd.cu` (`attn_fwd.cuh`), with the log-sum-exp written at its end:
-//   bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulation, dh
-//     zero-padded to a multiple of 16).  p enters the PV product as bf16
-//     (the A operand of the product); splash keeps it f32 (`:819-820`), so
-//     the bf16 output differs from splash's by that rounding
-//     (`utils/testing.py` kind "flash");
-//   float32 on the CUDA cores, where p stays f32 as in splash.
+// no [Lq, Lk] tensor reaches device memory.  The loops are those of
+// `mha_fwd.cu` (`attn_fwd.cuh`), with the log-sum-exp written at their end;
+// the caller picks one by `design`:
+//   1, wgmma (bf16 at head widths 40, 64, 80, 128): 128-query blocks, K/V
+//     tiles in a TMA ring, wgmma products, the two consumer warpgroups'
+//     softmax and products interleaved;
+//   0, bf16 at any other width: mma.sync m16n8k16, dh zero-padded to a
+//     multiple of 16;
+//   0, float32: the CUDA cores, where p stays f32 as in splash.
+// In bf16, p enters the PV product as bf16 (the A operand of the product);
+// splash keeps it f32 (`:819-820`), so the bf16 output differs from splash's
+// by that rounding (`utils/testing.py` kind "flash").
 #include "attn_fwd.cuh"
 
 namespace {
@@ -45,6 +49,36 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
                      int Lq, int Lk, int H, int dh, bool vec) {
   dsta::attn_fwd_mma<DP>(q, k, v, out, lse, Lq, Lk, H, dh, 1.4426950408889634f, vec);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(dsta::WG_THREADS, dsta::FwdWgmma<DH>::BLOCKS)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                       float* __restrict__ lse, int Lq, int Lk, int H) {
+  dsta::attn_fwd_wgmma<DH>(tq, tk, tv, out, lse, Lq, Lk, H, 1.4426950408889634f);
+}
+
+template <int DH>
+cudaError_t launch_wgmma_dh(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+                            int B, int Lq, int Lk, int H, cudaStream_t stream) {
+  CUtensorMap m[3];
+  const cudaError_t err = dsta::attn_fwd_maps<DH>(m, q, k, v, B, Lq, Lk, H);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + dsta::WG_BQ - 1) / dsta::WG_BQ, H, B);
+  return dsta::launch_smem(flash_fwd_wgmma_kernel<DH>, grid, dsta::WG_THREADS,
+                           dsta::FwdWgmma<DH>::SMEM, stream, m[0], m[1], m[2], out, lse, Lq, Lk, H);
+}
+
+cudaError_t launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse, int B,
+                         int Lq, int Lk, int H, int dh, cudaStream_t stream) {
+  switch (dh) {
+    case 40: return launch_wgmma_dh<40>(q, k, v, out, lse, B, Lq, Lk, H, stream);
+    case 64: return launch_wgmma_dh<64>(q, k, v, out, lse, B, Lq, Lk, H, stream);
+    case 80: return launch_wgmma_dh<80>(q, k, v, out, lse, B, Lq, Lk, H, stream);
+    case 128: return launch_wgmma_dh<128>(q, k, v, out, lse, B, Lq, Lk, H, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int DP>
@@ -77,12 +111,20 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* out, f
 }  // namespace
 
 // q (pre-scaled) [B, Lq, H*dh], k/v [B, Lk, H*dh], out [B, Lq, H*dh], all
-// contiguous in one dtype; lse [B*H, Lq] f32.
-extern "C" int dsta_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
-                              void* lse, int B, int Lq, int Lk, int H, int dh, void* stream) {
+// contiguous in one dtype; lse [B*H, Lq] f32.  design: 1 wgmma (bf16 only),
+// 0 the synchronous loops.
+extern "C" int dsta_flash_fwd(int dtype, int design, const void* q, const void* k, const void* v,
+                              void* out, void* lse, int B, int Lq, int Lk, int H, int dh,
+                              void* stream) {
   if (dh < 1 || dh > DMAX || Lk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (design == 1) {
+    if (dtype != dsta::kBF16) return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                             static_cast<const bf16*>(v), static_cast<bf16*>(out), l, B, Lq, Lk, H,
+                             dh, s);
+  }
   if (dtype == dsta::kF32) {
     dim3 grid((Lq + dsta::ATT_BQ - 1) / dsta::ATT_BQ, H, B);
     return (int)dsta::launch_smem(flash_fwd_simt_kernel, grid, dsta::ATT_NT,

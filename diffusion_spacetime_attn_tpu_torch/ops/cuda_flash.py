@@ -14,17 +14,30 @@ sites JAX sends here; neither writes an [L, L] tensor.
 
 `flash_attention` is a `torch.autograd.Function`.  On a CPU tensor it runs
 the plain versions (`flash_attention_plain`, `flash_bwd_plain`); on a CUDA
-tensor it launches the kernels or raises.  `flash_attention.launches` counts
-forward launches and `flash_bwd.launches` backward launches.  di = rowsum(o ⊙
-ḡ) is computed here before the backward kernel, as splash computes it outside
-its kernels (`_splash_attention_bwd`).
+tensor it launches the kernels or raises.  The design is picked from the
+shape before launch by `cuda_mha.attention_design` (bf16 at head widths 40,
+64, 80 and 128 with 16-byte aligned tensors: "wgmma", TMA rings feeding
+wgmma; other bf16 shapes "mma_sync"; float32 "simt").
+`flash_attention.launches` counts forward launches and `flash_bwd.launches`
+backward launches, each also by design (`launches_by_design`).  di =
+rowsum(o ⊙ ḡ), which splash computes outside its kernels
+(`_splash_attention_bwd`), is computed on the card by the backward's C
+entry: inside the wgmma dq pass, or by a small kernel before the others.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import cuda_lib
-from .cuda_mha import BWD_CHUNK_BYTES
+from .cuda_mha import (
+    BWD_CHUNK_BYTES,
+    DESIGN_CODES,
+    DESIGNS,
+    aligned16,
+    attention_design,
+)
 
 DH_MAX = 128
 
@@ -40,7 +53,12 @@ def flash_ok(Lq: int, Lk: int, dh: int) -> bool:
 def query_scale(q, num_heads: int) -> float:
     """dh^-½ rounded to q's dtype, as JAX rounds the Python scalar it
     multiplies a bf16 array by."""
-    return float(torch.tensor((q.shape[-1] // num_heads) ** -0.5, dtype=q.dtype))
+    return _rounded((q.shape[-1] // num_heads) ** -0.5, q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def scaled_query(q, k, num_heads: int):
@@ -62,6 +80,11 @@ def _unfold(t, B):  # [B*H, L, dh] -> [B, L, H*dh]
 def _slices(BH, Lq, Lk):
     step = max(1, BWD_CHUNK_BYTES // (4 * Lq * Lk))
     return [slice(i, i + step) for i in range(0, BH, step)]
+
+
+# the backward's f32 scratch (di and lse·log2 e) has rows padded to this
+# (`csrc/flash_bwd.cu` WG_LPAD)
+SCRATCH_ROWS = 64
 
 
 def row_dot(o, g, num_heads: int):
@@ -153,45 +176,53 @@ def flash_fwd(q, k, v, num_heads: int):
     qs = scaled_query(q, k, num_heads)
     out = torch.empty_like(qs)
     lse = torch.empty((B * num_heads, Lq), dtype=torch.float32, device=q.device)
+    design = attention_design(qs.dtype, dh, aligned16(qs, k, v, out))
     rc = cuda_lib.library().dsta_flash_fwd(
-        cuda_lib.dtype_code(qs), qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, Lq, Lk, num_heads, dh, cuda_lib.stream_ptr(q))
+        cuda_lib.dtype_code(qs), DESIGN_CODES[design], qs.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Lq, Lk, num_heads, dh,
+        cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, "dsta_flash_fwd")
     flash_attention.launches += 1
+    flash_attention.launches_by_design[design] += 1
     return out, lse
 
 
-def flash_bwd_raw(qs, k, v, g, lse, di, num_heads: int, scale: float):
-    """The backward kernel on CUDA tensors from the scaled query qs and di;
-    returns (dq, dk, dv) in the inputs' dtype and counts a launch of
-    `flash_bwd`."""
-    B, Lq, Lk, dh = _check("flash_bwd", qs, k, v, num_heads, g, lse, di)
-    if g.shape != qs.shape or g.dtype != qs.dtype:
-        raise ValueError("flash_bwd: the cotangent must match q")
-    if lse.shape != (B * num_heads, Lq) or di.shape != lse.shape or \
-            lse.dtype != torch.float32 or di.dtype != torch.float32:
-        raise ValueError("flash_bwd: lse and di must be float32 [B*H, Lq]")
+def flash_bwd_raw(qs, k, v, g, o, lse, num_heads: int, scale: float):
+    """The backward kernels on CUDA tensors from the scaled query qs and the
+    forward's output o (di = rowsum(o ⊙ g) is computed on the card); returns
+    (dq, dk, dv) in the inputs' dtype and counts a launch of `flash_bwd`."""
+    B, Lq, Lk, dh = _check("flash_bwd", qs, k, v, num_heads, g, o, lse)
+    if g.shape != qs.shape or g.dtype != qs.dtype or o.shape != qs.shape or o.dtype != qs.dtype:
+        raise ValueError("flash_bwd: the cotangent and the output must match q")
+    if lse.shape != (B * num_heads, Lq) or lse.dtype != torch.float32:
+        raise ValueError("flash_bwd: lse must be float32 [B*H, Lq]")
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    rows = -(-Lq // SCRATCH_ROWS) * SCRATCH_ROWS
+    scratch = torch.empty(2 * B * num_heads * rows, dtype=torch.float32, device=qs.device)
+    design = attention_design(qs.dtype, dh, aligned16(qs, k, v, g, o, dq, dk, dv))
     rc = cuda_lib.library().dsta_flash_bwd(
-        cuda_lib.dtype_code(qs), qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Lq, Lk, num_heads, dh, scale, cuda_lib.stream_ptr(qs))
+        cuda_lib.dtype_code(qs), DESIGN_CODES[design], qs.data_ptr(), k.data_ptr(),
+        v.data_ptr(), g.data_ptr(), o.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, num_heads, dh, scale,
+        cuda_lib.stream_ptr(qs))
     cuda_lib.check(rc, "dsta_flash_bwd")
     flash_bwd.launches += 1
+    flash_bwd.launches_by_design[design] += 1
     return dq, dk, dv
 
 
 def flash_bwd(q, k, v, o, lse, g, num_heads: int):
     """(dq, dk, dv) of flash attention for the output cotangent g, from the
     forward's output o and log-sum-exp lse.  CPU tensors take
-    `flash_bwd_plain`; CUDA tensors the kernel."""
+    `flash_bwd_plain`; CUDA tensors the kernels."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, g, num_heads)
-    return flash_bwd_raw(scaled_query(q, k, num_heads), k, v, g, lse, row_dot(o, g, num_heads),
-                         num_heads, query_scale(q, num_heads))
+    return flash_bwd_raw(scaled_query(q, k, num_heads), k, v, g, o, lse, num_heads,
+                         query_scale(q, num_heads))
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _FlashFn(torch.autograd.Function):
@@ -220,3 +251,4 @@ def flash_attention(q, k, v, num_heads: int, *, out_dtype=None):
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -4,9 +4,9 @@ The sources have a plain C interface and are compiled with `nvcc` for
 `sm_90a`, one process per source started together, then linked into one
 `.so` that `ctypes` loads.  The library is built at first use into
 `_build/` inside the package (listed in `.gitignore`) under a name that
-carries a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  Nothing is built when this module is
-imported.
+carries a hash of the sources and the compile and link flags, so an edited
+source or flag is rebuilt and an unchanged one is loaded as it is.  Nothing
+is built when this module is imported.
 """
 from __future__ import annotations
 
@@ -26,21 +26,23 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the link line (no -lcuda: the TMA encoder is fetched from the loaded driver)
+LINK_FLAGS = ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types (see each source's extern "C").
 SIGNATURES = {
-    "dsta_mha_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "dsta_mha_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "dsta_spacetime_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _F, _P],
     "dsta_geglu_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dsta_geglu_chunks": [_I, _I, _I],
     "dsta_spacetime_bwd": [_I] + [_P] * 15 + [_I] * 6 + [_F, _P],
     "dsta_geglu_dx": [_I] + [_P] * 7 + [_I] * 3 + [_P],
-    "dsta_flash_fwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
-    "dsta_flash_bwd": [_I] + [_P] * 9 + [_I] * 5 + [_F, _P],
+    "dsta_flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
+    "dsta_flash_bwd": [_I, _I] + [_P] * 10 + [_I] * 5 + [_F, _P],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,7 +62,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + ["|"] + LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -95,7 +97,7 @@ def build() -> dict:
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp_lib = Path(tmp) / lib.name
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *objs],
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp_lib), *objs],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
         if link.returncode != 0:

@@ -4,11 +4,14 @@ Replaces the JAX package's Pallas TPU kernel `ops/pallas_mha.py:_mha_kernel`
 (public `mha_attention`).  On the H100 the op is bound by operations at SD
 level 0 and 1 (4·L²·dh FLOPs per head) and by memory at the short level-2
 and mid sequences.  The TPU kernel held a whole score row per query in
-VMEM; an SM cannot, so the CUDA kernel runs an online softmax over 64-key
-tiles and keeps every score on chip: bfloat16 on the tensor cores
-(`mma.sync`), float32 on the CUDA cores.  The JAX envelope `mha_ok`
-was measured on a TPU and is not carried over: every call on a CUDA tensor
-goes through the kernel.
+VMEM; an SM cannot, so the CUDA kernel runs an online softmax over key
+tiles and keeps every score on chip.  The JAX envelope `mha_ok` was
+measured on a TPU and is not carried over: every call on a CUDA tensor goes
+through the kernel, in the design `attention_design` picks from the shape
+before launch (no fallback after a failed launch): "wgmma" (bf16 at the
+head widths in `WGMMA_DH`, 16-byte aligned tensors: wgmma fed by a TMA
+ring), "mma_sync" (other bf16 shapes) or "simt" (float32, CUDA cores).
+`mha_attention.launches_by_design` counts launches per design.
 
 `mha_attention` is a `torch.autograd.Function`.  Its forward takes the plain
 version (`ops.attention.attention`) for CPU tensors only; for a CUDA tensor
@@ -25,6 +28,25 @@ import torch
 from . import cuda_lib
 
 DH_MAX = 160
+# head widths the wgmma loop of `csrc/attn_fwd.cuh` is built for (SD v1-4:
+# 40 at level 0, 80 at level 1); shared with the flash kernels
+WGMMA_DH = (40, 64, 80, 128)
+DESIGNS = ("wgmma", "mma_sync", "simt")
+DESIGN_CODES = {"wgmma": 1, "mma_sync": 0, "simt": 0}
+
+
+def attention_design(dtype, dh: int, aligned: bool = True) -> str:
+    """The kernel design that takes a bf16 or f32 attention of head width
+    dh: "wgmma" needs bf16, dh in `WGMMA_DH` and 16-byte aligned tensors
+    (what TMA can describe); other bf16 shapes take "mma_sync", float32
+    "simt"."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if dh in WGMMA_DH and aligned else "mma_sync"
+
+
+def aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def mha_attention_plain(q, k, v, num_heads: int, *, out_dtype=None):
@@ -94,12 +116,14 @@ def _forward(q, k, v, num_heads):
     if dh > DH_MAX:
         raise ValueError(f"mha_attention: head width {dh} > {DH_MAX}")
     out = torch.empty_like(q)
+    design = attention_design(q.dtype, dh, aligned16(q, k, v, out))
     rc = cuda_lib.library().dsta_mha_fwd(
-        cuda_lib.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Lq, k.shape[1], num_heads, dh, dh ** -0.5,
+        cuda_lib.dtype_code(q), DESIGN_CODES[design], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, Lq, k.shape[1], num_heads, dh, dh ** -0.5,
         cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, "dsta_mha_fwd")
     mha_attention.launches += 1
+    mha_attention.launches_by_design[design] += 1
     return out
 
 
@@ -136,3 +160,4 @@ def mha_attention(q, k, v, num_heads: int, *, out_dtype=None):
 
 
 mha_attention.launches = 0
+mha_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

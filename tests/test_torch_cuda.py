@@ -64,12 +64,20 @@ def _check(got, want, kind):
     (1, 100, 100, 2, 16),        # ragged query and key tiles
     (2, 70, 130, 2, 24),         # Lq != Lk
     (1, 50, 50, 3, 20),          # head width not a multiple of 8 (element loads)
+    (2, 1088, 1088, 8, 40),      # ragged last tile of 128 queries and of 128 keys
+    (2, 1088, 1088, 8, 80),
+    (1, 200, 330, 2, 64),        # the wgmma loop at dh 64 and 128, Lq != Lk
+    (1, 330, 200, 2, 128),
+    (2, 256, 256, 8, 160),       # SD level 2: the mma_sync loop
 ])
 def test_mha_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, dh):
     g = torch.Generator(device=cuda).manual_seed(dh + Lq)
     q = _randn(g, cuda, dtype, B, Lq, H * dh)
     k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
+    design = cuda_mha.attention_design(dtype, dh)
+    before = cuda_mha.mha_attention.launches_by_design[design]
     _check(cuda_mha.mha_attention(q, k, v, H), cuda_mha.mha_attention_plain(q, k, v, H), "mha")
+    assert cuda_mha.mha_attention.launches_by_design[design] == before + 1
 
 
 @pytest.mark.gpu
@@ -129,27 +137,58 @@ def test_geglu_kernel_matches_plain(cuda, dtype, residual, M, dim):
     (1, 100, 130, 2, 24),        # ragged query and key tiles, Lq != Lk
     (1, 64, 64, 3, 20),          # head width not a multiple of 8 (element loads)
     (1, 128, 128, 2, 128),       # the widest head flash_ok routes
+    (2, 1088, 1088, 8, 40),      # ragged last tile of 128 queries / keys (wgmma in bf16)
+    (2, 1088, 1088, 8, 80),
+    (1, 200, 330, 2, 64),        # the wgmma kernels at dh 64 and 128, Lq != Lk
+    (1, 330, 200, 2, 128),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, B, Lq, Lk, H, dh):
     """Forward (o, lse) and backward (dq, dk, dv) kernels against the plain
-    versions; each launch counted; a repeat gives the same bits."""
+    versions; each launch counted under its design; a repeat gives the same
+    bits."""
     g = torch.Generator(device=cuda).manual_seed(Lq + dh)
     q, gbar = (_randn(g, cuda, dtype, B, Lq, H * dh) for _ in range(2))
     k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
+    v = (v.float() + 1.0).to(dtype)      # mean 1: o and di = rowsum(o ⊙ ḡ) are not ~0
+    design = cuda_mha.attention_design(dtype, dh)
     fwd, bwd = cuda_flash.flash_attention.launches, cuda_flash.flash_bwd.launches
+    fwd_d = cuda_flash.flash_attention.launches_by_design[design]
+    bwd_d = cuda_flash.flash_bwd.launches_by_design[design]
     o, lse = cuda_flash.flash_fwd(q, k, v, H)
     assert cuda_flash.flash_attention.launches == fwd + 1
+    assert cuda_flash.flash_attention.launches_by_design[design] == fwd_d + 1
     o_p, lse_p = cuda_flash.flash_attention_plain(q, k, v, H)
     _check(o, o_p, "flash")
     _check(lse, lse_p, "flash")                      # float32: 1e-4
     grads = cuda_flash.flash_bwd(q, k, v, o_p, lse_p, gbar, H)
     assert cuda_flash.flash_bwd.launches == bwd + 1
+    assert cuda_flash.flash_bwd.launches_by_design[design] == bwd_d + 1
     for got, want in zip(grads, cuda_flash.flash_bwd_plain(q, k, v, o_p, lse_p, gbar, H)):
         _check(got, want, "flash")
     again = (cuda_flash.flash_fwd(q, k, v, H)
              + cuda_flash.flash_bwd(q, k, v, o_p, lse_p, gbar, H))
     for a, b in zip((o, lse) + grads, again):        # no atomics
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,dh", [(4096, 40), (1024, 80)])
+def test_wgmma_kernels_repeat_bit_for_bit(cuda, L, dh):
+    """20 launches of each wgmma kernel on the same inputs give the same
+    bits: a ring stage read before its copy landed, or released before its
+    last product, shows up as bits that differ between launches."""
+    g = torch.Generator(device=cuda).manual_seed(L + dh + 5)
+    q, k, gbar = (_randn(g, cuda, torch.bfloat16, 2, L, 8 * dh) for _ in range(3))
+    v = _randn(g, cuda, torch.bfloat16, 2, L, 8 * dh) + 1
+    assert cuda_mha.attention_design(q.dtype, dh) == "wgmma"
+    o, lse = cuda_flash.flash_fwd(q, k, v, 8)
+    mha = cuda_mha.mha_attention(q, k, v, 8)
+    grads = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, 8)
+    for _ in range(20):
+        assert all(torch.equal(a, b) for a, b in zip((o, lse), cuda_flash.flash_fwd(q, k, v, 8)))
+        assert torch.equal(mha, cuda_mha.mha_attention(q, k, v, 8))
+        again = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, 8)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
@@ -426,6 +465,43 @@ def test_bf16_comparison_passes_one_rounding_and_rejects_planted_faults(kind):
         assert not compare(out, want, kind)["ok"], name
 
 
+@pytest.mark.parametrize("case,dtype,H,inner,want", [
+    ("SD level 0", torch.bfloat16, 8, 320, "wgmma"),     # dh 40: flash, and MHA when serving
+    ("SD level 1", torch.bfloat16, 8, 640, "wgmma"),     # dh 80
+    ("dh 64", torch.bfloat16, 2, 128, "wgmma"),
+    ("dh 128", torch.bfloat16, 2, 256, "wgmma"),
+    ("SD level 2 and mid", torch.bfloat16, 8, 1280, "mma_sync"),   # dh 160, MHA only
+    ("stride not a multiple of 16 bytes", torch.bfloat16, 3, 60, "mma_sync"),  # dh 20
+    ("dh 48", torch.bfloat16, 2, 96, "mma_sync"),
+    ("float32", torch.float32, 8, 320, "simt"),
+])
+def test_attention_design_by_shape(case, dtype, H, inner, want):
+    """The wrappers pick the kernel design from the shape before launch:
+    every SD v1-4 main-path site of flash (levels 0 and 1) and of the
+    serving MHA (levels 0 and 1) takes the wgmma kernels in bf16; float32,
+    head widths TMA cannot describe and widths the wgmma kernels are not
+    built for take the synchronous ones."""
+    assert cuda_mha.attention_design(dtype, inner // H) == want, case
+    if want == "wgmma":   # an unaligned base pointer cannot be a TMA tensor
+        assert cuda_mha.attention_design(dtype, inner // H, aligned=False) == "mma_sync"
+
+
+@pytest.mark.parametrize("counter", ["flash_attention", "flash_bwd", "mha_attention"])
+def test_design_counters_start_at_zero_and_cpu_calls_count_nothing(counter):
+    wrapper = {"flash_attention": cuda_flash.flash_attention, "flash_bwd": cuda_flash.flash_bwd,
+               "mha_attention": cuda_mha.mha_attention}[counter]
+    assert set(wrapper.launches_by_design) == set(cuda_mha.DESIGNS)
+    before = dict(wrapper.launches_by_design), wrapper.launches
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, g = (_bf16(gen, 1, 64, 64) for _ in range(4))
+    o = cuda_flash.flash_attention(q, k, v, 2)
+    cuda_mha.mha_attention(q, k, v, 2)
+    cuda_flash.flash_bwd(q, k, v, o, cuda_flash.flash_fwd(q, k, v, 2)[1], g, 2)
+    assert (dict(wrapper.launches_by_design), wrapper.launches) == before
+    if not torch.cuda.is_available():     # this process launched nothing
+        assert set(wrapper.launches_by_design.values()) == {0} and wrapper.launches == 0
+
+
 def test_c_entry_points_match_ctypes_signatures():
     """Every `extern "C"` entry in csrc has a ctypes signature with as many
     arguments, and every signature names an entry (no nvcc here to check)."""
@@ -447,4 +523,6 @@ def test_importing_the_kernels_builds_nothing():
     assert {p.name for p in cuda_lib.CSRC.glob("*.cu")} == {
         "mha_fwd.cu", "spacetime_fwd.cu", "spacetime_bwd.cu", "geglu_fwd.cu", "geglu_bwd.cu",
         "flash_fwd.cu", "flash_bwd.cu"}
+    assert {p.name for p in cuda_lib.CSRC.glob("*.cuh")} == {
+        "common.cuh", "attn_fwd.cuh", "hopper.cuh"}
     assert Path(cuda_lib.BUILD_DIR).name == "_build"
