@@ -15,7 +15,9 @@ script exits non-zero without its final line:
              with nvcc's register / shared-memory / spill report and, per
              kernel function of the built library, its count of wgmma
              (HGMMA) and TMA / bulk-copy (UTMALDG, UBLKCP) instructions from
-             `cuobjdump -sass`; the wgmma attention kernels must have both.
+             `cuobjdump -sass`; the wgmma attention and GEGLU kernels must
+             have both, and ptxas must not report serialized wgmma (C7513)
+             or spills (C7512).
   3. kernels: each forward kernel against its plain PyTorch version at every
              shape of the SD v1-4 serving path (flash: the level-0 and level-1
              self-attention sites that pass `flash_ok`), in bfloat16 at one
@@ -28,22 +30,30 @@ script exits non-zero without its final line:
              the comparison must reject planted faults (a skipped key tile,
              a 5 % wrong scale, a skipped inner tile, the flash log-sum-exp
              off by log 2 on one query tile; for the wgmma attention loop,
-             one key tile replaced by the previous ring stage's tile) at every
-             shape.  Each attention row names its kernel design; every flash
-             site and MHA's level-0/1 sites must run the wgmma design.  In
-             bf16 each attention row (and each flash backward row) also
-             carries `device_ms`: the kernels' own time through the C entry
-             (CUDA events, no wrapper work) for each design the shape can
-             take (the wgmma kernels and the synchronous mma_sync loop, same
-             inputs).
+             one key tile replaced by the previous ring stage's tile; for
+             GEGLU, one k-step of h and g served from the previous ring
+             stage and the last k-step of the second product skipped) at
+             every shape.  Each attention and GEGLU row names its kernel
+             design; every flash and GEGLU site and MHA's level-0/1 sites
+             must run the wgmma design.  In bf16 each attention and GEGLU
+             row (and each flash backward and GEGLU dx row) also carries
+             `device_ms`: the kernels' own time through the C entry (CUDA
+             events, no wrapper work) for each design the shape can take
+             (attention: the wgmma kernels and the mma_sync kernels, same
+             inputs; GEGLU: wgmma, its only bf16 design); GEGLU rows carry
+             `composite_ms`, the same function as PyTorch calls (cuBLAS
+             products and elementwise kernels), a yardstick.
      kernels_bwd: each backward kernel the same way at every chain shape, in
              bf16 and float32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32
              at 1), every cotangent (dK/dV included); planted faults: one
              object's blend products zeroed, the last key tile dropped from
-             dKc or dK, a skipped inner tile in dx, o zeroed on one query
-             tile of the flash backward (di comes from o on the card), and for
-             its wgmma passes one key tile (dq pass) or one query tile (dK/dV
-             pass) replaced by the previous ring stage's tile.  The flash
+             dKc or dK, a skipped inner tile in dx and its stale ring stage
+             (and, as a check of the tolerance only, computed without the
+             kernel, the last k-step of [dh | dg]·W1 skipped), o zeroed on
+             one query tile of the flash backward (di comes from o on the
+             card), and for its wgmma passes one key tile (dq pass) or one
+             query tile (dK/dV pass) replaced by the previous ring stage's
+             tile.  The flash
              backward's yardstick is the backward of
              `scaled_dot_product_attention` under autograd.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
@@ -59,9 +69,10 @@ script exits non-zero without its final line:
              two batches, the second padded; it repeats the first request
              (prompt, seed) beside a pad row, which must give the same bytes.
              Every forward kernel must be launched 816 times per batch (16
-             sites x 51 UNet evaluations).
+             sites x 51 UNet evaluations), GEGLU's all on the wgmma design.
   8. profile: where a serving batch's time goes (host clock per part, and
-             device time by kernel family under torch.profiler).
+             device time by kernel family under torch.profiler); no GEGLU
+             slice sum may appear.
   9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
              same width with the ViT-B/32 loss CLIP, bf16, PLMS-50, batch 2,
              4 objects, 3 Adam epochs (the last forward only), use_flash on as
@@ -73,7 +84,8 @@ script exits non-zero without its final line:
              2 x 51 x n: n = 16 for spacetime and GEGLU (4080 / 1632), 10 for
              flash (2550 / 1018: the first self-attention of each chain sees
              only x_T and gets no backward), 6 for MHA (1530); losses finite;
-             coef moved on active slots, 0 on padded ones.
+             coef moved on active slots, 0 on padded ones; flash and GEGLU
+             launches all on the wgmma design.
  10. profile_train: one training UNet evaluation (forward, recompute,
              backward) by kernel family, and the plain MHA backward that is
              left (levels 2 and mid).
@@ -83,9 +95,11 @@ script exits non-zero without its final line:
      the final {"ok": true, ...} line.
 
 With `--compare DIR` the script runs only phases device, build, kernels,
-kernels_bwd, profile and profile_train, in four fresh processes: DIR, this
-tree, this tree, DIR (each tree builds its own kernels), and prints their
-lines tagged with turn and tree, then one `compare` summary line per turn.
+kernels_bwd, profile and profile_train, and `geglu_host` (the host work
+per bf16 GEGLU call; this script's phase run on either tree's package), in
+four fresh processes: DIR, this tree, this tree, DIR (each tree builds its
+own kernels), and prints their lines tagged with turn and tree, then one
+`compare` summary line per turn.
 
 The weights are random (no checkpoint is loaded): N(0, 0.02²) per parameter
 from a seed, as the JAX package's bench does.
@@ -144,7 +158,11 @@ def opt_launches(kernel: str) -> int:
 WGMMA_FWD_TILE, WGMMA_BWD_TILE = 128, 64
 # the wgmma kernel functions of the built library (`cuobjdump -sass`)
 WGMMA_FUNCTIONS = ("flash_fwd_wgmma_kernel", "mha_fwd_wgmma_kernel",
-                   "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+                   "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                   "geglu_gate_wgmma_kernel", "geglu_out_wgmma_kernel",
+                   "geglu_dgate_wgmma_kernel", "geglu_dx_out_wgmma_kernel")
+# ptxas warnings that undo a wgmma design: wgmma serialized, registers spilled
+PTXAS_FAULTS = ("C7513", "C7512")
 
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
 SPLASH = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
@@ -158,10 +176,10 @@ KERNELS = {
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152", design="simt"),
     "geglu_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_fwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126", design="mma_sync"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126", design="wgmma"),
     "geglu_bwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_bwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:244", design="mma_sync"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:244", design="wgmma"),
     "mha_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/mha_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_mha.py:79"),
@@ -241,6 +259,48 @@ def _design_device_ms(kind: str, args) -> dict:
     return {d: cuda_ms(launch(d), 20) for d in designs}
 
 
+def _geglu_device_ms(args, dx: bool) -> dict:
+    """{"wgmma": ms per call} of a bf16 GEGLU forward (args: x, w1, b1, w2,
+    b2, res) or dx (x, w1, b1, w2, dy) straight through the C entry (CUDA
+    events over 20 back-to-back calls, scratch allocated once): the kernels'
+    own time, without the wrapper's host work."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu, cuda_lib
+
+    lib = cuda_lib.library()
+    x, w1, b1, w2 = args[:4]
+    (M, dim), inner = x.shape, w2.shape[1]
+    out = torch.empty_like(x)
+    scratch = cuda_geglu._scratch("wgmma", M, dim, inner, (2 if dx else 1) * inner, x.device)
+    if dx:
+        fn, name = lib.dsta_geglu_dx, "dsta_geglu_dx"
+        ptrs = (x, w1, b1, w2, args[4], scratch, out)
+    else:
+        fn, name = lib.dsta_geglu_fwd, "dsta_geglu_fwd"
+        ptrs = (x, w1, b1, w2, args[4], args[5], scratch, out)
+    c_args = (1, *(t.data_ptr() for t in ptrs), M, dim, inner, cuda_lib.stream_ptr(x))
+    return {"wgmma": cuda_ms(lambda: cuda_lib.check(fn(*c_args), name), 20)}
+
+
+def _geglu_composite(args, dx: bool):
+    """The same function as a chain of PyTorch calls in x's dtype (cuBLAS
+    products and elementwise kernels): F.linear -> h·gelu(g) -> F.linear, or
+    for dx, h, g and du -> dh, dg -> [dh | dg]·W1.  A yardstick only: the
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w1, b1, w2 = args[:4]
+    h, g = F.linear(x, w1, b1).chunk(2, dim=-1)
+    if not dx:
+        return F.linear(h * F.gelu(g), w2, args[4]) + args[5]
+    du = args[4] @ w2
+    c = 0.5 * (1.0 + torch.erf(g * 2.0 ** -0.5))
+    phi = torch.exp(-0.5 * g * g) * (2.0 * math.pi) ** -0.5
+    return torch.cat([du * (g * c), du * (h * (c + g * phi))], dim=-1) @ w1
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -273,6 +333,9 @@ def phase_build():
     sass = sass_counts(info["path"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "path": info["path"],
           "ptxas": keep, "sass": sass})
+    bad = [ln for ln in keep if any(code in ln for code in PTXAS_FAULTS)]
+    if bad:
+        fail(f"build: ptxas serialized wgmma or spilled: {bad}")
     for fn in WGMMA_FUNCTIONS:
         found = {k: v for k, v in sass.items() if fn in k}
         if not found:
@@ -315,14 +378,25 @@ def _stale_tile(t, tile: int):
     return t
 
 
+def _stale_cols(t, tile: int = 64):
+    """t [R, C] with columns [tile, 2·tile) replaced by columns [0, tile): the
+    GEGLU kernels' second k-step over dim served from the first one's ring
+    stage."""
+    t = t.clone()
+    t[:, tile:2 * tile] = t[:, :tile]
+    return t
+
+
 def _planted_faults(kind: str, args, kern):
     """Outputs of the kernel with a planted fault, which the comparison with
     the plain version must reject: a skipped key tile (the last 64 keys; 32
     at L = 64) or a 5 % wrong softmax scale for attention, the log-sum-exp
     off by log 2 on the first query tile for flash, the second 128-key tile
-    replaced by the first (a stale ring stage) where the wgmma loop runs, a
-    skipped 64-wide inner tile for GEGLU, and only the first 64 of the 77
-    context keys for the spacetime blend."""
+    replaced by the first (a stale ring stage) where the wgmma loop runs; for
+    GEGLU a skipped 64-wide inner tile, the second 64-deep k-step of h and g
+    replaced by the first (a stale ring stage) and the last k-step of the
+    second product skipped; and only the first 64 of the 77 context keys for
+    the spacetime blend."""
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_mha
 
     if kind in ("mha", "flash"):
@@ -342,9 +416,14 @@ def _planted_faults(kind: str, args, kern):
                 (q, _stale_tile(k, WGMMA_FWD_TILE), _stale_tile(v, WGMMA_FWD_TILE)))
         return faults
     if kind == "geglu":
-        w2 = args[3].clone()
-        w2[:, :64] = 0
-        return {"skip_inner_tile": kern(args[:3] + (w2,) + args[4:])}
+        x, w1, b1, w2 = args[:4]
+        skip, last = w2.clone(), w2.clone()
+        skip[:, :64] = 0
+        last[:, -64:] = 0
+        return {"skip_inner_tile": kern(args[:3] + (skip,) + args[4:]),
+                "stale_ring_stage_for_one_k_tile_of_h_g": kern(
+                    (_stale_cols(x), _stale_cols(w1), b1, w2) + args[4:]),
+                "last_k_tile_of_second_product_skipped": kern(args[:3] + (last,) + args[4:])}
     ctx = tuple(t[..., :64, :].contiguous() for t in args[2:6])
     return {"first_key_tile_only": kern(args[:2] + ctx + args[6:])}
 
@@ -384,11 +463,12 @@ def _sites(kind: str):
 
 
 def _design_counter(kind: str):
-    """The launches-by-design counter of an attention kernel kind, or None."""
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_mha
+    """The launches-by-design counter of a kernel kind, or None (spacetime)."""
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_mha
 
     wrapper = {"mha": cuda_mha.mha_attention, "flash": cuda_flash.flash_attention,
-               "flash_bwd": cuda_flash.flash_bwd}.get(kind)
+               "flash_bwd": cuda_flash.flash_bwd, "geglu": cuda_geglu.geglu_ff,
+               "geglu_bwd": cuda_geglu.geglu_dx}.get(kind)
     return None if wrapper is None else wrapper.launches_by_design
 
 
@@ -456,7 +536,7 @@ def phase_kernels():
                 before = dict(counter or {})
                 got = _outs(kern(args))
                 design = _design_ran(name, counter, before)
-                if design == "mma_sync" and (kind == "flash" or level in FLASH_LEVELS):
+                if design == "mma_sync" and (kind in ("flash", "geglu") or level in FLASH_LEVELS):
                     fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync loop")
                 again = _outs(kern(args))
                 want = _outs(plain(args))
@@ -497,6 +577,9 @@ def phase_kernels():
                     row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
                 if kind in ("mha", "flash") and dtype_name == "bfloat16":
                     row["device_ms"] = _design_device_ms(kind, args)
+                if kind == "geglu" and dtype_name == "bfloat16":
+                    row["device_ms"] = _geglu_device_ms(args, dx=False)
+                    row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=False), 20)
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
                 if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):  # the serving shapes
@@ -514,11 +597,16 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
     """Backward outputs with a planted fault, which the comparison with the
     plain version must reject: one object's blend products t zeroed, or the
     last key tile (keys 64-76) dropped from dKc, for the spacetime backward;
-    a skipped 64-wide inner tile for the GEGLU dx; the last key tile dropped
-    from dK, or the forward's output o (and with it di) zeroed on the first
-    query tile, for the flash backward, and where its wgmma passes run, the
+    a skipped 64-wide inner tile and the second k-step of h, g and du
+    replaced by the first (a stale ring stage) for the GEGLU dx, and the last
+    k-step of [dh | dg]·W1 skipped (the plain formulas, not the kernel: a
+    check of the tolerance only); the last key tile dropped from dK, or the
+    forward's output o (and with it di) zeroed on the first query tile, for
+    the flash backward, and where its wgmma passes run, the
     second 64-key tile of the dq pass or the second 64-query tile of the
     dK/dV pass replaced by the first (a stale ring stage)."""
+    import torch
+
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_mha, cuda_spacetime
 
     if kind == "flash":
@@ -539,9 +627,24 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
         return faults
     if kind == "geglu":
         x, w1, b1, w2, dy = args
-        w2 = w2.clone()
-        w2[:, :64] = 0
-        return {"skip_inner_tile": (cuda_geglu.geglu_dx(x, w1, b1, w2, dy),)}
+        skip = w2.clone()
+        skip[:, :64] = 0
+        stale_w2 = w2.clone()      # W2 [dim, inner]: the k-step over dim runs down its rows
+        stale_w2[64:128] = stale_w2[:64]
+        # a check of the tolerance only, computed from the plain formulas
+        # without the kernel: W1 feeds both products of dx, so no input
+        # drops a k-step of [dh | dg]·W1 alone.  [dh | dg] rounded as the
+        # kernel rounds them, its last 64 columns dropped from the product.
+        inner = w2.shape[1]
+        h, g = cuda_geglu._h_g(x, w1, b1, inner)
+        dh, dg = cuda_geglu._dh_dg(h, g, dy.float() @ w2.float())
+        dhg = torch.cat([dh, dg], dim=-1).to(x.dtype).float()
+        dhg[:, -64:] = 0
+        return {"skip_inner_tile": (cuda_geglu.geglu_dx(x, w1, b1, skip, dy),),
+                "stale_ring_stage_for_one_k_tile_of_h_g_du": (cuda_geglu.geglu_dx(
+                    _stale_cols(x), _stale_cols(w1), b1, stale_w2, _stale_cols(dy)),),
+                "tolerance_only_last_k_tile_of_second_product_skipped": (
+                    (dhg @ w1.float()).to(x.dtype),)}
     q_c, g_u, kc, vc, lk, lv, masks, coef, g = args
     dq, t, dkc, dvc, dlk, dlv = cuda_spacetime.spacetime_bwd_raw(
         q_c, g_u, kc, vc, lk, lv, masks, coef, heads, g)
@@ -626,7 +729,7 @@ def phase_kernels_bwd():
                     args = fwd[:4] + (cot,)
                 else:
                     args = fwd + (cot,)
-                counter = _design_counter("flash_bwd" if kind == "flash" else kind)
+                counter = _design_counter(kind + "_bwd" if kind in ("flash", "geglu") else kind)
                 before = dict(counter or {})
                 got = kern(args)
                 design = _design_ran(name, counter, before)
@@ -676,6 +779,9 @@ def phase_kernels_bwd():
                        "bytes": nbytes, "library_ms": lib_ms, "fraction_of_bound": b_ms / ms}
                 if kind == "flash" and dtype_name == "bfloat16":
                     row["device_ms"] = _design_device_ms("flash_bwd", args)
+                if kind == "geglu" and dtype_name == "bfloat16":
+                    row["device_ms"] = _geglu_device_ms(args, dx=True)
+                    row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=True), 10)
                 if kind == "spacetime" and dtype_name == "bfloat16":
                     # the chain's self-attention backward at this level: plain
                     # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
@@ -873,7 +979,10 @@ def phase_serve():
         mha = dict(cuda_mha.mha_attention.launches_by_design)
         if mha != {"wgmma": 10 * 51, "mma_sync": 6 * 51, "simt": 0}:
             fail(f"serve: MHA launches by design {mha}")
-        _add_counts(by_design, {"mha_fwd": mha})
+        geglu = dict(cuda_geglu.geglu_ff.launches_by_design)
+        if geglu != {"wgmma": LAUNCHES_PER_BATCH, "simt": 0}:
+            fail(f"serve: GEGLU launches by design {geglu}")
+        _add_counts(by_design, {"mha_fwd": mha, "geglu_fwd": geglu})
         if imgs.shape != (len(prompts), 512, 512, 3) or imgs.dtype != np.uint8:
             fail(f"engine output {imgs.shape} {imgs.dtype}")
         if float(imgs.std()) == 0.0:
@@ -1072,10 +1181,12 @@ def phase_optimize():
             want = opt_launches(k)
             if n != want:
                 fail(f"optimize {k}: {n} launches in a batch, expected {want}")
-        # flash (levels 0 and 1) on the wgmma kernels; MHA (dh 160) on mma_sync
+        # flash (levels 0 and 1) and GEGLU on the wgmma kernels; MHA (dh 160)
+        # on mma_sync
         designs = {k: dict(wrappers[k].launches_by_design)
-                   for k in ("flash_fwd", "flash_bwd", "mha_fwd")}
-        for k, d in (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync")):
+                   for k in ("flash_fwd", "flash_bwd", "mha_fwd", "geglu_fwd", "geglu_bwd")}
+        for k, d in (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync"),
+                     ("geglu_fwd", "wgmma"), ("geglu_bwd", "wgmma")):
             if designs[k][d] != counts[k]:
                 fail(f"optimize {k}: launches by design {designs[k]}, all expected on {d}")
         _add_counts(by_design, designs)
@@ -1160,6 +1271,7 @@ def phase_profile_train(sd):
             torch.cuda.synchronize()
     groups, kernels = _families(prof)
     busy = sum(v for k, v in groups.items() if not k.startswith("("))
+    _no_slices("profile_train", groups)
     emit({"phase": "profile_train", "train_eval_s": host_s, "device_ms_by_family": groups or None,
           "device_busy_ms": busy if groups else None, "device_kernels": kernels,
           "device_idle_share": (1.0 - busy / (1e3 * host_s)) if groups else None})
@@ -1167,11 +1279,20 @@ def phase_profile_train(sd):
 
 FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
             ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
-            ("spacetime_bwd", ("spacetime_bwd_",)), ("geglu_fwd", ("geglu_partial",)),
-            ("geglu_bwd", ("geglu_dx_partial",)), ("geglu_sum_slices", ("sum_slices",)),
+            ("spacetime_bwd", ("spacetime_bwd_",)),
+            ("geglu_fwd", ("geglu_gate", "geglu_out", "geglu_partial")),
+            ("geglu_bwd", ("geglu_dgate", "geglu_dx_out", "geglu_dx_partial")),
+            ("geglu_sum_slices", ("sum_slices",)),
             ("convolution", ("conv", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
             ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma")),
             ("softmax", ("softmax",)), ("norm", ("norm",))]
+
+
+def _no_slices(phase: str, groups: dict):
+    """The bf16 GEGLU kernels (wgmma) write no f32 slices: fail if the
+    profile holds a slice sum."""
+    if groups.get("geglu_sum_slices"):
+        fail(f"{phase}: the bf16 path summed GEGLU slices ({groups['geglu_sum_slices']} ms)")
 
 
 def _families(prof):
@@ -1232,11 +1353,54 @@ def phase_profile(sd):
             torch.cuda.synchronize()
     groups, launches = _families(prof)
     busy = sum(v for k, v in groups.items() if not k.startswith("("))
+    _no_slices("profile", groups)
     evals = sd.schedule.num_steps + 1  # two at step 0, then one per step
     emit({"phase": "profile", "unet_eval_s": unet_s, "decode_s": decode_s, "text_s": text_s,
           "evals_per_batch": evals, "device_ms_by_family": groups or None,
           "device_busy_ms": busy if groups else None, "device_kernels": launches,
           "device_idle_share": (1.0 - busy / (1e3 * unet_s)) if groups else None})
+
+
+def phase_geglu_host():
+    """Host work per bf16 GEGLU call at each SD site (2 prompts): the
+    forward through `geglu_ff` (inference mode) and `geglu_dx`.  Per call:
+    `host_us`, the host's time to issue it (50 calls that queue on the card
+    without a wait); `wrapper_ms`, CUDA events over the same calls back to
+    back; `device_ms`, the kernels' device time under torch.profiler; and
+    `host_gap_ms` = wrapper_ms - device_ms, what the wrapper adds to the
+    card's time.  Only the wrappers' public signatures are used, so
+    `--compare` runs this phase on the other tree's package too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu
+
+    n = 50
+    for level, Lq, dim, _ in SITES:
+        gen = torch.Generator(device="cuda").manual_seed(Lq + dim)
+        x, w1, b1, w2, b2, res = _inputs("geglu", SERVE_PROMPTS, Lq, dim, torch.bfloat16, gen)
+        dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        row = {"phase": "geglu_host", "site": level, "M": x.shape[0], "dim": dim}
+        for name, call in (("fwd", lambda: cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)),
+                           ("dx", lambda: cuda_geglu.geglu_dx(x, w1, b1, w2, dy))):
+            with torch.inference_mode():
+                wrapper_ms = cuda_ms(call, n)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    call()
+                host_us = (time.perf_counter() - t0) / n * 1e6
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        call()
+                    torch.cuda.synchronize()
+            dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+            device_ms = dev_us / 1e3 / n
+            row[name] = {"host_us": host_us, "wrapper_ms": wrapper_ms, "device_ms": device_ms,
+                         "host_gap_ms": wrapper_ms - device_ms}
+        emit(row)
 
 
 # one turn of `--compare`: phases that both trees have, in a fresh process
@@ -1264,6 +1428,12 @@ c.phase_profile(sd)
 del sd
 torch.cuda.empty_cache()
 c.phase_profile_train(bundle(use_flash=True))
+# this script's host-work phase, run on the package of the tree in the cwd
+import importlib.util
+spec = importlib.util.spec_from_file_location('this_smoke', sys.argv[1])
+this = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(this)
+this.phase_geglu_host()
 """
 
 
@@ -1276,8 +1446,8 @@ def compare_trees(other: str) -> int:
     summary = []
     for turn, tree in enumerate([other, here, here, other], 1):
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", COMPARE_TURN], cwd=tree,
-                             capture_output=True, text=True)
+        run = subprocess.run([sys.executable, "-c", COMPARE_TURN, os.path.abspath(__file__)],
+                             cwd=tree, capture_output=True, text=True)
         lines = [json.loads(ln) for ln in run.stdout.splitlines() if ln.startswith("{")]
         for ln in lines:
             emit({"turn": turn, "tree": tree, **ln})
@@ -1286,9 +1456,12 @@ def compare_trees(other: str) -> int:
             fail(f"compare turn {turn} ({tree}) exited with {run.returncode}")
         by = {ln["phase"]: ln for ln in lines if ln["phase"] in ("agg", "profile",
                                                                   "profile_train")}
+        host = {ln["site"]: {k: ln[k] for k in ("fwd", "dx")} for ln in lines
+                if ln["phase"] == "geglu_host"}
         sites = {f"{ln['name']} {ln['site']}": ln["kernel_ms"] for ln in lines
                  if ln["phase"] in ("kernel", "kernel_bwd") and ln["dtype"] == "bfloat16"
-                 and ln["prompts"] == SERVE_PROMPTS and ln["name"].startswith(("flash", "mha"))}
+                 and ln["prompts"] == SERVE_PROMPTS
+                 and ln["name"].startswith(("flash", "mha", "geglu"))}
         summary.append({"phase": "compare", "turn": turn, "tree": tree,
                         "seconds": time.perf_counter() - t0,
                         "per_unet_eval_ms": {k: v["ms"] for k, v in by["agg"]["agg"].items()},
@@ -1297,7 +1470,8 @@ def compare_trees(other: str) -> int:
                         "serve_eval_family_ms": by["profile"]["device_ms_by_family"],
                         "train_eval_s": by["profile_train"]["train_eval_s"],
                         "train_eval_busy_ms": by["profile_train"]["device_busy_ms"],
-                        "train_eval_family_ms": by["profile_train"]["device_ms_by_family"]})
+                        "train_eval_family_ms": by["profile_train"]["device_ms_by_family"],
+                        "geglu_host": host})
     for row in summary:
         emit(row)
     return 0

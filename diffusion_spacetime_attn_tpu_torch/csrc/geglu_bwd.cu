@@ -9,29 +9,36 @@
 //   dh = du·gelu(g),     dg = du·h·gelu′(g)            rounded to x's dtype
 //   dx = dh·W1h + dg·W1g
 //
-// with gelu′(g) = Φ(g) + g·φ(g) (exact erf), f32 accumulation, and none of
-// h, g, du, dh, dg written to device memory.  The chain differentiates the
-// blend weights only, so dx is the only cotangent of the hot path; dW and db
-// are plain products in the wrapper.
+// with gelu′(g) = Φ(g) + g·φ(g) (exact erf), f32 accumulation.  The chain
+// differentiates the blend weights only, so dx is the only cotangent of the
+// hot path; dW and db are plain products in the wrapper.
 //
 // Bound on the H100: 10·M·dim·inner FLOPs (five products) against two [M, dim]
 // activations in, one out and the weights: bound by operations at SD levels
 // 0-2, by the weights at the mid block.
 //
-// Same grid and reduction as the forward (`geglu_fwd.cu`): block (64-row tile,
-// inner chunk) recomputes h, g and du for its chunk one 64-column sub-tile at
-// a time, keeps dh and dg for the whole chunk in shared memory, multiplies
-// them by the chunk's rows of W1h and W1g, and writes its partial dx to its
-// chunk's own f32 slice of the scratch ([chunks, M, dim]); `sum_slices_kernel`
-// (common.cuh) sums the slices in chunk order, so the result is a fixed
-// function of the inputs.  Both remaining products are NN in this layout
-// (du = dy·W2, dx = dh·W1h): their B tiles are row-major [k][n] and reach the
-// tensor cores through ldmatrix.trans.
+// Two designs, by dtype, as in the forward (`geglu_fwd.cu`):
 //
-// bf16 runs on the tensor cores (mma.sync m16n8k16, 4 warps of 16 rows) and
-// takes widths that are multiples of 8 and 16-byte aligned operands; float32
-// runs on the CUDA cores (256 threads, 4x4 outputs each, chunks of 64).
-#include "common.cuh"
+// wgmma (bf16, dim and inner multiples of 8, 16-byte aligned operands): two
+//   persistent ping-pong GEMMs (`hop::pingpong_gemm`, hopper.cuh).
+//   `geglu_dgate_wgmma_kernel` computes 64 x 64 tiles of h, g and du with
+//   three accumulators sharing one k-loop over dim (x against W1h and W1g
+//   rows, K-major; dy against W2's columns, an MN-major B operand), and
+//   writes dh and dg, each rounded to bf16 where the TPU kernel rounds them,
+//   to one [M, 2·inner] tensor laid out [dh | dg]; the gate's erf and exp run
+//   under the other warpgroup's products.  `geglu_dx_out_wgmma_kernel` is
+//   then a single product dx = [dh | dg]·W1 over 2·inner (W1 MN-major), in
+//   64 x 160 tiles (64 x 64 at the mid block) rounded once.
+//
+// simt (float32): block (64-row tile, 64-column inner chunk) recomputes h,
+//   g and du on the CUDA cores (256 threads, 4x4 outputs each), keeps dh and
+//   dg for the chunk in shared memory, multiplies them by the chunk's rows
+//   of W1h and W1g and writes its partial dx to its own f32 slice of the
+//   scratch ([chunks, M, dim]); `sum_slices_kernel` (common.cuh) sums the
+//   slices in chunk order.
+//
+// No design uses atomics: the result is a fixed function of the inputs.
+#include "hopper.cuh"
 
 namespace {
 
@@ -196,222 +203,211 @@ geglu_dx_partial_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
-// ---- bfloat16: tensor cores ----
-using dsta::bf16;
-using dsta::ld_pair;
-using dsta::ldmatrix_x2_trans;
-using dsta::load_tile_bf16;
-using dsta::mma_bf16;
-
-constexpr int TC_BM = 64;   // rows per block: 4 warps x 16
-constexpr int TC_BK = 32;   // reduction step over dim (phase 1)
-constexpr int TC_SUB = 64;  // inner columns per sub-tile (phase 1), k step (phase 3)
-constexpr int TC_BD = 64;   // output columns per W1 tile (phase 3)
-constexpr int TC_NT = 128;
-constexpr int LDK = TC_BK + 8;   // x / dy / W1 staging rows
-constexpr int LDN = TC_SUB + 8;  // W2 [k][n] and W1 [k][n] tiles
-
-template <int CHUNK>
-__host__ __device__ constexpr int dx_smem_elems() {
-  constexpr int stage = 4 * TC_BM * LDK + TC_BK * LDN;  // xs, dys, whs, wgs, w2s
-  constexpr int w1 = 2 * TC_SUB * LDN;                  // w1hs, w1gs
-  return (stage > w1 ? stage : w1) + 2 * TC_BM * (CHUNK + 8);
+// The simt design's launch: one block per (64-row tile, 64-column inner chunk).
+cudaError_t launch_simt(const float* x, const float* w1, const float* b1, const float* w2,
+                        const float* dy, float* scratch, int M, int dim, int inner,
+                        cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * SMEM_FLOATS;
+  dim3 grid((M + BM - 1) / BM, (inner + BI - 1) / BI);
+  return dsta::launch_smem(geglu_dx_partial_kernel, grid, NT, smem, stream, x, w1, b1, w2, dy,
+                           scratch, M, dim, inner);
 }
 
-template <int CHUNK>  // inner columns per block
-__global__ void __launch_bounds__(TC_NT)
-geglu_dx_partial_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                            const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                            const bf16* __restrict__ dy, float* __restrict__ scratch, int M,
-                            int dim, int inner) {
-  constexpr int LDU = CHUNK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [TC_BM][LDK]   x tile
-  bf16* dys = xs + TC_BM * LDK;                   // [TC_BM][LDK]   dy tile
-  bf16* whs = dys + TC_BM * LDK;                  // [TC_SUB][LDK]  W1h rows
-  bf16* wgs = whs + TC_SUB * LDK;                 // [TC_SUB][LDK]  W1g rows
-  bf16* w2s = wgs + TC_SUB * LDK;                 // [TC_BK][LDN]   W2 [d][i]
-  bf16* w1hs = xs;                                // [TC_SUB][LDN]  W1h [i][d] (phase 3)
-  bf16* w1gs = xs + TC_SUB * LDN;                 // [TC_SUB][LDN]  W1g [i][d] (phase 3)
-  bf16* dhs = xs + (dx_smem_elems<CHUNK>() - 2 * TC_BM * LDU);  // [TC_BM][LDU]
-  bf16* dgs = dhs + TC_BM * LDU;                                 // [TC_BM][LDU]
+// ---- bfloat16: wgmma fed by TMA (persistent ping-pong GEMMs) ----
+using dsta::bf16;
+using dsta::hop::PP_BM;
+namespace hop = dsta::hop;
 
-  const int m0 = blockIdx.x * TC_BM, i0 = blockIdx.y * CHUNK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;  // this warp's rows in the tile
-  const bf16* w1g = w1 + (size_t)inner * dim;
-  float* partial = scratch + (size_t)blockIdx.y * M * dim;  // this chunk's slice
-
-  // ---- phases 1-2 per sub-tile: h, g = x·W1ᵀ, du = dy·W2; then dh, dg ----
-  for (int sub = 0; sub < CHUNK / TC_SUB; ++sub) {
-    const int c0 = i0 + sub * TC_SUB;
-    float hacc[TC_SUB / 8][4], gacc[TC_SUB / 8][4], dacc[TC_SUB / 8][4];
+// C: dh, dg from h = x·W1hᵀ, g = x·W1gᵀ and du = dy·W2, 64 x 64 tiles over
+// dim.  Maps (64-row boxes): x, dy, W1, W2.  A stage: the x, dy, W1h, W1g
+// tiles (K-major) and W2's 64 x 64 block (MN-major), 40 KB.
+struct GegluDgate {
+  static constexpr int BN = 64, STAGES = 4, NMAPS = 4;
+  static constexpr int T = 64 * 128;  // one 64 x 64 tile
+  static constexpr int STAGE_BYTES = 5 * T;
+  struct Args {
+    const bf16* b1;
+    bf16* dhg;
+    int M, inner;
+  };
+  struct Acc {
+    float h[BN / 2], g[BN / 2], du[BN / 2];
+    __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int n = 0; n < TC_SUB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[n][e] = gacc[n][e] = dacc[n][e] = 0.f;
-
-    for (int k0 = 0; k0 < dim; k0 += TC_BK) {
-      __syncthreads();  // the previous step's tiles are no longer read
-      load_tile_bf16<TC_BM, TC_BK, TC_NT>(xs, x, m0, M, k0, dim, dim, true);
-      load_tile_bf16<TC_BM, TC_BK, TC_NT>(dys, dy, m0, M, k0, dim, dim, true);
-      load_tile_bf16<TC_SUB, TC_BK, TC_NT>(whs, w1, c0, inner, k0, dim, dim, true);
-      load_tile_bf16<TC_SUB, TC_BK, TC_NT>(wgs, w1g, c0, inner, k0, dim, dim, true);
-      load_tile_bf16<TC_BK, TC_SUB, TC_NT>(w2s, w2, k0, dim, c0, inner, inner, true);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk) {
-        const bf16* xr = xs + (wr + g) * LDK + kk * 16 + t * 2;
-        const uint32_t a[4] = {ld_pair(xr), ld_pair(xr + 8 * LDK), ld_pair(xr + 8),
-                               ld_pair(xr + 8 * LDK + 8)};
-        const bf16* dr = dys + (wr + g) * LDK + kk * 16 + t * 2;
-        const uint32_t da[4] = {ld_pair(dr), ld_pair(dr + 8 * LDK), ld_pair(dr + 8),
-                                ld_pair(dr + 8 * LDK + 8)};
-        const bf16* w2r = w2s + (kk * 16 + (lane & 15)) * LDN;
-#pragma unroll
-        for (int n = 0; n < TC_SUB / 8; ++n) {
-          const int off = (n * 8 + g) * LDK + kk * 16 + t * 2;
-          mma_bf16(hacc[n], a, ld_pair(whs + off), ld_pair(whs + off + 8));
-          mma_bf16(gacc[n], a, ld_pair(wgs + off), ld_pair(wgs + off + 8));
-          uint32_t b0, b1v;
-          ldmatrix_x2_trans(b0, b1v, w2r + n * 8);
-          mma_bf16(dacc[n], da, b0, b1v);
-        }
-      }
+      for (int i = 0; i < BN / 2; ++i) h[i] = g[i] = du[i] = 0.f;
     }
-
+    __device__ __forceinline__ void fence() {
+      hop::fence_regs(h);
+      hop::fence_regs(g);
+      hop::fence_regs(du);
+    }
+  };
+  __device__ __forceinline__ static void load(unsigned char* st, const CUtensorMap* m,
+                                              uint64_t* bar, int m0, int n0, int k0,
+                                              const Args& a) {
+    hop::tma_load_2d(st, &m[0], bar, k0, m0);                  // x
+    hop::tma_load_2d(st + T, &m[1], bar, k0, m0);              // dy
+    hop::tma_load_2d(st + 2 * T, &m[2], bar, k0, n0);          // W1h rows
+    hop::tma_load_2d(st + 3 * T, &m[2], bar, k0, a.inner + n0);  // W1g rows
+    hop::tma_load_2d(st + 4 * T, &m[3], bar, n0, k0);          // W2 [k0.., n0..]
+  }
+  __device__ __forceinline__ static void mma(Acc& c, const unsigned char* st, int scale) {
 #pragma unroll
-    for (int n = 0; n < TC_SUB / 8; ++n) {
-      const int col = n * 8 + t * 2;  // and col + 1
-      float bh[2], bg[2];
-      bool ok[2];
+    for (int ks = 0; ks < 4; ++ks) {
+      const int sc = ks > 0 || scale;
+      const uint64_t dx = hop::desc_kmajor(st, PP_BM, ks);
+      hop::Wgmma<BN>::ss(c.h, dx, hop::desc_kmajor(st + 2 * T, BN, ks), sc);
+      hop::Wgmma<BN>::ss(c.g, dx, hop::desc_kmajor(st + 3 * T, BN, ks), sc);
+      hop::Wgmma<BN>::ssT(c.du, hop::desc_kmajor(st + T, PP_BM, ks),
+                          hop::desc_mnmajor(st + 4 * T, 64, ks), sc);
+    }
+  }
+  __device__ __forceinline__ static void epilogue(const Acc& c, const Args& a, int row0,
+                                                  int col0) {
+    const size_t ld = 2 * (size_t)a.inner;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ic = c0 + col + e;
-        ok[e] = ic < inner;
-        bh[e] = ok[e] ? __bfloat162float(b1[ic]) : 0.f;
-        bg[e] = ok[e] ? __bfloat162float(b1[inner + ic]) : 0.f;
-      }
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;  // and col + 1: inner is a multiple of 8
+      if (col >= a.inner) continue;
+      const float bh[2] = {__bfloat162float(a.b1[col]), __bfloat162float(a.b1[col + 1])};
+      const float bg[2] = {__bfloat162float(a.b1[a.inner + col]),
+                           __bfloat162float(a.b1[a.inner + col + 1])};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {  // rows g and g + 8
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= a.M) continue;
         float dh[2], dg[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          geglu_grads(hacc[n][2 * i + e] + bh[e], gacc[n][2 * i + e] + bg[e], dacc[n][2 * i + e],
-                      dh[e], dg[e]);
-          if (!ok[e]) dh[e] = dg[e] = 0.f;
+          const int i = 4 * j + 2 * r + e;
+          geglu_grads(c.h[i] + bh[e], c.g[i] + bg[e], c.du[i], dh[e], dg[e]);
         }
-        const int o = (wr + g + 8 * i) * LDU + sub * TC_SUB + col;
-        *reinterpret_cast<__nv_bfloat162*>(dhs + o) = __floats2bfloat162_rn(dh[0], dh[1]);
-        *reinterpret_cast<__nv_bfloat162*>(dgs + o) = __floats2bfloat162_rn(dg[0], dg[1]);
+        bf16* const o = a.dhg + (size_t)row * ld + col;
+        *reinterpret_cast<uint32_t*>(o) = dsta::pack_bf16(dh[0], dh[1]);
+        *reinterpret_cast<uint32_t*>(o + a.inner) = dsta::pack_bf16(dg[0], dg[1]);
       }
     }
   }
+};
 
-  // ---- phase 3: partial = dh·W1h[i0:i0+CHUNK, :] + dg·W1g[i0:i0+CHUNK, :] ----
-  for (int d0 = 0; d0 < dim; d0 += TC_BD) {
-    float acc[TC_BD / 8][4];
+// D: dx = [dh | dg]·W1 over 2·inner in 64 x BN tiles.  Maps (64-row boxes):
+// [dh | dg], W1.  A stage: the [dh | dg] tile (K-major), then W1's 64 rows
+// x BN columns as ceil(BN / 64) boxes (MN-major).
+template <int BN_>
+struct GegluDxOut {
+  static constexpr int BN = BN_, NB = (BN + 63) / 64, STAGES = BN == 64 ? 8 : 6, NMAPS = 2;
+  static constexpr int T = 64 * 128, STAGE_BYTES = T + NB * T;
+  struct Args {
+    bf16* dx;
+    int M, dim;
+  };
+  struct Acc {
+    float o[BN / 2];
+    __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int n = 0; n < TC_BD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    for (int kb = 0; kb < CHUNK; kb += TC_SUB) {
-      __syncthreads();  // dhs / dgs written; staging tiles / previous W1 tiles no longer read
-      load_tile_bf16<TC_SUB, TC_BD, TC_NT>(w1hs, w1, i0 + kb, inner, d0, dim, dim, true);
-      load_tile_bf16<TC_SUB, TC_BD, TC_NT>(w1gs, w1g, i0 + kb, inner, d0, dim, dim, true);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_SUB / 16; ++kk) {
-        const bf16* hr = dhs + (wr + g) * LDU + kb + kk * 16 + t * 2;
-        const uint32_t ah[4] = {ld_pair(hr), ld_pair(hr + 8 * LDU), ld_pair(hr + 8),
-                                ld_pair(hr + 8 * LDU + 8)};
-        const bf16* gr = dgs + (wr + g) * LDU + kb + kk * 16 + t * 2;
-        const uint32_t ag[4] = {ld_pair(gr), ld_pair(gr + 8 * LDU), ld_pair(gr + 8),
-                                ld_pair(gr + 8 * LDU + 8)};
-        const bf16* w1hr = w1hs + (kk * 16 + (lane & 15)) * LDN;
-        const bf16* w1gr = w1gs + (kk * 16 + (lane & 15)) * LDN;
-#pragma unroll
-        for (int n = 0; n < TC_BD / 8; ++n) {
-          uint32_t b0, b1v;
-          ldmatrix_x2_trans(b0, b1v, w1hr + n * 8);
-          mma_bf16(acc[n], ah, b0, b1v);
-          ldmatrix_x2_trans(b0, b1v, w1gr + n * 8);
-          mma_bf16(acc[n], ag, b0, b1v);
-        }
-      }
+      for (int i = 0; i < BN / 2; ++i) o[i] = 0.f;
     }
+    __device__ __forceinline__ void fence() { hop::fence_regs(o); }
+  };
+  __device__ __forceinline__ static void load(unsigned char* st, const CUtensorMap* m,
+                                              uint64_t* bar, int m0, int n0, int k0,
+                                              const Args&) {
+    hop::tma_load_2d(st, &m[0], bar, k0, m0);
 #pragma unroll
-    for (int n = 0; n < TC_BD / 8; ++n) {
-      const int col = d0 + n * 8 + t * 2;  // dim is a multiple of 8, so col + 1 < dim too
-      if (col >= dim) continue;
+    for (int b = 0; b < NB; ++b) hop::tma_load_2d(st + T + b * T, &m[1], bar, n0 + 64 * b, k0);
+  }
+  __device__ __forceinline__ static void mma(Acc& c, const unsigned char* st, int scale) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = m0 + wr + g + 8 * i;
-        if (r < M)
-          *reinterpret_cast<float2*>(partial + (size_t)r * dim + col) =
-              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    for (int ks = 0; ks < 4; ++ks)
+      hop::Wgmma<BN>::ssT(c.o, hop::desc_kmajor(st, PP_BM, ks), hop::desc_mnmajor(st + T, 64, ks),
+                          ks > 0 || scale);
+  }
+  __device__ __forceinline__ static void epilogue(const Acc& c, const Args& a, int row0,
+                                                  int col0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;  // and col + 1: dim is a multiple of 8
+      if (col >= a.dim) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < a.M)
+          *reinterpret_cast<uint32_t*>(a.dx + (size_t)row * a.dim + col) =
+              dsta::pack_bf16(c.o[4 * j + 2 * r], c.o[4 * j + 2 * r + 1]);
       }
     }
   }
+};
+
+__global__ void __launch_bounds__(hop::PP_THREADS, 1)
+geglu_dgate_wgmma_kernel(const __grid_constant__ hop::TensorMaps<4> maps,
+                         const GegluDgate::Args args, int M, int N, int K) {
+  hop::pingpong_gemm<GegluDgate>(maps, args, M, N, K);
 }
 
-template <int CHUNK>
-cudaError_t launch_mma(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
-                       const bf16* dy, float* scratch, int M, int dim, int inner,
-                       cudaStream_t stream) {
-  const int smem = (int)sizeof(bf16) * dx_smem_elems<CHUNK>();
-  cudaError_t err = cudaFuncSetAttribute(geglu_dx_partial_mma_kernel<CHUNK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int BN>
+__global__ void __launch_bounds__(hop::PP_THREADS, 1)
+geglu_dx_out_wgmma_kernel(const __grid_constant__ hop::TensorMaps<2> maps,
+                          const typename GegluDxOut<BN>::Args args, int M, int N, int K) {
+  hop::pingpong_gemm<GegluDxOut<BN>>(maps, args, M, N, K);
+}
+
+template <int BN>
+cudaError_t launch_dx_out(const bf16* dhg, const bf16* w1, bf16* dx, int M, int dim, int inner,
+                          cudaStream_t stream) {
+  hop::TensorMaps<2> maps;
+  cudaError_t err = hop::matrix_map(&maps.m[0], dhg, M, 2 * inner, PP_BM);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[1], w1, 2 * inner, dim, 64);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + TC_BM - 1) / TC_BM, (inner + CHUNK - 1) / CHUNK);
-  geglu_dx_partial_mma_kernel<CHUNK><<<grid, TC_NT, smem, stream>>>(x, w1, b1, w2, dy, scratch, M,
-                                                                    dim, inner);
-  return cudaGetLastError();
+  return hop::launch_pingpong<GegluDxOut<BN>>(geglu_dx_out_wgmma_kernel<BN>, M, dim, stream, maps,
+                                             typename GegluDxOut<BN>::Args{dx, M, dim}, M, dim,
+                                             2 * inner);
 }
 
-cudaError_t launch_partials(int dtype, const void* x, const void* w1, const void* b1,
-                            const void* w2, const void* dy, float* scratch, int M, int dim,
-                            int inner, cudaStream_t stream) {
-  if (dtype == dsta::kF32) {
-    const int smem = (int)sizeof(float) * SMEM_FLOATS;
-    cudaError_t err = cudaFuncSetAttribute(geglu_dx_partial_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((M + BM - 1) / BM, (inner + BI - 1) / BI);
-    geglu_dx_partial_kernel<<<grid, NT, smem, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2),
-        static_cast<const float*>(dy), scratch, M, dim, inner);
-    return cudaGetLastError();
-  }
-  if (dim % 8 || inner % 8 || !dsta::aligned16(x) || !dsta::aligned16(w1) ||
-      !dsta::aligned16(w2) || !dsta::aligned16(dy))
-    return cudaErrorInvalidValue;
-  const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1);
-  const bf16 *b1b = static_cast<const bf16*>(b1), *w2b = static_cast<const bf16*>(w2);
-  const bf16* dyb = static_cast<const bf16*>(dy);
-  switch (dsta::geglu_chunk_width(dtype, M, inner)) {
-    case 256: return launch_mma<256>(xb, w1b, b1b, w2b, dyb, scratch, M, dim, inner, stream);
-    case 128: return launch_mma<128>(xb, w1b, b1b, w2b, dyb, scratch, M, dim, inner, stream);
-    default: return launch_mma<64>(xb, w1b, b1b, w2b, dyb, scratch, M, dim, inner, stream);
-  }
+cudaError_t launch_wgmma(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                         const bf16* dy, bf16* dhg, bf16* dx, int M, int dim, int inner,
+                         cudaStream_t stream) {
+  hop::TensorMaps<4> maps;
+  cudaError_t err = hop::matrix_map(&maps.m[0], x, M, dim, PP_BM);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[1], dy, M, dim, PP_BM);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[2], w1, 2 * inner, dim, 64);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[3], w2, dim, inner, 64);
+  if (err != cudaSuccess) return err;
+  err = hop::launch_pingpong<GegluDgate>(geglu_dgate_wgmma_kernel, M, inner, stream, maps,
+                                         GegluDgate::Args{b1, dhg, M, inner}, M, inner, dim);
+  if (err != cudaSuccess) return err;
+  if (dsta::geglu_out_width(M, dim, hop::sm_count()) == 160)
+    return launch_dx_out<160>(dhg, w1, dx, M, dim, inner, stream);
+  return launch_dx_out<64>(dhg, w1, dx, M, dim, inner, stream);
 }
 
 }  // namespace
 
-// x, dy, dx [M, dim]; w1 [2*inner, dim]; b1 [2*inner]; w2 [dim, inner]; scratch
-// [dsta_geglu_chunks(...), M, dim] float32 (the forward's chunk rule).  All
-// contiguous; x, dy, weights, biases and dx share one dtype.  bfloat16 needs
-// dim and inner multiples of 8 and x, w1, w2, dy 16-byte aligned.
+// x, dy, dx [M, dim]; w1 [2*inner, dim]; b1 [2*inner]; w2 [dim, inner].  All
+// contiguous; x, dy, weights, biases and dx share one dtype.  bfloat16 (the
+// wgmma design) needs dim and inner multiples of 8 and x, w1, w2, dy and
+// scratch 16-byte aligned; scratch is [dh | dg] [M, 2*inner] bfloat16.
+// float32 (simt): scratch is [dsta_geglu_chunks(...), M, dim] float32.
 extern "C" int dsta_geglu_dx(int dtype, const void* x, const void* w1, const void* b1,
                              const void* w2, const void* dy, void* scratch, void* dx, int M,
                              int dim, int inner, void* stream) {
   if (M < 1 || dim < 1 || inner < 1) return (int)cudaErrorInvalidValue;
-  if (dtype != dsta::kF32 && dtype != dsta::kBF16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dsta::kBF16) {
+    if (dim % 8 || inner % 8 || !dsta::aligned16(x) || !dsta::aligned16(w1) ||
+        !dsta::aligned16(w2) || !dsta::aligned16(dy) || !dsta::aligned16(scratch))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                             static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                             static_cast<const bf16*>(dy), static_cast<bf16*>(scratch),
+                             static_cast<bf16*>(dx), M, dim, inner, s);
+  }
+  if (dtype != dsta::kF32) return (int)cudaErrorInvalidValue;
   float* sc = static_cast<float*>(scratch);
-  cudaError_t err = launch_partials(dtype, x, w1, b1, w2, dy, sc, M, dim, inner, s);
+  cudaError_t err = launch_simt(static_cast<const float*>(x), static_cast<const float*>(w1),
+                                static_cast<const float*>(b1), static_cast<const float*>(w2),
+                                static_cast<const float*>(dy), sc, M, dim, inner, s);
   if (err != cudaSuccess) return (int)err;
-  const int bi = dsta::geglu_chunk_width(dtype, M, inner);
-  const int chunks = (inner + bi - 1) / bi;
-  return (int)dsta::launch_sum_slices(dtype, sc, nullptr, nullptr, dx, (size_t)M * dim, dim,
-                                      chunks, s);
+  return (int)dsta::launch_sum_slices(sc, nullptr, nullptr, static_cast<float*>(dx),
+                                      (size_t)M * dim, dim, (inner + BI - 1) / BI, s);
 }

@@ -7,37 +7,53 @@
 //   u   = h·gelu_erf(g), rounded to x's dtype
 //   out = u·W2ᵀ + b2 (+ residual)
 //
-// with f32 accumulation, and the gated [M, inner] intermediate never written
-// to device memory.
+// with f32 accumulation.
 //
 // Bound on the H100: 6·M·dim·inner FLOPs against the weights and two or three
 // [M, dim] activations; at SD levels 0-2 that is bound by operations, at the
-// mid block (M=128 rows per prompt) by the 26 MB of weights.
+// mid block (M = 128 rows per prompt) by the 26 MB of weights.  The gate's
+// erf runs on the CUDA cores: at level 0 (dim 320) its M·inner evaluations
+// take about half as long as the tensor cores take for h and g.
 //
-// The TPU kernel kept an f32 [rows, dim] accumulator across inner tiles; at
-// dim=1280 that is 320 KB for 64 rows, more than an SM holds, and tiling rows
-// alone would leave level 2 and the mid block (M = 256..1024) with a handful
-// of blocks each streaming every weight.  So the grid splits BOTH the rows
-// and the inner dimension: block (row tile, inner chunk) computes its gated
-// tile u in shared memory, multiplies it by the matching columns of W2, and
-// stores its partial [rows, dim] product into its own f32 slice of the
-// scratch ([chunks, M, dim]).  A second small kernel (`sum_slices_kernel`,
-// common.cuh) sums the slices in
-// chunk order, adds b2 and the residual and rounds to the output dtype, so
-// the result is a fixed function of the inputs (no atomics, no run-to-run
-// change of summation order).
+// The TPU kernel kept the gated [rows, inner] tile in VMEM and an f32
+// [rows, dim] accumulator across inner tiles, since a TPU core walks the
+// grid in order.  On Hopper that would mean either a reduction across blocks
+// or recomputing h and g once per output tile.  Two designs, by dtype
+// (`ops/cuda_geglu.py:geglu_design`):
 //
-// bf16 runs on the tensor cores (`geglu_partial_mma_kernel`, mma.sync
-// m16n8k16, f32 accumulation, 4 warps of 16 rows): a block takes 64 rows and
-// an inner chunk of 64, 128 or 256 columns, the widest that still gives the
-// grid two blocks per SM.  The gate runs per 64-column sub-tile, and the bf16
-// gated tile [64, chunk] stays in shared memory for the second product.  It
-// takes widths that are multiples of 8 and 16-byte aligned operands, and
-// rejects any other.  float32 runs on the CUDA cores (`geglu_partial_kernel`,
-// chunks of 64): each of 256 threads owns a 4x4 block of every 64x64 tile.
-#include "common.cuh"
+// wgmma (bf16, dim and inner multiples of 8, 16-byte aligned operands): two
+//   persistent ping-pong GEMMs (`hop::pingpong_gemm`, hopper.cuh: TMA ring,
+//   two consumer warpgroups taking 64-row tiles in turn, a producer
+//   warpgroup).  `geglu_gate_wgmma_kernel` computes 64 x 128 tiles of h and
+//   g (two ss wgmma accumulators over dim, W1h and W1g rows K-major) and
+//   writes u = (h + b1h)·gelu_erf(g + b1g) as bf16 to u [M, inner]: u is
+//   rounded to bf16 exactly where the TPU kernel rounds it, so writing it
+//   changes nothing but the summation order, and it is a fifth of the bytes
+//   of f32 partial sums of out per inner chunk.  One warpgroup's erf
+//   epilogue runs under the other's products.  `geglu_out_wgmma_kernel`
+//   computes out = u·W2ᵀ over inner (W2 rows K-major) in 64 x 160 tiles, or
+//   64 x 64 where 160-wide tiles would leave SMs idle (the mid block), and
+//   adds b2 and the residual in f32 before rounding once.  Rows and columns
+//   past the edge arrive as zeros from TMA; the epilogues mask their
+//   stores, so the garbage gate of a column past inner is never written.
+//
+// simt (float32): `geglu_partial_kernel` on the CUDA cores.  Block (64-row
+//   tile, inner chunk of 64) keeps its gated tile in shared memory,
+//   multiplies it by the matching columns of W2 and stores its partial
+//   product into its own f32 slice of the scratch ([chunks, M, dim]);
+//   `sum_slices_kernel` (common.cuh) sums the slices in chunk order and
+//   adds b2 and the residual.  Each of 256 threads owns a 4x4 block of
+//   every 64x64 tile.
+//
+// No design uses atomics: the result is a fixed function of the inputs.
+#include "hopper.cuh"
 
 namespace {
+
+// u = h·gelu_erf(g) in f32
+__device__ __forceinline__ float gated(float h, float g) {
+  return h * (0.5f * g * (1.f + erff(g * 0.70710678118654752f)));
+}
 
 // ---- CUDA cores ----
 constexpr int BM = 64;   // rows per block
@@ -116,10 +132,7 @@ geglu_partial_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     const float bg = cok ? b1[inner + i0 + c] : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float hv = hacc[i][j] + bh;
-      const float gv = gacc[i][j] + bg;
-      const float u = hv * (0.5f * gv * (1.f + erff(gv * 0.70710678118654752f)));
-      us[c * LDA + ty * 4 + i] = cok ? u : 0.f;
+      us[c * LDA + ty * 4 + i] = cok ? gated(hacc[i][j] + bh, gacc[i][j] + bg) : 0.f;
     }
   }
 
@@ -162,195 +175,212 @@ geglu_partial_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// ---- bfloat16: tensor cores ----
-using dsta::bf16;
-using dsta::ld_pair;
-using dsta::load_tile_bf16;
-using dsta::mma_bf16;
-
-constexpr int TC_BM = 64;   // rows per block: 4 warps x 16
-constexpr int TC_BK = 32;   // reduction step over dim
-constexpr int TC_SUB = 64;  // inner columns per gate sub-tile
-constexpr int TC_BD = 64;   // output columns per W2 tile
-constexpr int TC_NT = 128;
-
-template <int CHUNK>
-__host__ __device__ constexpr int mma_smem_elems() {
-  constexpr int stage = 3 * TC_BM * (TC_BK + 8), w2 = TC_BD * (CHUNK + 8);
-  return (stage > w2 ? stage : w2) + TC_BM * (CHUNK + 8);
-}
-
-template <int CHUNK>  // inner columns per block
-__global__ void __launch_bounds__(TC_NT)
-geglu_partial_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                         const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                         float* __restrict__ scratch, int M, int dim, int inner) {
-  constexpr int LDK = TC_BK + 8, LDU = CHUNK + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [TC_BM][LDK]   x tile
-  bf16* whs = xs + TC_BM * LDK;                   // [TC_SUB][LDK]  W1h rows
-  bf16* wgs = whs + TC_SUB * LDK;                 // [TC_SUB][LDK]  W1g rows
-  bf16* w2s = xs;                                 // [TC_BD][LDU]   W2 tile (phase 3)
-  bf16* us = xs + (mma_smem_elems<CHUNK>() - TC_BM * LDU);  // [TC_BM][LDU] gated tile
-
-  const int m0 = blockIdx.x * TC_BM, i0 = blockIdx.y * CHUNK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;  // this warp's rows in the tile
-  const bf16* w1g = w1 + (size_t)inner * dim;
-  float* partial = scratch + (size_t)blockIdx.y * M * dim;  // this chunk's slice
-
-  // ---- phases 1-2 per sub-tile: h, g = x·W1ᵀ; u = (h + b1h)·gelu_erf(g + b1g) ----
-  for (int sub = 0; sub < CHUNK / TC_SUB; ++sub) {
-    const int c0 = i0 + sub * TC_SUB;
-    float hacc[TC_SUB / 8][4], gacc[TC_SUB / 8][4];
-#pragma unroll
-    for (int n = 0; n < TC_SUB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[n][e] = gacc[n][e] = 0.f;
-
-    for (int k0 = 0; k0 < dim; k0 += TC_BK) {
-      __syncthreads();  // the previous step's tiles are no longer read
-      load_tile_bf16<TC_BM, TC_BK, TC_NT>(xs, x, m0, M, k0, dim, dim, true);
-      load_tile_bf16<TC_SUB, TC_BK, TC_NT>(whs, w1, c0, inner, k0, dim, dim, true);
-      load_tile_bf16<TC_SUB, TC_BK, TC_NT>(wgs, w1g, c0, inner, k0, dim, dim, true);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_BK / 16; ++kk) {
-        const bf16* xr = xs + (wr + g) * LDK + kk * 16 + t * 2;
-        const uint32_t a[4] = {ld_pair(xr), ld_pair(xr + 8 * LDK), ld_pair(xr + 8),
-                               ld_pair(xr + 8 * LDK + 8)};
-#pragma unroll
-        for (int n = 0; n < TC_SUB / 8; ++n) {
-          const int off = (n * 8 + g) * LDK + kk * 16 + t * 2;
-          mma_bf16(hacc[n], a, ld_pair(whs + off), ld_pair(whs + off + 8));
-          mma_bf16(gacc[n], a, ld_pair(wgs + off), ld_pair(wgs + off + 8));
-        }
-      }
-    }
-
-#pragma unroll
-    for (int n = 0; n < TC_SUB / 8; ++n) {
-      const int col = n * 8 + t * 2;  // and col + 1
-      float bh[2], bg[2];
-      bool ok[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ic = c0 + col + e;
-        ok[e] = ic < inner;
-        bh[e] = ok[e] ? __bfloat162float(b1[ic]) : 0.f;
-        bg[e] = ok[e] ? __bfloat162float(b1[inner + ic]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {  // rows g and g + 8
-        float u[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float hv = hacc[n][2 * i + e] + bh[e];
-          const float gv = gacc[n][2 * i + e] + bg[e];
-          u[e] = ok[e] ? hv * (0.5f * gv * (1.f + erff(gv * 0.70710678118654752f))) : 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(us + (wr + g + 8 * i) * LDU + sub * TC_SUB + col) =
-            __floats2bfloat162_rn(u[0], u[1]);
-      }
-    }
-  }
-
-  // ---- phase 3: partial[rows, :] = u·W2[:, i0:i0+CHUNK]ᵀ, one 64-column tile at a time ----
-  for (int d0 = 0; d0 < dim; d0 += TC_BD) {
-    __syncthreads();  // us written; the staging tiles / previous W2 tile no longer read
-    load_tile_bf16<TC_BD, CHUNK, TC_NT>(w2s, w2, d0, dim, i0, inner, inner, true);
-    __syncthreads();
-    float acc[TC_BD / 8][4];
-#pragma unroll
-    for (int n = 0; n < TC_BD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < CHUNK / 16; ++kk) {
-      const bf16* ur = us + (wr + g) * LDU + kk * 16 + t * 2;
-      const uint32_t a[4] = {ld_pair(ur), ld_pair(ur + 8 * LDU), ld_pair(ur + 8),
-                             ld_pair(ur + 8 * LDU + 8)};
-#pragma unroll
-      for (int n = 0; n < TC_BD / 8; ++n) {
-        const bf16* wr2 = w2s + (n * 8 + g) * LDU + kk * 16 + t * 2;
-        mma_bf16(acc[n], a, ld_pair(wr2), ld_pair(wr2 + 8));
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < TC_BD / 8; ++n) {
-      const int col = d0 + n * 8 + t * 2;  // dim is a multiple of 8, so col + 1 < dim too
-      if (col >= dim) continue;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = m0 + wr + g + 8 * i;
-        if (r < M)
-          *reinterpret_cast<float2*>(partial + (size_t)r * dim + col) =
-              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
-      }
-    }
-  }
-}
-
-template <int CHUNK>
-cudaError_t launch_mma_bi(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
-                          float* scratch, int M, int dim, int inner, cudaStream_t stream) {
-  const int smem = (int)sizeof(bf16) * mma_smem_elems<CHUNK>();
-  cudaError_t err = cudaFuncSetAttribute(geglu_partial_mma_kernel<CHUNK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + TC_BM - 1) / TC_BM, (inner + CHUNK - 1) / CHUNK);
-  geglu_partial_mma_kernel<CHUNK><<<grid, TC_NT, smem, stream>>>(x, w1, b1, w2, scratch, M, dim,
-                                                                inner);
+// The simt design's launch: one block per (64-row tile, 64-column inner chunk).
+cudaError_t launch_simt(const float* x, const float* w1, const float* b1, const float* w2,
+                        float* scratch, int M, int dim, int inner, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM, (inner + BI - 1) / BI);
+  geglu_partial_kernel<<<grid, NT, 0, stream>>>(x, w1, b1, w2, scratch, M, dim, inner);
   return cudaGetLastError();
 }
 
-bool tensor_core_ok(const void* x, const void* w1, const void* w2, int dim, int inner) {
-  return dim % 8 == 0 && inner % 8 == 0 && dsta::aligned16(x) && dsta::aligned16(w1) &&
-         dsta::aligned16(w2);
+// ---- bfloat16: wgmma fed by TMA (persistent ping-pong GEMMs) ----
+using dsta::bf16;
+using dsta::hop::PP_BM;
+namespace hop = dsta::hop;
+
+// A: u = (x·W1hᵀ + b1h)·gelu_erf(x·W1gᵀ + b1g) in 64 x 128 tiles over dim.
+// Maps: x (64-row boxes), W1 (128-row boxes).  A stage: the x tile, then the
+// W1h and W1g tiles (40 KB).
+struct GegluGate {
+  static constexpr int BN = 128, STAGES = 4, NMAPS = 2;
+  static constexpr int X_BYTES = PP_BM * 128, W_BYTES = BN * 128;
+  static constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+  struct Args {
+    const bf16* b1;
+    bf16* u;
+    int M, inner;
+  };
+  struct Acc {
+    float h[BN / 2], g[BN / 2];
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) h[i] = g[i] = 0.f;
+    }
+    __device__ __forceinline__ void fence() {
+      hop::fence_regs(h);
+      hop::fence_regs(g);
+    }
+  };
+  __device__ __forceinline__ static void load(unsigned char* st, const CUtensorMap* m,
+                                              uint64_t* bar, int m0, int n0, int k0,
+                                              const Args& a) {
+    hop::tma_load_2d(st, &m[0], bar, k0, m0);
+    hop::tma_load_2d(st + X_BYTES, &m[1], bar, k0, n0);
+    hop::tma_load_2d(st + X_BYTES + W_BYTES, &m[1], bar, k0, a.inner + n0);
+  }
+  __device__ __forceinline__ static void mma(Acc& c, const unsigned char* st, int scale) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = hop::desc_kmajor(st, PP_BM, ks);
+      hop::Wgmma<BN>::ss(c.h, da, hop::desc_kmajor(st + X_BYTES, BN, ks), ks > 0 || scale);
+      hop::Wgmma<BN>::ss(c.g, da, hop::desc_kmajor(st + X_BYTES + W_BYTES, BN, ks),
+                         ks > 0 || scale);
+    }
+  }
+  __device__ __forceinline__ static void epilogue(const Acc& c, const Args& a, int row0,
+                                                  int col0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;  // and col + 1: inner is a multiple of 8
+      if (col >= a.inner) continue;
+      const float bh0 = __bfloat162float(a.b1[col]), bh1 = __bfloat162float(a.b1[col + 1]);
+      const float bg0 = __bfloat162float(a.b1[a.inner + col]);
+      const float bg1 = __bfloat162float(a.b1[a.inner + col + 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= a.M) continue;
+        const int i = 4 * j + 2 * r;
+        const float u0 = gated(c.h[i] + bh0, c.g[i] + bg0);
+        const float u1 = gated(c.h[i + 1] + bh1, c.g[i + 1] + bg1);
+        *reinterpret_cast<uint32_t*>(a.u + (size_t)row * a.inner + col) = dsta::pack_bf16(u0, u1);
+      }
+    }
+  }
+};
+
+// B: out = u·W2ᵀ + b2 (+ res) in 64 x BN tiles over inner.  Maps: u (64-row
+// boxes), W2 (BN-row boxes).  A stage: the u tile, then the W2 tile.
+template <int BN_>
+struct GegluOut {
+  static constexpr int BN = BN_, STAGES = BN == 64 ? 8 : 6, NMAPS = 2;
+  static constexpr int A_BYTES = PP_BM * 128, STAGE_BYTES = A_BYTES + BN * 128;
+  struct Args {
+    const bf16 *b2, *res;
+    bf16* out;
+    int M, dim;
+  };
+  struct Acc {
+    float o[BN / 2];
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) o[i] = 0.f;
+    }
+    __device__ __forceinline__ void fence() { hop::fence_regs(o); }
+  };
+  __device__ __forceinline__ static void load(unsigned char* st, const CUtensorMap* m,
+                                              uint64_t* bar, int m0, int n0, int k0,
+                                              const Args&) {
+    hop::tma_load_2d(st, &m[0], bar, k0, m0);
+    hop::tma_load_2d(st + A_BYTES, &m[1], bar, k0, n0);
+  }
+  __device__ __forceinline__ static void mma(Acc& c, const unsigned char* st, int scale) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      hop::Wgmma<BN>::ss(c.o, hop::desc_kmajor(st, PP_BM, ks),
+                         hop::desc_kmajor(st + A_BYTES, BN, ks), ks > 0 || scale);
+  }
+  __device__ __forceinline__ static void epilogue(const Acc& c, const Args& a, int row0,
+                                                  int col0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;  // and col + 1: dim is a multiple of 8
+      if (col >= a.dim) continue;
+      const float b0 = __bfloat162float(a.b2[col]), b1 = __bfloat162float(a.b2[col + 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= a.M) continue;
+        const size_t o = (size_t)row * a.dim + col;
+        float v0 = c.o[4 * j + 2 * r] + b0, v1 = c.o[4 * j + 2 * r + 1] + b1;
+        if (a.res != nullptr) {
+          v0 += __bfloat162float(a.res[o]);
+          v1 += __bfloat162float(a.res[o + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(a.out + o) = dsta::pack_bf16(v0, v1);
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(hop::PP_THREADS, 1)
+geglu_gate_wgmma_kernel(const __grid_constant__ hop::TensorMaps<2> maps,
+                        const GegluGate::Args args, int M, int N, int K) {
+  hop::pingpong_gemm<GegluGate>(maps, args, M, N, K);
 }
 
-cudaError_t launch_partials(int dtype, const void* x, const void* w1, const void* b1,
-                            const void* w2, float* scratch, int M, int dim, int inner,
-                            cudaStream_t stream) {
-  if (dtype == dsta::kF32) {
-    dim3 grid((M + BM - 1) / BM, (inner + BI - 1) / BI);
-    geglu_partial_kernel<<<grid, NT, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1),
-        static_cast<const float*>(b1), static_cast<const float*>(w2), scratch, M, dim, inner);
-    return cudaGetLastError();
-  }
-  if (!tensor_core_ok(x, w1, w2, dim, inner)) return cudaErrorInvalidValue;
-  const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1);
-  const bf16 *b1b = static_cast<const bf16*>(b1), *w2b = static_cast<const bf16*>(w2);
-  switch (dsta::geglu_chunk_width(dtype, M, inner)) {
-    case 256: return launch_mma_bi<256>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
-    case 128: return launch_mma_bi<128>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
-    default: return launch_mma_bi<64>(xb, w1b, b1b, w2b, scratch, M, dim, inner, stream);
-  }
+template <int BN>
+__global__ void __launch_bounds__(hop::PP_THREADS, 1)
+geglu_out_wgmma_kernel(const __grid_constant__ hop::TensorMaps<2> maps,
+                       const typename GegluOut<BN>::Args args, int M, int N, int K) {
+  hop::pingpong_gemm<GegluOut<BN>>(maps, args, M, N, K);
+}
+
+template <int BN>
+cudaError_t launch_out(const bf16* u, const bf16* w2, const bf16* b2, const bf16* res, bf16* out,
+                       int M, int dim, int inner, cudaStream_t stream) {
+  hop::TensorMaps<2> maps;
+  cudaError_t err = hop::matrix_map(&maps.m[0], u, M, inner, PP_BM);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[1], w2, dim, inner, BN);
+  if (err != cudaSuccess) return err;
+  const typename GegluOut<BN>::Args args{b2, res, out, M, dim};
+  return hop::launch_pingpong<GegluOut<BN>>(geglu_out_wgmma_kernel<BN>, M, dim, stream, maps, args,
+                                           M, dim, inner);
+}
+
+cudaError_t launch_wgmma(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2,
+                         const bf16* b2, const bf16* res, bf16* u, bf16* out, int M, int dim,
+                         int inner, cudaStream_t stream) {
+  hop::TensorMaps<2> maps;
+  cudaError_t err = hop::matrix_map(&maps.m[0], x, M, dim, PP_BM);
+  if (err == cudaSuccess) err = hop::matrix_map(&maps.m[1], w1, 2 * inner, dim, GegluGate::BN);
+  if (err != cudaSuccess) return err;
+  err = hop::launch_pingpong<GegluGate>(geglu_gate_wgmma_kernel, M, inner, stream, maps,
+                                        GegluGate::Args{b1, u, M, inner}, M, inner, dim);
+  if (err != cudaSuccess) return err;
+  if (dsta::geglu_out_width(M, dim, hop::sm_count()) == 160)
+    return launch_out<160>(u, w2, b2, res, out, M, dim, inner, stream);
+  return launch_out<64>(u, w2, b2, res, out, M, dim, inner, stream);
 }
 
 }  // namespace
 
-// The number of f32 [M, dim] slices the scratch of dsta_geglu_fwd must hold
-// (one per inner chunk), or -1 for a dtype the kernel does not take.
+// The number of f32 [M, dim] slices the scratch of a float32 dsta_geglu_fwd
+// or dsta_geglu_dx must hold (one per 64-column inner chunk), or -1 for any
+// other dtype (bfloat16 takes no slices).
 extern "C" int dsta_geglu_chunks(int dtype, int M, int inner) {
-  if (M < 1 || inner < 1 || (dtype != dsta::kF32 && dtype != dsta::kBF16)) return -1;
-  const int bi = dsta::geglu_chunk_width(dtype, M, inner);
-  return (inner + bi - 1) / bi;
+  if (M < 1 || inner < 1 || dtype != dsta::kF32) return -1;
+  return (inner + BI - 1) / BI;
 }
 
 // x [M, dim]; w1 [2*inner, dim]; b1 [2*inner]; w2 [dim, inner]; b2 [dim];
-// res [M, dim] or null; scratch [dsta_geglu_chunks(...), M, dim] float32;
-// out [M, dim].  All contiguous; x, weights, biases, res and out share one
-// dtype.  bfloat16 needs dim and inner multiples of 8 and x, w1, w2 16-byte
-// aligned.
+// res [M, dim] or null; out [M, dim].  All contiguous; x, weights, biases,
+// res and out share one dtype.  bfloat16 (the wgmma design) needs dim and
+// inner multiples of 8 and x, w1, w2 and scratch 16-byte aligned; scratch
+// is u [M, inner] bfloat16.  float32 (simt): scratch is
+// [dsta_geglu_chunks(...), M, dim] float32.
 extern "C" int dsta_geglu_fwd(int dtype, const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, const void* res, void* scratch,
                               void* out, int M, int dim, int inner, void* stream) {
   if (M < 1 || dim < 1 || inner < 1) return (int)cudaErrorInvalidValue;
-  if (dtype != dsta::kF32 && dtype != dsta::kBF16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dsta::kBF16) {
+    if (dim % 8 || inner % 8 || !dsta::aligned16(x) || !dsta::aligned16(w1) ||
+        !dsta::aligned16(w2) || !dsta::aligned16(scratch))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                             static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                             static_cast<const bf16*>(b2), static_cast<const bf16*>(res),
+                             static_cast<bf16*>(scratch), static_cast<bf16*>(out), M, dim, inner,
+                             s);
+  }
+  if (dtype != dsta::kF32) return (int)cudaErrorInvalidValue;
   float* sc = static_cast<float*>(scratch);
-  cudaError_t err = launch_partials(dtype, x, w1, b1, w2, sc, M, dim, inner, s);
+  cudaError_t err = launch_simt(static_cast<const float*>(x), static_cast<const float*>(w1),
+                                static_cast<const float*>(b1), static_cast<const float*>(w2), sc,
+                                M, dim, inner, s);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = dsta_geglu_chunks(dtype, M, inner);
-  return (int)dsta::launch_sum_slices(dtype, sc, b2, res, out, (size_t)M * dim, dim, chunks, s);
+  return (int)dsta::launch_sum_slices(sc, static_cast<const float*>(b2),
+                                      static_cast<const float*>(res), static_cast<float*>(out),
+                                      (size_t)M * dim, dim, dsta_geglu_chunks(dtype, M, inner), s);
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
-// (`attn_fwd.cuh`, `flash_bwd.cu`): mbarriers, TMA copies, wgmma, named
-// barriers and register hand-off between warpgroups.
+// (`attn_fwd.cuh`, `flash_bwd.cu`) and GEGLU kernels (`geglu_fwd.cu`,
+// `geglu_bwd.cu`): mbarriers, TMA copies, wgmma, named barriers, register
+// hand-off between warpgroups, and the persistent ping-pong GEMM loop.
 //
 // Shared-memory layout of every operand tile: rows of 64 bf16 (128 bytes)
 // in the 128-byte swizzle that TMA writes (`CU_TENSOR_MAP_SWIZZLE_128B`) and
@@ -10,7 +11,11 @@
 // columns dh..63 of the last box, and rows past L, arrive as zeros.  dh = 80
 // and 128 take two boxes, stored one after the other.  The q·kᵀ-like
 // products issue only the ceil(dh / 16) k-steps that dh needs (dh = 40: 3).
+// A matrix [rows, cols] (activations, weights) is the 2-D map (cols, rows)
+// (`matrix_map`): columns past cols and rows past rows arrive as zeros too.
 #pragma once
+
+#include <atomic>
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 
@@ -73,6 +78,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One box of a 2-D tensor map (column c0, row c1) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -165,7 +181,10 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int 
 
 // d (64 x N, f32) = A·B or += A·B for one k-step of 16.
 //   ss: A and B K-major in shared memory; scale_d = 0 overwrites d.  The
-//       score-like products: N is a tile of keys or queries (64, 128).
+//       score-like products: N is a tile of keys or queries (64, 128); the
+//       GEGLU products against W1 rows or W2 rows (64, 128, 160).
+//   ssT: A K-major, B MN-major, both in shared memory: the GEGLU products
+//       against W2 or W1 columns (64, 160).
 //   rs: A in registers (the accumulator layout of a previous product, as
 //       bf16 pairs), B MN-major in shared memory; accumulates.  The
 //       output-like products: N is the head width (40, 64, 80, 128).
@@ -201,6 +220,15 @@ template <> struct Wgmma<64> {
         "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+  __device__ __forceinline__ static void ssT(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -238,6 +266,28 @@ template <> struct Wgmma<128> {
 };
 
 
+template <> struct Wgmma<160> {
+  __device__ __forceinline__ static void ss(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+
+  __device__ __forceinline__ static void ssT(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // The accumulator of a product whose columns are the depth of the next one,
 // as that product's A operand: k-step kk takes columns [16 kk, 16 kk + 16).
 template <int R>
@@ -249,6 +299,146 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[R / 8][4], const float (&
     a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
     a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
   }
+}
+
+constexpr int kMaxDevices = 64;  // the host-side caches' device slots
+
+// Streaming multiprocessors of the current device (the persistent grids),
+// queried once per device.
+inline int sm_count() {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
+  if ((n = cache[dev].load(std::memory_order_relaxed)) > 0) return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 132;
+  cache[dev].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// ---- persistent ping-pong GEMM (bf16 operands, f32 accumulators) ----
+//
+// A block of 384 threads: consumer warpgroups 0 and 1 and a producer
+// warpgroup 2; the grid is persistent, at most one block per SM.  Block b
+// walks the output tiles b, b + gridDim.x, ...
+// (tile t: rows 64·(t / nt), columns Op::BN·(t % nt)), and its consumer
+// warpgroups take them in turn: warpgroup j % 2 owns the block's j-th tile,
+// all 64 rows (one wgmma M) and Op::BN columns of it.  The producer streams
+// every tile's k-steps (64 deep: one 128-byte box per operand row) through
+// a ring of Op::STAGES stages (TMA, full/empty mbarriers), in tile order.
+// The main loops of the two warpgroups run one after the other (named
+// barriers 1 and 2: a warpgroup starts its tile once the other has issued
+// its last product), so while one has the tensor cores the other runs its
+// epilogue on the CUDA cores: the GEGLU gate's erf and exp run under the
+// next tile's products.  The ordering also keeps every waiter within one
+// phase of each mbarrier.  Inside a main loop one k-step's products stay in
+// flight while the next step's are issued (wgmma.wait_group 1); a stage goes
+// back to the producer once the products that read it have completed.
+//
+// Op supplies BN (tile columns), STAGES, STAGE_BYTES, NMAPS, Args, Acc (the
+// accumulators, with zero() and fence()), and
+//   load(stage, maps, bar, m0, n0, k0, args): the producer's copies of one
+//       stage, STAGE_BYTES in all, completing on bar;
+//   mma(acc, stage, scale): one stage's products (scale = 0 overwrites acc);
+//   epilogue(acc, args, row0, col0): row0 is this thread's first row (the
+//       other is row0 + 8), col0 the tile's column + 2·(lane % 4).
+template <int N> struct TensorMaps { CUtensorMap m[N]; };
+
+constexpr int PP_THREADS = 384;
+constexpr int PP_BM = 64;   // rows per tile
+constexpr int PP_BK = 64;   // depth per ring stage
+
+template <class Op> constexpr int pingpong_smem() {
+  return Op::STAGES * Op::STAGE_BYTES + 2 * Op::STAGES * 8 + 1024;
+}
+
+template <class Op>
+__device__ __forceinline__ void pingpong_gemm(const TensorMaps<Op::NMAPS>& maps,
+                                              const typename Op::Args& args, int M, int N,
+                                              int K) {
+  constexpr int S = Op::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const ring = align1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + S * Op::STAGE_BYTES);
+  uint64_t* const empty = full + S;
+  const int nt = (N + Op::BN - 1) / Op::BN;
+  const int tiles = ((M + PP_BM - 1) / PP_BM) * nt;
+  const int kt = (K + PP_BK - 1) / PP_BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);  // the consuming warpgroup's threads release a stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every copy
+    reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = (t / nt) * PP_BM, n0 = (t % nt) * Op::BN;
+        for (int k = 0; k < kt; ++k, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+          mbar_expect_tx(&full[s], Op::STAGE_BYTES);
+          Op::load(ring + s * Op::STAGE_BYTES, maps.m, &full[s], m0, n0, k * PP_BK, args);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg takes the block's tiles j = wg, wg + 2, ...
+    reg_alloc<240>();
+    const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    typename Op::Acc acc;
+    acc.zero();
+    for (int j = wg; j < mine; j += 2) {
+      const int t = blockIdx.x + j * gridDim.x;
+      const int m0 = (t / nt) * PP_BM, n0 = (t % nt) * Op::BN;
+      if (j > 0) named_sync(1 + wg, 256);  // the previous tile's products are issued
+      for (int k = 0; k < kt; ++k) {
+        const int it = j * kt + k, s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        acc.fence();
+        wgmma_fence();
+        Op::mma(acc, ring + s * Op::STAGE_BYTES, k > 0);
+        wgmma_commit();
+        if (k == kt - 1 && j + 1 < mine) named_arrive(2 - wg, 256);  // the next tile's turn
+        wgmma_wait<1>();
+        acc.fence();
+        if (k > 0) mbar_arrive(&empty[(it - 1) % S]);
+      }
+      wgmma_wait<0>();
+      acc.fence();
+      mbar_arrive(&empty[(j * kt + kt - 1) % S]);
+      Op::epilogue(acc, args, m0 + warp * 16 + lane / 4, n0 + 2 * (lane % 4));
+    }
+  }
+}
+
+// Launch the persistent grid of `kern` (a __global__ wrapper of
+// pingpong_gemm<Op>; one kernel per Op) over an M x N output with depth K.
+// The kernel's shared-memory limit is raised once per device.
+template <class Op, typename... P, typename... A>
+cudaError_t launch_pingpong(void (*kern)(P...), int M, int N, cudaStream_t stream, A... args) {
+  static std::atomic<bool> raised[kMaxDevices];
+  constexpr int smem = pingpong_smem<Op>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices || !raised[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < kMaxDevices) raised[dev].store(true, std::memory_order_release);
+  }
+  const long tiles = (long)((M + PP_BM - 1) / PP_BM) * ((N + Op::BN - 1) / Op::BN);
+  const int sms = sm_count();
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kern<<<dim3(grid), PP_THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 // ---- host: tensor maps ----
@@ -289,6 +479,24 @@ inline cudaError_t head_map(CUtensorMap* map, const void* base, int B, int L, in
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 matrix [rows, cols] (contiguous, 16-byte aligned, cols a multiple
+// of 8) as the 2-D map (cols, rows): boxes of 64 columns x `box_rows` rows,
+// 128-byte swizzle, zeros outside the matrix.
+inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows, int cols,
+                              int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -2,17 +2,29 @@
 and `csrc/geglu_bwd.cu` (dx).
 
 Replaces the JAX package's Pallas TPU kernels `ops/pallas_geglu.py:_ff_kernel`
-and `_ff_bwd_kernel` (public `geglu_ff`).  The weights are taken as the port's modules store them
-(`nn.Linear` layout: w1 [2·inner, dim], w2 [dim, inner]); the weight bridge
-transposes the JAX [in, out] kernels once at load time.  On the H100 the op
-is bound by operations at SD levels 0-2 and by its 26 MB of weights at the
-mid block.  The kernel keeps the gated [M, inner] intermediate in shared
-memory and writes each inner chunk's partial second product to its own f32
-slice of a scratch ([chunks, M, dim], allocated here); a second kernel sums
-the slices in chunk order, so the result does not change from run to run.
-bfloat16 runs on the tensor cores and takes widths that are multiples of 8
-and 16-byte aligned tensors only.  The JAX envelope `ff_win` was measured on
-a TPU and is not carried over.
+and `_ff_bwd_kernel` (public `geglu_ff`).  The weights are taken as the port's
+modules store them (`nn.Linear` layout: w1 [2·inner, dim], w2 [dim, inner]);
+the weight bridge transposes the JAX [in, out] kernels once at load time.  On
+the H100 the op is bound by operations at SD levels 0-2 and by its 26 MB of
+weights at the mid block.  Every call on a CUDA tensor goes through a kernel,
+in the design `geglu_design` picks from the dtype before launch (no fallback
+after a failed launch):
+
+- "wgmma" (bf16; dim and inner multiples of 8, 16-byte aligned operands;
+  every SD v1-4 site): two persistent wgmma GEMMs fed by TMA rings per call.
+  The forward writes the gated u [M, inner] as bf16 (it is rounded there in
+  every version) and multiplies it by W2; the dx writes [dh | dg]
+  [M, 2·inner] as bf16 and multiplies it by W1.  The wrapper allocates that
+  intermediate; no f32 scratch.  Other bf16 inputs raise.
+- "simt" (float32): on the CUDA cores, each (row tile, inner chunk) block
+  writes its partial second product to its own f32 slice of a scratch
+  ([chunks, M, dim], allocated here), and a second kernel sums the slices
+  in chunk order.
+
+No design uses atomics, so the result does not change from run to run.
+`geglu_ff.launches_by_design` and `geglu_dx.launches_by_design` count
+launches per design.  The JAX envelope `ff_win` was measured on a TPU and is
+not carried over.
 
 `geglu_ff` is a `torch.autograd.Function`: on a CPU tensor it runs the
 plain versions (`geglu_plain`, `geglu_dx_plain`), on a CUDA tensor it
@@ -29,6 +41,21 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+
+DESIGNS = ("wgmma", "simt")
+
+
+def geglu_design(dtype, dim: int, inner: int, aligned: bool = True) -> str:
+    """The kernel design that takes a GEGLU forward or dx: "wgmma" for bf16
+    at widths that are multiples of 8 with 16-byte aligned operands (what TMA
+    can describe), "simt" for float32.  Other bf16 inputs raise ValueError:
+    no kernel takes them."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if dim % 8 or inner % 8 or not aligned:
+        raise ValueError(f"bfloat16 GEGLU takes dim and inner multiples of 8 and 16-byte "
+                         f"aligned tensors (dim={dim}, inner={inner}, aligned={aligned})")
+    return "wgmma"
 
 
 def gelu_erf(x):
@@ -93,9 +120,9 @@ def geglu_dx_cost(M: int, dim: int, inner: int, itemsize: int):
     return flops, nbytes
 
 
-def _check(name, x, w1, b1, w2, tensors, aligned):
-    """Raise unless the kernels take these inputs (`aligned`: the operands
-    of the tensor-core products); returns (M, dim, inner)."""
+def _check(name, x, w1, b1, w2, tensors, operands):
+    """Raise unless the kernels take these inputs (`operands`: those TMA
+    reads); returns (M, dim, inner, design)."""
     dim = x.shape[-1]
     inner = w2.shape[1]
     if (tuple(w1.shape) != (2 * inner, dim) or tuple(b1.shape) != (2 * inner,)
@@ -106,17 +133,20 @@ def _check(name, x, w1, b1, w2, tensors, aligned):
         if t.dtype != x.dtype:
             raise TypeError(f"{name}: x, weights, biases, residual and dy must share one dtype")
     cuda_lib.require_cuda(name, *tensors)
-    if x.dtype == torch.bfloat16 and (dim % 8 or inner % 8 or any(
-            t.data_ptr() % 16 for t in aligned)):
-        raise ValueError(f"{name}: bfloat16 takes dim and inner multiples of 8 and 16-byte "
-                         f"aligned tensors (dim={dim}, inner={inner})")
-    return x.numel() // dim, dim, inner
+    try:
+        design = geglu_design(x.dtype, dim, inner, all(t.data_ptr() % 16 == 0 for t in operands))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    return x.numel() // dim, dim, inner, design
 
 
-def _scratch(code, M, dim, inner, device):
-    lib = cuda_lib.library()
-    return torch.empty((lib.dsta_geglu_chunks(code, M, inner), M, dim), dtype=torch.float32,
-                       device=device)
+def _scratch(design, M, dim, inner, cols, device):
+    """The wgmma design's bf16 intermediate [M, cols], or the simt design's
+    f32 slices [chunks, M, dim]."""
+    if design == "wgmma":
+        return torch.empty((M, cols), dtype=torch.bfloat16, device=device)
+    chunks = cuda_lib.library().dsta_geglu_chunks(0, M, inner)
+    return torch.empty((chunks, M, dim), dtype=torch.float32, device=device)
 
 
 def _forward(x, w1, b1, w2, b2, residual):
@@ -126,16 +156,16 @@ def _forward(x, w1, b1, w2, b2, residual):
     if tuple(b2.shape) != (x.shape[-1],):
         raise ValueError(f"geglu_ff: b2 {tuple(b2.shape)} for dim={x.shape[-1]}")
     tensors = [x, w1, b1, w2, b2] + ([residual] if residual is not None else [])
-    M, dim, inner = _check("geglu_ff", x, w1, b1, w2, tensors, (x, w1, w2))
-    code = cuda_lib.dtype_code(x)
-    scratch = _scratch(code, M, dim, inner, x.device)
+    M, dim, inner, design = _check("geglu_ff", x, w1, b1, w2, tensors, (x, w1, w2))
+    scratch = _scratch(design, M, dim, inner, inner, x.device)
     out = torch.empty_like(x)
     rc = cuda_lib.library().dsta_geglu_fwd(
-        code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if residual is None else residual.data_ptr(),
+        cuda_lib.dtype_code(x), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), None if residual is None else residual.data_ptr(),
         scratch.data_ptr(), out.data_ptr(), M, dim, inner, cuda_lib.stream_ptr(x))
     cuda_lib.check(rc, "dsta_geglu_fwd")
     geglu_ff.launches += 1
+    geglu_ff.launches_by_design[design] += 1
     return out
 
 
@@ -149,19 +179,22 @@ def geglu_dx(x, w1, b1, w2, dy):
         raise ValueError(f"geglu_dx: unsupported device {x.device}")
     if dy.shape != x.shape:
         raise ValueError(f"geglu_dx: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
-    M, dim, inner = _check("geglu_dx", x, w1, b1, w2, [x, w1, b1, w2, dy], (x, w1, w2, dy))
-    code = cuda_lib.dtype_code(x)
-    scratch = _scratch(code, M, dim, inner, x.device)
+    M, dim, inner, design = _check("geglu_dx", x, w1, b1, w2, [x, w1, b1, w2, dy],
+                                   (x, w1, w2, dy))
+    scratch = _scratch(design, M, dim, inner, 2 * inner, x.device)
     dx = torch.empty_like(x)
     rc = cuda_lib.library().dsta_geglu_dx(
-        code, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
-        scratch.data_ptr(), dx.data_ptr(), M, dim, inner, cuda_lib.stream_ptr(x))
+        cuda_lib.dtype_code(x), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(), M, dim, inner,
+        cuda_lib.stream_ptr(x))
     cuda_lib.check(rc, "dsta_geglu_dx")
     geglu_dx.launches += 1
+    geglu_dx.launches_by_design[design] += 1
     return dx
 
 
 geglu_dx.launches = 0
+geglu_dx.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _GegluFn(torch.autograd.Function):
@@ -208,3 +241,4 @@ def geglu_ff(x, w1, b1, w2, b2, residual=None):
 
 
 geglu_ff.launches = 0
+geglu_ff.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -101,31 +101,46 @@ def test_spacetime_kernel_matches_plain(cuda, dtype, B, N, Lq, Lk, inner, H):
            "spacetime")
 
 
+# (M, dim), inner = 4·dim
+GEGLU_SHAPES = [
+    (16384, 320), (4096, 640), (1024, 1280), (256, 1280),   # SD sites at 2 prompts (M = 4·L)
+    (512, 320), (256, 640), (128, 1280), (100, 32), (7, 48),
+    (16384, 48),                 # a 128-wide inner tile that runs past inner = 192
+    (1000, 40),                  # M not a multiple of 64; inner 160 not a multiple of 64
+    (300, 72),                   # dim and inner (288) not multiples of 64
+    (64, 36),                    # width not a multiple of 8: float32 only
+]
+
+
+def _geglu_weights(g, dev, dtype, M, dim):
+    inner = 4 * dim
+    return (_randn(g, dev, dtype, M, dim), _randn(g, dev, dtype, 2 * inner, dim, scale=dim ** -0.5),
+            _randn(g, dev, dtype, 2 * inner, scale=0.1),
+            _randn(g, dev, dtype, dim, inner, scale=inner ** -0.5))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("residual", [True, False])
-@pytest.mark.parametrize("M,dim", [
-    (512, 320), (256, 640), (128, 1280), (100, 32), (7, 48),
-    (16384, 48),                 # a 128-wide inner chunk that runs past inner = 192
-    (64, 36),                    # width not a multiple of 8: float32 only
-])
+@pytest.mark.parametrize("M,dim", GEGLU_SHAPES)
 def test_geglu_kernel_matches_plain(cuda, dtype, residual, M, dim):
+    """Each design (bf16 wgmma, f32 simt) against the plain version at the SD
+    site shapes and ragged ones."""
     g = torch.Generator(device=cuda).manual_seed(M + dim)
-    inner = 4 * dim
-    x = _randn(g, cuda, dtype, M, dim)
-    w1 = _randn(g, cuda, dtype, 2 * inner, dim, scale=dim ** -0.5)
-    b1 = _randn(g, cuda, dtype, 2 * inner, scale=0.1)
-    w2 = _randn(g, cuda, dtype, dim, inner, scale=inner ** -0.5)
+    x, w1, b1, w2 = _geglu_weights(g, cuda, dtype, M, dim)
     b2 = _randn(g, cuda, dtype, dim, scale=0.1)
     res = _randn(g, cuda, dtype, M, dim) if residual else None
     if dtype == torch.bfloat16 and dim % 8:
-        # the tensor-core kernel takes widths that are multiples of 8 only
+        # the tensor-core kernels take widths that are multiples of 8 only
         with pytest.raises(ValueError):
             cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)
         return
+    design = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = dict(cuda_geglu.geglu_ff.launches_by_design)
     got = cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)
+    assert cuda_geglu.geglu_ff.launches_by_design == {**before, design: before[design] + 1}
     _check(got, cuda_geglu.geglu_plain(x, w1, b1, w2, b2, res), "geglu")
-    # each inner chunk's partial product is summed in a fixed order
+    # no atomics: a repeat gives the same bits
     assert torch.equal(got, cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res))
 
 
@@ -235,27 +250,43 @@ def test_spacetime_bwd_kernel_matches_plain(cuda, need_kv, dtype, B, N, Lq, Lk, 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,dim", [
-    (512, 320), (256, 640), (128, 1280), (100, 32), (7, 48),
-    (16384, 48),                 # a 128-wide inner chunk that runs past inner = 192
-    (64, 36),                    # width not a multiple of 8: float32 only
-])
+@pytest.mark.parametrize("M,dim", GEGLU_SHAPES)
 def test_geglu_dx_kernel_matches_plain(cuda, dtype, M, dim):
     g = torch.Generator(device=cuda).manual_seed(M + dim + 1)
-    inner = 4 * dim
-    x, dy = _randn(g, cuda, dtype, M, dim), _randn(g, cuda, dtype, M, dim)
-    w1 = _randn(g, cuda, dtype, 2 * inner, dim, scale=dim ** -0.5)
-    b1 = _randn(g, cuda, dtype, 2 * inner, scale=0.1)
-    w2 = _randn(g, cuda, dtype, dim, inner, scale=inner ** -0.5)
+    x, w1, b1, w2 = _geglu_weights(g, cuda, dtype, M, dim)
+    dy = _randn(g, cuda, dtype, M, dim)
     if dtype == torch.bfloat16 and dim % 8:
         with pytest.raises(ValueError):
             cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
         return
+    design = "wgmma" if dtype == torch.bfloat16 else "simt"
     before = cuda_geglu.geglu_dx.launches
+    by_design = dict(cuda_geglu.geglu_dx.launches_by_design)
     got = cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
     assert cuda_geglu.geglu_dx.launches == before + 1
+    assert cuda_geglu.geglu_dx.launches_by_design == {**by_design, design: by_design[design] + 1}
     _check(got, cuda_geglu.geglu_dx_plain(x, w1, b1, w2, dy), "geglu")
     assert torch.equal(got, cuda_geglu.geglu_dx(x, w1, b1, w2, dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,dim", [(4096, 320), (1024, 640), (256, 1280), (64, 1280)])
+def test_geglu_wgmma_kernels_repeat_bit_for_bit(cuda, L, dim):
+    """20 launches of the wgmma GEGLU forward and dx at each SD site (2
+    prompts: M = 4·L) give the same bits: a ring stage read before its copy
+    landed, or released before its last product, shows up as bits that
+    differ between launches."""
+    g = torch.Generator(device=cuda).manual_seed(L + dim + 9)
+    x, w1, b1, w2 = _geglu_weights(g, cuda, torch.bfloat16, 4 * L, dim)
+    b2, dy = _randn(g, cuda, torch.bfloat16, dim, scale=0.1), _randn(g, cuda, torch.bfloat16, 4 * L, dim)
+    fwd, dx_before = dict(cuda_geglu.geglu_ff.launches_by_design), dict(cuda_geglu.geglu_dx.launches_by_design)
+    out = cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x)
+    dx = cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
+    for _ in range(20):
+        assert torch.equal(out, cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x))
+        assert torch.equal(dx, cuda_geglu.geglu_dx(x, w1, b1, w2, dy))
+    assert cuda_geglu.geglu_ff.launches_by_design == {**fwd, "wgmma": fwd["wgmma"] + 21}
+    assert cuda_geglu.geglu_dx.launches_by_design == {**dx_before, "wgmma": dx_before["wgmma"] + 21}
 
 
 def _grads(fn, args, seed=3):
@@ -352,16 +383,18 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(TypeError):
         cuda_flash.flash_attention(q, q.bfloat16(), q.bfloat16(), 2)
     assert cuda_flash.flash_attention.launches == flash_before
-    # bfloat16 GEGLU on the tensor cores needs 16-byte aligned operands
+    # bfloat16 GEGLU on the tensor cores (TMA) needs 16-byte aligned operands
     dim, inner = 64, 256
     x = torch.zeros(4 * dim + 1, dtype=torch.bfloat16, device=cuda)[1:].view(4, dim)
     w1 = torch.zeros(2 * inner, dim, dtype=torch.bfloat16, device=cuda)
     w2 = torch.zeros(dim, inner, dtype=torch.bfloat16, device=cuda)
     b1, b2 = w1[:, 0].contiguous(), w2[:, 0].contiguous()
-    ff_before = cuda_geglu.geglu_ff.launches
+    ff_before = cuda_geglu.geglu_ff.launches, dict(cuda_geglu.geglu_ff.launches_by_design)
     with pytest.raises(ValueError):
         cuda_geglu.geglu_ff(x, w1, b1, w2, b2)
-    assert cuda_geglu.geglu_ff.launches == ff_before
+    with pytest.raises(ValueError):
+        cuda_geglu.geglu_ff(x.clone(), w1, b1[:-8], w2, b2)
+    assert (cuda_geglu.geglu_ff.launches, cuda_geglu.geglu_ff.launches_by_design) == ff_before
 
 
 @pytest.mark.gpu
@@ -497,6 +530,44 @@ def test_design_counters_start_at_zero_and_cpu_calls_count_nothing(counter):
     o = cuda_flash.flash_attention(q, k, v, 2)
     cuda_mha.mha_attention(q, k, v, 2)
     cuda_flash.flash_bwd(q, k, v, o, cuda_flash.flash_fwd(q, k, v, 2)[1], g, 2)
+    assert (dict(wrapper.launches_by_design), wrapper.launches) == before
+    if not torch.cuda.is_available():     # this process launched nothing
+        assert set(wrapper.launches_by_design.values()) == {0} and wrapper.launches == 0
+
+
+@pytest.mark.parametrize("case,dtype,dim,inner,aligned,want", [
+    ("SD level 0", torch.bfloat16, 320, 1280, True, "wgmma"),
+    ("SD level 1", torch.bfloat16, 640, 2560, True, "wgmma"),
+    ("SD level 2 and mid", torch.bfloat16, 1280, 5120, True, "wgmma"),
+    ("widths not multiples of 64", torch.bfloat16, 40, 160, True, "wgmma"),
+    ("an operand TMA cannot describe", torch.bfloat16, 320, 1280, False, None),
+    ("dim not a multiple of 8", torch.bfloat16, 36, 144, True, None),
+    ("inner not a multiple of 8", torch.bfloat16, 64, 260, True, None),
+    ("float32", torch.float32, 320, 1280, True, "simt"),
+    ("float32, unaligned and ragged", torch.float32, 36, 144, False, "simt"),
+])
+def test_geglu_design_by_shape(case, dtype, dim, inner, aligned, want):
+    """Every SD v1-4 GEGLU site (dim 320, 640, 1280; inner 4·dim) takes the
+    wgmma kernels in bf16; float32 takes the CUDA cores; no kernel takes
+    other bf16 inputs (None: raises)."""
+    if want is None:
+        with pytest.raises(ValueError):
+            cuda_geglu.geglu_design(dtype, dim, inner, aligned)
+    else:
+        assert cuda_geglu.geglu_design(dtype, dim, inner, aligned) == want, case
+
+
+@pytest.mark.parametrize("counter", ["geglu_ff", "geglu_dx"])
+def test_geglu_design_counters_start_at_zero_and_cpu_calls_count_nothing(counter):
+    wrapper = getattr(cuda_geglu, counter)
+    assert set(wrapper.launches_by_design) == set(cuda_geglu.DESIGNS)
+    before = dict(wrapper.launches_by_design), wrapper.launches
+    gen = torch.Generator().manual_seed(4)
+    x, dy = _bf16(gen, 8, 64), _bf16(gen, 8, 64)
+    w1, b1 = _bf16(gen, 512, 64, scale=0.1), _bf16(gen, 512, scale=0.1)
+    w2, b2 = _bf16(gen, 64, 256, scale=0.1), _bf16(gen, 64, scale=0.1)
+    cuda_geglu.geglu_ff(x, w1, b1, w2, b2, x)
+    cuda_geglu.geglu_dx(x, w1, b1, w2, dy)
     assert (dict(wrapper.launches_by_design), wrapper.launches) == before
     if not torch.cuda.is_available():     # this process launched nothing
         assert set(wrapper.launches_by_design.values()) == {0} and wrapper.launches == 0
