@@ -15,9 +15,9 @@ script exits non-zero without its final line:
              with nvcc's register / shared-memory / spill report and, per
              kernel function of the built library, its count of wgmma
              (HGMMA) and TMA / bulk-copy (UTMALDG, UBLKCP) instructions from
-             `cuobjdump -sass`; the wgmma attention and GEGLU kernels must
-             have both, and ptxas must not report serialized wgmma (C7513)
-             or spills (C7512).
+             `cuobjdump -sass`; the wgmma attention, GEGLU and spacetime
+             kernels must have both (the spacetime ones UTMALDG), and ptxas
+             must not report serialized wgmma (C7513) or spills (C7512).
   3. kernels: each forward kernel against its plain PyTorch version at every
              shape of the SD v1-4 serving path (flash: the level-0 and level-1
              self-attention sites that pass `flash_ok`), in bfloat16 at one
@@ -32,22 +32,26 @@ script exits non-zero without its final line:
              off by log 2 on one query tile; for the wgmma attention loop,
              one key tile replaced by the previous ring stage's tile; for
              GEGLU, one k-step of h and g served from the previous ring
-             stage and the last k-step of the second product skipped) at
-             every shape.  Each attention and GEGLU row names its kernel
-             design; every flash and GEGLU site and MHA's level-0/1 sites
-             must run the wgmma design.  In bf16 each attention and GEGLU
-             row (and each flash backward and GEGLU dx row) also carries
+             stage and the last k-step of the second product skipped; for
+             spacetime, object 2's K/V served from object 1's ring stage)
+             at every shape; each spacetime kernel must give the same bits
+             20 times.  Each row names its kernel design; every flash,
+             GEGLU and bf16 spacetime site and MHA's level-0/1 sites must
+             run the wgmma design.  In bf16 each row also carries
              `device_ms`: the kernels' own time through the C entry (CUDA
              events, no wrapper work) for each design the shape can take
              (attention: the wgmma kernels and the mma_sync kernels, same
-             inputs; GEGLU: wgmma, its only bf16 design); GEGLU rows carry
-             `composite_ms`, the same function as PyTorch calls (cuBLAS
-             products and elementwise kernels), a yardstick.
+             inputs; GEGLU and spacetime: wgmma, their only bf16 design);
+             GEGLU rows carry `composite_ms`, the same function as PyTorch
+             calls (cuBLAS products and elementwise kernels), a yardstick.
+             Spacetime bounds take the largest of the FLOP, byte and exp
+             floors (`floors_us`; 16 exps a clock per SM).
      kernels_bwd: each backward kernel the same way at every chain shape, in
              bf16 and float32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32
              at 1), every cotangent (dK/dV included); planted faults: one
              object's blend products zeroed, the last key tile dropped from
-             dKc or dK, a skipped inner tile in dx and its stale ring stage
+             dKc or dK, object 2's K/V served from object 1's ring stage in
+             the spacetime dq pass, a skipped inner tile in dx and its stale ring stage
              (and, as a check of the tolerance only, computed without the
              kernel, the last k-step of [dh | dg]·W1 skipped), o zeroed on
              one query tile of the flash backward (di comes from o on the
@@ -69,7 +73,8 @@ script exits non-zero without its final line:
              two batches, the second padded; it repeats the first request
              (prompt, seed) beside a pad row, which must give the same bytes.
              Every forward kernel must be launched 816 times per batch (16
-             sites x 51 UNet evaluations), GEGLU's all on the wgmma design.
+             sites x 51 UNet evaluations), GEGLU's and spacetime's all on
+             the wgmma design.
   8. profile: where a serving batch's time goes (host clock per part, and
              device time by kernel family under torch.profiler); no GEGLU
              slice sum may appear.
@@ -84,8 +89,9 @@ script exits non-zero without its final line:
              2 x 51 x n: n = 16 for spacetime and GEGLU (4080 / 1632), 10 for
              flash (2550 / 1018: the first self-attention of each chain sees
              only x_T and gets no backward), 6 for MHA (1530); losses finite;
-             coef moved on active slots, 0 on padded ones; flash and GEGLU
-             launches all on the wgmma design.
+             coef moved on active slots, 0 on padded ones; flash, GEGLU and
+             spacetime launches (forward and dq pass) all on the wgmma
+             design.
  10. profile_train: one training UNet evaluation (forward, recompute,
              backward) by kernel family, and the plain MHA backward that is
              left (levels 2 and mid).
@@ -95,8 +101,9 @@ script exits non-zero without its final line:
      the final {"ok": true, ...} line.
 
 With `--compare DIR` the script runs only phases device, build, kernels,
-kernels_bwd, profile and profile_train, and `geglu_host` (the host work
-per bf16 GEGLU call; this script's phase run on either tree's package), in
+kernels_bwd, profile and profile_train, and `geglu_host` and
+`spacetime_host` (the host work per bf16 GEGLU and spacetime call; this
+script's phases run on either tree's package), in
 four fresh processes: DIR, this tree, this tree, DIR (each tree builds its
 own kernels), and prints their lines tagged with turn and tree, then one
 `compare` summary line per turn.
@@ -113,9 +120,11 @@ import subprocess
 import sys
 import time
 
-# peak rates of one H100 SXM (NVIDIA data sheet, dense): the roofline bound
+# peak rates of one H100 SXM (NVIDIA data sheet, dense): the roofline bound;
+# exps: 16 a clock per SM (the SFU's ex2), 132 SMs at the 1.98 GHz boost clock
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+PEAK_EXPS = 16 * 132 * 1.98e9
 
 # one prompt's sites per UNet evaluation: (level, Lq, inner, count)
 SITES = [("level0", 4096, 320, 5), ("level1", 1024, 640, 5),
@@ -160,7 +169,12 @@ WGMMA_FWD_TILE, WGMMA_BWD_TILE = 128, 64
 WGMMA_FUNCTIONS = ("flash_fwd_wgmma_kernel", "mha_fwd_wgmma_kernel",
                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                    "geglu_gate_wgmma_kernel", "geglu_out_wgmma_kernel",
-                   "geglu_dgate_wgmma_kernel", "geglu_dx_out_wgmma_kernel")
+                   "geglu_dgate_wgmma_kernel", "geglu_dx_out_wgmma_kernel",
+                   "spacetime_fwd_wgmma_kernel", "spacetime_bwd_dq_wgmma_kernel")
+# of those, the kernels fed by tensor-map copies only (UTMALDG, not UBLKCP)
+TMA_TILE_FUNCTIONS = ("spacetime_fwd_wgmma_kernel", "spacetime_bwd_dq_wgmma_kernel")
+# repeats of each spacetime kernel per site that must give the same bits
+SPACETIME_REPEATS = 20
 # ptxas warnings that undo a wgmma design: wgmma serialized, registers spilled
 PTXAS_FAULTS = ("C7513", "C7512")
 
@@ -170,10 +184,10 @@ SPLASH = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kern
 KERNELS = {
     "spacetime_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_fwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:44", design="simt"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:44", design="wgmma"),
     "spacetime_bwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/spacetime_bwd.cu",
-        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152", design="simt"),
+        replaces="diffusion_spacetime_attn_tpu/ops/pallas_spacetime.py:152", design="wgmma"),
     "geglu_fwd": dict(
         route="cuda", source="diffusion_spacetime_attn_tpu_torch/csrc/geglu_fwd.cu",
         replaces="diffusion_spacetime_attn_tpu/ops/pallas_geglu.py:126", design="wgmma"),
@@ -283,6 +297,54 @@ def _geglu_device_ms(args, dx: bool) -> dict:
     return {"wgmma": cuda_ms(lambda: cuda_lib.check(fn(*c_args), name), 20)}
 
 
+def _spacetime_device_ms(args, bwd: bool) -> dict:
+    """{"wgmma": ms per call} of a bf16 spacetime forward (args: q_c, g_u,
+    kc, vc, lk, lv, masks, coef) or dq pass (args + ḡ; no dK/dV) straight
+    through the C entry (CUDA events over 20 back-to-back calls, outputs and
+    the masks in q's dtype made once): the kernel's own time, without the
+    wrapper's host work."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_lib
+
+    lib = cuda_lib.library()
+    q, g_u, kc, vc, lk, lv, masks, coef = args[:8]
+    (B, Lq, inner), (N, Lk) = q.shape, lk.shape[1:3]
+    m, c = masks.to(q.dtype).contiguous(), coef.float().contiguous()
+    dh = inner // HEADS
+    ins = (q, g_u, kc, vc, lk, lv, m, c)
+    if bwd:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        dq, t = torch.empty((B, Lq, inner), **f32), torch.empty((B, HEADS, N, Lq), **f32)
+        fn, name = lib.dsta_spacetime_bwd, "dsta_spacetime_bwd"
+        ptrs = [x.data_ptr() for x in ins + (args[8], dq, t)] + [None] * 4
+    else:
+        out = torch.empty_like(q)
+        fn, name = lib.dsta_spacetime_fwd, "dsta_spacetime_fwd"
+        ptrs = [x.data_ptr() for x in ins + (out,)]
+    c_args = (1, *ptrs, B, N, Lq, Lk, HEADS, dh, dh ** -0.5, cuda_lib.stream_ptr(q))
+    return {"wgmma": cuda_ms(lambda: cuda_lib.check(fn(*c_args), name), 20)}
+
+
+def profiled_ms(fn, match: str, n: int = 20) -> float:
+    """Device ms per call of the kernels whose names contain `match`, from
+    torch.profiler (CUPTI) over n calls: the kernels' own durations, which
+    the card's clock gives even where the host issues slower than the
+    kernels run (there CUDA events over back-to-back calls time the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
+    return us / 1e3 / n
+
+
 def _geglu_composite(args, dx: bool):
     """The same function as a chain of PyTorch calls in x's dtype (cuBLAS
     products and elementwise kernels): F.linear -> h·gelu(g) -> F.linear, or
@@ -301,9 +363,28 @@ def _geglu_composite(args, dx: bool):
     return torch.cat([du * (g * c), du * (h * (c + g * phi))], dim=-1) @ w1
 
 
-def bound_ms(flops: float, nbytes: float, dtype: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, dtype: str, exps: float = 0.0):
+    """The least time of a call in ms, the largest of its FLOP, byte and exp
+    floors, and what bounds it (exps count as operations)."""
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / PEAK_EXPS)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _exps(kind: str, args) -> int:
+    """Exponentials a call needs where they can bound it: the spacetime
+    forward and dq pass (one per score), else 0."""
+    if kind != "spacetime":
+        return 0
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_spacetime
+
+    return cuda_spacetime.spacetime_exps(args[0].shape[0], OBJECTS, args[0].shape[1],
+                                         CONTEXT_LEN, HEADS)
+
+
+def _floors_us(flops: float, nbytes: float, exps: float, dtype: str) -> dict:
+    return {"flops": 1e6 * flops / PEAK_FLOPS[dtype], "bytes": 1e6 * nbytes / PEAK_BYTES,
+            "exps": 1e6 * exps / PEAK_EXPS}
 
 
 def phase_device():
@@ -343,6 +424,8 @@ def phase_build():
         for name, c in found.items():
             if c["HGMMA"] == 0 or c["UTMALDG"] + c["UBLKCP"] == 0:
                 fail(f"build: {name} has {c}: no wgmma or no TMA copy")
+            if fn in TMA_TILE_FUNCTIONS and c["UTMALDG"] == 0:
+                fail(f"build: {name} has {c}: no tensor-map copy")
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -395,8 +478,9 @@ def _planted_faults(kind: str, args, kern):
     replaced by the first (a stale ring stage) where the wgmma loop runs; for
     GEGLU a skipped 64-wide inner tile, the second 64-deep k-step of h and g
     replaced by the first (a stale ring stage) and the last k-step of the
-    second product skipped; and only the first 64 of the 77 context keys for
-    the spacetime blend."""
+    second product skipped; and for the spacetime blend only the first 64 of
+    the 77 context keys, and object 2's K/V served from object 1's ring
+    stage."""
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_mha
 
     if kind in ("mha", "flash"):
@@ -425,7 +509,17 @@ def _planted_faults(kind: str, args, kern):
                     (_stale_cols(x), _stale_cols(w1), b1, w2) + args[4:]),
                 "last_k_tile_of_second_product_skipped": kern(args[:3] + (last,) + args[4:])}
     ctx = tuple(t[..., :64, :].contiguous() for t in args[2:6])
-    return {"first_key_tile_only": kern(args[:2] + ctx + args[6:])}
+    return {"first_key_tile_only": kern(args[:2] + ctx + args[6:]),
+            "stale_ring_stage_for_object_2": kern(args[:4] + _stale_object(*args[4:6])
+                                                  + args[6:])}
+
+
+def _stale_object(lk, lv):
+    """Object 2's K and V replaced by object 1's: what the spacetime kernels
+    compute when a ring stage serves the previous context's copy."""
+    lk, lv = lk.clone(), lv.clone()
+    lk[:, 1], lv[:, 1] = lk[:, 0], lv[:, 0]
+    return lk, lv
 
 
 def _inputs(kind: str, prompts: int, Lq: int, inner: int, dtype, gen):
@@ -463,19 +557,23 @@ def _sites(kind: str):
 
 
 def _design_counter(kind: str):
-    """The launches-by-design counter of a kernel kind, or None (spacetime)."""
-    from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_geglu, cuda_mha
+    """The launches-by-design counter of a kernel kind."""
+    from diffusion_spacetime_attn_tpu_torch.ops import (
+        cuda_flash,
+        cuda_geglu,
+        cuda_mha,
+        cuda_spacetime,
+    )
 
-    wrapper = {"mha": cuda_mha.mha_attention, "flash": cuda_flash.flash_attention,
-               "flash_bwd": cuda_flash.flash_bwd, "geglu": cuda_geglu.geglu_ff,
-               "geglu_bwd": cuda_geglu.geglu_dx}.get(kind)
-    return None if wrapper is None else wrapper.launches_by_design
+    return {"mha": cuda_mha.mha_attention, "flash": cuda_flash.flash_attention,
+            "flash_bwd": cuda_flash.flash_bwd, "geglu": cuda_geglu.geglu_ff,
+            "geglu_bwd": cuda_geglu.geglu_dx,
+            "spacetime": cuda_spacetime.fused_spacetime_attention,
+            "spacetime_bwd": cuda_spacetime.spacetime_bwd}[kind].launches_by_design
 
 
 def _design_ran(name: str, counter, before):
-    """The one design whose count moved since `before` (None without a counter)."""
-    if counter is None:
-        return None
+    """The one design whose count moved since `before`."""
     ran = [d for d, n in counter.items() if n != before[d]]
     if len(ran) != 1:
         fail(f"{name}: one launch moved the design counts {before} -> {counter}")
@@ -525,7 +623,7 @@ def phase_kernels():
     for kind, (name, kern, plain, cost) in impl.items():
         a_ = agg.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
-                                   "library_ms": None})
+                                   "exps_ms": 0.0, "library_ms": None})
         for dtype_name, prompts in cases:
             dtype = getattr(torch, dtype_name)
             for level, Lq, inner, count in _sites(kind):
@@ -533,19 +631,22 @@ def phase_kernels():
                 gen.manual_seed(case)
                 args = _inputs(kind, prompts, Lq, inner, dtype, gen)
                 counter = _design_counter(kind)
-                before = dict(counter or {})
+                before = dict(counter)
                 got = _outs(kern(args))
                 design = _design_ran(name, counter, before)
                 if design == "mma_sync" and (kind in ("flash", "geglu") or level in FLASH_LEVELS):
                     fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync loop")
-                again = _outs(kern(args))
+                if kind == "spacetime" and dtype_name == "bfloat16" and design != "wgmma":
+                    fail(f"{name} {level}: a bf16 main-path site ran the {design} kernel")
+                repeats = SPACETIME_REPEATS if kind == "spacetime" else 1
+                agains = [_outs(kern(args)) for _ in range(repeats)]
                 want = _outs(plain(args))
                 torch.cuda.synchronize()
                 cmps = [compare(g_, w_, kind) for g_, w_ in zip(got, want)]
                 if not all(c["ok"] for c in cmps):
                     fail(f"{name} {level} {dtype_name} {prompts} prompt(s): {cmps}")
-                if not all(torch.equal(g_, a2) for g_, a2 in zip(got, again)):
-                    fail(f"{name} {level} {dtype_name}: two launches on the same inputs differ")
+                if not all(torch.equal(g_, a2) for again in agains for g_, a2 in zip(got, again)):
+                    fail(f"{name} {level} {dtype_name}: launches on the same inputs differ")
                 faults = {}
                 for fault, outs in _planted_faults(kind, args, kern).items():
                     fc = [compare(o, w_, kind) for o, w_ in zip(_outs(outs), want)]
@@ -558,7 +659,8 @@ def phase_kernels():
                 ms = cuda_ms(lambda: kern(args), 20)
                 plain_ms = cuda_ms(lambda: plain(args), 5)
                 flops, nbytes = cost(args, args[0].element_size())
-                b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+                exps = _exps(kind, args)
+                b_ms, b_by = bound_ms(flops, nbytes, dtype_name, exps)
                 lib_ms = None
                 if kind in ("mha", "flash"):
                     B, L, _ = args[0].shape
@@ -572,7 +674,11 @@ def phase_kernels():
                        "planted_faults_rejected": faults, "kernel_ms": ms, "plain_ms": plain_ms,
                        "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
                        "bytes": nbytes, "library_ms": lib_ms,
-                       "fraction_of_bound": b_ms / ms}
+                       "fraction_of_bound": b_ms / ms,
+                       "repeats_equal": repeats}
+                if exps:
+                    row["exps"] = exps
+                    row["floors_us"] = _floors_us(flops, nbytes, exps, dtype_name)
                 if kind == "flash":
                     row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
                 if kind in ("mha", "flash") and dtype_name == "bfloat16":
@@ -580,6 +686,10 @@ def phase_kernels():
                 if kind == "geglu" and dtype_name == "bfloat16":
                     row["device_ms"] = _geglu_device_ms(args, dx=False)
                     row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=False), 20)
+                if kind == "spacetime" and dtype_name == "bfloat16":
+                    row["device_ms"] = _spacetime_device_ms(args, bwd=False)
+                    row["profiled_ms"] = {"wgmma": profiled_ms(lambda: kern(args),
+                                                               "spacetime_fwd_wgmma")}
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
                 if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):  # the serving shapes
@@ -588,6 +698,7 @@ def phase_kernels():
                     a_["bound_ms"] += count * b_ms
                     a_["flops_ms"] += count * 1e3 * flops / PEAK_FLOPS[dtype_name]
                     a_["bytes_ms"] += count * 1e3 * nbytes / PEAK_BYTES
+                    a_["exps_ms"] += count * 1e3 * exps / PEAK_EXPS
                     if lib_ms is not None:
                         a_["library_ms"] = (a_["library_ms"] or 0.0) + count * lib_ms
     return agg
@@ -595,8 +706,10 @@ def phase_kernels():
 
 def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
     """Backward outputs with a planted fault, which the comparison with the
-    plain version must reject: one object's blend products t zeroed, or the
-    last key tile (keys 64-76) dropped from dKc, for the spacetime backward;
+    plain version must reject: one object's blend products t zeroed, the
+    last key tile (keys 64-76) dropped from dKc, or object 2's K/V served
+    from object 1's ring stage (the dq pass; dK/dV as computed), for the
+    spacetime backward;
     a skipped 64-wide inner tile and the second k-step of h, g and du
     replaced by the first (a stale ring stage) for the GEGLU dx, and the last
     k-step of [dh | dg]·W1 skipped (the plain formulas, not the kernel: a
@@ -657,8 +770,11 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
     t0, cut = t.clone(), dkc.clone()
     t0[:, :, 0] = 0
     cut[:, 64:] = 0
+    stale = cuda_spacetime.spacetime_bwd(q_c, g_u, kc, vc, *_stale_object(lk, lv), masks, coef,
+                                         heads, g, need_kv=False)
     return {"object0_t_zeroed": cotangents(t0, dkc),
-            "last_key_tile_dropped_from_dkc": cotangents(t, cut)}
+            "last_key_tile_dropped_from_dkc": cotangents(t, cut),
+            "stale_ring_stage_for_object_2": stale[:2] + cotangents(t, dkc)[2:6] + stale[6:]}
 
 
 def phase_kernels_bwd():
@@ -714,7 +830,7 @@ def phase_kernels_bwd():
     for kind, (name, cmp_kind, kern, plain, cost) in impl.items():
         a_ = agg.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
-                                   "library_ms": None})
+                                   "exps_ms": 0.0, "library_ms": None})
         for dtype_name, prompts in cases[:3] if kind == "flash" else cases:
             dtype = getattr(torch, dtype_name)
             for level, Lq, inner, count in _sites(kind):
@@ -729,22 +845,25 @@ def phase_kernels_bwd():
                     args = fwd[:4] + (cot,)
                 else:
                     args = fwd + (cot,)
-                counter = _design_counter(kind + "_bwd" if kind in ("flash", "geglu") else kind)
-                before = dict(counter or {})
+                counter = _design_counter(kind + "_bwd")
+                before = dict(counter)
                 got = kern(args)
                 design = _design_ran(name, counter, before)
                 if design == "mma_sync":
                     fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync kernels")
-                again, want = kern(args), plain(args)
+                if kind == "spacetime" and dtype_name == "bfloat16" and design != "wgmma":
+                    fail(f"{name} {level}: a bf16 main-path site ran the {design} dq pass")
+                repeats = SPACETIME_REPEATS if kind == "spacetime" else 1
+                agains, want = [kern(args) for _ in range(repeats)], plain(args)
                 torch.cuda.synchronize()
                 names = names_of[kind]
                 errs = {}
-                for n_, g_, a2, w_ in zip(names, got, again, want):
+                for i_, (n_, g_, w_) in enumerate(zip(names, got, want)):
                     cmp = compare(g_, w_, cmp_kind)
                     if not cmp["ok"]:
                         fail(f"{name} {level} {dtype_name} {prompts} prompt(s) {n_}: {cmp}")
-                    if not torch.equal(g_, a2):
-                        fail(f"{name} {level} {dtype_name} {n_}: two launches differ")
+                    if not all(torch.equal(g_, again[i_]) for again in agains):
+                        fail(f"{name} {level} {dtype_name} {n_}: launches differ")
                     errs[n_] = {"max_abs_err": cmp["max_abs_err"], "rel_norm": cmp["rel_norm"]}
                 faults = {}
                 for fault, outs in _bwd_planted_faults(kind, args).items():
@@ -758,7 +877,8 @@ def phase_kernels_bwd():
                     else None
                 plain_ms = cuda_ms(lambda: plain(args), 3)
                 flops, nbytes = cost(args, args[0].element_size())
-                b_ms, b_by = bound_ms(flops, nbytes, dtype_name)
+                exps = _exps(kind, args)
+                b_ms, b_by = bound_ms(flops, nbytes, dtype_name, exps)
                 lib_ms = None
                 if kind == "flash":
                     B, L, _ = args[0].shape
@@ -776,13 +896,20 @@ def phase_kernels_bwd():
                        "planted_faults_rejected_rel_norm": faults, "kernel_ms": ms,
                        "kernel_ms_with_dkv": kv_ms, "plain_ms": plain_ms,
                        "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops,
-                       "bytes": nbytes, "library_ms": lib_ms, "fraction_of_bound": b_ms / ms}
+                       "bytes": nbytes, "library_ms": lib_ms, "fraction_of_bound": b_ms / ms,
+                       "repeats_equal": repeats}
+                if exps:
+                    row["exps"] = exps
+                    row["floors_us"] = _floors_us(flops, nbytes, exps, dtype_name)
                 if kind == "flash" and dtype_name == "bfloat16":
                     row["device_ms"] = _design_device_ms("flash_bwd", args)
                 if kind == "geglu" and dtype_name == "bfloat16":
                     row["device_ms"] = _geglu_device_ms(args, dx=True)
                     row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=True), 10)
                 if kind == "spacetime" and dtype_name == "bfloat16":
+                    row["device_ms"] = _spacetime_device_ms(args, bwd=True)
+                    row["profiled_ms"] = {"wgmma": profiled_ms(
+                        lambda: kern(args, need_kv=False), "spacetime_bwd_dq_wgmma")}
                     # the chain's self-attention backward at this level: plain
                     # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
                     # of what a hand-written flash backward would replace
@@ -801,6 +928,7 @@ def phase_kernels_bwd():
                     a_["bound_ms"] += count * b_ms
                     a_["flops_ms"] += count * 1e3 * flops / PEAK_FLOPS[dtype_name]
                     a_["bytes_ms"] += count * 1e3 * nbytes / PEAK_BYTES
+                    a_["exps_ms"] += count * 1e3 * exps / PEAK_EXPS
                     if lib_ms is not None:
                         a_["library_ms"] = (a_["library_ms"] or 0.0) + count * lib_ms
     emit({"phase": "kernels_bwd", "per_unet_eval_ms": {k: v["ms"] for k, v in agg.items()},
@@ -982,7 +1110,10 @@ def phase_serve():
         geglu = dict(cuda_geglu.geglu_ff.launches_by_design)
         if geglu != {"wgmma": LAUNCHES_PER_BATCH, "simt": 0}:
             fail(f"serve: GEGLU launches by design {geglu}")
-        _add_counts(by_design, {"mha_fwd": mha, "geglu_fwd": geglu})
+        st = dict(cuda_spacetime.fused_spacetime_attention.launches_by_design)
+        if st != {"wgmma": LAUNCHES_PER_BATCH, "simt": 0}:
+            fail(f"serve: spacetime launches by design {st}")
+        _add_counts(by_design, {"mha_fwd": mha, "geglu_fwd": geglu, "spacetime_fwd": st})
         if imgs.shape != (len(prompts), 512, 512, 3) or imgs.dtype != np.uint8:
             fail(f"engine output {imgs.shape} {imgs.dtype}")
         if float(imgs.std()) == 0.0:
@@ -1181,12 +1312,13 @@ def phase_optimize():
             want = opt_launches(k)
             if n != want:
                 fail(f"optimize {k}: {n} launches in a batch, expected {want}")
-        # flash (levels 0 and 1) and GEGLU on the wgmma kernels; MHA (dh 160)
-        # on mma_sync
-        designs = {k: dict(wrappers[k].launches_by_design)
-                   for k in ("flash_fwd", "flash_bwd", "mha_fwd", "geglu_fwd", "geglu_bwd")}
-        for k, d in (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync"),
-                     ("geglu_fwd", "wgmma"), ("geglu_bwd", "wgmma")):
+        # flash (levels 0 and 1), GEGLU and spacetime on the wgmma kernels;
+        # MHA (dh 160) on mma_sync
+        checks = (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync"),
+                  ("geglu_fwd", "wgmma"), ("geglu_bwd", "wgmma"), ("spacetime_fwd", "wgmma"),
+                  ("spacetime_bwd", "wgmma"))
+        designs = {k: dict(wrappers[k].launches_by_design) for k, _ in checks}
+        for k, d in checks:
             if designs[k][d] != counts[k]:
                 fail(f"optimize {k}: launches by design {designs[k]}, all expected on {d}")
         _add_counts(by_design, designs)
@@ -1278,7 +1410,7 @@ def phase_profile_train(sd):
 
 
 FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
-            ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_kernel",)),
+            ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_",)),
             ("spacetime_bwd", ("spacetime_bwd_",)),
             ("geglu_fwd", ("geglu_gate", "geglu_out", "geglu_partial")),
             ("geglu_bwd", ("geglu_dgate", "geglu_dx_out", "geglu_dx_partial")),
@@ -1361,6 +1493,62 @@ def phase_profile(sd):
           "device_idle_share": (1.0 - busy / (1e3 * unet_s)) if groups else None})
 
 
+def _host_row(call, n: int, match: str = "") -> dict:
+    """Host work of one bf16 call (see `phase_geglu_host`): issue time,
+    wrapper time (CUDA events), device time (torch.profiler), and their
+    difference; with `match`, also the device time of the kernels whose
+    names contain it (`kernel_ms`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        wrapper_ms = cuda_ms(call, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        host_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+    dev = [(e.key, getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(us for _, us in dev) / 1e3 / n
+    row = {"host_us": host_us, "wrapper_ms": wrapper_ms, "device_ms": device_ms,
+           "host_gap_ms": wrapper_ms - device_ms}
+    if match:
+        row["kernel_ms"] = sum(us for key, us in dev if match in key) / 1e3 / n
+    return row
+
+
+def phase_spacetime_host():
+    """Host work per bf16 spacetime call at each SD site (2 prompts, 4
+    objects): the forward through `fused_spacetime_attention` (inference
+    mode) and the backward through `spacetime_bwd` without dK/dV (the
+    chain's form; its device time includes the plain reductions into dg_u,
+    dmasks and dcoef).  The fields are those of `phase_geglu_host`, and
+    `kernel_ms`, the spacetime kernels' own device time.  Only
+    the wrappers' public signatures are used, so `--compare` runs this phase
+    on the other tree's package too."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.ops import cuda_spacetime
+
+    n = 50
+    for level, Lq, inner, _ in SITES:
+        gen = torch.Generator(device="cuda").manual_seed(Lq + inner + 1)
+        args = _inputs("spacetime", SERVE_PROMPTS, Lq, inner, torch.bfloat16, gen)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+        emit({"phase": "spacetime_host", "site": level, "Lq": Lq, "inner": inner,
+              "fwd": _host_row(lambda: cuda_spacetime.fused_spacetime_attention(*args, HEADS), n,
+                               "spacetime_fwd"),
+              "bwd": _host_row(lambda: cuda_spacetime.spacetime_bwd(*args, HEADS, g,
+                                                                    need_kv=False), n,
+                               "spacetime_bwd")})
+
+
 def phase_geglu_host():
     """Host work per bf16 GEGLU call at each SD site (2 prompts): the
     forward through `geglu_ff` (inference mode) and `geglu_dx`.  Per call:
@@ -1371,7 +1559,6 @@ def phase_geglu_host():
     card's time.  Only the wrappers' public signatures are used, so
     `--compare` runs this phase on the other tree's package too."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_geglu
 
@@ -1380,27 +1567,9 @@ def phase_geglu_host():
         gen = torch.Generator(device="cuda").manual_seed(Lq + dim)
         x, w1, b1, w2, b2, res = _inputs("geglu", SERVE_PROMPTS, Lq, dim, torch.bfloat16, gen)
         dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
-        row = {"phase": "geglu_host", "site": level, "M": x.shape[0], "dim": dim}
-        for name, call in (("fwd", lambda: cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res)),
-                           ("dx", lambda: cuda_geglu.geglu_dx(x, w1, b1, w2, dy))):
-            with torch.inference_mode():
-                wrapper_ms = cuda_ms(call, n)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    call()
-                host_us = (time.perf_counter() - t0) / n * 1e6
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(n):
-                        call()
-                    torch.cuda.synchronize()
-            dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA)
-            device_ms = dev_us / 1e3 / n
-            row[name] = {"host_us": host_us, "wrapper_ms": wrapper_ms, "device_ms": device_ms,
-                         "host_gap_ms": wrapper_ms - device_ms}
-        emit(row)
+        emit({"phase": "geglu_host", "site": level, "M": x.shape[0], "dim": dim,
+              "fwd": _host_row(lambda: cuda_geglu.geglu_ff(x, w1, b1, w2, b2, res), n),
+              "dx": _host_row(lambda: cuda_geglu.geglu_dx(x, w1, b1, w2, dy), n)})
 
 
 # one turn of `--compare`: phases that both trees have, in a fresh process
@@ -1434,6 +1603,7 @@ spec = importlib.util.spec_from_file_location('this_smoke', sys.argv[1])
 this = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(this)
 this.phase_geglu_host()
+this.phase_spacetime_host()
 """
 
 
@@ -1458,10 +1628,11 @@ def compare_trees(other: str) -> int:
                                                                   "profile_train")}
         host = {ln["site"]: {k: ln[k] for k in ("fwd", "dx")} for ln in lines
                 if ln["phase"] == "geglu_host"}
+        st_host = {ln["site"]: {k: ln[k] for k in ("fwd", "bwd")} for ln in lines
+                   if ln["phase"] == "spacetime_host"}
         sites = {f"{ln['name']} {ln['site']}": ln["kernel_ms"] for ln in lines
                  if ln["phase"] in ("kernel", "kernel_bwd") and ln["dtype"] == "bfloat16"
-                 and ln["prompts"] == SERVE_PROMPTS
-                 and ln["name"].startswith(("flash", "mha", "geglu"))}
+                 and ln["prompts"] == SERVE_PROMPTS}
         summary.append({"phase": "compare", "turn": turn, "tree": tree,
                         "seconds": time.perf_counter() - t0,
                         "per_unet_eval_ms": {k: v["ms"] for k, v in by["agg"]["agg"].items()},
@@ -1471,7 +1642,7 @@ def compare_trees(other: str) -> int:
                         "train_eval_s": by["profile_train"]["train_eval_s"],
                         "train_eval_busy_ms": by["profile_train"]["device_busy_ms"],
                         "train_eval_family_ms": by["profile_train"]["device_ms_by_family"],
-                        "geglu_host": host})
+                        "geglu_host": host, "spacetime_host": st_host})
     for row in summary:
         emit(row)
     return 0
@@ -1509,7 +1680,8 @@ def main() -> int:
                "serve_launches": serve_launches.get(kname, 0),
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
-               "bound_by": "operations" if a["flops_ms"] >= a["bytes_ms"] else "bytes",
+               "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
+                            else "bytes"),
                "library_ms": a["library_ms"]}
         if kname in by_design:   # the designs the serving and optimization runs took
             row["design"] = "+".join(d for d, n in sorted(by_design[kname].items()) if n)

@@ -133,6 +133,22 @@ inline int geglu_out_width(int M, int dim, int sms) {
   return cost(160) <= cost(64) ? 160 : 64;
 }
 
+// ---- spacetime forward and dq pass ----
+
+// Whether the wgmma spacetime kernels take 128-query blocks (each consumer
+// warpgroup owns 64 rows and every context, so a context's K/V is read once
+// per 128 queries) rather than 64-query blocks (the two warpgroups own the
+// same rows and take the contexts in turn): where 64-query blocks would
+// more than fill the `sms` SMs (SD levels 0 and 1).  Kernel µs per call,
+// forward / dq pass, 2 prompts, on an H100 80GB HBM3 at 700 W
+// (`chip_spacetime_variants.py`): level 0 35.6 / 58.1 against 46.6 / 61.7
+// in 64-query blocks, level 1 14.7 / 20.4 against 19.1 / 19.7; at level 2
+// and mid 64-query blocks lead (13.0 / 14.2 and 12.6 / 14.2 against 17.9 /
+// 36.7 and 15.5 / 26.4 in 128-query blocks).
+inline bool spacetime_wide(int Lq, int H, int B, int sms) {
+  return (long)((Lq + 63) / 64) * H * B > (long)sms;
+}
+
 namespace {
 
 // out = Σ_c scratch[c] (in chunk order) (+ bias[idx % dim]) (+ res): the

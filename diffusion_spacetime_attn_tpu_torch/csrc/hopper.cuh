@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
-// (`attn_fwd.cuh`, `flash_bwd.cu`) and GEGLU kernels (`geglu_fwd.cu`,
-// `geglu_bwd.cu`): mbarriers, TMA copies, wgmma, named barriers, register
-// hand-off between warpgroups, and the persistent ping-pong GEMM loop.
+// (`attn_fwd.cuh`, `flash_bwd.cu`), GEGLU kernels (`geglu_fwd.cu`,
+// `geglu_bwd.cu`) and spacetime kernels (`spacetime_fwd.cu`,
+// `spacetime_bwd.cu`): mbarriers, TMA copies, wgmma, named barriers,
+// register hand-off between warpgroups, the persistent ping-pong GEMM loop,
+// and launches that raise a kernel's shared-memory limit once per device.
 //
 // Shared-memory layout of every operand tile: rows of 64 bf16 (128 bytes)
 // in the 128-byte swizzle that TMA writes (`CU_TENSOR_MAP_SWIZZLE_128B`) and
@@ -181,13 +183,14 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int 
 
 // d (64 x N, f32) = A·B or += A·B for one k-step of 16.
 //   ss: A and B K-major in shared memory; scale_d = 0 overwrites d.  The
-//       score-like products: N is a tile of keys or queries (64, 128); the
-//       GEGLU products against W1 rows or W2 rows (64, 128, 160).
+//       score-like products: N is a tile of keys or queries (64, 128; 80,
+//       one spacetime context); the GEGLU products against W1 rows or W2
+//       rows (64, 128, 160).
 //   ssT: A K-major, B MN-major, both in shared memory: the GEGLU products
 //       against W2 or W1 columns (64, 160).
 //   rs: A in registers (the accumulator layout of a previous product, as
 //       bf16 pairs), B MN-major in shared memory; accumulates.  The
-//       output-like products: N is the head width (40, 64, 80, 128).
+//       output-like products: N is the head width (40, 64, 80, 128, 160).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<40> {
@@ -233,6 +236,15 @@ template <> struct Wgmma<64> {
 };
 
 template <> struct Wgmma<80> {
+  __device__ __forceinline__ static void ss(float (&d)[40], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+        "%40, %41, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   __device__ __forceinline__ static void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
@@ -267,6 +279,16 @@ template <> struct Wgmma<128> {
 
 
 template <> struct Wgmma<160> {
+  __device__ __forceinline__ static void rs(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+
   __device__ __forceinline__ static void ss(float (&d)[80], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
@@ -438,6 +460,24 @@ cudaError_t launch_pingpong(void (*kern)(P...), int M, int N, cudaStream_t strea
   const int sms = sm_count();
   const int grid = (int)(tiles < sms ? tiles : sms);
   kern<<<dim3(grid), PP_THREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Launch `Kern` with `smem` bytes of dynamic shared memory.  Its limit is
+// raised to `max_smem` once per device (the first launch), not per call.
+template <auto Kern, typename... A>
+cudaError_t launch_raised(dim3 grid, int threads, int smem, int max_smem, cudaStream_t stream,
+                          A... args) {
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices || !raised[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < kMaxDevices) raised[dev].store(true, std::memory_order_release);
+  }
+  Kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -13,22 +13,47 @@
 // each softmax recomputed in f32 over the context's own keys (keys ≥ Lk are
 // −inf), so no probability is stored and no [B, N, Lq, inner] tensor is
 // written.  rowsum(p ⊙ e) = ḡ·(p·V) = ḡ·loc, so t needs no p·V product.  The
-// cheap reductions dcoef, dmasks and dg_u stay outside, as in JAX.
+// cheap reductions dcoef, dmasks and dg_u stay outside, as in JAX.  The
+// masks are read in q's dtype, as the TPU kernel reads them.
 //
 // Bound on the H100: like the forward, the op moves more bytes (q, ḡ, g_u and
 // dq rows) than it has FLOPs to hide them, so it is bound by memory.
 //
-// Two kernels and no atomics, so the result is a fixed function of the inputs:
-//   spacetime_bwd_dq_kernel, one block per (b, head, 64-query tile), loops over
-//     the N+1 contexts with one [Lk, dh] K/V pair staged in shared memory at a
-//     time (as the forward) and writes dq and t;
-//   spacetime_bwd_kv_kernel, one block per (b, context, head, 48-column slice
-//     of dh), holds the context's K and V in shared memory, walks the query
-//     tiles in order and keeps its dK/dV slice in registers.  It recomputes the
-//     softmax and e itself (every key of a row is in the block), so it needs
-//     nothing from the first kernel.  It runs only when dK/dV are asked for.
-// Products run on the CUDA cores in f32; outputs are f32.
-#include "common.cuh"
+// Two passes and no atomics, so the result is a fixed function of the inputs:
+//   the dq pass, one block per (b, head, 64-query tile), walks the N+1
+//     contexts and writes dq and t (f32);
+//   the dK/dV pass, `spacetime_bwd_kv_kernel`, one block per (b, context,
+//     head, 48-column slice of dh), holds the context's K and V in shared
+//     memory, walks the query tiles in order and keeps its dK/dV slice in
+//     registers.  It recomputes the softmax and e itself, so it needs nothing
+//     from the dq pass.  It runs only when dK/dV are asked for (the
+//     optimization's chain asks for dcoef only), on the CUDA cores in f32.
+// The C entry picks the dq pass's design from the dtype:
+//
+// wgmma (bf16; dh a multiple of 8 up to 160, Lk ≤ 80, 16-byte aligned
+//   operands): `spacetime_bwd_dq_wgmma_kernel<DN, WIDE>`, in the shape of
+//   the forward (`spacetime_fwd.cu`): 384 threads, a producer warpgroup that
+//   loads the block's q and ḡ rows once and streams the contexts' K/V (80
+//   rows) through a ring (TMA, full/empty mbarriers: 5 stages at DN ≤ 64,
+//   3-4 at DN = 80, 128, 2 at DN = 160), and two consumer warpgroups that
+//   take the contexts in turn (64-query blocks) or own 64 rows each and
+//   walk every context (128-query blocks, where 64-query blocks would more
+//   than fill the SMs; `dsta::spacetime_wide`).  Per context, S = q·Kᵀ
+//   and E = ḡ·Vᵀ are two wgmma m64n80 products from shared memory; p, r =
+//   rowsum(p ⊙ e) and t = r − g_u·ḡ stay in f32 (t is written straight from
+//   registers; g_u·ḡ is one reduction per row at the start), and dS =
+//   scale·w·p ⊙ (e − r) is split into a bf16 high part and the bf16
+//   rounding of the rest, the register A operands of two products dq +=
+//   dS_hi·K + dS_lo·K (wgmma m64nDN, the same K stage read MN-major): dS
+//   rounded once to bf16 missed the per-element tolerance of dq at SD
+//   level 1 on an H100, and the split carries dS to about 16 bits.  In
+//   64-query blocks warpgroup 1 hands its partial dq to warpgroup 0 through
+//   the ring stage of its last context, and warpgroup 0 adds them in that
+//   fixed order.  DN is dh rounded up to 40, 64, 80, 128 or 160.
+//
+// simt (float32): `spacetime_bwd_dq_simt_kernel` on the CUDA cores, one [Lk,
+//   dh] K/V pair staged in shared memory at a time.
+#include "hopper.cuh"
 
 namespace {
 
@@ -41,12 +66,13 @@ constexpr int DMAX = 160;
 constexpr int DCOLS = DMAX / 16;
 constexpr int DC = 48;           // dh columns per dK/dV block: 16 x 3
 constexpr int KROWS = LKMAX / 16;
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t dq_smem_bytes(int Lk, int dh) {
+constexpr size_t dq_smem_bytes(int Lk, int dh) {
   return sizeof(float) * ((size_t)(2 * BQ + 2 * Lk) * (dh + 1) + (size_t)BQ * (LKMAX + 1));
 }
 
-size_t kv_smem_bytes(int Lk, int dh) {
+constexpr size_t kv_smem_bytes(int Lk, int dh) {
   return sizeof(float) * ((size_t)(2 * BQ2 + 2 * Lk) * (dh + 1) + (size_t)2 * BQ2 * (LKMAX + 1));
 }
 
@@ -64,15 +90,15 @@ __device__ __forceinline__ void context_ptrs(const T* kc, const T* vc, const T* 
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-spacetime_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ gu,
-                        const T* __restrict__ kc, const T* __restrict__ vc,
-                        const T* __restrict__ lk, const T* __restrict__ lv,
-                        const float* __restrict__ masks, const float* __restrict__ coef,
-                        const T* __restrict__ gbar, float* __restrict__ dq,
-                        float* __restrict__ tout, int N, int Lq, int Lk, int H, int dh,
-                        float scale) {
+spacetime_bwd_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ gu,
+                             const float* __restrict__ kc, const float* __restrict__ vc,
+                             const float* __restrict__ lk, const float* __restrict__ lv,
+                             const float* __restrict__ masks, const float* __restrict__ coef,
+                             const float* __restrict__ gbar, float* __restrict__ dq,
+                             float* __restrict__ tout, int N, int Lq, int Lk, int H, int dh,
+                             float scale) {
+  using T = float;
   extern __shared__ float smem[];
   const int ld = dh + 1;
   float* qs = smem;             // [BQ][dh+1]
@@ -234,7 +260,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 spacetime_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const T* __restrict__ lk,
-                        const T* __restrict__ lv, const float* __restrict__ masks,
+                        const T* __restrict__ lv, const T* __restrict__ masks,
                         const float* __restrict__ coef, const T* __restrict__ gbar,
                         float* __restrict__ dkc, float* __restrict__ dvc,
                         float* __restrict__ dlk, float* __restrict__ dlv, int N, int Lq,
@@ -315,7 +341,7 @@ spacetime_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float w = (r < Lq) ? 1.f : 0.f;
       if (ctx > 0) {
         const int bn = b * N + ctx - 1;
-        w = (r < Lq) ? masks[(size_t)bn * Lq + r] * coef[bn] : 0.f;
+        w = (r < Lq) ? dsta::to_f32(masks[(size_t)bn * Lq + r]) * coef[bn] : 0.f;
       }
       float mx = -CUDART_INF_F;
 #pragma unroll
@@ -397,42 +423,338 @@ spacetime_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* gu, const void* kc, const void* vc, const void* lk,
-                   const void* lv, const float* masks, const float* coef, const void* gbar,
-                   float* dq, float* t, float* dkc, float* dvc, float* dlk, float* dlv, int B,
-                   int N, int Lq, int Lk, int H, int dh, float scale, cudaStream_t stream) {
-  const T *qt = static_cast<const T*>(q), *gut = static_cast<const T*>(gu);
-  const T *kct = static_cast<const T*>(kc), *vct = static_cast<const T*>(vc);
-  const T *lkt = static_cast<const T*>(lk), *lvt = static_cast<const T*>(lv);
-  const T* gt = static_cast<const T*>(gbar);
-  const size_t smem = dq_smem_bytes(Lk, dh);
-  cudaError_t err = cudaFuncSetAttribute(spacetime_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  spacetime_bwd_dq_kernel<T><<<grid, NT, smem, stream>>>(qt, gut, kct, vct, lkt, lvt, masks, coef,
-                                                         gt, dq, t, N, Lq, Lk, H, dh, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || dkc == nullptr) return err;
 
-  const size_t smem2 = kv_smem_bytes(Lk, dh);
-  err = cudaFuncSetAttribute(spacetime_bwd_kv_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+// ---- bfloat16 dq pass: wgmma fed by a TMA ring (sm_90a) ----
+using dsta::bf16;
+namespace hop = dsta::hop;
+
+constexpr int WG_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int WG_ROWS = 64;      // query rows of one wgmma (a consumer's tile)
+
+// Per rs-product width DN and block shape, as the forward's `FwdWgmma`:
+// WIDE blocks own 128 queries (each consumer warpgroup 64 rows, every
+// context), the others 64 (the consumer warpgroups take the contexts in turn).
+template <int DN, bool WIDE> struct DqWgmma {
+  static constexpr int NB = (DN + 63) / 64;          // 64-column boxes per row
+  static constexpr int KS = (DN + 15) / 16;          // k-steps of S and E
+  static constexpr int ROWS = WIDE ? 2 * WG_ROWS : WG_ROWS;
+  static constexpr int OH_BYTES = WG_ROWS * 128 * NB;  // one consumer's q or ḡ tile
+  static constexpr int OWN_BYTES = ROWS * 128 * NB;    // the block's q or ḡ rows
+  static constexpr int KV_BYTES = LKMAX * 128 * NB;  // one K or V tile of a context
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int STAGES = NB == 1 ? 5 : NB == 2 ? (WIDE ? 3 : 4) : 2;
+  static constexpr int BAR_OFF = 2 * OWN_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 128 + ROWS * 4 + 1024;  // barriers, g_u·ḡ, slack
+  // warpgroup 1's hand-off (partial dq, [ND][128] f32) fits a stage
+  static_assert((DN / 2) * 128 * 4 <= STAGE_BYTES, "hand-off exceeds a ring stage");
+  static_assert(SMEM <= 232448, "shared memory exceeds a block's 227 KB");
+};
+
+template <int DN, bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+spacetime_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tg,
+                              const __grid_constant__ CUtensorMap tkc,
+                              const __grid_constant__ CUtensorMap tvc,
+                              const __grid_constant__ CUtensorMap tlk,
+                              const __grid_constant__ CUtensorMap tlv,
+                              const bf16* __restrict__ gu, const bf16* __restrict__ gbar,
+                              const bf16* __restrict__ masks, const float* __restrict__ coef,
+                              float* __restrict__ dq, float* __restrict__ tout, int N, int Lq,
+                              int Lk, int H, int dh, float scale) {
+  using C = DqWgmma<DN, WIDE>;
+  constexpr int NB = C::NB, S = C::STAGES, NS = LKMAX / 2, ND = DN / 2, KT = LKMAX / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* const base = hop::align1024(smem_raw);
+  unsigned char* const qs = base;                     // [ROWS / 64][NB][64 rows][128 B]
+  unsigned char* const gs = base + C::OWN_BYTES;      // ḡ, the same layout
+  unsigned char* const ring = base + 2 * C::OWN_BYTES;  // stage s: K [NB][80][128 B], then V
+  uint64_t* const full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* const empty = full + S;
+  uint64_t* const own = empty + S;
+  float* const ggs = reinterpret_cast<float*>(base + C::BAR_OFF + 128);  // [ROWS] g_u·ḡ
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::ROWS;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], WIDE ? 256 : 128);  // the consuming warpgroups release it
+    }
+    hop::mbar_init(own, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every copy, contexts in order
+    hop::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hop::mbar_expect_tx(own, 2 * C::OWN_BYTES);
+#pragma unroll
+      for (int hf = 0; hf < C::ROWS / WG_ROWS; ++hf)
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          const int at = hf * C::OH_BYTES + c * WG_ROWS * 128, row = q0 + hf * WG_ROWS;
+          hop::tma_load_4d(qs + at, &tq, own, 64 * c, h, row, b);
+          hop::tma_load_4d(gs + at, &tg, own, 64 * c, h, row, b);
+        }
+      for (int ctx = 0; ctx <= N; ++ctx) {
+        const int s = ctx % S;
+        if (ctx >= S) hop::mbar_wait(&empty[s], (ctx / S - 1) & 1);
+        unsigned char* const kt = ring + s * C::STAGE_BYTES;
+        const CUtensorMap* const mk = ctx == 0 ? &tkc : &tlk;
+        const CUtensorMap* const mv = ctx == 0 ? &tvc : &tlv;
+        const int row = ctx == 0 ? b : b * N + ctx - 1;  // batch row of the map
+        hop::mbar_expect_tx(&full[s], C::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hop::tma_load_4d(kt + c * LKMAX * 128, mk, &full[s], 64 * c, h, 0, row);
+          hop::tma_load_4d(kt + C::KV_BYTES + c * LKMAX * 128, mv, &full[s], 64 * c, h, 0, row);
+        }
+      }
+    }
+  } else {  // consumers: WIDE, warpgroup wg owns rows 64 wg + [0, 64) and every
+            // context; else both own the 64 rows and take contexts wg, wg + 2, ...
+    hop::reg_alloc<240>();
+    const size_t inner = (size_t)H * dh;
+    {  // g_u·ḡ of the block's rows in f32: TPR threads per row
+      constexpr int TPR = 256 / C::ROWS;
+      const int row = q0 + threadIdx.x / TPR, part = threadIdx.x % TPR, span = dh / TPR;
+      float acc = 0.f;
+      if (row < Lq) {
+        const size_t off = ((size_t)b * Lq + row) * inner + (size_t)h * dh + part * span;
+        for (int d = 0; d < span; d += 2) {  // dh is a multiple of 8: span is even
+          const float2 uf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gu + off + d));
+          const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gbar + off + d));
+          acc = fmaf(uf.x, gf.x, acc);
+          acc = fmaf(uf.y, gf.y, acc);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (part == 0) ggs[threadIdx.x / TPR] = acc;
+      hop::named_sync(2, 256);
+    }
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, t = lane % 4;
+    const int lr = (WIDE ? WG_ROWS * wg : 0) + warp * 16 + lane / 4;  // block rows lr, lr + 8
+    const int r0 = q0 + lr;
+    const unsigned char* const qw = qs + (WIDE ? wg * C::OH_BYTES : 0);
+    const unsigned char* const gw = gs + (WIDE ? wg * C::OH_BYTES : 0);
+    const float gg[2] = {ggs[lr], ggs[lr + 8]};
+    float sc[NS], e[NS], acc[ND];
+    uint32_t da[KT][4] = {}, dl[KT][4] = {};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = e[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    hop::mbar_wait(own, 0);
+
+    for (int ctx = WIDE ? 0 : wg; ctx <= N; ctx += WIDE ? 1 : 2) {
+      const int st = ctx % S;
+      const unsigned char* const kt = ring + st * C::STAGE_BYTES;
+      const unsigned char* const vt = kt + C::KV_BYTES;
+      float w[2] = {1.f, 1.f};  // the blend weights of rows r0, r0 + 8, loaded under the wait
+      if (ctx > 0) {
+        const int bn = b * N + ctx - 1;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          w[r] = row < Lq ? __bfloat162float(masks[(size_t)bn * Lq + row]) * coef[bn] : 0.f;
+        }
+      }
+      hop::mbar_wait(&full[st], (ctx / S) & 1);
+      hop::fence_regs(sc);
+      hop::fence_regs(e);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks)
+        hop::Wgmma<LKMAX>::ss(sc, hop::desc_kmajor(qw, WG_ROWS, ks),
+                              hop::desc_kmajor(kt, LKMAX, ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks)
+        hop::Wgmma<LKMAX>::ss(e, hop::desc_kmajor(gw, WG_ROWS, ks),
+                              hop::desc_kmajor(vt, LKMAX, ks), ks > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(sc);
+      hop::fence_regs(e);
+
+      // element i: row r0 + 8·((i >> 1) & 1), key 8·(i / 4) + 2t + (i & 1).
+      // p in f32, normalized; the row max on the unscaled scores (scale > 0).
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if (8 * (i / 4) + 2 * t + (i & 1) >= Lk) sc[i] = -CUDART_INF_F;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      const float sl2 = scale * LOG2E;
+      float ms[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        ms[r] = -mx[r] * sl2;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        sc[i] = hop::exp2_ftz(fmaf(sc[i], sl2, ms[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += sc[i];
+      }
+      float inv[2], dr[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        inv[r] = 1.f / rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        sc[i] *= inv[(i >> 1) & 1];  // p
+        dr[(i >> 1) & 1] = fmaf(sc[i], e[i], dr[(i >> 1) & 1]);
+      }
+      float cw[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 1);  // rowsum(p ⊙ e) = ḡ·(p·V)
+        dr[r] += __shfl_xor_sync(0xffffffffu, dr[r], 2);
+        const int row = r0 + 8 * r;
+        if (ctx > 0 && t == 0 && row < Lq)
+          tout[(((size_t)b * H + h) * N + ctx - 1) * Lq + row] = dr[r] - gg[r];
+        cw[r] = w[r] * scale;
+      }
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = cw[r] * sc[i] * (e[i] - dr[r]);  // scale·ds
+      }
+      // scale·ds as a bf16 high part and the bf16 rounding of what it leaves
+      hop::acc_to_a(da, sc);
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&da[kk][j]));
+          dl[kk][j] = dsta::pack_bf16(sc[8 * kk + 2 * j] - hi.x, sc[8 * kk + 2 * j + 1] - hi.y);
+        }
+
+      // dq += (scale·ds)·K in two products, K read MN-major; then the stage goes back
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      hop::fence_regs(dl);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DN>::rs(acc, da[kk], hop::desc_mnmajor(kt, LKMAX, kk));
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DN>::rs(acc, dl[kk], hop::desc_mnmajor(kt, LKMAX, kk));
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      hop::fence_regs(da);
+      hop::fence_regs(dl);
+      hop::mbar_arrive(&empty[st]);
+    }
+
+    // 64-row blocks: warpgroup 1's last context N or N − 1 (none at N = 0):
+    // no copy lands in its stage again, and warpgroup 0 reads no other
+    // context from it
+    if (!WIDE && N > 0) {
+      const int last = (N % 2 == 1) ? N : N - 1;
+      float* const xfer = reinterpret_cast<float*>(ring + (last % S) * C::STAGE_BYTES);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) xfer[i * 128 + tid] = acc[i];
+        hop::named_arrive(1, 256);
+      } else {
+        hop::named_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] += xfer[i * 128 + tid];
+      }
+    }
+    if (WIDE || wg == 0) {  // dq rows r0, r0 + 8, columns 8c + 2t, +1
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row >= Lq) continue;
+        float* const out = dq + ((size_t)b * Lq + row) * inner + (size_t)h * dh + 2 * t;
+#pragma unroll
+        for (int c = 0; c < DN / 8; ++c) {
+          if (8 * c >= dh) break;  // dh is a multiple of 8
+          *reinterpret_cast<float2*>(out + 8 * c) = make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int DN, bool WIDE>
+cudaError_t launch_dq_wgmma_dn(const bf16* q, const bf16* gu, const bf16* kc, const bf16* vc,
+                               const bf16* lk, const bf16* lv, const bf16* masks,
+                               const float* coef, const bf16* gbar, float* dq, float* t, int B,
+                               int N, int Lq, int Lk, int H, int dh, float scale,
+                               cudaStream_t stream) {
+  CUtensorMap m[6];
+  // with no objects the object maps describe the global context (never read)
+  const bf16* lkb = N > 0 ? lk : kc;
+  const bf16* lvb = N > 0 ? lv : vc;
+  const int BN = N > 0 ? B * N : B;
+  cudaError_t err = hop::head_map(&m[0], q, B, Lq, H, dh, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&m[1], gbar, B, Lq, H, dh, WG_ROWS);
+  if (err == cudaSuccess) err = hop::head_map(&m[2], kc, B, Lk, H, dh, LKMAX);
+  if (err == cudaSuccess) err = hop::head_map(&m[3], vc, B, Lk, H, dh, LKMAX);
+  if (err == cudaSuccess) err = hop::head_map(&m[4], lkb, BN, Lk, H, dh, LKMAX);
+  if (err == cudaSuccess) err = hop::head_map(&m[5], lvb, BN, Lk, H, dh, LKMAX);
   if (err != cudaSuccess) return err;
-  dim3 grid2((dh + DC - 1) / DC, H, B * (N + 1));
-  spacetime_bwd_kv_kernel<T><<<grid2, NT, smem2, stream>>>(qt, kct, vct, lkt, lvt, masks, coef, gt,
-                                                           dkc, dvc, dlk, dlv, N, Lq, Lk, H, dh,
-                                                           scale);
-  return cudaGetLastError();
+  using C = DqWgmma<DN, WIDE>;
+  return hop::launch_raised<spacetime_bwd_dq_wgmma_kernel<DN, WIDE>>(
+      dim3((Lq + C::ROWS - 1) / C::ROWS, H, B), WG_THREADS, C::SMEM, C::SMEM, stream, m[0], m[1],
+      m[2], m[3], m[4], m[5], gu, gbar, masks, coef, dq, t, N, Lq, Lk, H, dh, scale);
+}
+
+template <int DN>
+cudaError_t launch_dq_wgmma_dn(const bf16* q, const bf16* gu, const bf16* kc, const bf16* vc,
+                               const bf16* lk, const bf16* lv, const bf16* masks,
+                               const float* coef, const bf16* gbar, float* dq, float* t, int B,
+                               int N, int Lq, int Lk, int H, int dh, float scale, cudaStream_t s) {
+  if (dsta::spacetime_wide(Lq, H, B, hop::sm_count()))
+    return launch_dq_wgmma_dn<DN, true>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+  return launch_dq_wgmma_dn<DN, false>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+}
+
+cudaError_t launch_dq_wgmma(const bf16* q, const bf16* gu, const bf16* kc, const bf16* vc,
+                            const bf16* lk, const bf16* lv, const bf16* masks, const float* coef,
+                            const bf16* gbar, float* dq, float* t, int B, int N, int Lq, int Lk,
+                            int H, int dh, float scale, cudaStream_t s) {
+  if (dh % 8 != 0) return cudaErrorInvalidValue;
+  if (dh <= 40) return launch_dq_wgmma_dn<40>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+  if (dh <= 64) return launch_dq_wgmma_dn<64>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+  if (dh <= 80) return launch_dq_wgmma_dn<80>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+  if (dh <= 128) return launch_dq_wgmma_dn<128>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+  return launch_dq_wgmma_dn<160>(q, gu, kc, vc, lk, lv, masks, coef, gbar, dq, t, B, N, Lq, Lk, H, dh, scale, s);
+}
+
+// The dK/dV pass (CUDA cores) of either dtype.
+template <typename T>
+cudaError_t launch_kv(const void* q, const void* kc, const void* vc, const void* lk, const void* lv,
+                      const void* masks, const float* coef, const void* gbar, float* dkc,
+                      float* dvc, float* dlk, float* dlv, int B, int N, int Lq, int Lk, int H,
+                      int dh, float scale, cudaStream_t stream) {
+  constexpr size_t most = kv_smem_bytes(LKMAX, DMAX);
+  return hop::launch_raised<spacetime_bwd_kv_kernel<T>>(
+      dim3((dh + DC - 1) / DC, H, B * (N + 1)), NT, (int)kv_smem_bytes(Lk, dh), (int)most, stream,
+      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<const T*>(lk), static_cast<const T*>(lv), static_cast<const T*>(masks), coef,
+      static_cast<const T*>(gbar), dkc, dvc, dlk, dlv, N, Lq, Lk, H, dh, scale);
 }
 
 }  // namespace
 
 // q/gu/gbar [B, Lq, H*dh]; kc/vc [B, Lk, H*dh]; lk/lv [B, N, Lk, H*dh] (one
-// dtype, contiguous); masks [B, N, Lq] and coef [B, N] float32.  Outputs, all
-// float32: dq [B, Lq, H*dh], t [B, H, N, Lq]; dkc/dvc [B, Lk, H*dh] and
-// dlk/dlv [B, N, Lk, H*dh] only when dkc is not null (then all four are set).
+// dtype, contiguous); masks [B, N, Lq] in that dtype; coef [B, N] float32.
+// Outputs, all float32: dq [B, Lq, H*dh], t [B, H, N, Lq]; dkc/dvc [B, Lk,
+// H*dh] and dlk/dlv [B, N, Lk, H*dh] only when dkc is not null (then all four
+// are set).  The dq pass runs the CUDA-core design in float32 and the wgmma
+// design in bfloat16 (dh a multiple of 8, 16-byte aligned q, ḡ, K and V).
 extern "C" int dsta_spacetime_bwd(int dtype, const void* q, const void* gu, const void* kc,
                                   const void* vc, const void* lk, const void* lv,
                                   const void* masks, const void* coef, const void* gbar,
@@ -443,17 +765,33 @@ extern "C" int dsta_spacetime_bwd(int dtype, const void* q, const void* gu, cons
     return (int)cudaErrorInvalidValue;
   if (dkc != nullptr && (dvc == nullptr || (N > 0 && (dlk == nullptr || dlv == nullptr))))
     return (int)cudaErrorInvalidValue;
+  if (dtype != dsta::kF32 && dtype != dsta::kBF16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(masks);
   const float* c = static_cast<const float*>(coef);
   float *dqf = static_cast<float*>(dq), *tf = static_cast<float*>(t);
   float *dkcf = static_cast<float*>(dkc), *dvcf = static_cast<float*>(dvc);
   float *dlkf = static_cast<float*>(dlk), *dlvf = static_cast<float*>(dlv);
+  cudaError_t err;
+  if (dtype == dsta::kF32) {
+    constexpr size_t most = dq_smem_bytes(LKMAX, DMAX);
+    err = hop::launch_raised<spacetime_bwd_dq_simt_kernel>(
+        dim3((Lq + BQ - 1) / BQ, H, B), NT, (int)dq_smem_bytes(Lk, dh), (int)most, s,
+        static_cast<const float*>(q), static_cast<const float*>(gu),
+        static_cast<const float*>(kc), static_cast<const float*>(vc),
+        static_cast<const float*>(lk), static_cast<const float*>(lv),
+        static_cast<const float*>(masks), c, static_cast<const float*>(gbar), dqf, tf, N, Lq, Lk,
+        H, dh, scale);
+  } else {
+    err = launch_dq_wgmma(static_cast<const bf16*>(q), static_cast<const bf16*>(gu),
+                          static_cast<const bf16*>(kc), static_cast<const bf16*>(vc),
+                          static_cast<const bf16*>(lk), static_cast<const bf16*>(lv),
+                          static_cast<const bf16*>(masks), c, static_cast<const bf16*>(gbar), dqf,
+                          tf, B, N, Lq, Lk, H, dh, scale, s);
+  }
+  if (err != cudaSuccess || dkc == nullptr) return (int)err;
   if (dtype == dsta::kF32)
-    return (int)launch<float>(q, gu, kc, vc, lk, lv, m, c, gbar, dqf, tf, dkcf, dvcf, dlkf, dlvf,
-                              B, N, Lq, Lk, H, dh, scale, s);
-  if (dtype == dsta::kBF16)
-    return (int)launch<__nv_bfloat16>(q, gu, kc, vc, lk, lv, m, c, gbar, dqf, tf, dkcf, dvcf,
-                                      dlkf, dlvf, B, N, Lq, Lk, H, dh, scale, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_kv<float>(q, kc, vc, lk, lv, masks, c, gbar, dkcf, dvcf, dlkf, dlvf, B, N,
+                                 Lq, Lk, H, dh, scale, s);
+  return (int)launch_kv<bf16>(q, kc, vc, lk, lv, masks, c, gbar, dkcf, dvcf, dlkf, dlvf, B, N, Lq,
+                              Lk, H, dh, scale, s);
 }

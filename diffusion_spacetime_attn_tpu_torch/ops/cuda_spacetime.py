@@ -4,12 +4,26 @@
 Replaces the JAX package's Pallas TPU kernels `ops/pallas_spacetime.py:_kernel`
 (launched by `_forward`) and `_bwd_kernel` (launched by `_backward`), public
 `fused_spacetime_attention`, with the same argument order and layouts.  On
-the H100 both are bound by memory: the forward reads q and g_u once, keeps
-the N per-object attention results on chip (the plain version writes a
-[B, N, Lq, inner] tensor) and writes the blended rows once; the backward
-recomputes each softmax per query tile and writes dq and the per-head blend
-products t, and dK/dV only when they are asked for.  Contexts are at most 80
-keys (CLIP's 77); keys past the context length are masked to −inf.
+the H100 both are bound by memory, and the bf16 forward at SD level 0 by its
+exps: the forward reads q and g_u once, keeps the N per-object attention
+results on chip (the plain version writes a [B, N, Lq, inner] tensor) and
+writes the blended rows once; the backward recomputes each softmax per query
+tile and writes dq and the per-head blend products t, and dK/dV only when
+they are asked for.  Contexts are at most 80 keys (CLIP's 77); keys past the
+context length are masked to −inf.  The masks are cast once, to q's dtype,
+which is how the kernels (and the TPU kernels) read them.
+
+Every call on a CUDA tensor goes through a kernel, in the design
+`spacetime_design` picks from the dtype and shape before launch (no fallback
+after a failed launch): "wgmma" (bf16; head width a multiple of 8 up to 160,
+contexts of at most 80 keys, 16-byte aligned operands: every SD v1-4 site),
+the forward and the dq pass on the tensor cores, fed by TMA rings, the
+forward's blended probabilities rounded to bf16 and the dq pass's ds split
+into two bf16 parts as the A operand of the second product; or "simt"
+(float32, CUDA cores).  Other bf16 inputs raise.  The
+dK/dV pass, which the optimization's chain never asks for, runs on the CUDA
+cores in both dtypes.  `fused_spacetime_attention.launches_by_design` and
+`spacetime_bwd.launches_by_design` count launches per design.
 
 `fused_spacetime_attention` is a `torch.autograd.Function`.  On a CPU tensor
 it runs the plain versions (`spacetime_plain`, `spacetime_bwd_plain`); on a
@@ -24,6 +38,22 @@ from . import cuda_lib
 
 DH_MAX = 160
 LK_MAX = 80
+DESIGNS = ("wgmma", "simt")
+
+
+def spacetime_design(dtype, dh: int, Lk: int, aligned: bool = True) -> str:
+    """The kernel design that takes a spacetime forward or backward: "wgmma"
+    for bf16 at head widths that are multiples of 8 up to `DH_MAX`, contexts
+    of at most `LK_MAX` keys and 16-byte aligned operands (what TMA can
+    describe), "simt" for float32.  Other bf16 inputs raise ValueError: no
+    kernel takes them."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if dh % 8 or dh > DH_MAX or Lk > LK_MAX or not aligned:
+        raise ValueError(f"bfloat16 spacetime attention takes head widths that are multiples "
+                         f"of 8 up to {DH_MAX}, contexts of at most {LK_MAX} keys and 16-byte "
+                         f"aligned tensors (dh={dh}, Lk={Lk}, aligned={aligned})")
+    return "wgmma"
 
 
 def spacetime_plain(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int):
@@ -38,13 +68,13 @@ def spacetime_plain(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int):
     return g_c + blend - w.sum(dim=1)[..., None].to(g_u.dtype) * g_u
 
 
-def _blend_cotangents(t, masks, coef, g, g_u):
+def _blend_cotangents(t, masks, coef, g, g_u, need_masks: bool = True):
     """dg_u, dmasks, dcoef from the per-head blend products t [B, H, N, Lq]
-    (`pallas_spacetime.py:307-314`)."""
+    (`pallas_spacetime.py:307-314`); dmasks is None without need_masks."""
     t_sum = t.sum(dim=1)                                        # [B, N, Lq]
     w = masks.float() * coef[..., None].float()
     dg_u = (-w.sum(dim=1)[..., None] * g.float()).to(g_u.dtype)
-    dmasks = (coef[..., None].float() * t_sum).to(masks.dtype)
+    dmasks = (coef[..., None].float() * t_sum).to(masks.dtype) if need_masks else None
     dcoef = (masks.float() * t_sum).sum(dim=-1).to(coef.dtype)
     return dg_u, dmasks, dcoef
 
@@ -64,8 +94,9 @@ def _plain_raw(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads, g):
     # contexts stacked: 0 global, 1..N objects -> [B, N+1, H, Lk, dh]
     k = torch.cat([heads(kc)[:, None], heads(lk)], dim=1)
     v = torch.cat([heads(vc)[:, None], heads(lv)], dim=1)
-    w = torch.cat([torch.ones_like(masks[:, :1]), masks], dim=1).float()
-    w = w * torch.cat([torch.ones_like(coef[:, :1]), coef], dim=1).float()[..., None]
+    ones = torch.ones((B, 1, Lq), dtype=torch.float32, device=masks.device)
+    w = torch.cat([ones, masks.float()], dim=1)
+    w = w * torch.cat([ones[:, :, 0], coef.float()], dim=1)[..., None]
     p = torch.softmax(torch.einsum("bhqd,bchkd->bchqk", q, k) * scale, dim=-1)
     dout = w[:, :, None, :, None] * gb[:, None]                  # [B, N+1, H, Lq, dh]
     dv = torch.einsum("bchqk,bchqd->bchkd", p, dout)
@@ -95,12 +126,18 @@ def spacetime_bwd_plain(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int, g
 
 def spacetime_cost(B: int, N: int, Lq: int, Lk: int, inner: int, itemsize: int):
     """(FLOPs, bytes) of one forward call: QK and PV products for N+1
-    contexts; q, g_u, out, the K/V of every context, f32 masks and coef
-    moved once."""
+    contexts; q, g_u, out, the K/V of every context, the masks (in q's
+    dtype) and f32 coef moved once."""
     flops = 4 * B * (N + 1) * Lq * Lk * inner
-    nbytes = (itemsize * (3 * B * Lq * inner + 2 * B * (N + 1) * Lk * inner)
-              + 4 * (B * N * Lq + B * N))
+    nbytes = (itemsize * (3 * B * Lq * inner + 2 * B * (N + 1) * Lk * inner + B * N * Lq)
+              + 4 * B * N)
     return flops, nbytes
+
+
+def spacetime_exps(B: int, N: int, Lq: int, Lk: int, heads: int) -> int:
+    """Exponentials of one forward call, and of one backward call's dq pass:
+    one per score, N+1 contexts of Lk keys per (prompt, head, query)."""
+    return B * heads * Lq * (N + 1) * Lk
 
 
 def spacetime_bwd_cost(B: int, N: int, Lq: int, Lk: int, inner: int, heads: int,
@@ -108,12 +145,12 @@ def spacetime_bwd_cost(B: int, N: int, Lq: int, Lk: int, inner: int, heads: int,
     """(FLOPs, bytes) of one backward call.  The dq pass does three products
     per context (q·Kᵀ, ḡ·Vᵀ, ds·K), the dK/dV pass two more (dsᵀ·q, pᵀ·ḡ;
     the softmax and ḡ·Vᵀ it recomputes are not counted).  Bytes: q, g_u, ḡ,
-    the K/V of every context, f32 masks and coef read once; f32 dq and t
-    [B, heads, N, Lq] written once, and f32 dK/dV of every context with
-    need_kv."""
+    the K/V of every context, the masks (in q's dtype) and f32 coef read
+    once; f32 dq and t [B, heads, N, Lq] written once, and f32 dK/dV of
+    every context with need_kv."""
     flops = 2 * (5 if need_kv else 3) * B * (N + 1) * Lq * Lk * inner
-    nbytes = (itemsize * (3 * B * Lq * inner + 2 * B * (N + 1) * Lk * inner)
-              + 4 * (B * N * Lq + B * N) + 4 * (B * Lq * inner + B * heads * N * Lq))
+    nbytes = (itemsize * (3 * B * Lq * inner + 2 * B * (N + 1) * Lk * inner + B * N * Lq)
+              + 4 * B * N + 4 * (B * Lq * inner + B * heads * N * Lq))
     if need_kv:
         nbytes += 4 * 2 * B * (N + 1) * Lk * inner
     return flops, nbytes
@@ -141,8 +178,19 @@ def _check(name, q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads, g=None):
 
 
 def _masks_coef(q_c, masks, coef):
-    # the TPU kernels read masks in q's dtype; all kernels read coef in f32
-    return masks.to(q_c.dtype).float().contiguous(), coef.float().contiguous()
+    # the kernels (as the TPU kernels) read masks in q's dtype, coef in f32;
+    # a cast or copy only where the input is not that already
+    return masks.to(q_c.dtype).contiguous(), coef.float().contiguous()
+
+
+def _design(name, q_c, num_heads, Lk, operands):
+    """The design of a launch (`operands`: the tensors a kernel reads or
+    writes in q's dtype); raises what `spacetime_design` raises."""
+    try:
+        return spacetime_design(q_c.dtype, q_c.shape[-1] // num_heads, Lk,
+                                all(t.data_ptr() % 16 == 0 for t in operands))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
 
 
 def _forward(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads):
@@ -153,6 +201,8 @@ def _forward(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads):
     cuda_lib.require_cuda("fused_spacetime_attention", q_c, g_u, kc, vc, lk, lv, m, c)
     dh = inner // num_heads
     out = torch.empty_like(q_c)
+    design = _design("fused_spacetime_attention", q_c, num_heads, Lk,
+                     (q_c, g_u, kc, vc, lk, lv, out))
     rc = cuda_lib.library().dsta_spacetime_fwd(
         cuda_lib.dtype_code(q_c), q_c.data_ptr(), g_u.data_ptr(), kc.data_ptr(),
         vc.data_ptr(), lk.data_ptr(), lv.data_ptr(), m.data_ptr(), c.data_ptr(),
@@ -160,6 +210,7 @@ def _forward(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads):
         cuda_lib.stream_ptr(q_c))
     cuda_lib.check(rc, "dsta_spacetime_fwd")
     fused_spacetime_attention.launches += 1
+    fused_spacetime_attention.launches_by_design[design] += 1
     return out
 
 
@@ -173,6 +224,7 @@ def spacetime_bwd_raw(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int, g,
     m, c = _masks_coef(q_c, masks, coef)
     cuda_lib.require_cuda("spacetime_bwd", q_c, g_u, kc, vc, lk, lv, m, c, g)
     dh = inner // num_heads
+    design = _design("spacetime_bwd", q_c, num_heads, Lk, (q_c, g_u, kc, vc, lk, lv, g))
     f32 = dict(dtype=torch.float32, device=q_c.device)
     dq = torch.empty((B, Lq, inner), **f32)
     t = torch.empty((B, num_heads, N, Lq), **f32)
@@ -187,29 +239,33 @@ def spacetime_bwd_raw(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int, g,
         cuda_lib.stream_ptr(q_c))
     cuda_lib.check(rc, "dsta_spacetime_bwd")
     spacetime_bwd.launches += 1
+    spacetime_bwd.launches_by_design[design] += 1
     return (dq, t) + kv
 
 
 def spacetime_bwd(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: int, g,
-                  need_kv: bool = True):
+                  need_kv: bool = True, need_masks: bool = True):
     """Cotangents (dq_c, dg_u, dkc, dvc, dlk, dlv, dmasks, dcoef) of the
     blend for the output cotangent g, in `_backward`'s order and dtypes.
     Without need_kv, dkc..dlv are None and the kernel's dK/dV pass does not
-    run.  CPU tensors take `spacetime_bwd_plain`; CUDA tensors the kernel."""
+    run; without need_masks, dmasks is None.  CPU tensors take
+    `spacetime_bwd_plain`; CUDA tensors the kernel."""
     if q_c.device.type == "cpu":
         cots = spacetime_bwd_plain(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads, g)
-        return cots if need_kv else cots[:2] + (None,) * 4 + cots[6:]
+        cots = cots if need_kv else cots[:2] + (None,) * 4 + cots[6:]
+        return cots if need_masks else cots[:6] + (None, cots[7])
     if q_c.device.type != "cuda":
         raise ValueError(f"spacetime_bwd: unsupported device {q_c.device}")
     dq, t, dkc, dvc, dlk, dlv = spacetime_bwd_raw(q_c, g_u, kc, vc, lk, lv, masks, coef,
                                                   num_heads, g, need_kv)
-    dg_u, dmasks, dcoef = _blend_cotangents(t, masks, coef, g, g_u)
+    dg_u, dmasks, dcoef = _blend_cotangents(t, masks, coef, g, g_u, need_masks)
     kv = (dkc.to(kc.dtype), dvc.to(vc.dtype), dlk.to(lk.dtype), dlv.to(lv.dtype)) \
         if need_kv else (None,) * 4
     return (dq.to(q_c.dtype), dg_u) + kv + (dmasks, dcoef)
 
 
 spacetime_bwd.launches = 0
+spacetime_bwd.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _SpacetimeFn(torch.autograd.Function):
@@ -229,7 +285,7 @@ class _SpacetimeFn(torch.autograd.Function):
     def backward(ctx, g):
         need = ctx.needs_input_grad
         cots = spacetime_bwd(*ctx.saved_tensors, ctx.num_heads, g.contiguous(),
-                             need_kv=any(need[2:6]))
+                             need_kv=any(need[2:6]), need_masks=need[6])
         return tuple(c if n else None for c, n in zip(cots, need[:8])) + (None,)
 
 
@@ -241,3 +297,4 @@ def fused_spacetime_attention(q_c, g_u, kc, vc, lk, lv, masks, coef, num_heads: 
 
 
 fused_spacetime_attention.launches = 0
+fused_spacetime_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -80,25 +80,39 @@ def test_mha_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, dh):
     assert cuda_mha.mha_attention.launches_by_design[design] == before + 1
 
 
+# (B, N, Lq, Lk, inner, H) of the spacetime kernels' card tests
+SPACETIME_SHAPES = [
+    (2, 4, 4096, 77, 320, 8), (2, 4, 1024, 77, 640, 8),     # SD sites at 2 prompts:
+    (2, 4, 256, 77, 1280, 8), (2, 4, 64, 77, 1280, 8),      # dh 40, 80, 160, 160
+    (1, 4, 1024, 77, 640, 8), (2, 2, 256, 77, 1280, 8),
+    (1, 3, 100, 12, 32, 2),      # ragged query tile, short context, dh 16
+    (2, 1, 64, 80, 64, 4),       # the longest context the kernel takes
+    (1, 0, 100, 77, 320, 8),     # no objects: the global context alone
+    (1, 1, 100, 1, 512, 8),      # one key, dh 64
+    (2, 4, 100, 64, 640, 8),     # Lk 64, dh 80
+    (1, 4, 100, 80, 1280, 8),    # Lk 80, dh 160
+    (1, 2, 100, 77, 512, 8),     # dh 64 at CLIP's 77 keys
+    (1, 4, 4100, 77, 320, 8),    # 128-query blocks (a grid of > 2 waves), ragged last block
+    (2, 4, 2112, 77, 1280, 8),   # 128-query blocks at dh 160: a 2-stage ring for 5 contexts
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", [
-    (1, 4, 1024, 77, 640, 8), (2, 2, 256, 77, 1280, 8),
-    (1, 3, 100, 12, 32, 2),      # ragged query tile, short context
-    (2, 1, 64, 80, 64, 4),       # the longest context the kernel takes
-])
+@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", SPACETIME_SHAPES)
 def test_spacetime_kernel_matches_plain(cuda, dtype, B, N, Lq, Lk, inner, H):
+    """Each design (bf16 wgmma, f32 simt) against the plain version at the SD
+    sites and ragged shapes; the launch counted under its design; a repeat
+    gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(Lq + N)
-    q_c, g_u = (_randn(g, cuda, dtype, B, Lq, inner) for _ in range(2))
-    kc, vc = (_randn(g, cuda, dtype, B, Lk, inner) for _ in range(2))
-    lk, lv = (_randn(g, cuda, dtype, B, N, Lk, inner) for _ in range(2))
-    dim = int(round(Lq ** 0.5))
-    masks = flat_circular_mask(torch.rand((B, N, 2), generator=g, device=cuda), dim, 0.3)
-    masks = torch.nn.functional.pad(masks, (0, Lq - dim * dim))
-    coef = torch.rand((B, N), generator=g, device=cuda) * 2
-    args = (q_c, g_u, kc, vc, lk, lv, masks, coef, H)
-    _check(cuda_spacetime.fused_spacetime_attention(*args), cuda_spacetime.spacetime_plain(*args),
-           "spacetime")
+    args = _spacetime_args(g, cuda, dtype, B, N, Lq, Lk, inner) + (H,)
+    design = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = dict(cuda_spacetime.fused_spacetime_attention.launches_by_design)
+    got = cuda_spacetime.fused_spacetime_attention(*args)
+    assert cuda_spacetime.fused_spacetime_attention.launches_by_design == {
+        **before, design: before[design] + 1}
+    _check(got, cuda_spacetime.spacetime_plain(*args), "spacetime")
+    assert torch.equal(got, cuda_spacetime.fused_spacetime_attention(*args))
 
 
 # (M, dim), inner = 4·dim
@@ -223,22 +237,25 @@ def _spacetime_args(g, dev, dtype, B, N, Lq, Lk, inner):
 @pytest.mark.gpu
 @pytest.mark.parametrize("need_kv", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", [
-    (1, 4, 1024, 77, 640, 8), (2, 2, 256, 77, 1280, 8),
-    (1, 3, 100, 12, 32, 2),      # ragged query tile, short context
-    (2, 1, 64, 80, 64, 4),       # the longest context the kernel takes
-])
+@pytest.mark.parametrize("B,N,Lq,Lk,inner,H", SPACETIME_SHAPES)
 def test_spacetime_bwd_kernel_matches_plain(cuda, need_kv, dtype, B, N, Lq, Lk, inner, H):
     g = torch.Generator(device=cuda).manual_seed(Lq + N + 7)
     args = _spacetime_args(g, cuda, dtype, B, N, Lq, Lk, inner)
     gbar = _randn(g, cuda, dtype, B, Lq, inner)
+    design = "wgmma" if dtype == torch.bfloat16 else "simt"
     before = cuda_spacetime.spacetime_bwd.launches
+    by_design = dict(cuda_spacetime.spacetime_bwd.launches_by_design)
     got = cuda_spacetime.spacetime_bwd(*args, H, gbar, need_kv=need_kv)
     assert cuda_spacetime.spacetime_bwd.launches == before + 1
+    assert cuda_spacetime.spacetime_bwd.launches_by_design == {
+        **by_design, design: by_design[design] + 1}
     want = cuda_spacetime.spacetime_bwd_plain(*args, H, gbar)
     for name, a, b in zip(BWD_NAMES, got, want):
         if a is None:
             assert not need_kv and name in ("dkc", "dvc", "dlk", "dlv")
+            continue
+        if b.numel() == 0:     # no objects: the per-object cotangents are empty
+            assert a.shape == b.shape and a.dtype == b.dtype
             continue
         torch.cuda.synchronize()
         cmp = compare(a, b, "spacetime_bwd")
@@ -287,6 +304,29 @@ def test_geglu_wgmma_kernels_repeat_bit_for_bit(cuda, L, dim):
         assert torch.equal(dx, cuda_geglu.geglu_dx(x, w1, b1, w2, dy))
     assert cuda_geglu.geglu_ff.launches_by_design == {**fwd, "wgmma": fwd["wgmma"] + 21}
     assert cuda_geglu.geglu_dx.launches_by_design == {**dx_before, "wgmma": dx_before["wgmma"] + 21}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lq,inner", [(4096, 320), (1024, 640), (256, 1280), (64, 1280)])
+def test_spacetime_wgmma_kernels_repeat_bit_for_bit(cuda, Lq, inner):
+    """20 launches of the wgmma spacetime forward and dq pass at each SD site
+    (2 prompts, 4 objects) give the same bits: a ring stage read before its
+    copy landed or released before its last product, or warpgroup 1's
+    hand-off read before it was written, shows up as bits that differ."""
+    g = torch.Generator(device=cuda).manual_seed(Lq + inner + 9)
+    args = _spacetime_args(g, cuda, torch.bfloat16, 2, 4, Lq, 77, inner)
+    gbar = _randn(g, cuda, torch.bfloat16, 2, Lq, inner)
+    fwd = dict(cuda_spacetime.fused_spacetime_attention.launches_by_design)
+    bwd = dict(cuda_spacetime.spacetime_bwd.launches_by_design)
+    out = cuda_spacetime.fused_spacetime_attention(*args, 8)
+    dq, t = cuda_spacetime.spacetime_bwd_raw(*args, 8, gbar, need_kv=False)[:2]
+    for _ in range(20):
+        assert torch.equal(out, cuda_spacetime.fused_spacetime_attention(*args, 8))
+        again = cuda_spacetime.spacetime_bwd_raw(*args, 8, gbar, need_kv=False)
+        assert torch.equal(dq, again[0]) and torch.equal(t, again[1])
+    assert cuda_spacetime.fused_spacetime_attention.launches_by_design == {
+        **fwd, "wgmma": fwd["wgmma"] + 21}
+    assert cuda_spacetime.spacetime_bwd.launches_by_design == {**bwd, "wgmma": bwd["wgmma"] + 21}
 
 
 def _grads(fn, args, seed=3):
@@ -395,6 +435,22 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         cuda_geglu.geglu_ff(x.clone(), w1, b1[:-8], w2, b2)
     assert (cuda_geglu.geglu_ff.launches, cuda_geglu.geglu_ff.launches_by_design) == ff_before
+    # bfloat16 spacetime attention (TMA) needs head widths that are multiples
+    # of 8 and 16-byte aligned operands; nothing is launched otherwise
+    g = torch.Generator(device=cuda).manual_seed(2)
+    st = _spacetime_args(g, cuda, torch.bfloat16, 1, 2, 64, 77, 64)
+    st_before = (cuda_spacetime.fused_spacetime_attention.launches,
+                 dict(cuda_spacetime.fused_spacetime_attention.launches_by_design))
+    odd = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 64, 64)
+    with pytest.raises(ValueError):
+        cuda_spacetime.fused_spacetime_attention(odd, *st[1:], 4)
+    with pytest.raises(ValueError):              # dh 20
+        cuda_spacetime.fused_spacetime_attention(*(t[..., :60].contiguous() for t in st[:6]),
+                                                 *st[6:], 3)
+    with pytest.raises(ValueError):
+        cuda_spacetime.spacetime_bwd(odd, *st[1:], 4, odd.clone())
+    assert (cuda_spacetime.fused_spacetime_attention.launches,
+            cuda_spacetime.fused_spacetime_attention.launches_by_design) == st_before
 
 
 @pytest.mark.gpu
@@ -479,23 +535,82 @@ def _bf16_cases(kind):
     masks = flat_circular_mask(torch.rand((B, N, 2), generator=gen), 16, 0.2)
     rest = (masks, torch.full((B, N), 1.25), 8)
     ctx = [t[..., :64, :].contiguous() for t in ts[2:]]
-    faults = {"first_key_tile_only": cuda_spacetime.spacetime_plain(*ts[:2], *ctx, *rest)}
+    # object 2's K/V served from object 1's ring stage (a stale context)
+    stale = [t.clone() for t in ts[4:]]
+    for t in stale:
+        t[:, 1] = t[:, 0]
+    if kind == "spacetime_bwd":
+        # the wgmma dq pass rounds ds to bf16 as the A operand of ds·K
+        g = _bf16(gen, B, Lq, inner)
+        return (cuda_spacetime.spacetime_bwd_plain(*ts, *rest, g)[0],
+                _spacetime_dq_ds_rounded(*ts, *rest, g),
+                {"stale_ring_stage_for_object_2":
+                 cuda_spacetime.spacetime_bwd_plain(*ts[:4], *stale, *rest, g)[0]})
+    faults = {"first_key_tile_only": cuda_spacetime.spacetime_plain(*ts[:2], *ctx, *rest),
+              "stale_ring_stage_for_object_2": cuda_spacetime.spacetime_plain(*ts[:4], *stale,
+                                                                             *rest)}
+    if kind == "spacetime_wgmma":
+        # the wgmma forward rounds P′ = (w / rowsum)·p to bf16 before P′·V
+        return (cuda_spacetime.spacetime_plain(*ts, *rest), _spacetime_p_rounded(*ts, *rest),
+                faults)
     return (cuda_spacetime.spacetime_plain(*ts, *rest),
             cuda_spacetime.spacetime_plain(*f32(ts), *rest).bfloat16(), faults)
 
 
-@pytest.mark.parametrize("kind", ["mha", "geglu", "spacetime", "flash"])
+def _spacetime_heads(x, heads):
+    """[..., L, inner] -> [..., H, L, dh] in float32."""
+    return x.float().reshape(*x.shape[:-1], heads, -1).transpose(-2, -3)
+
+
+def _spacetime_probs(q, k, heads):
+    """Softmax of every context [B, N+1, H, Lq, Lk] in float32 (k: [B, N+1,
+    Lk, inner])."""
+    qh, kh = _spacetime_heads(q, heads), _spacetime_heads(k, heads)
+    s = torch.einsum("bhqd,bchkd->bchqk", qh, kh) * qh.shape[-1] ** -0.5
+    return torch.softmax(s, dim=-1)
+
+
+def _spacetime_p_rounded(q_c, g_u, kc, vc, lk, lv, masks, coef, heads):
+    """The wgmma forward's arithmetic: f32 scores and softmax, the blend
+    weight folded into p, P′ rounded to bf16, f32 accumulation, the output
+    rounded once."""
+    k, v = torch.cat([kc[:, None], lk], 1), torch.cat([vc[:, None], lv], 1)
+    w = torch.cat([torch.ones_like(masks[:, :1]), masks * coef[..., None]], 1)  # [B, N+1, Lq]
+    p = _spacetime_probs(q_c, k, heads) * w[:, :, None, :, None]
+    acc = torch.einsum("bchqk,bchkd->bhqd", p.bfloat16().float(), _spacetime_heads(v, heads))
+    out = acc - w[:, 1:].sum(1)[:, None, :, None] * _spacetime_heads(g_u, heads)
+    return out.transpose(1, 2).reshape(q_c.shape).bfloat16()
+
+
+def _spacetime_dq_ds_rounded(q_c, g_u, kc, vc, lk, lv, masks, coef, heads, g):
+    """The wgmma dq pass's arithmetic: f32 p, e and rowsum(p ⊙ e), scale·ds
+    rounded to bf16, f32 accumulation of ds·K, dq rounded once."""
+    k, v = torch.cat([kc[:, None], lk], 1), torch.cat([vc[:, None], lv], 1)
+    w = torch.cat([torch.ones_like(masks[:, :1]), masks * coef[..., None]], 1)
+    p = _spacetime_probs(q_c, k, heads)
+    gh = _spacetime_heads(g, heads)
+    e = torch.einsum("bhqd,bchkd->bchqk", gh, _spacetime_heads(v, heads))
+    r = (p * e).sum(-1, keepdim=True)
+    ds = w[:, :, None, :, None] * p * (e - r) * gh.shape[-1] ** -0.5
+    dq = torch.einsum("bchqk,bchkd->bhqd", ds.bfloat16().float(), _spacetime_heads(k, heads))
+    return dq.transpose(1, 2).reshape(q_c.shape).bfloat16()
+
+
+@pytest.mark.parametrize("kind", ["mha", "geglu", "spacetime", "flash", "spacetime_wgmma",
+                                  "spacetime_bwd"])
 def test_bf16_comparison_passes_one_rounding_and_rejects_planted_faults(kind):
     """The kernels compute in float32 and round once (the flash forward also
-    rounds p); `compare` must take that rounding difference and reject a
-    dropped key or inner tile or a wrong softmax scale (the card's smoke test
+    rounds p, the wgmma spacetime forward P′ and its dq pass ds); `compare`
+    must take that rounding difference and reject a dropped key or inner
+    tile, a wrong softmax scale or a stale context (the card's smoke test
     repeats this at SD shapes)."""
     want, rounded_once, faults = _bf16_cases(kind)
-    cmp = compare(rounded_once, want, kind)
+    cmp_kind = {"spacetime_wgmma": "spacetime"}.get(kind, kind)
+    cmp = compare(rounded_once, want, cmp_kind)
     assert cmp["ok"], cmp
     assert cmp["rel_norm"] < cmp["rel_norm_limit"] / 2, cmp    # a margin of 2x at least
     for name, out in faults.items():
-        assert not compare(out, want, kind)["ok"], name
+        assert not compare(out, want, cmp_kind)["ok"], name
 
 
 @pytest.mark.parametrize("case,dtype,H,inner,want", [
@@ -571,6 +686,70 @@ def test_geglu_design_counters_start_at_zero_and_cpu_calls_count_nothing(counter
     assert (dict(wrapper.launches_by_design), wrapper.launches) == before
     if not torch.cuda.is_available():     # this process launched nothing
         assert set(wrapper.launches_by_design.values()) == {0} and wrapper.launches == 0
+
+
+@pytest.mark.parametrize("case,dtype,dh,Lk,aligned,want", [
+    ("SD level 0", torch.bfloat16, 40, 77, True, "wgmma"),
+    ("SD level 1", torch.bfloat16, 80, 77, True, "wgmma"),
+    ("SD level 2 and mid", torch.bfloat16, 160, 77, True, "wgmma"),
+    ("dh 64, the longest context", torch.bfloat16, 64, 80, True, "wgmma"),
+    ("dh 8, one key", torch.bfloat16, 8, 1, True, "wgmma"),
+    ("dh not a multiple of 8", torch.bfloat16, 20, 77, True, None),
+    ("dh past 160", torch.bfloat16, 168, 77, True, None),
+    ("a context of 81 keys", torch.bfloat16, 40, 81, True, None),
+    ("an operand TMA cannot describe", torch.bfloat16, 40, 77, False, None),
+    ("float32", torch.float32, 40, 77, True, "simt"),
+    ("float32, unaligned and ragged", torch.float32, 20, 12, False, "simt"),
+])
+def test_spacetime_design_by_shape(case, dtype, dh, Lk, aligned, want):
+    """Every SD v1-4 spacetime site (dh 40, 80, 160; 77 keys) takes the
+    wgmma kernels in bf16; float32 takes the CUDA cores; no kernel takes
+    other bf16 inputs (None: raises)."""
+    if want is None:
+        with pytest.raises(ValueError):
+            cuda_spacetime.spacetime_design(dtype, dh, Lk, aligned)
+    else:
+        assert cuda_spacetime.spacetime_design(dtype, dh, Lk, aligned) == want, case
+
+
+@pytest.mark.parametrize("counter", ["fused_spacetime_attention", "spacetime_bwd"])
+def test_spacetime_design_counters_start_at_zero_and_cpu_calls_count_nothing(counter):
+    wrapper = getattr(cuda_spacetime, counter)
+    assert set(wrapper.launches_by_design) == set(cuda_spacetime.DESIGNS)
+    before = dict(wrapper.launches_by_design), wrapper.launches
+    gen = torch.Generator().manual_seed(5)
+    args = [_bf16(gen, 1, 16, 64), _bf16(gen, 1, 16, 64), _bf16(gen, 1, 12, 64),
+            _bf16(gen, 1, 12, 64), _bf16(gen, 1, 2, 12, 64), _bf16(gen, 1, 2, 12, 64),
+            torch.rand((1, 2, 16), generator=gen), torch.rand((1, 2), generator=gen)]
+    cuda_spacetime.fused_spacetime_attention(*args, 2)
+    cuda_spacetime.spacetime_bwd(*args, 2, _bf16(gen, 1, 16, 64), need_kv=False)
+    assert (dict(wrapper.launches_by_design), wrapper.launches) == before
+    if not torch.cuda.is_available():     # this process launched nothing
+        assert set(wrapper.launches_by_design.values()) == {0} and wrapper.launches == 0
+
+
+def test_spacetime_backward_skips_dmasks_unless_asked():
+    """The autograd backward computes dmasks only when the masks need a
+    gradient (the main path's masks never do)."""
+    gen = torch.Generator().manual_seed(6)
+    args = [torch.randn(s, generator=gen) for s in
+            ((1, 16, 64), (1, 16, 64), (1, 12, 64), (1, 12, 64), (1, 2, 12, 64), (1, 2, 12, 64))]
+    masks, coef = torch.rand((1, 2, 16), generator=gen), torch.rand((1, 2), generator=gen)
+    g = torch.randn((1, 16, 64), generator=gen)
+    full = cuda_spacetime.spacetime_bwd(*args, masks, coef, 2, g, need_kv=False)
+    short = cuda_spacetime.spacetime_bwd(*args, masks, coef, 2, g, need_kv=False,
+                                         need_masks=False)
+    assert full[6] is not None and short[6] is None
+    assert all(torch.equal(a, b) for a, b in zip(full[:2] + full[7:], short[:2] + short[7:]))
+    for want_masks in (False, True):
+        m = masks.clone().requires_grad_(want_masks)
+        c = coef.clone().requires_grad_(True)
+        out = cuda_spacetime.fused_spacetime_attention(*args, m, c, 2)
+        (out * g).sum().backward()
+        assert (m.grad is not None) == want_masks and c.grad is not None
+        if want_masks:
+            assert torch.allclose(m.grad, full[6], atol=1e-6)
+        assert torch.allclose(c.grad, full[7], atol=1e-6)
 
 
 def test_c_entry_points_match_ctypes_signatures():

@@ -45,6 +45,7 @@ from diffusion_spacetime_attn_tpu_torch.ops.cuda_spacetime import (
     spacetime_bwd_cost,
     spacetime_bwd_plain,
     spacetime_cost,
+    spacetime_exps,
     spacetime_plain,
 )
 
@@ -374,16 +375,26 @@ def test_plain_versions_keep_working_dtype():
     (mha_cost, (2, 256, 256, 1280, 2), 0.671e9, 5.24e6),
     (geglu_cost, (8192, 320, 1280, 2), 20.1e9, 18.2e6),
     (geglu_cost, (128, 1280, 5120, 2), 5.03e9, 40.3e6),
-    (spacetime_cost, (1, 4, 4096, 77, 320, 2), 2.02e9, 8.42e6),
+    (spacetime_cost, (1, 4, 4096, 77, 320, 2), 2.02e9, 8.39e6),  # masks in q's dtype
     (spacetime_cost, (1, 4, 64, 77, 1280, 2), 0.126e9, 2.464e6),
     # backwards at the chain's shapes (2 prompts): 10·M·dim·inner FLOPs for dx
     (geglu_dx_cost, (16384, 320, 1280, 2), 67.1e9, 33.9e6),
-    (spacetime_bwd_cost, (2, 4, 4096, 77, 320, 8, 2, False), 6.06e9, 28.38e6),
+    (spacetime_bwd_cost, (2, 4, 4096, 77, 320, 8, 2, False), 6.06e9, 28.31e6),
 ])
 def test_cost_model_matches_main_path_table(fn, args, flops, nbytes):
     f, b = fn(*args)
     assert abs(f - flops) / flops < 5e-3
     assert abs(b - nbytes) / nbytes < 5e-3
+
+
+@pytest.mark.parametrize("Lq,floor_us", [(4096, 6.03), (1024, 1.51), (256, 0.377), (64, 0.0943)])
+def test_spacetime_exp_floor_at_the_sd_sites(Lq, floor_us):
+    """One exp per score (2 prompts, 8 heads, 4 objects + the global
+    context, 77 keys) at 16 a clock per SM on 132 SMs at 1.98 GHz: the exp
+    floor of the forward and the dq pass, above the byte floor at level 0."""
+    exps = spacetime_exps(2, 4, Lq, 77, 8)
+    assert exps == 2 * 8 * Lq * 5 * 77
+    assert abs(exps / (16 * 132 * 1.98e9) * 1e6 - floor_us) / floor_us < 5e-3
 
 
 # ------------------------------------------- config

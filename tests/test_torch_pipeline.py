@@ -204,7 +204,7 @@ def _forbidden(name: str) -> bool:
 
 def _port_files():
     files = sorted((ROOT / "diffusion_spacetime_attn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_spacetime_variants.py"]
 
 
 def test_import_rule_matches_names_exactly():
@@ -214,7 +214,8 @@ def test_import_rule_matches_names_exactly():
 
 
 def test_port_imports_nothing_of_jax():
-    """AST walk over every module of the port and chip_smoke.py: no import
+    """AST walk over every module of the port and the on-card scripts
+    (chip_smoke.py, chip_spacetime_variants.py): no import
     of jax, flax, optax or the JAX package (relative imports stay inside
     the port)."""
     files = _port_files()
