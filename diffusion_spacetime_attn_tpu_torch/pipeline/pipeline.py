@@ -19,6 +19,8 @@ from ..models.unet import UNet
 from ..models.vae import AutoencoderKL
 from ..ops.attention import SpatialControl
 from ..ops.schedule import DiffusionSchedule, make_schedule
+from ..samplers.ddim import ddim_sample
+from ..samplers.dpm_solver import dpm_solver_sample
 from ..samplers.plms import plms_sample
 from ..utils.testing import randomize_
 from ..utils.weights import load_flat
@@ -105,11 +107,17 @@ class StableDiffusion:
 
     # ---- sampling ----
     def sample_from(self, eps_fn, x_T: torch.Tensor, sampler: str = "plms", remat=True):
-        """The sampler's chain from x_T; `remat=True` (the JAX default)
-        checkpoints every UNet evaluation for a backward through the chain."""
-        if sampler != "plms":
-            raise NotImplementedError(f"sampler {sampler!r}: the port has PLMS only")
-        return plms_sample(eps_fn, x_T, self.schedule, remat=remat)
+        """The sampler's chain from x_T: "plms" (S + 1 UNet evaluations),
+        "ddim" (eta 0) or "dpm" (DPM-Solver++ 2M), S each; `remat=True` (the
+        JAX default) checkpoints every evaluation for a backward through the
+        chain."""
+        if sampler == "plms":
+            return plms_sample(eps_fn, x_T, self.schedule, remat=remat)
+        if sampler == "ddim":
+            return ddim_sample(eps_fn, x_T, self.schedule, remat=remat)
+        if sampler == "dpm":
+            return dpm_solver_sample(eps_fn, x_T, self.schedule, remat=remat)
+        raise ValueError(f"unknown sampler {sampler!r}")
 
     def sample_latents(self, eps_fn, generator: torch.Generator, batch: int = 1,
                        sampler: str = "plms", remat=True):

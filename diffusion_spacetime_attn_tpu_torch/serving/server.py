@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import SpatialControl
+from ..utils.cudnn import deterministic
 
 
 @dataclass
@@ -180,7 +181,7 @@ class SpaceTimeEngine:
             raise ValueError(f"{n} prompts for a batch of {self.batch_size}")
         with torch.no_grad():
             inputs = self._inputs(prompts, seeds)
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        with deterministic():
             return optimize_prompt(self.sd, self.clip_loss, inputs, self.sd.cfg.spacetime,
                                    sampler=self.sampler, on_epoch=on_epoch)
 

@@ -1,7 +1,8 @@
 """Weight bridge: a flat JAX parameter tree -> a PyTorch state_dict.
 
 The input is `{"a/b/c": np.ndarray}`: the flax parameter tree flattened with
-"/" (e.g. `flax.traverse_util.flatten_dict(params, sep="/")`).  The port's
+"/" (e.g. `flax.traverse_util.flatten_dict(params, sep="/")`, or
+`utils/msgpack.py` `load_flat` of a file flax wrote).  The port's
 modules carry the flax module names, so a path maps to a state-dict key by
 four rules:
 
@@ -51,6 +52,8 @@ def bridge(flat: Dict[str, np.ndarray], model: nn.Module) -> Dict[str, torch.Ten
     and shapes match the model's exactly."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
+        if isinstance(arr, torch.Tensor):      # bfloat16 leaves of utils/msgpack.py
+            arr = arr.float().numpy()
         key, value = torch_key(path, np.asarray(arr))
         if key in sd:
             raise KeyError(f"two JAX parameters map to {key!r}")

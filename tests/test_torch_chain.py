@@ -57,6 +57,17 @@ def rel(got, want):
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs several test processes side by side on few cores,
+    where torch's spinning intra-op threads slow each other down many-fold;
+    this module's torch work is small, so it takes one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """JAX and port bundles, losses and inputs (2 prompts x 2 objects, the

@@ -47,6 +47,17 @@ def flat(params):
             traverse_util.flatten_dict(jax.device_get(params), sep="/").items()}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs several test processes side by side on few cores,
+    where torch's spinning intra-op threads slow each other down many-fold;
+    this module's torch work is small, so it takes one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_slice_controlled_plms_txt2img_matches_jax():
     """smoke_pipeline_cfg, 2 prompts x 2 objects, a fixed per-step coef
     schedule, x_T from numpy: encode_text -> make_eps_fn -> PLMS -> decode
@@ -101,10 +112,16 @@ def test_slice_controlled_plms_txt2img_matches_jax():
 
 
 def test_other_samplers_raise():
+    """sample_from takes JAX's names ("plms", "ddim", "dpm") and raises
+    ValueError for any other, as `StableDiffusion.sample_from` does."""
     cfg = port_cfg(smoke_pipeline_cfg(num_steps=2))
     tsd = StableDiffusion.create(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsd.sample_from(lambda x, t, i: x, torch.zeros(1, 8, 8, 4), sampler="ddim")
+    x = torch.zeros(1, 8, 8, 4)
+    for name in ("dpm_solver", "ddpm", "PLMS"):
+        with pytest.raises(ValueError, match="unknown sampler"):
+            tsd.sample_from(lambda x, t, i: x, x, sampler=name)
+    for name in ("plms", "ddim", "dpm"):
+        assert tsd.sample_from(lambda x, t, i: x, x, sampler=name).shape == x.shape
 
 
 # ---------------------------------------------------------------- engine
@@ -195,7 +212,7 @@ def test_hash_tokenizer_matches_jax(text):
 # ---------------------------------------------------------------- imports
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffusion_spacetime_attn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "diffusion_spacetime_attn_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -216,7 +233,8 @@ def test_import_rule_matches_names_exactly():
 def test_port_imports_nothing_of_jax():
     """AST walk over every module of the port and the on-card scripts
     (chip_smoke.py, chip_spacetime_variants.py): no import
-    of jax, flax, optax or the JAX package (relative imports stay inside
+    of jax, flax, optax or the JAX package, nor of msgpack or PIL, which the
+    card's machine lacks (relative imports stay inside
     the port)."""
     files = _port_files()
     assert len(files) > 20
