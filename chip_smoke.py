@@ -119,10 +119,42 @@ script exits non-zero without its final line:
              entry point's `run_cell`: recall, relation, CLIP means and the
              seconds per arm; a vanilla recall below 0.5 fails (random or
              mis-loaded weights give gray images).
- 13. the `kernels` summary line (times per UNet evaluation at the engine's
-     batch; launches of the optimization run and of the DPM-Solver++ batch;
-     each kernel's design and, for the attention kernels, launches by
-     design), the nvidia-smi line, and the final {"ok": true, ...} line.
+ 13. layout: the layout predictor at LayoutConfig() (RoBERTa-base, 768
+             wide, 12 layers, vocabulary 50,265, max_len 128; seeded random
+             weights, float32, TF32 off) through `LayoutInference` with the
+             relation-aware decode, on LAYOUT_CAPTIONS (the README golden
+             sentence, the five prompts of tests/test_batch_runner.py, two
+             captions with relations): the card against the port on the CPU
+             with the same weights, every center within 1e-4 and the same
+             decoded GMM components; parameters, bytes, ms per caption, and
+             the golden sentence in the README's format.
+     slot:   one full-width UNet evaluation whose two prompts are the same
+             input (bf16 kernels on and off, f32 off): how far the two rows
+             differ (a measurement; bf16 rounds a row differently per slot).
+ 14. runner: the dataset sweep entry point (`scripts/run_dataset.main`, in
+             this process) at SD v1-4 width, seeded random weights, bf16,
+             PLMS-50, seed 1, on a temporary mscoco.txt of RUNNER_CAPTIONS
+             (index 2 repeats index 0, index 3 has no COCO object):
+             vanilla and spatial at batch 1, spacetime through BatchedRunner
+             at batch 2 with 3 epochs.  Per mode: the files
+             final2_s1_index_{0,1,2}.png and no index 3, the manifest, a
+             --resume call that makes and launches nothing, the same PNG
+             bytes for the repeated (prompt, seed), and launches of exactly
+             the mode's kernels (RUNNER_MODES: vanilla and spatial 816 per
+             prompt; spacetime opt_launches(k, 51) per batch, MHA off);
+             s per prompt and peak memory.
+ 15. eval:   the port's CLIP grid detector (ViT-B/32 width, seeded random
+             weights) and the protocol's scoring over the spacetime images,
+             the ground truth extracted from RUNNER_CAPTIONS by the front
+             end: finite scores, recall and relation accuracy in [0, 1], s
+             per image, weights' provenance "random"; on the first image's
+             grid of crops, the card's crop scores against the port on the
+             CPU within 1e-3.
+ 16. the `kernels` summary line (times per UNet evaluation at the engine's
+     batch; launches of the optimization run, of the DPM-Solver++ batch and
+     of the dataset sweep; each kernel's design and, for the attention
+     kernels, launches by design), the nvidia-smi line, and the final
+     {"ok": true, ...} line.
 
 With `--compare DIR` the script runs only phases device, build, kernels,
 kernels_bwd, profile and profile_train, and `geglu_host` and
@@ -132,9 +164,10 @@ four fresh processes: DIR, this tree, this tree, DIR (each tree builds its
 own kernels), and prints their lines tagged with turn and tree, then one
 `compare` summary line per turn.
 
-The SD v1-4 weights are random (no such checkpoint is in the repository):
-N(0, 0.02²) per parameter from a seed, as the JAX package's bench does.
-Phase testbed loads the committed trained testbed weights.
+The SD v1-4, CLIP and layout weights are random (no such checkpoint is in
+the repository): N(0, 0.02²) per parameter from a seed, as the JAX
+package's bench does (the layout predictor: flax's initializers'
+distributions).  Phase testbed loads the committed trained testbed weights.
 """
 from __future__ import annotations
 
@@ -143,6 +176,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the roofline bound;
@@ -1563,6 +1597,323 @@ def phase_testbed():
         fail(f"testbed: vanilla recall {means['vanilla_recall']} < 0.5 (weights mis-loaded?)")
 
 
+GOLDEN = "The silver bed was situated to the right of the white couch."
+# phase layout: the README golden sentence, the five prompts of
+# tests/test_batch_runner.py (one without a COCO object), two with relations
+LAYOUT_CAPTIONS = [GOLDEN, "a dog to the left of a cat", "a car above a bench",
+                   "no objects here at all", "the bird sits on a chair",
+                   "a cup next to a laptop",
+                   "The cup is left of the fork and the fork is left of the bowl.",
+                   "A blue boat was parked between a car to its right and a bicycle to its left."]
+# phase runner's mscoco.txt: index 2 repeats index 0 (the same seed: the
+# same PNG bytes; at batch 2 it is in the same slot of the next batch, since
+# a bf16 UNet row differs by an ulp between slots, phase slot), index 3 has
+# no COCO object (skipped)
+RUNNER_CAPTIONS = [GOLDEN, "a dog to the left of a cat", GOLDEN, "no objects here at all"]
+RUNNER_FILES = [f"final2_s1_index_{i}.png" for i in (0, 1, 2)]
+# kernels each sweep mode runs (run_dataset's per-mode flags): MHA and GEGLU
+# everywhere outside spacetime mode, the spacetime forward where there is
+# control, flash and every backward in spacetime mode (MHA off there)
+RUNNER_MODES = {
+    "vanilla": ("geglu_fwd", "mha_fwd"),
+    "spatial": ("geglu_fwd", "mha_fwd", "spacetime_fwd"),
+    "spacetime": ("spacetime_fwd", "spacetime_bwd", "geglu_fwd", "geglu_bwd", "flash_fwd",
+                  "flash_bwd"),
+}
+
+
+def _components(raw, tok_idx, centers):
+    """The GMM component each decoded center is the mean of, per mention."""
+    import numpy as np
+
+    k = raw.shape[-1] // 6
+    return [int(np.argmin(np.abs(raw[t, k:2 * k] - c[0]) + np.abs(raw[t, 2 * k:3 * k] - c[1])))
+            for t, c in zip(tok_idx, centers)]
+
+
+def phase_layout():
+    """The layout predictor at LayoutConfig() (RoBERTa-base: 768 wide, 12
+    layers, vocabulary 50,265, max_len 128), seeded random weights, float32,
+    TF32 off, through LayoutInference with the relation-aware decode, on the
+    card against the port on the CPU with the same weights: every center
+    within 1e-4 and the same decoded components; ms per caption on the card."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig
+    from diffusion_spacetime_attn_tpu_torch.models.layout.model import (
+        LayoutPredictor,
+        create_layout_predictor,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline import frontend
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_roberta_tokenizer
+
+    cfg = LayoutConfig()
+    t0 = time.perf_counter()
+    card = create_layout_predictor(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cpu = LayoutPredictor(cfg).eval().requires_grad_(False)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    n_params = sum(p.numel() for p in card.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in card.parameters())
+    tok = make_roberta_tokenizer()
+    infer = {"card": frontend.LayoutInference(card, tok),
+             "cpu": frontend.LayoutInference(cpu, tok)}
+    raws = {}
+    for name, inf in infer.items():      # keep each forward's raw output for the decode check
+        fwd = inf._forward
+
+        def keep(tokens, object_pos, _fwd=fwd, _name=name):
+            xy, raw = _fwd(tokens, object_pos)
+            raws[_name] = raw
+            return xy, raw
+
+        inf._forward = keep
+    worst, n_objects, n_relations, rows = 0.0, 0, 0, []
+    for s in LAYOUT_CAPTIONS:
+        got, want = infer["card"](s), infer["cpu"](s)
+        if (got is None) != (want is None) or (got and list(got) != list(want)):
+            fail(f"layout: card {got} vs cpu {want} for {s!r}")
+        if got is None:
+            rows.append({"caption": s, "objects": 0})
+            continue
+        words, mentions = frontend.extract_objects(s)
+        rels = frontend.extract_relations(words, mentions)
+        align = tok.encode_with_alignment(words)[1]
+        tok_idx = [align[m.word_index] for m in mentions]
+        res = {"card": got, "cpu": want}
+        comps = {n: _components(raws[n], tok_idx, [res[n][m.phrase] for m in mentions])
+                 for n in res}
+        if comps["card"] != comps["cpu"]:
+            fail(f"layout: components {comps} differ for {s!r}")
+        err = max(abs(a - b) for k in got for a, b in zip(got[k], want[k]))
+        worst = max(worst, err)
+        n_objects += len(mentions)
+        n_relations += len(rels)
+        rows.append({"caption": s, "objects": len(mentions), "relations": len(rels),
+                     "components": comps["card"], "max_abs_err": err})
+    if worst > 1e-4:
+        fail(f"layout: card vs cpu centers {worst} > 1e-4")
+    if n_relations < 3:
+        fail(f"layout: only {n_relations} relations decoded")
+    inf = infer["card"]
+    inf(LAYOUT_CAPTIONS[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        for s in LAYOUT_CAPTIONS:
+            inf(s)
+    per_caption_ms = 1e3 * (time.perf_counter() - t0) / (reps * len(LAYOUT_CAPTIONS))
+    with torch.inference_mode():
+        ids = torch.ones((1, cfg.max_len), dtype=torch.int64, device="cuda")
+        opos = torch.zeros((1, cfg.max_len), device="cuda")
+        forward_ms = cuda_ms(lambda: card(ids, opos), 20)
+    golden = infer["card"](GOLDEN)
+    print(f"Sentence: {GOLDEN}", flush=True)
+    for phrase, (x, y) in golden.items():
+        print(f"{phrase} position: ({x:.3f}, {y:.3f})", flush=True)
+    emit({"phase": "layout", "config": "LayoutConfig()", "params": n_params, "bytes": n_bytes,
+          "setup_s": setup_s, "captions": len(LAYOUT_CAPTIONS), "objects": n_objects,
+          "relations": n_relations, "max_abs_err": worst, "limit": 1e-4,
+          "ms_per_caption": per_caption_ms, "forward_ms": forward_ms, "rows": rows})
+    del card, cpu, infer
+    torch.cuda.empty_cache()
+
+
+def phase_runner(root: str):
+    """The sweep entry point (`run_dataset.main`, in this process) at SD
+    v1-4 width with seeded random weights, bf16, PLMS-50, seed 1, on a
+    `mscoco.txt` of RUNNER_CAPTIONS: vanilla and spatial at batch 1,
+    spacetime through BatchedRunner at batch 2 with 3 epochs.  Per mode: the
+    expected PNGs (the skipped prompt absent), the manifest, a `--resume`
+    call that makes nothing, equal PNG bytes for the repeated (prompt,
+    seed), and launches of exactly RUNNER_MODES[mode] (spacetime: each
+    opt_launches(k, 51) per batch; vanilla and spatial 816 per prompt).
+    Returns ({kernel: launches over the modes}, the spacetime outdir)."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import run_dataset
+    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png
+
+    data = os.path.join(root, "data")
+    os.makedirs(data, exist_ok=True)
+    with open(os.path.join(data, "mscoco.txt"), "w") as f:
+        f.write("\n".join(RUNNER_CAPTIONS) + "\n")
+    wrappers = _wrappers()
+    total = {k: 0 for k in wrappers}
+    evals = chain_evals("plms", 50)
+    for mode, kernels in RUNNER_MODES.items():
+        out = os.path.join(root, mode)
+        batch = 2 if mode == "spacetime" else 1
+        args = ["--dataset", "mscoco", "--data-root", data, "--mode", mode, "--seed", "1",
+                "--outdir", out, "--batch-size", str(batch)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(wrappers.values())
+        t0 = time.perf_counter()
+        summary = run_dataset.main(args)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        produced = summary["produced"]
+        if mode == "spacetime":
+            batches = -(-len(RUNNER_CAPTIONS) // batch)
+            want = {k: batches * opt_launches(k, evals) if k in kernels else 0 for k in wrappers}
+        else:
+            want = {k: produced * LAUNCHES_PER_BATCH if k in kernels else 0 for k in wrappers}
+        if counts != want:
+            fail(f"runner {mode}: launches {counts}, expected {want}")
+        files = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        if files != RUNNER_FILES or produced != len(RUNNER_FILES):
+            fail(f"runner {mode}: files {files}, produced {produced}")
+        with open(os.path.join(out, "manifest_mscoco.json")) as f:
+            manifest = json.load(f)
+        if manifest != {"done": list(range(len(RUNNER_CAPTIONS)))}:
+            fail(f"runner {mode}: manifest {manifest}")
+        with open(os.path.join(out, RUNNER_FILES[0]), "rb") as f0, \
+                open(os.path.join(out, RUNNER_FILES[2]), "rb") as f2:
+            repeat_equal = f0.read() == f2.read()
+        if not repeat_equal:
+            fail(f"runner {mode}: the repeated (prompt, seed) gave other PNG bytes")
+        imgs = [read_png(os.path.join(out, f)) for f in files]
+        if any(im.shape != (512, 512, 3) or float(im.std()) == 0.0 for im in imgs):
+            fail(f"runner {mode}: images {[(im.shape, float(im.std())) for im in imgs]}")
+        _reset_counts(wrappers.values())
+        t0 = time.perf_counter()
+        again = run_dataset.main(args + ["--resume"])
+        resume_s = time.perf_counter() - t0
+        relaunched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if again["produced"] != 0 or relaunched:
+            fail(f"runner {mode}: --resume produced {again['produced']}, launched {relaunched}")
+        for k, n in counts.items():
+            total[k] += n
+        emit({"phase": "runner", "mode": mode, "batch_size": batch, "steps": 50,
+              "prompts": len(RUNNER_CAPTIONS), "produced": produced, "files": files,
+              "sweep_s": summary["seconds"], "call_s": call_s,
+              "s_per_prompt": summary["seconds"] / produced, "resume_s": resume_s,
+              "repeat_same_png_bytes": repeat_equal, "launches": counts,
+              "max_memory_allocated_bytes": peak,
+              "image_mean": float(np.mean([im.mean() for im in imgs]))})
+    return total, os.path.join(root, "spacetime")
+
+
+def phase_eval(root: str, results: str):
+    """The port's CLIP grid detector (ViT-B/32 width, seeded random
+    weights, float32) and the protocol's scoring over phase runner's
+    spacetime images, with the ground truth the front end extracts from
+    RUNNER_CAPTIONS (an mscoco.pkl): finite scores, recall and relation
+    accuracy in [0, 1], seconds per image; and on the first image's first
+    scoring batch (its grid of crops) the card's crop scores (cosine
+    similarity to each category's text) against the port on the CPU with
+    the same weights, within 1e-3."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import CLIPConfig
+    from diffusion_spacetime_attn_tpu_torch.eval import clip_detector, protocol
+    from diffusion_spacetime_attn_tpu_torch.models.clip import CLIP
+    from diffusion_spacetime_attn_tpu_torch.pipeline import frontend
+
+    data = os.path.join(root, "data")
+    rows = []
+    for s in RUNNER_CAPTIONS:
+        words, mentions = frontend.extract_objects(s)
+        first = {}
+        for m in mentions:
+            first.setdefault(m.category, m.word_index)
+        rels = [[first[a], first[b], r] for a, b, r in frontend.extract_relations(words, mentions)]
+        rows.append([s, words, [m.word_index for m in mentions], rels,
+                     [m.phrase for m in mentions]])
+    with open(os.path.join(data, "mscoco.pkl"), "wb") as f:
+        pickle.dump(rows, f)
+    files = protocol.list_result_files(results, (0, len(RUNNER_CAPTIONS)), epoch=2, seed=1)
+    if files != RUNNER_FILES:
+        fail(f"eval: result files {files}")
+    t0 = time.perf_counter()
+    det, provenance = protocol.build_clip_detector(cfg=CLIPConfig(), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # card vs CPU: the first scoring batch of the first image
+    im = protocol.read_image01(os.path.join(results, files[0]))
+    size = im.shape[0]
+    boxes = clip_detector._grid_boxes(size, det.scales)
+    cpu_clip = CLIP(CLIPConfig()).eval().requires_grad_(False)
+    cpu_clip.load_state_dict({k: v.cpu() for k, v in det.clip.state_dict().items()})
+    cpu_det = clip_detector.CLIPDetector(cpu_clip, protocol._clip_tokenize(CLIPConfig()),
+                                         categories=det.categories)
+    sims_err = float(np.abs(det._sims(im, boxes) - cpu_det._sims(im, boxes)).max())
+    if not sims_err <= 1e-3:
+        fail(f"eval: card vs cpu crop scores differ by {sims_err} > 1e-3")
+    del cpu_det, cpu_clip
+    calls = det.embed_calls
+    t0 = time.perf_counter()
+    detections = protocol.detect_folder(results, det, files)
+    detect_s = time.perf_counter() - t0
+    scores = protocol.score_results(results, "mscoco", data, detections,
+                                    prompt_range=(0, len(RUNNER_CAPTIONS)), epoch=2, seed=1)
+    clip_loss, tokenize, cs_prov = protocol.build_clip_loss(cfg=CLIPConfig(), device="cuda")
+    cs = protocol.clip_score_results(results, "mscoco", data, clip_loss, tokenize,
+                                     prompt_range=(0, len(RUNNER_CAPTIONS)), epoch=2, seed=1)
+    det_scores = [r[5] for rs in detections.values() for r in rs]
+    ok = (all(np.isfinite(det_scores)) and all(0.0 <= s <= 1.0 for s in det_scores)
+          and 0.0 <= scores["object_recall"] <= 1.0 and 0.0 <= scores["relation_accuracy"] <= 1.0
+          and scores["n_images"] == len(files) and cs["mean_clip_score"] is not None
+          and np.isfinite(cs["mean_clip_score"]))
+    emit({"phase": "eval", "images": len(files), "image_size": size, "grid_boxes": len(boxes),
+          "setup_s": setup_s, "detect_s": detect_s, "s_per_image": detect_s / len(files),
+          "embed_calls": det.embed_calls - calls, "card_vs_cpu_crop_score_err": sims_err,
+          "limit": 1e-3, **scores, **cs,
+          "sd_weights": "random", "layout_weights": "random", "detector_weights": provenance,
+          "clip_score_weights": cs_prov, "detections": sum(map(len, detections.values()))})
+    if not ok:
+        fail(f"eval: scores out of range: {scores}, {cs}")
+
+
+def phase_slot():
+    """Whether a row's result depends on its batch slot: one full-width
+    SD v1-4 UNet evaluation (t = 981, 2 prompts = 4 CFG rows, 4 objects)
+    whose two prompts are the same input, bf16 with the four kernel flags
+    on and off, and float32 with them off; the rows of each pair are
+    compared (a measurement: nothing here fails)."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import PipelineConfig, UNetConfig, VAEConfig
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((1, 64, 64, 4), generator=gen, device=dev).repeat(2, 1, 1, 1)
+    ctx = torch.randn((2, 1, CONTEXT_LEN, 768), generator=gen, device=dev).repeat(1, 2, 1, 1)
+    ctl = _control(1, dev, gen)
+    ctl = ctl._replace(**{k: getattr(ctl, k).repeat(2, *[1] * (getattr(ctl, k).ndim - 1))
+                          for k in ctl._fields})
+    t = torch.full((4,), 981, dtype=torch.int32, device=dev)
+    rows = {}
+    for name, dtype, on in (("bf16_kernels_on", "bfloat16", True),
+                            ("bf16_kernels_off", "bfloat16", False),
+                            ("f32_kernels_off", "float32", False)):
+        cfg = PipelineConfig(unet=UNetConfig(dtype=dtype, use_flash=on, use_mha=False,
+                                             use_fused_ff=on, use_fused_control=on),
+                             vae=VAEConfig(dtype=dtype))
+        sd = StableDiffusion.create(cfg, seed=0, device=dev)
+        with torch.inference_mode(), deterministic():
+            eps = sd.unet(torch.cat([x, x]), t, ctx.reshape(4, CONTEXT_LEN, 768), ctl).float()
+        pairs = [(eps[0], eps[1]), (eps[2], eps[3])]
+        rows[name] = {"max_abs": max(float((a - b).abs().max()) for a, b in pairs),
+                      "share_differing": sum(float((a != b).float().mean()) for a, b in pairs) / 2,
+                      "max_abs_eps": float(eps.abs().max())}
+        del sd
+        torch.cuda.empty_cache()
+    emit({"phase": "slot", "unet_eval_rows_same_input": rows})
+
+
 def phase_profile_train(sd):
     """Where a training UNet evaluation's time goes at the optimization's
     shapes (batch 2 = 4 CFG rows): one checkpointed evaluation, forward,
@@ -1871,7 +2222,13 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     phase_testbed()
-    for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches)):
+    phase_layout()
+    phase_slot()
+    with tempfile.TemporaryDirectory() as root:
+        runner_launches, results = phase_runner(root)
+        phase_eval(root, results)
+    for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
+                         ("dataset sweep", runner_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -1885,6 +2242,7 @@ def main() -> int:
         row = {"name": kname, **meta, "launches": launches[kname],
                "serve_launches": serve_launches.get(kname, 0),
                "dpm_launches": dpm_launches[kname],
+               "runner_launches": runner_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -1898,7 +2256,8 @@ def main() -> int:
     # kernel's sites: 16, flash 10 at levels 0 and 1, MHA timed at all 16;
     # bfloat16; the spacetime backward without dK/dV); launches: the
     # optimization run (2 batches), serve_launches: the serving run,
-    # dpm_launches: the DPM-Solver++ optimization batch (phase samplers);
+    # dpm_launches: the DPM-Solver++ optimization batch (phase samplers),
+    # runner_launches: the dataset sweep's three modes (phase runner);
     # launches_by_design: the serving and optimization runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

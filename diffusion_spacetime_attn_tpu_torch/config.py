@@ -140,6 +140,29 @@ class SpaceTimeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LayoutConfig:
+    """Layout predictor = RoBERTa-base encoder + object-position embedding +
+    GMM center head (reference: `layout_predictor/LayoutTransformer/model/Model.py:1017-1034`,
+    `model/bbox_head.py:46-306`).  `refine_layers` / `refine_heads` describe
+    the reference's refine encoder, which its forward never runs; they are
+    kept so a run dir's `config.json` loads unchanged."""
+
+    vocab_size: int = 50265
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    ffn_dim: int = 3072
+    max_positions: int = 514
+    pad_token_id: int = 1
+    max_len: int = 128                  # BPE sequence length (`inference_coco.py:490`)
+    gmm_components: int = 5             # `bbox_head.py:46`
+    box_dim: int = 2                    # (x, y) centers only
+    refine_layers: int = 2
+    refine_heads: int = 2
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     unet: UNetConfig = UNetConfig()
     vae: VAEConfig = VAEConfig()

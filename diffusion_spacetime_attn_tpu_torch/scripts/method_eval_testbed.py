@@ -36,10 +36,8 @@ import argparse
 import dataclasses as dc
 import json
 import os
-import struct
 import subprocess
 import time
-import zlib
 from typing import List
 
 import numpy as np
@@ -51,6 +49,7 @@ from ..testbed import oracle, scenes
 from ..testbed.bundle import TestbedBundle, load_bundle
 from ..utils import prng
 from ..utils.cudnn import deterministic
+from ..utils.png import write_png
 
 NOISE_SEED = 2025
 DEFAULT_OUT = os.path.join("diffusion_spacetime_attn_tpu_torch", "results",
@@ -176,20 +175,6 @@ def device_line(device) -> str:
     run = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return run.stdout.strip().splitlines()[torch.device(device).index or 0]
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """[H, W, 3] uint8 as an 8-bit RGB PNG (zlib + struct, no imaging library)."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + row.tobytes() for row in np.ascontiguousarray(rgb, np.uint8))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
 def save_grid(out_dir: str, v_imgs, m_imgs, batch_prompts) -> None:

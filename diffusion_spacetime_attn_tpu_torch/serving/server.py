@@ -9,7 +9,11 @@ spatial attention control at fixed per-object weights
 `active·init_coef / max(Σ active, 1)` for every step; pad rows and prompts
 whose host stage fails get inactive control, which is an exact no-op.
 Per-request noise comes from `torch.Generator(device).manual_seed(seed)`, so
-a request's image does not depend on its batch position.
+a request's noise does not depend on its batch position.  Its image does
+not either in float32; in bfloat16 the card's matrix products and
+convolutions round a row differently in another batch slot (about one bf16
+ulp on a third of a UNet evaluation's outputs, `chip_smoke.py` phase
+slot), so an image repeats bit for bit at the same slot only.
 """
 from __future__ import annotations
 
@@ -120,7 +124,8 @@ class SpaceTimeEngine:
     encoder's ids, `clip_tokenize` the loss CLIP's.  Per-request noise comes
     from `torch.Generator(device).manual_seed(seed)`, and cuDNN runs its
     deterministic algorithms, so an image is a function of (prompt, seed)
-    whatever else is in its batch.
+    and its batch slot whatever else is in its batch (the slot matters in
+    bfloat16 only, as for TextToImageEngine).
     """
 
     sd: object                                  # pipeline.StableDiffusion

@@ -1,5 +1,6 @@
 """Vocab-file-free tokenizer, a copy of the JAX package's `HashTokenizer` and
-of the no-vocab branch of its `make_clip_tokenizer`.
+of the no-vocab branches of its `make_clip_tokenizer` and
+`make_roberta_tokenizer`.
 
 One token per word, ids from a SHA-1 of the lower-cased word, so the port
 and the JAX package give the same ids for the same text.
@@ -57,3 +58,16 @@ def make_clip_tokenizer(max_len: int = 77) -> HashTokenizer:
     not load yet."""
     return HashTokenizer(vocab_size=49406, bos=49406, eos=49407, pad=0,
                          reserved=1000, max_len=max_len)
+
+
+def make_roberta_tokenizer(vocab_path: Optional[str] = None,
+                           merges_path: Optional[str] = None) -> HashTokenizer:
+    """HashTokenizer with RoBERTa's vocab size and special ids (bos 0, eos 2,
+    pad 1), the no-vocab branch of the JAX package's `make_roberta_tokenizer`.
+    The byte-level BPE (and its native core) needs vocab files the port
+    does not read yet (ROADMAP A.11), so vocab paths raise."""
+    if vocab_path or merges_path:
+        raise NotImplementedError(
+            "the RoBERTa BPE vocabulary (vocab.json / merges.txt) is not read by the "
+            "PyTorch port yet (ROADMAP A.11); omit the paths for the hash tokenizer")
+    return HashTokenizer(vocab_size=50265, bos=0, eos=2, pad=1, reserved=10)

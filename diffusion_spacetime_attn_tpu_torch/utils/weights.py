@@ -15,9 +15,11 @@ four rules:
   * every other leaf keeps its name.
 
 `bridge` raises on a missing, unexpected, duplicate or mis-shaped key.  The
-same rules cover the SD trees (UNet, VAE, text tower) and the dual-tower
+same rules cover the SD trees (UNet, VAE, text tower), the dual-tower
 loss CLIP (`vision/...`, `text/...`, `class_embedding`,
-`position_embedding`, `visual_projection/kernel`, `text_projection/kernel`).
+`position_embedding`, `visual_projection/kernel`, `text_projection/kernel`)
+and the layout predictor (`layout_state_dict`: `backbone/...` with its
+`object_embedding` row, `head/...`).
 """
 from __future__ import annotations
 
@@ -69,6 +71,28 @@ def bridge(flat: Dict[str, np.ndarray], model: nn.Module) -> Dict[str, torch.Ten
     if bad:
         raise ValueError(f"weight bridge: shape mismatches {bad[:10]}")
     return sd
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays (a flax parameter tree as numpy) -> the flat
+    "a/b/c" form `bridge` takes."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, path))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def layout_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """State dict of the port's `LayoutPredictor` from the JAX package's
+    layout params (the nested flax tree as numpy): each Dense kernel
+    [in, out] transposed to a Linear weight [out, in], `embedding` tables
+    and LayerNorm `scale` renamed to `weight` unchanged, and
+    `backbone/object_embedding` [1, hidden] kept as it is."""
+    return bridge(flatten_tree(params), model)
 
 
 def load_flat(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
