@@ -78,6 +78,32 @@ script exits non-zero without its final line:
   8. profile: where a serving batch's time goes (host clock per part, and
              device time by kernel family under torch.profiler); no GEGLU
              slice sum may appear.
+     http:   the serving front in spatial mode on phase serve's bundle: the
+             layout predictor at LayoutConfig() behind
+             `PromptRunner.prepare_host`, TextToImageEngine at batch 2, a
+             BatchingService (max_wait_s 0.2) behind `serve` on 127.0.0.1.
+             A lone request's PNG must be the bytes of
+             `engine.generate_batch([p], [s])[0]` (same slot); five
+             concurrent requests all 200 in fewer batches than requests; a
+             burst into max_queue=1 while a batch runs at least one 503;
+             request_timeout_s=0.01 a 504 behind a running batch; 404
+             elsewhere.  Seconds per request, the HTTP, PNG and base64
+             overhead; MHA, GEGLU and spacetime forward 816 launches per
+             batch, nothing else.
+     loadtest: `serving/loadtest.run_loadtest` on the vanilla-flag engine
+             (phase serve's bundle, no control), batch 2: capacity from 2
+             warm batches, stages at 0.5, 1.0 and 2.5 of it, 8 requests
+             each, max_queue 4: every accepted request completes, p50 <=
+             p95 <= p99, no reject at 0.5 and its p50 at least one batch,
+             the JAX artifact's keys; printed on one line with the card's
+             name and power limit; MHA and GEGLU 816 per batch.
+     serve_cli: `scripts/serve.main(["--mode", "spacetime", "--batch",
+             "2", "--soak", "2"])` in this process (full width, bf16
+             parameters, PLMS-50, 3 epochs, layout predictor, ViT-B/32
+             loss CLIP): the soak summary, finite non-constant images,
+             and per batch (warmup and soak) opt_launches(k, 51) of the
+             flash and spacetime kernels, forward and backward, GEGLU and
+             MHA none.
   9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
              same width with the ViT-B/32 loss CLIP, bf16, PLMS-50, batch 2,
              4 objects, 3 Adam epochs (the last forward only), use_flash on as
@@ -151,10 +177,10 @@ script exits non-zero without its final line:
              grid of crops, the card's crop scores against the port on the
              CPU within 1e-3.
  16. the `kernels` summary line (times per UNet evaluation at the engine's
-     batch; launches of the optimization run, of the DPM-Solver++ batch and
-     of the dataset sweep; each kernel's design and, for the attention
-     kernels, launches by design), the nvidia-smi line, and the final
-     {"ok": true, ...} line.
+     batch; launches of the optimization run, of the DPM-Solver++ batch, of
+     the dataset sweep and of phases http, loadtest and serve_cli; each
+     kernel's design and, for the attention kernels, launches by design),
+     the nvidia-smi line, and the final {"ok": true, ...} line.
 
 With `--compare DIR` the script runs only phases device, build, kernels,
 kernels_bwd, profile and profile_train, and `geglu_host` and
@@ -1238,25 +1264,34 @@ OBJECT_NAMES = ["cat", "dog", "tree", "car"]
 OBJECT_CENTERS = [[0.25, 0.25], [0.75, 0.25], [0.25, 0.75], [0.75, 0.75]]
 
 
-def _spacetime_engine(sd, clip_loss, batch_size):
+def _spacetime_engine(sd, clip_loss, batch_size, sampler="plms"):
+    """SpaceTimeEngine over a PromptRunner whose host stage places the four
+    OBJECT_NAMES at OBJECT_CENTERS for every prompt (the runner's record
+    format; no layout predictor)."""
     import numpy as np
 
+    from diffusion_spacetime_attn_tpu_torch.pipeline.runners import PromptRunner
     from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine
     from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
 
     tok = make_clip_tokenizer(max_len=CONTEXT_LEN)
 
-    def prepare_host(prompt):
-        return {"centers": np.array(OBJECT_CENTERS, np.float32),
-                "active": np.ones(OBJECTS, np.float32),
-                "local_texts": [f"a photo of {o}" for o in OBJECT_NAMES],
-                "object_texts": [f"A photo of {o}" for o in OBJECT_NAMES]}
-
     def tokenize(t):
         return tok.pad_to(tok.encode(t), CONTEXT_LEN)
 
-    return SpaceTimeEngine(sd=sd, clip_loss=clip_loss, tokenize=tokenize, clip_tokenize=tokenize,
-                           prepare_host=prepare_host, batch_size=batch_size)
+    class FixedLayoutRunner(PromptRunner):
+        def prepare_host(self, prompt):
+            return dict(centers=np.array(OBJECT_CENTERS, np.float32),
+                        active=np.ones(OBJECTS, np.float32),
+                        local_texts=[f"a photo of {o}" for o in OBJECT_NAMES],
+                        obj_tokens=np.stack([np.asarray(tokenize(f"A photo of {o}"), np.int32)
+                                             for o in OBJECT_NAMES]),
+                        caption_tokens=np.asarray(tokenize(prompt), np.int32), prompt=prompt)
+
+    runner = FixedLayoutRunner(sd=sd, clip_loss=clip_loss, layout=None, clip_tokenize=tokenize,
+                               text_tokenize=tokenize, cfg=sd.cfg.spacetime, mode="spacetime",
+                               sampler=sampler)
+    return SpaceTimeEngine(runner=runner, batch_size=batch_size)
 
 
 def phase_chain(samplers=("plms",), phase="chain"):
@@ -1336,7 +1371,7 @@ def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
 
     from diffusion_spacetime_attn_tpu_torch.pipeline.spacetime import init_coef
 
-    sd = engine.sd
+    sd, sampler = engine.runner.sd, engine.runner.sampler
     _reset_counts(wrappers.values())
     marks = []
 
@@ -1353,7 +1388,7 @@ def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
     for k, n in counts.items():
         want = opt_launches(k, evals)
         if n != want:
-            fail(f"optimize ({engine.sampler}) {k}: {n} launches in a batch, expected {want}")
+            fail(f"optimize ({sampler}) {k}: {n} launches in a batch, expected {want}")
     checks = (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync"),
               ("geglu_fwd", "wgmma"), ("geglu_bwd", "wgmma"), ("spacetime_fwd", "wgmma"),
               ("spacetime_bwd", "wgmma"))
@@ -1384,7 +1419,7 @@ def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
     size = sd.cfg.spacetime.image_size
     if u8.shape != (len(prompts), size, size, 3) or float(u8.std()) == 0.0:
         fail(f"optimize: output {u8.shape}, std {float(u8.std())}")
-    line = {"sampler": engine.sampler, "steps": sd.schedule.num_steps, "evals": evals,
+    line = {"sampler": sampler, "steps": sd.schedule.num_steps, "evals": evals,
             "prompts": len(prompts), "pad_rows": B - len(prompts), "seconds": seconds,
             "s_per_epoch": np.diff([t0] + marks).tolist(), "losses": losses.tolist(),
             "launches": counts, "launches_by_design": designs,
@@ -1469,12 +1504,11 @@ def phase_samplers(engine):
     from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
 
     phase_chain(("ddim", "dpm"), phase="samplers_chain")
-    sd = engine.sd
+    sd = engine.runner.sd
     st = dataclasses.replace(sd.cfg.spacetime, num_steps=DPM_STEPS)
     sd = dataclasses.replace(sd, cfg=dataclasses.replace(sd.cfg, spacetime=st),
                              schedule=make_schedule(sd.cfg.schedule, DPM_STEPS, device=sd.device))
-    dpm = dataclasses.replace(_spacetime_engine(sd, engine.clip_loss, SERVE_PROMPTS),
-                              sampler="dpm")
+    dpm = _spacetime_engine(sd, engine.runner.clip_loss, SERVE_PROMPTS, sampler="dpm")
     wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2045,6 +2079,326 @@ def phase_profile(sd):
           "device_idle_share": (1.0 - busy / (1e3 * unet_s)) if groups else None})
 
 
+# phase http: captions the layout predictor lays out (each has COCO objects)
+HTTP_PROMPTS = ["a dog to the left of a cat", GOLDEN, "a car above a bench",
+                "the bird sits on a chair", "a cup next to a laptop"]
+HTTP_SEED = 2 ** 31 + 5         # past int32: the engines take it as JAX's uint32 cast does
+SPATIAL_KERNELS = ("mha_fwd", "geglu_fwd", "spacetime_fwd")
+VANILLA_KERNELS = ("mha_fwd", "geglu_fwd")
+# serve --mode spacetime: use_flash only (and the controlled cross-attention)
+CLI_KERNELS = ("flash_fwd", "flash_bwd", "spacetime_fwd", "spacetime_bwd")
+# the JAX package's load-test artifact (`serving/loadtest.py`): its keys
+LOADTEST_KEYS = {"capacity_req_per_s", "stage_requests", "batch_size", "max_wait_s", "max_queue",
+                 "request_timeout_s", "stages", "saturation_req_per_s"}
+STAGE_KEYS = {"offered_req_per_s": None, "capacity_fraction": None, "submitted": None,
+              "completed": None, "rejected": None, "timed_out": None,
+              "latency_s": {"p50", "p95", "p99", "mean", "max"}, "queue_depth": {"mean", "max"}}
+
+
+def _http(port: int, path: str, body=None, timeout: float = 600.0):
+    """(status, JSON body, seconds) of one request to the local front."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def _post_from_thread(port: int, body):
+    """Posts `body` to /txt2img from a thread now; returns a function that
+    joins it and gives its (status, body, seconds)."""
+    import threading
+
+    out = []
+    t = threading.Thread(target=lambda: out.append(_http(port, "/txt2img", body)))
+    t.start()
+
+    def join():
+        t.join(timeout=900)
+        if not out:
+            fail("http: a client thread did not finish")
+        return out[0]
+
+    return join
+
+
+def _concurrent(port: int, bodies, gap: float = 0.0):
+    """Posts each body from its own thread, `gap` seconds apart; returns the
+    (status, body, seconds) of each, in order."""
+    joins = []
+    for body in bodies:
+        joins.append(_post_from_thread(port, body))
+        time.sleep(gap)
+    return [join() for join in joins]
+
+
+def _serve_front(engine, **kw):
+    """A BatchingService (max_wait_s 0.2) behind `serve` on 127.0.0.1 at a
+    free port: (service, server, port)."""
+    from diffusion_spacetime_attn_tpu_torch.serving import BatchingService, serve
+
+    svc = BatchingService(engine, max_wait_s=0.2, **kw).start()
+    httpd = serve(svc, "127.0.0.1", 0, block=False)
+    return svc, httpd, httpd.server_address[1]
+
+
+def phase_http(sd):
+    """The HTTP front in spatial mode at full SD v1-4 width (phase serve's
+    bundle: bf16, PLMS-50, MHA, GEGLU and spacetime kernels), batch 2, the
+    layout predictor at LayoutConfig() behind `PromptRunner.prepare_host`,
+    a BatchingService (max_wait_s 0.2) behind `serve` on 127.0.0.1.  A lone
+    request must return the PNG of `engine.generate_batch([p], [s])[0]`
+    byte for byte (the same slot: bf16 rounds by slot); five concurrent
+    requests must all get 200 in fewer batches than requests; a service with
+    max_queue=1 hit by a burst while a batch runs must answer 503; one with
+    request_timeout_s=0.01 must answer 504 for a request queued behind a
+    running batch.  Every batch launches the MHA, GEGLU and spacetime
+    forward kernels 816 times each and nothing else."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig
+    from diffusion_spacetime_attn_tpu_torch.pipeline.frontend import LayoutInference
+    from diffusion_spacetime_attn_tpu_torch.pipeline.runners import PromptRunner
+    from diffusion_spacetime_attn_tpu_torch.serving import TextToImageEngine
+    from diffusion_spacetime_attn_tpu_torch.utils.loader import load_layout_predictor
+    from diffusion_spacetime_attn_tpu_torch.utils.png import decode_png, encode_png
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import (
+        make_clip_tokenizer,
+        make_roberta_tokenizer,
+    )
+
+    L = sd.cfg.text_encoder.max_len
+    tok = make_clip_tokenizer(max_len=L)
+
+    def tokenize(t):
+        return tok.pad_to(tok.encode(t), L)
+
+    t0 = time.perf_counter()
+    layout = LayoutInference(load_layout_predictor(LayoutConfig(), None, device="cuda"),
+                             make_roberta_tokenizer())
+    runner = PromptRunner(sd=sd, clip_loss=None, layout=layout, clip_tokenize=tokenize,
+                          text_tokenize=tokenize, cfg=sd.cfg.spacetime, mode="spatial")
+    engine = TextToImageEngine(sd=sd, tokenize=tokenize, batch_size=SERVE_PROMPTS,
+                               prepare_host=runner.prepare_host)
+    laid_out = [runner.prepare_host(p) is not None for p in HTTP_PROMPTS]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if not all(laid_out):
+        fail(f"http: the layout failed on {[p for p, ok in zip(HTTP_PROMPTS, laid_out) if not ok]}")
+    wrappers = _wrappers()
+    _reset_counts(wrappers.values())
+    fronts, direct = [], 0
+    try:
+        svc, httpd, port = _serve_front(engine)
+        fronts.append((svc, httpd))
+        # a lone request, and the engine's own batch of it
+        code, out, lone_s = _http(port, "/txt2img", {"prompt": HTTP_PROMPTS[0], "seed": HTTP_SEED})
+        if code != 200:
+            fail(f"http: lone request answered {code}: {out}")
+        img = decode_png(base64.b64decode(out["image"]))
+        t0 = time.perf_counter()
+        want = engine.generate_batch(HTTP_PROMPTS[:1], [HTTP_SEED])[0]
+        batch_s = time.perf_counter() - t0
+        direct += 1
+        size = sd.cfg.spacetime.image_size
+        if out["shape"] != [size, size, 3] or not np.array_equal(img, want):
+            diff = np.abs(img.astype(int) - want.astype(int))
+            fail(f"http: the PNG of {out['shape']} differs from the engine's image in "
+                 f"{int((diff > 0).sum())} bytes")
+        if float(img.std()) == 0.0:
+            fail("http: the image is constant")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            b64 = base64.b64encode(encode_png(want))
+        png_b64_ms = 1e3 * (time.perf_counter() - t0) / 5
+        # five requests at once
+        h0 = _http(port, "/healthz")[1]
+        many = _concurrent(port, [{"prompt": p, "seed": 100 + i}
+                                  for i, p in enumerate(HTTP_PROMPTS)])
+        h1 = _http(port, "/healthz")[1]
+        codes_many = [c for c, _, _ in many]
+        batches_many = h1["batches"] - h0["batches"]
+        if codes_many != [200] * len(HTTP_PROMPTS) or not batches_many < len(HTTP_PROMPTS) \
+                or not h1["batched_rows"] / h1["batches"] > 1:
+            fail(f"http: concurrent requests {codes_many} in {batches_many} batches, {h1}")
+        # a burst into a queue of 1 while a batch runs
+        svc503, httpd503, port503 = _serve_front(engine, max_queue=1)
+        fronts.append((svc503, httpd503))
+        first = _post_from_thread(port503, {"prompt": HTTP_PROMPTS[0], "seed": 7})
+        time.sleep(0.5)                           # the worker has taken it and runs its batch
+        burst = _concurrent(port503, [{"prompt": p, "seed": 8} for p in HTTP_PROMPTS[1:4]],
+                            gap=0.02)
+        codes_503 = [first()[0]] + [c for c, _, _ in burst]
+        if 503 not in codes_503 or set(codes_503) - {200, 503}:
+            fail(f"http: burst into max_queue=1 answered {codes_503}")
+        retry = [b.get("retry_after_s") for c, b, _ in burst if c == 503]
+        # a request queued behind a running batch, past request_timeout_s
+        svc504, httpd504, port504 = _serve_front(engine, request_timeout_s=0.01)
+        fronts.append((svc504, httpd504))
+        first = _post_from_thread(port504, {"prompt": HTTP_PROMPTS[1], "seed": 9})
+        time.sleep(0.5)
+        code_504, body_504, _ = _http(port504, "/txt2img", {"prompt": HTTP_PROMPTS[2], "seed": 9})
+        codes_504 = [first()[0], code_504]
+        if codes_504 != [200, 504]:
+            fail(f"http: request_timeout_s=0.01 answered {codes_504}: {body_504}")
+        health = _http(port, "/healthz")[1]
+        code_404 = _http(port, "/nope")[0]
+        if code_404 != 404:
+            fail(f"http: GET /nope answered {code_404}")
+    finally:
+        for svc, httpd in fronts:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.stop()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    batches = direct + sum(svc.stats["batches"] for svc, _ in fronts)
+    expect = {k: batches * LAUNCHES_PER_BATCH if k in SPATIAL_KERNELS else 0 for k in wrappers}
+    if counts != expect:
+        fail(f"http: launches {counts} over {batches} batches, expected {expect}")
+    emit({"phase": "http", "mode": "spatial", "batch_size": SERVE_PROMPTS, "steps": 50,
+          "setup_s": setup_s, "lone_request_s": lone_s, "lone_batch_s": batch_s,
+          "http_overhead_s": lone_s - batch_s, "png_b64_ms": png_b64_ms,
+          "png_b64_bytes": len(b64), "lone_same_bytes": True,
+          "concurrent_s": [t for _, _, t in many], "concurrent_batches": batches_many,
+          "codes": {"concurrent": codes_many, "burst_max_queue_1": codes_503,
+                    "request_timeout_0.01": codes_504, "unknown_path": code_404},
+          "retry_after_s": retry, "healthz": health, "batches": batches, "launches": counts})
+    return counts
+
+
+def phase_loadtest(sd, smi: str):
+    """`run_loadtest` on the vanilla-flag engine at full SD v1-4 width (phase
+    serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-50, batch
+    2: capacity from 2 warm batches, then stages at 0.5, 1.0 and 2.5 of it,
+    8 requests each, max_queue 4, max_wait_s 0.2.  A functional check, not a
+    measurement (percentiles of 8 samples; `scripts/measure_loadtest.py`
+    measures): every accepted request must complete, p50 <= p95 <= p99, the
+    0.5 stage must reject nothing, its p50 be at least the wall time of the
+    fastest batch it ran (a request waits for its own batch) and its load,
+    offered rate × its median batch time / batch size, stay below 1 (else
+    the capacity batches ran more than twice as fast as the stage's, and
+    "0.5" was not below saturation); the artifact must have the JAX
+    package's keys, and every batch launches MHA and GEGLU 816 times."""
+    from diffusion_spacetime_attn_tpu_torch.scripts.measure_loadtest import (
+        TimedEngine,
+        ramp_record,
+    )
+    from diffusion_spacetime_attn_tpu_torch.serving import TextToImageEngine
+    from diffusion_spacetime_attn_tpu_torch.serving.loadtest import run_loadtest
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
+
+    L = sd.cfg.text_encoder.max_len
+    tok = make_clip_tokenizer(max_len=L)
+    engine = TimedEngine(TextToImageEngine(
+        sd=sd, tokenize=lambda t: tok.pad_to(tok.encode(t), L), batch_size=SERVE_PROMPTS))
+    wrappers = _wrappers()
+    _reset_counts(wrappers.values())
+    t0 = time.perf_counter()
+    art = run_loadtest(engine, capacity_fractions=(0.5, 1.0, 2.5), stage_requests=8,
+                       max_wait_s=0.2, max_queue=4)
+    seconds = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    batches = len(engine.rows)
+    expect = {k: batches * LAUNCHES_PER_BATCH if k in VANILLA_KERNELS else 0 for k in wrappers}
+    emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": 50,
+          "functional_check": "8 requests per stage: not a measurement",
+          "seconds": seconds, "batches": batches, "launches": counts,
+          "batch_rows": [n for n, _ in engine.rows], "artifact": art})
+    if counts != expect:
+        fail(f"loadtest: launches {counts} over {batches} batches, expected {expect}")
+    keys_ok = set(art) == LOADTEST_KEYS and all(
+        set(st) == set(STAGE_KEYS) and all(set(st[k]) == v for k, v in STAGE_KEYS.items() if v)
+        for st in art["stages"])
+    if not keys_ok:
+        fail(f"loadtest: artifact keys {sorted(art)} / {[sorted(st) for st in art['stages']]}")
+    for st in art["stages"]:
+        lat = st["latency_s"]
+        if st["timed_out"] or st["completed"] != st["submitted"] - st["rejected"]:
+            fail(f"loadtest: stage {st['capacity_fraction']}: accepted requests lost: {st}")
+        if st["completed"] and not lat["p50"] <= lat["p95"] <= lat["p99"]:
+            fail(f"loadtest: stage {st['capacity_fraction']}: percentiles {lat}")
+    try:
+        rec = ramp_record(art, engine.rows, 2)
+    except RuntimeError as e:
+        fail(f"loadtest: batches do not add up to the stages: {e}")
+    emit({"phase": "loadtest_batches", "capacity_batch_s": rec["capacity_batch_s"],
+          "stage_batches": rec["stage_batches"]})
+    half, hb = art["stages"][0], rec["stage_batches"][0]
+    # p50 is rounded to 1e-3 s in the artifact
+    if half["rejected"] or not hb["batch_s"] or \
+            not half["latency_s"]["p50"] >= min(hb["batch_s"]) - 1e-3 or not hb["load"] < 1.0:
+        fail(f"loadtest: the 0.5 stage rejected {half['rejected']}, p50 "
+             f"{half['latency_s']['p50']} s, load {hb['load']}, its batches {hb['batch_s']} s, "
+             f"the capacity batches {rec['capacity_batch_s']} s")
+    return counts
+
+
+def phase_serve_cli():
+    """The serving entry point in spacetime mode, in this process:
+    `scripts/serve.main(["--mode", "spacetime", "--batch", "2", "--soak",
+    "2"])` (full SD v1-4 width, bf16 parameters by default, PLMS-50, 3
+    epochs, the layout predictor at LayoutConfig(), a ViT-B/32 loss CLIP):
+    its summary line, finite and non-constant images and losses, and per
+    batch (the warmup's and the soak's) opt_launches(k, 51) launches of the
+    flash and spacetime kernels, forward and backward, and none of GEGLU or
+    MHA (the JAX script's spacetime flags)."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import serve as serve_cli
+    from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine
+
+    batches = []
+    optimize = SpaceTimeEngine.optimize_batch
+
+    def recorded(self, prompts, seeds, on_epoch=None):
+        t0 = time.perf_counter()
+        images, coef, losses = optimize(self, prompts, seeds, on_epoch)
+        torch.cuda.synchronize()
+        batches.append({"prompts": len(prompts), "seconds": time.perf_counter() - t0,
+                        "finite": bool(torch.isfinite(images).all()
+                                       and torch.isfinite(losses).all()),
+                        "image_std": float(images[:len(prompts)].float().std()),
+                        "losses": losses.tolist()})
+        return images, coef, losses
+
+    wrappers = _wrappers()
+    _reset_counts(wrappers.values())
+    torch.cuda.reset_peak_memory_stats()
+    SpaceTimeEngine.optimize_batch = recorded
+    t0 = time.perf_counter()
+    try:
+        summary = serve_cli.main(["--mode", "spacetime", "--batch", "2", "--soak", "2"])
+    finally:
+        SpaceTimeEngine.optimize_batch = optimize
+    seconds = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    evals = chain_evals("plms", 50)
+    expect = {k: len(batches) * opt_launches(k, evals) if k in CLI_KERNELS else 0
+              for k in wrappers}
+    emit({"phase": "serve_cli", "argv": "--mode spacetime --batch 2 --soak 2", "seconds": seconds,
+          "summary": summary, "warmup_s": batches[0]["seconds"] if batches else None,
+          "soak_batch_s": [b["seconds"] for b in batches[1:]], "batches": batches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": counts})
+    if not (summary["soak_ok"] is True and summary["requests"] == 2 and summary["batches"] == 1
+            and summary["params_dtype"] == "bfloat16"):
+        fail(f"serve_cli: summary {summary}")
+    if len(batches) != 2 or not all(b["finite"] and b["image_std"] > 0 for b in batches):
+        fail(f"serve_cli: batches {batches}")
+    if counts != expect:
+        fail(f"serve_cli: launches {counts} over {len(batches)} batches, expected {expect}")
+    return counts
+
+
 def _host_row(call, n: int, match: str = "") -> dict:
     """Host work of one bf16 call (see `phase_geglu_host`): issue time,
     wrapper time (CUDA events), device time (torch.profiler), and their
@@ -2210,14 +2564,18 @@ def main() -> int:
     phase_unet()
     phase_slice()
     phase_chain()
-    serve_launches, serve_designs, sd = phase_serve()
-    phase_profile(sd)
-    del sd
     import torch
 
+    serve_launches, serve_designs, sd = phase_serve()
+    phase_profile(sd)
+    http_launches = phase_http(sd)
+    loadtest_launches = phase_loadtest(sd, smi)
+    del sd
+    torch.cuda.empty_cache()
+    cli_launches = phase_serve_cli()
     torch.cuda.empty_cache()
     launches, opt_designs, engine = phase_optimize()
-    phase_profile_train(engine.sd)
+    phase_profile_train(engine.runner.sd)
     dpm_launches = phase_samplers(engine)
     del engine
     torch.cuda.empty_cache()
@@ -2243,6 +2601,9 @@ def main() -> int:
                "serve_launches": serve_launches.get(kname, 0),
                "dpm_launches": dpm_launches[kname],
                "runner_launches": runner_launches[kname],
+               "http_launches": http_launches[kname],
+               "loadtest_launches": loadtest_launches[kname],
+               "cli_launches": cli_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -2258,6 +2619,8 @@ def main() -> int:
     # optimization run (2 batches), serve_launches: the serving run,
     # dpm_launches: the DPM-Solver++ optimization batch (phase samplers),
     # runner_launches: the dataset sweep's three modes (phase runner);
+    # http_launches, loadtest_launches, cli_launches: phases http (spatial),
+    # loadtest (vanilla) and serve_cli (spacetime);
     # launches_by_design: the serving and optimization runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

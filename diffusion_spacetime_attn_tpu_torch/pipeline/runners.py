@@ -121,6 +121,17 @@ class PromptRunner:
                     caption_tokens=np.asarray(self.clip_tokenize(prompt), np.int32),
                     prompt=prompt)
 
+    def empty_host(self, prompt: str) -> dict:
+        """The host record of a prompt with no object: zero `active`, so the
+        control and the per-object losses are exact no-ops (the JAX
+        package's `SpaceTimeEngine._empty_host`)."""
+        N = self.cfg.max_objects
+        empty = np.asarray(self.clip_tokenize(""), np.int32)
+        return dict(centers=np.zeros((N, 2), np.float32), active=np.zeros(N, np.float32),
+                    local_texts=[""] * N, obj_tokens=np.tile(empty, (N, 1)),
+                    caption_tokens=np.asarray(self.clip_tokenize(prompt), np.int32),
+                    prompt=prompt)
+
     @torch.no_grad()
     def assemble_inputs(self, hosts, seed: int) -> SpaceTimeInputs:
         """Device stage for a chunk of `prepare_host` outputs: one text-encoder

@@ -1,0 +1,7 @@
+from .server import (  # noqa: F401
+    BatchingService,
+    ServiceSaturated,
+    SpaceTimeEngine,
+    TextToImageEngine,
+    serve,
+)

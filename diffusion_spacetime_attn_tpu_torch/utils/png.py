@@ -1,9 +1,10 @@
 """8-bit PNG files without an imaging library (zlib and struct only).
 
-`write_png` writes RGB with filter type 0 on every row.  `read_png` reads
-what it wrote and the 8-bit RGB and RGBA files other tools write
+`encode_png` gives the bytes of an RGB file with filter type 0 on every row
+(the HTTP front sends them), and `write_png` writes them.  `decode_png`
+reads what they wrote and the 8-bit RGB and RGBA files other tools write
 (non-interlaced; every filter type 0-4 undone), so the evaluation can read
-images it did not write.
+images it did not write; `read_png` does so from a path.
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {2: 3, 6: 4}         # colour type -> channels (RGB, RGBA)
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """[H, W, 3] uint8 as an 8-bit RGB PNG."""
+def encode_png(rgb: np.ndarray) -> bytes:
+    """[H, W, 3] uint8 -> the bytes of an 8-bit RGB PNG."""
     h, w, _ = rgb.shape
     raw = b"".join(b"\x00" + row.tobytes() for row in np.ascontiguousarray(rgb, np.uint8))
 
@@ -25,9 +26,14 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return (_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """[H, W, 3] uint8 as an 8-bit RGB PNG file."""
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+        f.write(encode_png(rgb))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -61,12 +67,17 @@ def _unfilter(ftype: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.n
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB or RGBA PNG -> [H, W, 3 or 4] uint8; raises for any
-    other bit depth, colour type or interlacing."""
+    """`decode_png` of a file."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """An 8-bit RGB or RGBA PNG's bytes -> [H, W, 3 or 4] uint8; raises for
+    any other bit depth, colour type or interlacing (`name` names the source
+    in the message)."""
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, idat, header = 8, [], None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -79,16 +90,16 @@ def read_png(path: str) -> np.ndarray:
         elif tag == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: bit depth {depth}, colour type {ctype}, interlace "
+        raise ValueError(f"{name}: bit depth {depth}, colour type {ctype}, interlace "
                          f"{interlace}; only 8-bit non-interlaced RGB / RGBA is read")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {h * (stride + 1)}")
+        raise ValueError(f"{name}: {raw.size} bytes of image data, expected {h * (stride + 1)}")
     rows = raw.reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)

@@ -6,7 +6,9 @@ there (older jax defaulted to False, which lays the counters out otherwise
 and draws different bits from the same key):
 
   * `PRNGKey(seed)` is the pair (0, seed) for a seed in int32 range (JAX
-    without 64-bit mode);
+    without 64-bit mode); the JAX package's serving engines cast the seeds
+    to uint32 first, which gives (0, seed mod 2³²) for any int
+    (`engine_key`);
   * `fold_in(key, data)` hashes the counter pair (0, data) under `key`;
   * `bits(key, shape)` hashes the 64-bit counter i = 0, 1, ... of each
     element, row-major, split into (high, low) words, and xors the two
@@ -56,6 +58,13 @@ def PRNGKey(seed: int) -> np.ndarray:
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} outside int32")
     return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def engine_key(seed: int) -> np.ndarray:
+    """The key of a request's seed in the JAX package's serving engines,
+    `PRNGKey` of the seed cast to uint32 (`serving/server.py:108-113,178`
+    there): (0, seed mod 2³²) for any int."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
 
 
 def fold_in(key: np.ndarray, data: int) -> np.ndarray:

@@ -30,8 +30,10 @@ from diffusion_spacetime_attn_tpu.testbed.configs import smoke_pipeline_cfg
 from diffusion_spacetime_attn_tpu.utils.testing import randomize_params
 from diffusion_spacetime_attn_tpu_torch import config as tcfg
 from diffusion_spacetime_attn_tpu_torch.pipeline import spacetime as tst
+from diffusion_spacetime_attn_tpu_torch.pipeline.frontend import extract_objects
 from diffusion_spacetime_attn_tpu_torch.pipeline.losses import DCLIPLoss
 from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+from diffusion_spacetime_attn_tpu_torch.pipeline.runners import PromptRunner
 from diffusion_spacetime_attn_tpu_torch.samplers.remat import maybe_remat
 from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine, TextToImageEngine
 from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
@@ -267,8 +269,8 @@ def test_final_forward_only_gives_the_same_image(pair, optimized):
 
 @pytest.fixture(scope="module")
 def engines():
-    """(SpaceTimeEngine, vanilla TextToImageEngine) on the smoke config at
-    CLIP's vocabulary size, seeded random weights."""
+    """(SpaceTimeEngine over a PromptRunner, vanilla TextToImageEngine) on
+    the smoke config at CLIP's vocabulary size, seeded random weights."""
     base = smoke_pipeline_cfg(num_steps=3)
     clip_vocab = lambda t: dataclasses.replace(t, vocab_size=49408)  # noqa: E731
     cfg = port_cfg(dataclasses.replace(
@@ -279,19 +281,17 @@ def engines():
     tok = make_clip_tokenizer(max_len=cfg.text_encoder.max_len)
     ctok = make_clip_tokenizer(max_len=cfg.loss_clip.text.max_len)
 
-    def prepare_host(prompt):
-        if prompt == "no layout":
-            return None
-        return {"centers": np.array([[0.3, 0.3], [0.7, 0.7]], np.float32),
-                "active": np.array([1.0, 1.0 if "two" in prompt else 0.0], np.float32),
-                "local_texts": [f"a photo of {prompt}", "a photo of a thing"],
-                "object_texts": [f"A photo of {prompt}", "A photo of a thing"]}
+    def layout(prompt):
+        # the front end's mentions at fixed centers; {} (no layout) without one
+        mentions = extract_objects(prompt)[1]
+        return {m.phrase: c for m, c in zip(mentions, [(0.3, 0.3), (0.7, 0.7)])}
 
     L, Lc = cfg.text_encoder.max_len, cfg.loss_clip.text.max_len
-    engine = SpaceTimeEngine(
-        sd=sd, clip_loss=loss, tokenize=lambda t: tok.pad_to(tok.encode(t), L),
-        clip_tokenize=lambda t: ctok.pad_to(ctok.encode(t), Lc), prepare_host=prepare_host,
-        batch_size=2)
+    runner = PromptRunner(sd=sd, clip_loss=loss, layout=layout,
+                          clip_tokenize=lambda t: ctok.pad_to(ctok.encode(t), Lc),
+                          text_tokenize=lambda t: tok.pad_to(tok.encode(t), L),
+                          cfg=cfg.spacetime, mode="spacetime")
+    engine = SpaceTimeEngine(runner=runner, batch_size=2)
     vanilla = TextToImageEngine(sd=sd, tokenize=lambda t: tok.pad_to(tok.encode(t), L),
                                 batch_size=1)
     return engine, vanilla
@@ -299,11 +299,11 @@ def engines():
 
 def test_spacetime_engine_shapes_and_seed_determinism(engines):
     eng, _ = engines
-    a = eng.generate_batch(["two cats", "a dog"], [1, 2])
+    a = eng.generate_batch(["a cat and a dog", "a dog"], [1, 2])
     assert a.shape == (2, 32, 32, 3) and a.dtype == np.uint8
-    b = eng.generate_batch(["two cats"], [1])       # beside a pad row
+    b = eng.generate_batch(["a cat and a dog"], [1])       # beside a pad row
     np.testing.assert_array_equal(a[0], b[0])
-    c = eng.generate_batch(["two cats"], [3])
+    c = eng.generate_batch(["a cat and a dog"], [3])
     assert (c[0] != a[0]).any()
     with pytest.raises(ValueError):
         eng.generate_batch(["a"] * 3, [0] * 3)

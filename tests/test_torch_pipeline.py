@@ -238,6 +238,13 @@ def test_port_imports_nothing_of_jax():
     the port)."""
     files = _port_files()
     assert len(files) > 20
+    scripts = ROOT / "diffusion_spacetime_attn_tpu_torch" / "scripts"
+    serving = ROOT / "diffusion_spacetime_attn_tpu_torch" / "serving"
+    for new in (scripts / "serve.py", scripts / "txt2img.py", scripts / "measure_loadtest.py",
+                serving / "loadtest.py",
+                serving / "server.py", ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils"
+                / "watermark.py"):
+        assert new in files, new
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
