@@ -176,9 +176,26 @@ script exits non-zero without its final line:
              per image, weights' provenance "random"; on the first image's
              grid of crops, the card's crop scores against the port on the
              CPU within 1e-3.
- 16. the `kernels` summary line (times per UNet evaluation at the engine's
+ 16. ingest: the published-weights path at SD v1-4 width on seeded
+             synthetic files in the published key layouts
+             (`utils/testing.compvis_shapes`, `openai_clip_shapes`,
+             `rel2bbox_shapes`; ~7 GB in a temporary directory): a float32
+             CompVis `.ckpt` (with `model_ema.*`, `position_ids` and a
+             pickled object of a module that cannot be imported) and the
+             same weights as a float16 `.safetensors`, each loaded by
+             `load_stable_diffusion` in a child process from a cold page
+             cache and held parameter-exact against its generating arrays
+             (sizes, read / convert / upload s, peak RSS, card memory);
+             `txt2img --ckpt` on the `.safetensors`; the drill
+             (`scripts/ingest_weights.main`, bf16, PLMS-50, 3 epochs) on the
+             `.ckpt`, an OpenAI ViT-B/32 file and a fairseq Rel2Bbox file:
+             JAX's report keys, every weight "checkpoint", finite CLIP
+             scores, both PNGs and exactly each mode's launches, with its
+             seconds; the g++-built BPE core against the Python one.
+ 17. the `kernels` summary line (times per UNet evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
-     the dataset sweep and of phases http, loadtest and serve_cli; each
+     the dataset sweep, of phases http, loadtest and serve_cli and of
+     phase ingest; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -193,7 +210,9 @@ own kernels), and prints their lines tagged with turn and tree, then one
 The SD v1-4, CLIP and layout weights are random (no such checkpoint is in
 the repository): N(0, 0.02²) per parameter from a seed, as the JAX
 package's bench does (the layout predictor: flax's initializers'
-distributions).  Phase testbed loads the committed trained testbed weights.
+distributions); phase ingest writes them into the published checkpoint
+formats and reads them back.  Phase testbed loads the committed trained
+testbed weights.
 """
 from __future__ import annotations
 
@@ -203,6 +222,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the roofline bound;
@@ -1879,7 +1899,7 @@ def phase_eval(root: str, results: str):
     boxes = clip_detector._grid_boxes(size, det.scales)
     cpu_clip = CLIP(CLIPConfig()).eval().requires_grad_(False)
     cpu_clip.load_state_dict({k: v.cpu() for k, v in det.clip.state_dict().items()})
-    cpu_det = clip_detector.CLIPDetector(cpu_clip, protocol._clip_tokenize(CLIPConfig()),
+    cpu_det = clip_detector.CLIPDetector(cpu_clip, protocol._clip_tokenize(CLIPConfig(), None),
                                          categories=det.categories)
     sims_err = float(np.abs(det._sims(im, boxes) - cpu_det._sims(im, boxes)).max())
     if not sims_err <= 1e-3:
@@ -1907,6 +1927,385 @@ def phase_eval(root: str, results: str):
           "clip_score_weights": cs_prov, "detections": sum(map(len, detections.values()))})
     if not ok:
         fail(f"eval: scores out of range: {scores}, {cs}")
+
+
+# phase ingest: seeded synthetic checkpoints in the published layouts
+INGEST_SEED = 2026
+INGEST_PROMPT = "a black cat sitting on a desk next to a laptop"
+# the JAX drill's report keys (scripts/ingest_weights.py)
+DRILL_KEYS = ["prompt", "steps", "epochs", "seed", "sampler", "sd_weights", "layout_weights",
+              "clip_weights", "vanilla_clip_score", "vanilla_image", "method_clip_score",
+              "method_image"]
+# launches per drill mode at PLMS-50 (51 UNet evaluations, one prompt): the
+# drill's UNet flags are flash, GEGLU and the spacetime kernel (MHA off)
+DRILL_METHOD = ("spacetime_fwd", "spacetime_bwd", "geglu_fwd", "geglu_bwd", "flash_fwd",
+                "flash_bwd")
+
+
+def _pmap(fn, items, workers: int = 8) -> list:
+    """fn over items in threads (numpy's generators and torch's ops release
+    the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def _fstype(path: str) -> str:
+    """The file system holding `path` (its longest mount point)."""
+    best = ("", "unknown")
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            mnt, fstype = line.split()[1:3]
+            inside = os.path.abspath(path).startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) > len(best[0]):
+                best = (mnt, fstype)
+    return best[1]
+
+
+def _drill_want(mode: str, wrappers) -> dict:
+    if mode == "vanilla":
+        want = {"geglu_fwd": 16 * 51, "flash_fwd": 10 * 51}
+    else:
+        want = {k: opt_launches(k, 51) for k in DRILL_METHOD}
+    return {k: want.get(k, 0) for k in wrappers}
+
+
+def _write_f16_safetensors(path: str, arrays: dict) -> None:
+    """The safetensors format by hand: header length, JSON header, float16
+    bytes in order."""
+    import struct
+
+    import numpy as np
+
+    header, pos = {}, 0
+    for k, v in arrays.items():
+        n = 2 * v.size
+        header[k] = {"dtype": "F16", "shape": list(v.shape), "data_offsets": [pos, pos + n]}
+        pos += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for v in arrays.values():
+            v.astype(np.float16).tofile(f)
+
+
+def _write_ingest_files(root: str) -> dict:
+    """(a) a CompVis `.ckpt` at the v1-inference widths in float32, with
+    `model_ema.*` entries, the text tower's `position_ids` and a callback
+    object of a module that cannot be imported; (b) the same weights as a
+    float16 `.safetensors`; (c) an OpenAI ViT-B/32 state dict; (d) a fairseq
+    Rel2Bbox `.pth` at LayoutConfig().  Every float N(0, 0.02²) from
+    `utils/testing.seeded_normal`.  Returns {name: path} and the seconds."""
+    import types
+
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig, PipelineConfig
+    from diffusion_spacetime_attn_tpu_torch.utils import testing
+
+    cfg = PipelineConfig()
+    paths = {k: os.path.join(root, n) for k, n in (
+        ("ckpt", "sd-v1-4.ckpt"), ("safetensors", "sd-v1-4-fp16.safetensors"),
+        ("clip", "ViT-B-32.pt"), ("layout", "checkpoint_90_0.0.pth"))}
+    t0 = time.perf_counter()
+    sd = testing.seeded_state_dict(testing.compvis_shapes(cfg), INGEST_SEED)
+    gen_s = time.perf_counter() - t0
+    state = {k: torch.from_numpy(v) for k, v in sd.items()}
+    state["model_ema.decay"] = torch.tensor(0.9999)
+    state["model_ema.num_updates"] = torch.tensor(470000, dtype=torch.int32)
+    state["cond_stage_model.transformer.text_model.embeddings.position_ids"] = \
+        torch.arange(CONTEXT_LEN)[None]
+    mod = types.ModuleType("dsta_uninstalled_callbacks")
+    mod.ModelCheckpoint = type("ModelCheckpoint", (), {"__module__": mod.__name__})
+    sys.modules[mod.__name__] = mod
+    try:
+        callback = mod.ModelCheckpoint()
+        callback.best_model_path = "last.ckpt"
+        torch.save({"state_dict": state, "global_step": 470000,
+                    "callbacks": {"ModelCheckpoint": callback}}, paths["ckpt"])
+    finally:
+        del sys.modules[mod.__name__]
+    _write_f16_safetensors(paths["safetensors"], sd)
+    del state, sd
+    clip = testing.seeded_state_dict(testing.openai_clip_shapes(cfg.loss_clip), INGEST_SEED + 1)
+    torch.save({k: torch.from_numpy(v) for k, v in clip.items()}, paths["clip"])
+    lay = testing.seeded_state_dict(testing.rel2bbox_shapes(LayoutConfig()), INGEST_SEED + 2)
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in lay.items()}, "log": {},
+                "n_steps": 0}, paths["layout"])
+    for path in paths.values():     # on disk, so that a reader can drop them from the cache
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    return paths, gen_s, time.perf_counter() - t0
+
+
+def ingest_load_child(path: str) -> None:
+    """Run in a process of its own (`python3 -c`), so that its peak RSS is the
+    load's (VmRSS sampled every 5 ms from before the load to its end;
+    getrusage's ru_maxrss, also printed, carries the parent's peak over
+    fork and exec): `load_stable_diffusion(PipelineConfig(), path)` onto
+    the card in float32, the file first dropped from the page cache
+    (`posix_fadvise(DONTNEED)` after the writer's fsync), timed by part
+    (`read`: the reader, memory-mapped for a zip archive, so its bytes are
+    paged in during `upload`; `convert`: the converters and flattening;
+    `upload`: building the modules on the card and copying each weight once),
+    then every parameter held against its generating array: matched by shape
+    and its first 8 values (drawn alone) to exactly one published key, then
+    equal to the whole array (after the float16 rounding for a
+    .safetensors).  Prints one JSON line."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import PipelineConfig
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.utils import convert, loader, testing
+
+    def rss_bytes():
+        with open("/proc/self/status") as f:
+            return int(next(ln for ln in f if ln.startswith("VmRSS:")).split()[1]) * 1024
+
+    torch.zeros(1, device="cuda")
+    fd = os.open(path, os.O_RDONLY)     # read from the disk, not the page cache
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    # the load's peak RSS, sampled: getrusage's ru_maxrss (also printed)
+    # carries the parent's peak over fork and exec
+    rss_before, peak, stop = rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss_bytes())
+            stop.wait(0.005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    times = {}
+    read, from_flat = convert.load_torch_checkpoint, StableDiffusion.from_flat.__func__
+
+    def timed_read(p):
+        t = time.perf_counter()
+        out = read(p)
+        times["read_s"] = time.perf_counter() - t
+        return out
+
+    def timed_upload(cls, *a, **k):
+        t = time.perf_counter()
+        out = from_flat(cls, *a, **k)
+        torch.cuda.synchronize()
+        times["upload_s"] = time.perf_counter() - t
+        return out
+
+    convert.load_torch_checkpoint = timed_read
+    StableDiffusion.from_flat = classmethod(timed_upload)
+    cfg = PipelineConfig()
+    t0 = time.perf_counter()
+    sd = loader.load_stable_diffusion(cfg, path, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stop.set()
+    sampler.join()
+    maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    card = torch.cuda.memory_allocated()
+    f16 = path.endswith(".safetensors")
+
+    def want(key, shape):
+        a = testing.seeded_normal(INGEST_SEED, key, shape)
+        return a.astype(np.float16).astype(np.float32) if f16 else a
+
+    t1 = time.perf_counter()
+    shapes = testing.compvis_shapes(cfg)
+    index = {(s, want(k, (min(8, math.prod(s)),)).tobytes()): k for k, s in shapes.items()}
+    params = [(f"{mname}.{pname}", p.detach().cpu())
+              for mname, m in (("unet", sd.unet), ("vae", sd.vae), ("text", sd.text_encoder))
+              for pname, p in m.state_dict().items()]
+
+    def check(item):
+        name, host = item
+        key = index.get((tuple(host.shape), host.reshape(-1)[:8].numpy().tobytes()))
+        ok = (key is not None and host.dtype == torch.float32
+              and torch.equal(host, torch.from_numpy(want(key, shapes[key]))))
+        return name, key, ok
+
+    matched, bad = {}, []
+    for name, key, ok in _pmap(check, params):
+        if not ok or key in matched:
+            bad.append(name)
+        else:
+            matched[key] = name
+    print(json.dumps({
+        "file": os.path.basename(path), "bytes": os.path.getsize(path), "load_s": total,
+        "read_s": times["read_s"], "upload_s": times["upload_s"],
+        "convert_s": total - times["read_s"] - times["upload_s"],
+        "peak_rss_bytes": peak[0], "rss_before_load_bytes": rss_before,
+        "getrusage_maxrss_bytes": maxrss,
+        "card_memory_allocated_bytes": card, "params": len(matched),
+        "published_keys": len(shapes), "unmatched_params": bad[:10], "n_unmatched": len(bad),
+        "keys_without_param": sorted(set(shapes) - set(matched))[:10],
+        "exact": not bad and len(matched) == len(shapes), "verify_s": time.perf_counter() - t1}),
+        flush=True)
+
+
+def _ingest_load(path: str, smi: str) -> dict:
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys, chip_smoke; chip_smoke.ingest_load_child(sys.argv[1])", path],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=900)
+    if r.returncode != 0:
+        fail(f"ingest: loading {path} failed:\n{r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    emit({"phase": "ingest_load", **out, "nvidia_smi": smi})
+    if not out["exact"]:
+        fail(f"ingest: {out['file']} did not load parameter-exact: {out}")
+    return out
+
+
+def _toy_bpe(root: str):
+    """RoBERTa-format vocab.json (the byte symbols, then one id per merge)
+    and merges.txt."""
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import _bytes_to_unicode
+
+    merges = [("t", "h"), ("th", "e"), ("Ġ", "c"), ("Ġc", "a"), ("Ġca", "t"), ("Ġ", "d"),
+              ("Ġd", "o"), ("Ġdo", "g"), ("o", "n"), ("Ġ", "t"), ("Ġt", "he"), ("a", "n")]
+    vocab = {u: i for i, u in enumerate(_bytes_to_unicode().values())}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vp, mp = os.path.join(root, "vocab.json"), os.path.join(root, "merges.txt")
+    with open(vp, "w") as f:
+        json.dump(vocab, f)
+    with open(mp, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    return vp, mp
+
+
+def phase_ingest(root: str, smi: str) -> dict:
+    """The real-weights ingestion path at full SD v1-4 width on synthetic
+    files in the published layouts (`_write_ingest_files`):
+      1. (a) and (b) through `load_stable_diffusion` onto the card, each in
+         a process of its own from a cold page cache: parameter-exact, with
+         sizes, seconds, peak RSS and card memory (`ingest_load_child`;
+         a swap of two same-shape tensors is what the CPU tests catch, bit
+         for bit against JAX's converters);
+      2. `txt2img.main(["--ckpt", (b), ...])` (bf16, PLMS-50, vanilla:
+         MHA and GEGLU 816 launches each), then (b) is deleted;
+      3. `ingest_weights.main` on (a), (c) and (d) (bf16, PLMS-50, 3
+         epochs, one prompt): JAX's report keys, every weight "checkpoint",
+         finite CLIP scores, both PNGs, and per mode exactly the launches
+         of its kernels (vanilla: GEGLU and flash forward 816 / 510;
+         method: opt_launches(k, 51) of the spacetime, GEGLU and flash
+         kernels, forward and backward), with each mode's seconds;
+      4. the native BPE core built with g++ here, against the Python core
+         on small synthetic vocab files.
+    Returns {kernel: launches} over the drill and txt2img."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline import runners
+    from diffusion_spacetime_attn_tpu_torch.scripts import ingest_weights, txt2img
+    from diffusion_spacetime_attn_tpu_torch.utils import native_bpe, tokenizer
+    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png
+
+    paths, gen_s, write_s = _write_ingest_files(root)
+    emit({"phase": "ingest_files", "generate_s": gen_s, "write_s": write_s,
+          "file_system": _fstype(root),
+          "bytes": {k: os.path.getsize(p) for k, p in paths.items()}})
+    for key in ("ckpt", "safetensors"):
+        _ingest_load(paths[key], smi)
+
+    wrappers = _wrappers()
+    total = {k: 0 for k in wrappers}
+    out = os.path.join(root, "txt2img")
+    torch.cuda.empty_cache()
+    _reset_counts(wrappers.values())
+    t0 = time.perf_counter()
+    png = txt2img.main(["--ckpt", paths["safetensors"], "--prompt", INGEST_PROMPT,
+                        "--outdir", out])
+    torch.cuda.synchronize()
+    t2i_s = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = {k: 16 * 51 if k in ("mha_fwd", "geglu_fwd") else 0 for k in wrappers}
+    img = read_png(png)
+    emit({"phase": "ingest_txt2img", "file": os.path.basename(paths["safetensors"]),
+          "seconds": t2i_s, "launches": counts, "image_std": float(img.std())})
+    if counts != want or float(img.std()) == 0.0:
+        fail(f"ingest txt2img: launches {counts} (expected {want}), image std {img.std()}")
+    for k, n in counts.items():
+        total[k] += n
+    os.remove(paths["safetensors"])
+
+    per_mode, real = {}, runners.PromptRunner.run_one
+
+    def counted(self, *a, **k):
+        torch.cuda.synchronize()
+        _reset_counts(wrappers.values())
+        t = time.perf_counter()
+        img = real(self, *a, **k)
+        torch.cuda.synchronize()
+        per_mode[self.mode] = ({n: w.launches for n, w in wrappers.items()},
+                               time.perf_counter() - t)
+        return img
+
+    out = os.path.join(root, "drill")
+    torch.cuda.empty_cache()
+    runners.PromptRunner.run_one = counted
+    try:
+        t0 = time.perf_counter()
+        report = ingest_weights.main(["--sd-ckpt", paths["ckpt"], "--clip-ckpt", paths["clip"],
+                                      "--layout-ckpt", paths["layout"], "--outdir", out,
+                                      "--prompt", INGEST_PROMPT])
+        drill_s = time.perf_counter() - t0
+    finally:
+        runners.PromptRunner.run_one = real
+    pngs = {m: sorted(os.listdir(os.path.join(out, m))) for m in ("vanilla", "method")
+            if os.path.isdir(os.path.join(out, m))}
+    emit({"phase": "ingest_drill", "report": report, "pngs": pngs, "drill_s": drill_s,
+          "vanilla_s": per_mode.get("vanilla", (None, None))[1],
+          "method_s": per_mode.get("spacetime", (None, None))[1],
+          "launches": {m: c for m, (c, _) in per_mode.items()}, "nvidia_smi": smi})
+    problems = []
+    if list(report) != DRILL_KEYS:
+        problems.append(f"report keys {list(report)}")
+    if any(report[k] != "checkpoint" for k in ("sd_weights", "layout_weights", "clip_weights")):
+        problems.append("weights not all from the checkpoints")
+    if not all(isinstance(report[k], float) and np.isfinite(report[k])
+               for k in ("vanilla_clip_score", "method_clip_score")):
+        problems.append("CLIP scores not finite")
+    if pngs != {"vanilla": ["final2_s1_index_0.png"], "method": ["final2_s1_index_0.png"]}:
+        problems.append(f"PNGs {pngs}")
+    for mode, name in (("vanilla", "vanilla"), ("spacetime", "method")):
+        got = per_mode.get(mode, ({}, 0))[0]
+        if got != _drill_want(mode, wrappers):
+            problems.append(f"{name} launches {got}, expected {_drill_want(mode, wrappers)}")
+        for k, n in got.items():
+            total[k] += n
+    if problems:
+        fail(f"ingest drill: {problems}")
+
+    vp, mp = _toy_bpe(root)
+    for old in native_bpe.BUILD_DIR.glob("libbpe_*.so"):    # compile it here, now
+        old.unlink()
+    t0 = time.perf_counter()
+    lib = native_bpe.build()
+    build_s = time.perf_counter() - t0
+    nat = tokenizer.make_roberta_tokenizer(vp, mp)
+    py = tokenizer.GPT2Tokenizer(vp, mp)
+    texts = [INGEST_PROMPT, GOLDEN, "the cat and the dog", "a, b; c! 'll don't 123 x42y",
+             "multiple   spaces\tand\nnewlines"]
+    same = [nat.encode(t) == py.encode(t)
+            and nat.encode_with_alignment(t.split()) == py.encode_with_alignment(t.split())
+            for t in texts]
+    emit({"phase": "ingest_bpe", "library": os.path.basename(str(lib)), "build_s": build_s,
+          "core": nat.core, "texts": len(texts), "equal": same})
+    if nat.core != "native" or not all(same):
+        fail(f"ingest bpe: core {nat.core}, equal {same}")
+    return total
 
 
 def phase_slot():
@@ -2585,8 +2984,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         runner_launches, results = phase_runner(root)
         phase_eval(root, results)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        ingest_launches = phase_ingest(root, smi)
     for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
-                         ("dataset sweep", runner_launches)):
+                         ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -2604,6 +3006,7 @@ def main() -> int:
                "http_launches": http_launches[kname],
                "loadtest_launches": loadtest_launches[kname],
                "cli_launches": cli_launches[kname],
+               "ingest_launches": ingest_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -2620,7 +3023,8 @@ def main() -> int:
     # dpm_launches: the DPM-Solver++ optimization batch (phase samplers),
     # runner_launches: the dataset sweep's three modes (phase runner);
     # http_launches, loadtest_launches, cli_launches: phases http (spatial),
-    # loadtest (vanilla) and serve_cli (spacetime);
+    # loadtest (vanilla) and serve_cli (spacetime); ingest_launches: phase
+    # ingest's drill (both modes) and txt2img;
     # launches_by_design: the serving and optimization runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -4,8 +4,8 @@ fidelity → one JSON-able dict.
 
 Port of the JAX package's `eval/protocol.py`: the same functions and the
 same artifact keys; images are read by `utils/png.read_png` and the CLIP
-towers are the port's, with seeded random weights (a CLIP checkpoint or
-BPE vocabulary raises, ROADMAP A.11).
+towers are the port's, with OpenAI CLIP weights (`utils/loader.load_clip_loss`)
+or seeded random ones.
 
 The reference's visible evaluation output is the pair of printed numbers at
 `evaluation/detector_result_gpt.py:164-166` (object recall) and
@@ -88,19 +88,10 @@ def load_ground_truth(dataset: str, data_root: str):
     return parse_pkl_ground_truth(os.path.join(data_root, f"{dataset}.pkl"))
 
 
-def _no_checkpoints(clip_ckpt: Optional[str], clip_vocab: Optional[str]) -> None:
-    for flag, value in (("clip_ckpt", clip_ckpt), ("clip_vocab", clip_vocab)):
-        if value:
-            raise NotImplementedError(
-                f"{flag}={value}: the PyTorch port reads no CLIP checkpoint or BPE "
-                "vocabulary yet (ROADMAP A.11)")
+def _clip_tokenize(cfg, clip_vocab: Optional[str]):
+    from ..utils.tokenizer import make_clip_tokenizer, padded
 
-
-def _clip_tokenize(cfg):
-    from ..utils.tokenizer import make_clip_tokenizer
-
-    tok = make_clip_tokenizer(max_len=cfg.text.max_len)
-    return lambda t: tok.pad_to(tok.encode(t), cfg.text.max_len)
+    return padded(make_clip_tokenizer(clip_vocab, max_len=cfg.text.max_len), cfg.text.max_len)
 
 
 def build_clip_detector(
@@ -111,21 +102,21 @@ def build_clip_detector(
     device="cuda",
     **detector_kw,
 ):
-    """A `CLIPDetector` over the full CLIP tower on `device`, with seeded
-    random weights (seed 11, N(0, 0.02²)): any score is mechanism-only,
-    and callers must surface that.  Returns (detector,
-    weights_provenance_str)."""
+    """A `CLIPDetector` over the full CLIP tower on `device`: OpenAI CLIP
+    weights from `clip_ckpt` and CLIP's BPE from `clip_vocab`, else seeded
+    random weights (seed 11, N(0, 0.02²)) and the hash tokenizer, whose
+    scores are mechanism-only (callers must surface that).  Returns
+    (detector, weights provenance: the path or "random")."""
     from ..config import CLIPConfig
     from ..pipeline.frontend import COCO_CATEGORIES
-    from ..pipeline.losses import DCLIPLoss
+    from ..utils.loader import load_clip_loss
     from .clip_detector import CLIPDetector
 
-    _no_checkpoints(clip_ckpt, clip_vocab)
     cfg = cfg or CLIPConfig()
-    clip = DCLIPLoss.create(cfg, seed=11, device=device).clip
-    det = CLIPDetector(clip, _clip_tokenize(cfg),
+    clip = load_clip_loss(cfg, clip_ckpt, seed=11, device=device).clip
+    det = CLIPDetector(clip, _clip_tokenize(cfg, clip_vocab),
                        categories=categories or COCO_CATEGORIES, **detector_kw)
-    return det, "random"
+    return det, clip_ckpt or "random"
 
 
 def build_clip_loss(
@@ -134,15 +125,15 @@ def build_clip_loss(
     cfg=None,
     device="cuda",
 ):
-    """The CLIP-fidelity scorer (`DCLIPLoss`) and its tokenizer, seeded
-    random weights (seed 0) as `build_clip_detector`.  Returns (clip_loss,
-    tokenize, provenance)."""
+    """The CLIP-fidelity scorer (`DCLIPLoss`) and its tokenizer, built as
+    `build_clip_detector` builds the detector's tower (random weights:
+    seed 0).  Returns (clip_loss, tokenize, provenance)."""
     from ..config import CLIPConfig
-    from ..pipeline.losses import DCLIPLoss
+    from ..utils.loader import load_clip_loss
 
-    _no_checkpoints(clip_ckpt, clip_vocab)
     cfg = cfg or CLIPConfig()
-    return DCLIPLoss.create(cfg, seed=0, device=device), _clip_tokenize(cfg), "random"
+    return (load_clip_loss(cfg, clip_ckpt, seed=0, device=device),
+            _clip_tokenize(cfg, clip_vocab), clip_ckpt or "random")
 
 
 def read_image01(path: str) -> np.ndarray:

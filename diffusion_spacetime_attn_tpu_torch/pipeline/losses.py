@@ -88,8 +88,8 @@ class DCLIPLoss:
     def _build(cls, cfg: CLIPConfig, device, fill, normalize: bool) -> "DCLIPLoss":
         with torch.device(device):
             clip = CLIP(cfg)
-        fill(clip)
         cast_matmul_weights(clip).eval().requires_grad_(False)
+        fill(clip)
         return cls(clip, normalize)
 
     @classmethod

@@ -44,9 +44,9 @@ class StableDiffusion:
             unet = UNet(cfg.unet, radius=cfg.spacetime.radius)
             vae = AutoencoderKL(cfg.vae)
             text = CLIPTextTower(cfg.text_encoder)
-        fill(unet, vae, text)
-        for m in (unet, vae, text):
+        for m in (unet, vae, text):      # compute dtype first: each weight lands once
             cast_matmul_weights(m).eval().requires_grad_(False)
+        fill(unet, vae, text)
         sched = make_schedule(cfg.schedule, cfg.spacetime.num_steps, device=device)
         return cls(cfg, unet, vae, text, sched, device)
 

@@ -5,13 +5,17 @@ format; port of the JAX package's `scripts/layout_infer.py` (reference:
     python -m diffusion_spacetime_attn_tpu_torch.scripts.layout_infer --cpu
     python -m diffusion_spacetime_attn_tpu_torch.scripts.layout_infer --sentence "..."
 
-Runs on the card and raises without one, unless `--cpu` is given.  With no
-trained checkpoint the weights are seeded and random; `--ckpt`, `--vocab`
-and `--merges` name files the port cannot read yet (ROADMAP A.11) and raise.
+Runs on the card and raises without one, unless `--cpu` is given.  `--ckpt`
+takes the reference's fairseq Rel2Bbox `.pth` or an HF RoBERTa file
+(`utils/loader.load_layout_predictor`); with no checkpoint the weights are
+seeded and random.  `--vocab` and `--merges` give RoBERTa's BPE, and
+`--fairseq-dict` maps its ids into the fairseq checkpoint's dictionary (the
+JAX script has no such flag); the tokenizer's core goes to stderr.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -38,10 +42,13 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None, help="layout predictor checkpoint")
     ap.add_argument("--vocab", default=None, help="RoBERTa vocab.json")
     ap.add_argument("--merges", default=None, help="RoBERTa merges.txt")
+    ap.add_argument("--fairseq-dict", default=None,
+                    help="the fairseq checkpoint's dictionary (test-dictionary.pkl)")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
     args = ap.parse_args(argv)
     device = pick_device(args.cpu)
-    tok = make_roberta_tokenizer(args.vocab, args.merges)
+    tok = make_roberta_tokenizer(args.vocab, args.merges, fairseq_dict_path=args.fairseq_dict)
+    print(f"tokenizer core: {tok.core}", file=sys.stderr)
     if args.ckpt is None:
         args.ckpt = find_default_layout_checkpoint()
         if args.ckpt:

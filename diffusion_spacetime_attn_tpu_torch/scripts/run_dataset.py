@@ -23,9 +23,11 @@ other value.  `--params-dtype bfloat16` rounds every floating parameter to
 bf16, the values JAX's cast gives (storage stays in the compute dtype).
 `--tiny` takes the JAX script's tiny configs.
 
-Weights are seeded and random: `--ckpt`, `--clip-ckpt`, `--clip-vocab` and
-a layout checkpoint name files the port cannot read yet (ROADMAP A.11) and
-raise.  Runs on the card and raises without one, unless `--cpu` is given.
+`--ckpt` (CompVis sd-v1-4), `--clip-ckpt` (OpenAI ViT-B/32, spacetime
+mode), `--clip-vocab` (CLIP's BPE) and `--layout-ckpt` (fairseq Rel2Bbox or
+HF RoBERTa) read the published files; without them the weights are seeded
+and random.  Runs on the card and raises without one, unless `--cpu` is
+given.
 """
 from __future__ import annotations
 
@@ -48,15 +50,16 @@ from ..config import (
 )
 from ..pipeline.batch_runner import BatchedRunner
 from ..pipeline.frontend import LayoutInference
-from ..pipeline.losses import DCLIPLoss
-from ..pipeline.pipeline import StableDiffusion
 from ..pipeline.runners import PromptRunner, parse_gpt_prompts, parse_line_prompts
-from ..utils.loader import find_default_layout_checkpoint, load_layout_predictor
+from ..utils.loader import (
+    find_default_layout_checkpoint,
+    load_clip_loss,
+    load_layout_predictor,
+    load_stable_diffusion,
+)
 from ..utils.profiling import JsonLogger
-from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer
+from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer, padded
 from .layout_infer import pick_device
-
-A11 = "{flag}: the PyTorch port reads no such checkpoint yet (ROADMAP A.11)"
 
 
 def parse_args(argv=None):
@@ -125,9 +128,6 @@ def round_params_(module: torch.nn.Module, dtype: str) -> None:
 def main(argv=None) -> dict:
     """Run the sweep; returns {"done", "produced", "seconds"}."""
     args = parse_args(argv)
-    for flag in ("ckpt", "clip_ckpt", "clip_vocab"):
-        if getattr(args, flag):
-            raise NotImplementedError(A11.format(flag="--" + flag.replace("_", "-")))
     device = pick_device(args.cpu)
     if args.dataset == "gpt":
         prompts = parse_gpt_prompts(os.path.join(args.data_root, "gpt.txt"))
@@ -147,11 +147,11 @@ def main(argv=None) -> dict:
             vae=VAEConfig(dtype=args.dtype),
             spacetime=SpaceTimeConfig(num_steps=args.steps))
         lcfg = LayoutConfig()
-    sd = StableDiffusion.create(cfg, seed=0, device=device)
+    sd = load_stable_diffusion(cfg, args.ckpt, device=device)
     clip_loss = None
     if args.mode == "spacetime":
         # the loss CLIP is on the tape in spacetime mode only
-        clip_loss = DCLIPLoss.create(cfg.loss_clip, seed=9, device=device)
+        clip_loss = load_clip_loss(cfg.loss_clip, args.clip_ckpt, seed=9, device=device)
     if args.params_dtype != "float32":
         for m in (sd.unet, sd.vae, sd.text_encoder) + ((clip_loss.clip,) if clip_loss else ()):
             round_params_(m, args.params_dtype)
@@ -163,11 +163,7 @@ def main(argv=None) -> dict:
     layout = LayoutInference(load_layout_predictor(lcfg, args.layout_ckpt, device=device),
                              make_roberta_tokenizer())
     L = cfg.text_encoder.max_len
-    ctok = make_clip_tokenizer(max_len=L)
-
-    def tokenize(t):
-        return ctok.pad_to(ctok.encode(t), L)
-
+    tokenize = padded(make_clip_tokenizer(args.clip_vocab, max_len=L), L)
     runner = PromptRunner(sd=sd, clip_loss=clip_loss, layout=layout, clip_tokenize=tokenize,
                           text_tokenize=tokenize, cfg=cfg.spacetime, outdir=args.outdir,
                           mode=args.mode, sampler=args.sampler,

@@ -13,9 +13,11 @@ Phases:
      `utils/png.read_png`) -> detections JSON;
   3. the protocol math (object recall @0.4, relation accuracy @0.5) and the
      mean CLIP fidelity score;
-  4. one artifact JSON with every number and the weights' provenance
-     ("random": no SD, CLIP or layout checkpoint is read by the port yet),
-     under the JAX script's keys.
+  4. one artifact JSON with every number and the weights' provenance (the
+     checkpoint's path, or "random"), under the JAX script's keys.
+
+`--ckpt`, `--layout-ckpt`, `--clip-ckpt` and `--clip-vocab` go to the
+sweep; the last two also to the detector and the CLIP score.
 
 Runs on the card and raises without one, unless `--cpu` is given.
 """
@@ -44,9 +46,10 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--outdir", default="result_outputs/eval_protocol")
     ap.add_argument("--out", default="EVAL.json", help="artifact JSON path")
-    ap.add_argument("--ckpt", default=None, help="SD weights (raises: ROADMAP A.11)")
+    ap.add_argument("--ckpt", default=None, help="SD weights (CompVis sd-v1-4)")
     ap.add_argument("--layout-ckpt", default=None)
-    ap.add_argument("--clip-ckpt", default=None)
+    ap.add_argument("--clip-ckpt", default=None, help="OpenAI ViT-B/32 weights")
+    ap.add_argument("--clip-vocab", default=None, help="CLIP BPE vocab")
     ap.add_argument("--params-dtype", default=None,
                     help="forwarded to run_dataset; default bfloat16 in spacetime mode, "
                          "float32 otherwise (the JAX script's defaults)")
@@ -99,7 +102,7 @@ def main(argv=None) -> dict:
                "--seed", str(args.seed), "--outdir", args.outdir,
                "--params-dtype", args.params_dtype]
         for flag, value in (("--ckpt", args.ckpt), ("--layout-ckpt", args.layout_ckpt),
-                            ("--clip-ckpt", args.clip_ckpt)):
+                            ("--clip-ckpt", args.clip_ckpt), ("--clip-vocab", args.clip_vocab)):
             if value:
                 cmd += [flag, value]
         cmd += [flag for flag, on in (("--tiny", args.tiny), ("--save-epochs", args.save_epochs),
@@ -128,7 +131,8 @@ def main(argv=None) -> dict:
     print(f"NOTE: {protocol.CLIP_DETECTOR_CAVEAT}", file=sys.stderr)
     clip_cfg = tiny_configs(args.steps)[0].loss_clip if args.tiny else None
     t0 = time.perf_counter()
-    det, provenance = protocol.build_clip_detector(args.clip_ckpt, cfg=clip_cfg, device=device)
+    det, provenance = protocol.build_clip_detector(args.clip_ckpt, args.clip_vocab, cfg=clip_cfg,
+                                                   device=device)
     detections = protocol.detect_folder(args.outdir, det, files,
                                         top_per_category=args.top_per_category,
                                         log=lambda m: print(m, flush=True))
@@ -160,8 +164,8 @@ def main(argv=None) -> dict:
           f"({scores['generated_objects']}/{scores['gt_objects']})")
     print(f"relation accuracy: {scores['relation_accuracy']:.4f} "
           f"({scores['relations_correct']}/{scores['relations_total']})")
-    clip_loss, tokenize, cs_prov = protocol.build_clip_loss(args.clip_ckpt, cfg=clip_cfg,
-                                                            device=device)
+    clip_loss, tokenize, cs_prov = protocol.build_clip_loss(args.clip_ckpt, args.clip_vocab,
+                                                            cfg=clip_cfg, device=device)
     cs = protocol.clip_score_results(args.outdir, args.dataset, args.data_root, clip_loss,
                                      tokenize, prompt_range=(args.start, args.end),
                                      epoch=last_epoch, seed=args.seed)

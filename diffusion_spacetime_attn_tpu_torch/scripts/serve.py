@@ -29,9 +29,10 @@ batches and prints one JSON line per batch and a summary line, `--loadtest
 N` runs `serving/loadtest.run_loadtest` with N requests per stage and
 prints its artifact; otherwise it serves (`serving/server.serve`).
 
-Weights are seeded and random: `--ckpt`, `--clip-ckpt`, `--clip-vocab` and
-`--layout-ckpt` name files the port cannot read yet (ROADMAP A.11) and
-raise.  No mesh: one card (ROADMAP A.13).  Runs on the card and raises
+`--ckpt` (CompVis sd-v1-4), `--clip-ckpt` (OpenAI ViT-B/32, spacetime
+mode), `--clip-vocab` (CLIP's BPE) and `--layout-ckpt` (fairseq Rel2Bbox
+or HF RoBERTa) read the published files; without them the weights are
+seeded and random.  No mesh: one card (ROADMAP A.13).  Runs on the card and raises
 without one, unless `--cpu` is given.
 """
 from __future__ import annotations
@@ -43,15 +44,18 @@ import time
 
 from ..config import LayoutConfig, PipelineConfig, SpaceTimeConfig, UNetConfig, VAEConfig
 from ..pipeline.frontend import LayoutInference
-from ..pipeline.losses import DCLIPLoss
-from ..pipeline.pipeline import StableDiffusion
 from ..pipeline.runners import PromptRunner
 from ..serving import BatchingService, SpaceTimeEngine, TextToImageEngine, serve
 from ..serving.loadtest import PROMPTS, run_loadtest
-from ..utils.loader import find_default_layout_checkpoint, load_layout_predictor
-from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer
+from ..utils.loader import (
+    find_default_layout_checkpoint,
+    load_clip_loss,
+    load_layout_predictor,
+    load_stable_diffusion,
+)
+from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer, padded
 from .layout_infer import pick_device
-from .run_dataset import A11, round_params_, tiny_configs
+from .run_dataset import round_params_, tiny_configs
 
 
 def parse_args(argv=None):
@@ -101,9 +105,6 @@ def log(msg: str) -> None:
 
 def build_engine(args):
     """(engine, params dtype) for the parsed flags."""
-    for flag in ("ckpt", "clip_ckpt", "clip_vocab", "layout_ckpt"):
-        if getattr(args, flag):
-            raise NotImplementedError(A11.format(flag="--" + flag.replace("_", "-")))
     device = pick_device(args.cpu)
     if args.tiny:
         cfg, _ = tiny_configs(4)
@@ -116,25 +117,22 @@ def build_engine(args):
                             use_fused_control=args.mode != "vanilla"),
             vae=VAEConfig(dtype=args.dtype),
             spacetime=SpaceTimeConfig(num_steps=args.steps, guidance_scale=args.scale))
-    sd = StableDiffusion.create(cfg, seed=0, device=device)
+    sd = load_stable_diffusion(cfg, args.ckpt, device=device)
     clip_loss = None
     if args.mode == "spacetime":
-        clip_loss = DCLIPLoss.create(cfg.loss_clip, seed=9, device=device)
-        log("no --clip-ckpt: random fidelity-loss CLIP")
+        clip_loss = load_clip_loss(cfg.loss_clip, args.clip_ckpt, seed=9, device=device)
+        if not args.clip_ckpt:
+            log("no --clip-ckpt: random fidelity-loss CLIP")
     params_dtype = args.params_dtype or ("bfloat16" if args.mode == "spacetime" else "float32")
     if params_dtype != "float32":
         for m in (sd.unet, sd.vae, sd.text_encoder) + ((clip_loss.clip,) if clip_loss else ()):
             round_params_(m, params_dtype)
         log(f"params rounded to {params_dtype}")
     L = cfg.text_encoder.max_len
-    ctok = make_clip_tokenizer(max_len=L)
-
-    def tokenize(t):
-        return ctok.pad_to(ctok.encode(t), L)
-
+    tokenize = padded(make_clip_tokenizer(args.clip_vocab, max_len=L), L)
     runner = None
     if args.mode != "vanilla":
-        ckpt = None if args.tiny else find_default_layout_checkpoint()
+        ckpt = args.layout_ckpt or (None if args.tiny else find_default_layout_checkpoint())
         if ckpt:
             log(f"using trained layout checkpoint: {ckpt}")
         layout = LayoutInference(load_layout_predictor(LayoutConfig(), ckpt, device=device),

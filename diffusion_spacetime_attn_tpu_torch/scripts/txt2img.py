@@ -20,9 +20,12 @@ controlled cross-attention through the spacetime kernel
 (`use_fused_control`, as `scripts/run_dataset.py` does).  `--tiny` takes the
 run_dataset tiny configs.
 
-Weights are seeded and random: `--ckpt`, `--layout-ckpt`, `--clip-ckpt` and
-`--clip-vocab` name files the port cannot read yet (ROADMAP A.11) and
-raise.  Runs on the card and raises without one, unless `--cpu` is given.
+`--ckpt` (CompVis sd-v1-4 `.ckpt` / `.safetensors`), `--layout-ckpt`
+(fairseq Rel2Bbox or HF RoBERTa), `--clip-ckpt` (OpenAI ViT-B/32) and
+`--clip-vocab` (CLIP's BPE) read the published files (`utils/loader.py`,
+`utils/tokenizer.py`); without them the weights are seeded and random and
+the tokenizer hashes words.  Runs on the card and raises without one,
+unless `--cpu` is given.
 """
 from __future__ import annotations
 
@@ -33,16 +36,19 @@ import numpy as np
 
 from ..config import LayoutConfig, PipelineConfig, SpaceTimeConfig, UNetConfig, VAEConfig
 from ..pipeline.frontend import LayoutInference
-from ..pipeline.losses import DCLIPLoss
-from ..pipeline.pipeline import StableDiffusion
 from ..pipeline.runners import PromptRunner, result_name, save_image
 from ..utils.cudnn import deterministic
-from ..utils.loader import find_default_layout_checkpoint, load_layout_predictor
+from ..utils.loader import (
+    find_default_layout_checkpoint,
+    load_clip_loss,
+    load_layout_predictor,
+    load_stable_diffusion,
+)
 from ..utils.png import read_png, write_png
-from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer
+from ..utils.tokenizer import make_clip_tokenizer, make_roberta_tokenizer, padded
 from ..utils.watermark import embed_watermark
 from .layout_infer import pick_device
-from .run_dataset import A11, tiny_configs
+from .run_dataset import tiny_configs
 
 
 def parse_args(argv=None):
@@ -70,26 +76,26 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def generate(runner: PromptRunner, prompt: str, seed: int) -> str:
+def generate(runner: PromptRunner, prompt: str, seed: int):
     """`runner.run_one` of the prompt, or, where its layout fails, a vanilla
     chain from the same noise (`runner.sample` of an empty host record);
-    returns the path written under `runner.outdir`."""
-    if runner.run_one(prompt, 0, seed) is not None:
-        return os.path.join(runner.outdir, result_name(runner.cfg.epochs - 1, seed, 0))
+    returns (the path written under `runner.outdir`, the image [S, S, 3] in
+    [0, 1] as float32 numpy)."""
+    img = runner.run_one(prompt, 0, seed)
+    if img is not None:
+        return os.path.join(runner.outdir, result_name(runner.cfg.epochs - 1, seed, 0)), img
     print("layout failed; falling back to vanilla")
     with deterministic():
         img = runner.sample(runner.assemble_inputs([runner.empty_host(prompt)], seed))
+    img = img[0].float().cpu().numpy()
     path = os.path.join(runner.outdir, f"final_s{seed}_index_0.png")
-    save_image(img[0].float().cpu().numpy(), path)
-    return path
+    save_image(img, path)
+    return path, img
 
 
 def main(argv=None) -> str:
     """Generate the image; returns the path written."""
     args = parse_args(argv)
-    for flag in ("ckpt", "layout_ckpt", "clip_ckpt", "clip_vocab"):
-        if getattr(args, flag):
-            raise NotImplementedError(A11.format(flag="--" + flag.replace("_", "-")))
     device = pick_device(args.cpu)
     if args.tiny:
         cfg, lcfg = tiny_configs(args.steps)
@@ -101,21 +107,19 @@ def main(argv=None) -> str:
             vae=VAEConfig(dtype=args.dtype),
             spacetime=SpaceTimeConfig(num_steps=args.steps, guidance_scale=args.scale))
         lcfg = LayoutConfig()
-    sd = StableDiffusion.create(cfg, seed=0, device=device)
-    clip_loss = DCLIPLoss.create(cfg.loss_clip, seed=9, device=device)
-    ckpt = None if args.tiny else find_default_layout_checkpoint()
+    if not args.ckpt:
+        print("WARNING: no --ckpt; running with random weights (smoke mode)")
+    sd = load_stable_diffusion(cfg, args.ckpt, device=device)
+    clip_loss = load_clip_loss(cfg.loss_clip, args.clip_ckpt, seed=9, device=device)
+    ckpt = args.layout_ckpt or (None if args.tiny else find_default_layout_checkpoint())
     layout = LayoutInference(load_layout_predictor(lcfg, ckpt, device=device),
                              make_roberta_tokenizer())
     L = cfg.text_encoder.max_len
-    ctok = make_clip_tokenizer(max_len=L)
-
-    def tokenize(t):
-        return ctok.pad_to(ctok.encode(t), L)
-
+    tokenize = padded(make_clip_tokenizer(args.clip_vocab, max_len=L), L)
     runner = PromptRunner(sd=sd, clip_loss=clip_loss, layout=layout, clip_tokenize=tokenize,
                           text_tokenize=tokenize, cfg=cfg.spacetime, outdir=args.outdir,
                           mode=args.mode, sampler=args.sampler)
-    path = generate(runner, args.prompt, args.seed)
+    path, _ = generate(runner, args.prompt, args.seed)
     if args.watermark:
         write_png(path, embed_watermark(np.ascontiguousarray(read_png(path)[..., :3])))
     print(f"done -> {path}")

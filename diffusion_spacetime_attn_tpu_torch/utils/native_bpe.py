@@ -1,0 +1,112 @@
+"""ctypes binding of the C++ BPE core (`native/bpe.cpp`); port of the JAX
+package's `utils/native_bpe.py`.
+
+The same merge loop and GPT-2 pre-tokenization as `tokenizer.GPT2Tokenizer`
+(the tests hold the two equal).  The source is compiled at first use with
+`g++ -O2 -fPIC -std=c++17 -shared` into the package's `_build/` (listed in
+`.gitignore`), under a name that carries a hash of the source and flags, so
+an edited source is rebuilt.  A missing compiler or a failed build raises
+`NativeBuildError`, which `make_roberta_tokenizer` answers with the Python
+core.  Nothing is built when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List
+
+from .tokenizer import _RobertaIds, read_gpt2_files
+
+SOURCE = Path(__file__).resolve().parents[2] / "native" / "bpe.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
+
+_lock = threading.Lock()
+_state: dict = {}
+
+
+class NativeBuildError(RuntimeError):
+    """The C++ core could not be compiled or loaded."""
+
+
+def build() -> Path:
+    """Compile the core unless this source and these flags are built already;
+    returns the library's path."""
+    if not SOURCE.is_file():
+        raise NativeBuildError(f"no source {SOURCE}")
+    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libbpe_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        out = Path(tmp) / lib.name
+        try:
+            r = subprocess.run(["g++", *FLAGS, "-o", str(out), str(SOURCE)],
+                               capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise NativeBuildError(f"g++ did not run: {e}") from e
+        if r.returncode != 0:
+            raise NativeBuildError(f"g++ failed on {SOURCE}:\n{r.stderr}")
+        os.replace(out, lib)      # atomic: concurrent builders load a whole file
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded core, built on first use; a failed build is raised again on
+    every later call without compiling again."""
+    with _lock:
+        if "error" in _state:
+            raise NativeBuildError("the native BPE core failed to build") from _state["error"]
+        if "lib" not in _state:
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except (NativeBuildError, OSError) as e:
+                _state["error"] = e
+                raise NativeBuildError(str(e)) from e
+            lib.bpe_create.restype = ctypes.c_void_p
+            lib.bpe_create.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
+                                       ctypes.c_int32, ctypes.c_char_p, ctypes.c_int32]
+            lib.bpe_encode.restype = ctypes.c_int32
+            lib.bpe_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                       ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
+            lib.bpe_free.restype = None
+            lib.bpe_free.argtypes = [ctypes.c_void_p]
+            _state["lib"] = lib
+        return _state["lib"]
+
+
+class NativeBPE(_RobertaIds):
+    """Byte-level BPE encoder backed by the C++ core."""
+
+    core = "native"
+
+    def __init__(self, vocab: dict, merges: List[tuple]):
+        self._lib = load_library()
+        tokens = list(vocab)
+        ids = (ctypes.c_int32 * len(tokens))(*[vocab[t] for t in tokens])
+        self._h = self._lib.bpe_create("\n".join(tokens).encode("utf-8"), ids, len(tokens),
+                                       "\n".join(f"{a} {b}" for a, b in merges).encode("utf-8"),
+                                       len(merges))
+
+    @classmethod
+    def from_files(cls, vocab_path: str, merges_path: str, id_map=None) -> "NativeBPE":
+        """id_map: {gpt2_id: target_id} applied to the vocab (missing -> 3),
+        so the core emits the target ids directly."""
+        return cls(*read_gpt2_files(vocab_path, merges_path, id_map))
+
+    def _raw(self, text: str) -> List[int]:
+        data = text.encode("utf-8")
+        cap = max(len(data), 1)            # each id covers at least one byte
+        buf = (ctypes.c_int32 * cap)()
+        n = self._lib.bpe_encode(self._h, data, buf, cap)
+        return list(buf[:n])
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.bpe_free(self._h)

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_loader import checkpoint_flag_file
 from test_torch_runners import PROMPTS, one_torch_thread, pngs, pngs_close, runners  # noqa: F401
 
 from diffusion_spacetime_attn_tpu.pipeline.batch_runner import BatchedRunner as JBatchedRunner
@@ -55,7 +56,7 @@ def test_batched_runner_matches_jax_and_sequential(runners, mode):
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-def test_run_dataset_tiny_cpu_matches_jax_script(tmp_path, capsys):
+def test_run_dataset_tiny_cpu_matches_jax_script(tmp_path, capsys, monkeypatch):
     """run_dataset --tiny --cpu (vanilla, batch 2) writes the names and the
     manifest JAX's script writes; --resume then produces nothing."""
     data = tmp_path / "data"
@@ -82,6 +83,23 @@ def test_run_dataset_tiny_cpu_matches_jax_script(tmp_path, capsys):
     again = run_dataset.main(args + ["--outdir", str(tmp_path / "port"), "--resume"])
     assert again["produced"] == 0
     assert "resuming: 5 prompts already complete" in capsys.readouterr().out
+    # each checkpoint flag reads its file (until the loaders were ported it
+    # raised): a missing path raises naming it; a small real file is what
+    # the sweep's loader returns (spacetime mode, which loads the loss CLIP)
     for flag in ("--ckpt", "--clip-ckpt", "--clip-vocab"):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            run_dataset.main(args + [flag, "x"])
+        d = tmp_path / flag.strip("-")
+        d.mkdir()
+        path, name, check = checkpoint_flag_file(flag, d)
+        spacetime = args + ["--mode", "spacetime", "--end", "1", "--outdir", str(d)]
+        with pytest.raises(FileNotFoundError, match="gone.bin"):
+            run_dataset.main(spacetime + [flag, str(d / "gone.bin")])
+        seen, real = [], getattr(run_dataset, name)
+
+        def spy(*a, real=real, **k):
+            seen.append(real(*a, **k))
+            return seen[-1]
+
+        monkeypatch.setattr(run_dataset, name, spy)
+        again = run_dataset.main(spacetime + [flag, path])
+        monkeypatch.undo()
+        assert again["produced"] == 1 and seen and all(check(obj) for obj in seen), flag

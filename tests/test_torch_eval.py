@@ -241,5 +241,19 @@ def test_run_eval_protocol_artifact_keys_match_jax(tmp_path, capsys):
     assert art["n_images"] == 3 and art["detector_weights"] == "random"
     assert np.isfinite(art["mean_clip_score"])
     assert 0.0 <= art["object_recall"] <= 1.0 and 0.0 <= art["relation_accuracy"] <= 1.0
-    with pytest.raises(NotImplementedError, match="A.11"):
-        protocol.build_clip_detector("vitb32.pt", device="cpu")
+    # the CLIP branches read their files (until the loaders were ported they
+    # raised, naming ROADMAP A.11): a missing path raises naming it; OpenAI
+    # CLIP weights and CLIP's BPE go to the detector and the CLIP score
+    from diffusion_spacetime_attn_tpu_torch.scripts.run_dataset import tiny_configs
+    from test_torch_loader import checkpoint_flag_file
+
+    clip_cfg = tiny_configs(2)[0].loss_clip
+    path, _, check = checkpoint_flag_file("--clip-ckpt", tmp_path)
+    vocab, _, _ = checkpoint_flag_file("--clip-vocab", tmp_path)
+    with pytest.raises(FileNotFoundError, match="vitb32.pt"):
+        protocol.build_clip_detector(str(tmp_path / "vitb32.pt"), cfg=clip_cfg, device="cpu")
+    det, prov = protocol.build_clip_detector(path, vocab, cfg=clip_cfg, device="cpu")
+    loss, tokenize, prov2 = protocol.build_clip_loss(path, vocab, cfg=clip_cfg, device="cpu")
+    assert prov == prov2 == path and check(loss)
+    assert torch.equal(det.clip.visual_projection.weight, loss.clip.visual_projection.weight)
+    assert list(tokenize("a cat"))[:4] == [49406, 320, 512 + 1, 49407]

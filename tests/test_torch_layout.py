@@ -215,8 +215,23 @@ def test_tables_and_tokenizer_match_jax():
         assert tt.encode(s) == jt.encode(s)
         assert tt.encode_with_alignment(words) == jt.encode_with_alignment(words)
         assert tt.pad_to(tt.encode(s), 24) == jt.pad_to(jt.encode(s), 24)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_roberta_tokenizer("vocab.json", "merges.txt")
+
+def test_bpe_tokenizer_from_vocab_files_matches_jax(tmp_path):
+    """RoBERTa's BPE from vocab.json + merges.txt (until the loaders were
+    ported the paths raised, naming ROADMAP A.11): the port's tokenizer
+    gives the JAX package's ids and alignments; missing files raise naming
+    them."""
+    from test_torch_tokenizer import write_gpt2_vocab
+
+    vp, mp = write_gpt2_vocab(tmp_path)
+    jt, tt = jmake_roberta_tokenizer(vp, mp), make_roberta_tokenizer(vp, mp)
+    assert tt.core == "native"
+    for s in SENTENCES:
+        words = fe.simple_words(s)
+        assert tt.encode(s) == jt.encode(s)
+        assert tt.encode_with_alignment(words) == jt.encode_with_alignment(words)
+    with pytest.raises(FileNotFoundError, match="vocab.json"):
+        make_roberta_tokenizer(str(tmp_path / "none" / "vocab.json"), mp)
 
 
 @pytest.fixture(scope="module")
@@ -290,12 +305,34 @@ def test_loader_finds_and_refuses_as_specified(tmp_path, monkeypatch):
         {"layout": dataclasses.asdict(LayoutConfig(**SMALL))}))
     monkeypatch.setenv("DSTA_LAYOUT_CKPT", str(run))
     assert loader.find_default_layout_checkpoint() == str(run)
-    with pytest.raises(NotImplementedError, match="A.11") as err:
+    with pytest.raises(NotImplementedError, match="A.15") as err:   # orbax params
         loader.load_layout_predictor(LayoutConfig(), str(run), device="cpu")
     assert "2 layers, hidden 32" in str(err.value)        # the run's own config
+    # torch and safetensors files are read (until the loaders were ported
+    # they raised, naming ROADMAP A.11); a missing one raises naming it
     for path in ("rel2bbox.pth", "roberta.safetensors"):
-        with pytest.raises(NotImplementedError, match="A.11"):
+        with pytest.raises(FileNotFoundError, match=path):
             loader.load_layout_predictor(LayoutConfig(), str(tmp_path / path), device="cpu")
+    from safetensors.numpy import save_file
+
+    from diffusion_spacetime_attn_tpu.utils import convert as jconvert
+    from diffusion_spacetime_attn_tpu_torch.utils import testing
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import flatten_tree
+
+    fs = testing.seeded_state_dict(testing.rel2bbox_shapes(LayoutConfig(**SMALL)), 4)
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in fs.items()}, "log": {},
+                "n_steps": 0}, tmp_path / "rel2bbox.pth")        # the reference trainer's dict
+    model = loader.load_layout_predictor(LayoutConfig(**SMALL), str(tmp_path / "rel2bbox.pth"),
+                                         device="cpu")
+    want = layout_state_dict(jconvert.convert_fairseq_rel2bbox(fs), model)
+    assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items())
+    rb = {f"roberta.{k}": v for k, v in fs.items()}      # not HF names: no backbone key
+    save_file({"roberta.embeddings.word_embeddings.weight": rb[
+        "roberta.encoder.model.encoder.sentence_encoder.embed_tokens.weight"]},
+        str(tmp_path / "roberta.safetensors"))
+    with pytest.raises(KeyError, match="position_embeddings"):
+        loader.load_layout_predictor(LayoutConfig(**SMALL), str(tmp_path / "roberta.safetensors"),
+                                     device="cpu")
     model = loader.load_layout_predictor(LayoutConfig(**SMALL), None, seed=3, device="cpu")
     again = create_layout_predictor(LayoutConfig(**SMALL), 3, "cpu")
     for (k, a), b in zip(model.state_dict().items(), again.state_dict().values()):
@@ -303,7 +340,7 @@ def test_loader_finds_and_refuses_as_specified(tmp_path, monkeypatch):
     assert float(model.backbone.emb_ln.weight.min()) == 1.0
 
 
-def test_layout_infer_prints_the_golden_format(capsys, monkeypatch):
+def test_layout_infer_prints_the_golden_format(capsys, monkeypatch, tmp_path):
     """Full LayoutConfig (RoBERTa-base width) on the CPU; without --cpu and
     without a card the entry point raises."""
     monkeypatch.delenv("DSTA_LAYOUT_CKPT", raising=False)
@@ -316,5 +353,15 @@ def test_layout_infer_prints_the_golden_format(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):
         layout_infer.main([])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        layout_infer.main(["--cpu", "--vocab", "v.json", "--merges", "m.txt"])
+    # --vocab / --merges read RoBERTa's BPE (until the loaders were ported
+    # they raised, naming ROADMAP A.11); the core goes to stderr
+    from test_torch_tokenizer import write_gpt2_vocab
+
+    vp, mp = write_gpt2_vocab(tmp_path)
+    with pytest.raises(FileNotFoundError, match="m.txt"):
+        layout_infer.main(["--cpu", "--vocab", vp, "--merges", str(tmp_path / "m.txt")])
+    capsys.readouterr()
+    layout_infer.main(["--cpu", "--vocab", vp, "--merges", mp])
+    got = capsys.readouterr()
+    assert "tokenizer core: native" in got.err
+    assert got.out.splitlines()[1] == f"Sentence: {layout_infer.GOLDEN}"

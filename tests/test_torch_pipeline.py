@@ -212,7 +212,8 @@ def test_hash_tokenizer_matches_jax(text):
 # ---------------------------------------------------------------- imports
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "diffusion_spacetime_attn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "safetensors", "transformers",
+             "pytorch_lightning", "fairseq", "diffusion_spacetime_attn_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -228,14 +229,16 @@ def test_import_rule_matches_names_exactly():
     assert _forbidden("jax.numpy") and _forbidden("diffusion_spacetime_attn_tpu.ops")
     assert not _forbidden("diffusion_spacetime_attn_tpu_torch.ops")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("safetensors.numpy") and _forbidden("fairseq")
+    assert not _forbidden("diffusion_spacetime_attn_tpu_torch.utils.safetensors")
 
 
 def test_port_imports_nothing_of_jax():
     """AST walk over every module of the port and the on-card scripts
     (chip_smoke.py, chip_spacetime_variants.py): no import
-    of jax, flax, optax or the JAX package, nor of msgpack or PIL, which the
-    card's machine lacks (relative imports stay inside
-    the port)."""
+    of jax, flax, optax or the JAX package, nor of msgpack, PIL,
+    safetensors, transformers, pytorch_lightning or fairseq, which the
+    card's machine lacks (relative imports stay inside the port)."""
     files = _port_files()
     assert len(files) > 20
     scripts = ROOT / "diffusion_spacetime_attn_tpu_torch" / "scripts"
@@ -243,7 +246,7 @@ def test_port_imports_nothing_of_jax():
     for new in (scripts / "serve.py", scripts / "txt2img.py", scripts / "measure_loadtest.py",
                 serving / "loadtest.py",
                 serving / "server.py", ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils"
-                / "watermark.py"):
+                / "watermark.py", scripts / "ingest_weights.py"):
         assert new in files, new
     bad = []
     for path in files:

@@ -669,11 +669,43 @@ def test_serve_cli_soak_with_bf16_params():
 
 @pytest.mark.parametrize("flag", ["--ckpt", "--clip-ckpt", "--clip-vocab", "--layout-ckpt"])
 @pytest.mark.parametrize("cli", ["serve", "txt2img"])
-def test_checkpoint_flags_raise_naming_a11(cli, flag):
-    argv = ["--cpu", flag, "x"] + (["--prompt", "a cat"] if cli == "txt2img" else [])
-    main = serve_cli.main if cli == "serve" else txt2img_cli.main
-    with pytest.raises(NotImplementedError, match="A.11"):
-        main(argv)
+def test_checkpoint_flags_raise_naming_a11(cli, flag, tmp_path, monkeypatch):
+    """Each checkpoint flag reads its file (until the loaders were ported it
+    raised, naming ROADMAP A.11): a missing path raises FileNotFoundError
+    naming it, and a small real file at the tiny configs is what the entry
+    point's loader returns.  serve's layout predictor is at LayoutConfig()
+    in every mode; here it takes txt2img's tiny layout config."""
+    from diffusion_spacetime_attn_tpu_torch.scripts.run_dataset import tiny_configs
+    from test_torch_loader import checkpoint_flag_file
+
+    module = serve_cli if cli == "serve" else txt2img_cli
+    path, name, check = checkpoint_flag_file(flag, tmp_path)
+    seen = []
+
+    def spy(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name, spy)
+    if cli == "serve":
+        monkeypatch.setattr(serve_cli, "LayoutConfig", lambda: tiny_configs(2)[1])
+        mode = {"--clip-ckpt": "spacetime", "--layout-ckpt": "spatial"}.get(flag, "vanilla")
+        argv = ["--tiny", "--cpu", "--mode", mode, "--batch", "1", "--params-dtype", "float32"]
+
+        def run(extra):
+            return serve_cli.build_engine(serve_cli.parse_args(argv + extra))
+    else:
+        argv = ["--tiny", "--cpu", "--steps", "2", "--prompt", "a cat above a dog",
+                "--outdir", str(tmp_path / "out")]
+
+        def run(extra):
+            return txt2img_cli.main(argv + extra)
+    with pytest.raises(FileNotFoundError, match="gone.bin"):
+        run([flag, str(tmp_path / "gone.bin")])
+    seen.clear()
+    run([flag, path])
+    assert seen and all(check(obj) for obj in seen), flag
 
 
 def test_entry_points_need_a_card_without_cpu():
@@ -715,7 +747,7 @@ def test_txt2img_fallback_matches_jax(spacetime, tmp_path):
     runner's truncation)."""
     jeng, teng = spacetime
     runner = dataclasses.replace(teng.runner, mode="spatial", outdir=str(tmp_path))
-    path = txt2img_cli.generate(runner, LAYOUT_PROMPTS[1], 9)
+    path, _ = txt2img_cli.generate(runner, LAYOUT_PROMPTS[1], 9)
     assert path == str(tmp_path / "final_s9_index_0.png")
     jr, cfg = jeng.runner, jeng.runner.cfg
     eps = jr.sd.make_eps_fn(jr._encode([LAYOUT_PROMPTS[1]]), jr._uncond(), cfg.guidance_scale)
