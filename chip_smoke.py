@@ -130,6 +130,21 @@ script exits non-zero without its final line:
              per batch, peak memory, and every kernel's launches equal to
              opt_launches(k, 20) (spacetime and GEGLU 1600 / 640, flash
              1000 / 398, MHA 600).
+     image_in: the image-in paths at SD v1-4 width (`phase_image_in`):
+             img2img (strength 0.75: 37 of 50 DDIM evaluations) and inpaint
+             (the right half generated; 50), batch 1 under CFG, the VAE
+             encode of a 512² image, and the unconditional UNet (attn2 is
+             self-attention) under DDIM-50 with eta 1 and under DDPM over a
+             DDPM_T = 50-step train schedule (the published 1000 cut),
+             batch 4.  float32, SLICE_STEPS steps: kernels on vs off on the
+             same weights within 1e-4 + 1e-4·|plain| (the unconditional UNet
+             with use_flash too: 20 flash, 12 MHA, 16 GEGLU launches per
+             evaluation).  bfloat16 with the entry points' flags: s per
+             image, finite output, launches exactly 16 MHA and 16 GEGLU per
+             conditional evaluation and 32 MHA and 16 GEGLU per
+             unconditional one, and `scripts/img2img.main` /
+             `scripts/sample_diffusion.main` giving the library's bytes on
+             the same key (a repeat at the same slot).
  12. testbed: the trained testbed weights (`saved/testbed/*.msgpack`, read
              by the port's own msgpack reader: 583 arrays), float32, every
              kernel flag off, TF32 off, cuDNN deterministic.
@@ -185,7 +200,9 @@ script exits non-zero without its final line:
              same weights as a float16 `.safetensors`, each loaded by
              `load_stable_diffusion` in a child process from a cold page
              cache and held parameter-exact against its generating arrays
-             (sizes, read / convert / upload s, peak RSS, card memory);
+             (sizes, read / convert / upload s, peak RSS, card memory; the
+             reader must hand over the file's dtype: float16 stays float16
+             to the card and is cast there);
              `txt2img --ckpt` on the `.safetensors`; the drill
              (`scripts/ingest_weights.main`, bf16, PLMS-50, 3 epochs) on the
              `.ckpt`, an OpenAI ViT-B/32 file and a fairseq Rel2Bbox file:
@@ -194,8 +211,8 @@ script exits non-zero without its final line:
              seconds; the g++-built BPE core against the Python one.
  17. the `kernels` summary line (times per UNet evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
-     the dataset sweep, of phases http, loadtest and serve_cli and of
-     phase ingest; each
+     the dataset sweep, of phases http, loadtest and serve_cli, of phase
+     image_in and of phase ingest; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -1541,6 +1558,240 @@ def phase_samplers(engine):
     return line["launches"]
 
 
+IMAGE_STRENGTH = 0.75           # img2img: 37 of the 50 DDIM evaluations
+UNCOND_BATCH = 4                # the unconditional samples per batch (sample_diffusion's)
+DDPM_T = 50                     # the DDPM chain's train schedule, cut from the published 1000
+IMAGE_PROMPT = "a red car parked in front of a house"
+
+
+def _kernels_off(module):
+    """Every kernel flag of a built UNet off in place (attention plain,
+    feed-forward plain): the same weights through the plain path."""
+    from diffusion_spacetime_attn_tpu_torch.models.layers import CrossAttention, GEGLUFeedForward
+
+    for m in module.modules():
+        if isinstance(m, CrossAttention):
+            m.mha = m.flash = False
+        elif isinstance(m, GEGLUFeedForward):
+            m.fused = False
+
+
+def _init_image(size: int = 512):
+    """[1, size, size, 3] in [-1, 1]: smooth colour ramps and a square, a
+    deterministic stand-in for a photograph."""
+    import numpy as np
+
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    img = np.stack([x, y, 0.5 + 0.5 * np.sin(6.0 * (x + y))], axis=-1)
+    img[size // 4:size // 2, size // 4:size // 2] = (0.9, 0.1, 0.1)
+    return img[None] * 2.0 - 1.0
+
+
+def phase_image_in(root: str, smi: str) -> dict:
+    """The image-in paths at SD v1-4 width: img2img (strength 0.75) and
+    inpaint (the right half generated), batch 1 under CFG, the VAE encode of
+    a 512² image, and the unconditional UNet under DDIM-50 with eta 1 and a
+    DDPM chain over a DDPM_T-step train schedule, batch 4.
+      1. float32, SLICE_STEPS steps (DDPM: a SLICE_STEPS-step schedule), the
+         kernels on vs off on the same weights (the flags turned off in
+         place): within 1e-4 + 1e-4·|plain|, launches exactly 16 MHA and 16
+         GEGLU per conditional evaluation; the unconditional UNet with
+         use_flash too: per evaluation 20 flash (attn1 and attn2 at levels 0
+         and 1), 12 MHA (level 2 and mid), 16 GEGLU;
+      2. bfloat16 with the entry points' flags (use_mha, use_fused_ff): the
+         encode (s per image, equal bytes on a repeat), img2img and inpaint
+         through `pipeline/img2img.py` (s per image, launches 16·37 and
+         16·50 of MHA and GEGLU, nothing else), then `scripts/img2img.main`
+         for each, whose PNG must be the library's image in bytes (same
+         seed, same slot); `sample_diffusion.sample_batch` for DDIM-50 (32
+         MHA and 16 GEGLU sites per evaluation) and DDPM, then
+         `sample_diffusion.main`, whose samples.npz must equal the library
+         batch on the script's first key.
+    Returns {kernel: launches} over the bf16 runs."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        PipelineConfig,
+        ScheduleConfig,
+        SpaceTimeConfig,
+        UNetConfig,
+        VAEConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline import img2img as i2i
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.scripts import img2img as img2img_cli
+    from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion as sd_cli
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png, write_png
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer, padded
+
+    dev = torch.device("cuda")
+    wrappers = _wrappers()
+    total = {k: 0 for k in wrappers}
+    init = _init_image()
+    mask = np.zeros((1, 512, 512, 1), np.float32)
+    mask[:, :, :256] = 1.0                              # keep the left half
+    init_t, mask_t = torch.from_numpy(init).to(dev), torch.from_numpy(mask).to(dev)
+
+    def counted(fn, record=False):
+        torch.cuda.synchronize()
+        _reset_counts(wrappers.values())
+        t0 = time.perf_counter()
+        with deterministic():
+            out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        if record:
+            for k, n in counts.items():
+                total[k] += n
+        return out, counts, seconds
+
+    def want(mha=0, geglu=0, flash=0):
+        return {k: {"mha_fwd": mha, "geglu_fwd": geglu, "flash_fwd": flash}.get(k, 0)
+                for k in wrappers}
+
+    def check(tag, counts, expected):
+        if counts != expected:
+            fail(f"image_in {tag}: launches {counts}, expected {expected}")
+
+    def texts(sd):
+        """(cond, uncond) embeddings as the CLI tokenizes them."""
+        L = sd.cfg.text_encoder.max_len
+        tok = padded(make_clip_tokenizer(None, max_len=L), L)
+        with torch.inference_mode():
+            return tuple(sd.encode_text(np.asarray(tok(t), np.int32)[None])
+                         for t in (IMAGE_PROMPT, ""))
+
+    # 1. float32: kernels on vs off, the same weights
+    S, key = SLICE_STEPS, prng.PRNGKey(1)
+    run = int(IMAGE_STRENGTH * S)          # img2img evaluations: S - start_step
+    sd = StableDiffusion.create(PipelineConfig(
+        unet=UNetConfig(use_mha=True, use_fused_ff=True),
+        spacetime=SpaceTimeConfig(num_steps=S)), seed=0, device=dev)
+    cond, uncond = texts(sd)
+    f32 = {}
+    for on in (True, False):
+        if not on:
+            _kernels_off(sd.unet)
+        a, ca, sa = counted(lambda: i2i.img2img(sd, init_t, cond, uncond, key, IMAGE_STRENGTH))
+        b, cb, sb = counted(lambda: i2i.inpaint(sd, init_t, mask_t, cond, uncond, key))
+        check(f"f32 img2img {on}", ca, want(16 * run, 16 * run) if on else want())
+        check(f"f32 inpaint {on}", cb, want(16 * S, 16 * S) if on else want())
+        f32[on] = {"img2img": a, "inpaint": b}
+    del sd, cond, uncond
+    torch.cuda.empty_cache()
+    unet, vae = sd_cli.build_models(UNetConfig(dtype="float32", use_mha=True, use_fused_ff=True,
+                                               use_flash=True), VAEConfig(dtype="float32"), dev)
+    for on in (True, False):
+        if not on:
+            _kernels_off(unet)
+        c, cc, _ = counted(lambda: sd_cli.sample_batch(unet, vae, key, UNCOND_BATCH, 64,
+                                                       ScheduleConfig(), S, 1.0))
+        d, cd, _ = counted(lambda: sd_cli.sample_batch(
+            unet, vae, key, UNCOND_BATCH, 64, ScheduleConfig(num_train_timesteps=S),
+            vanilla=True))
+        for tag, counts in (("uncond ddim", cc), ("uncond ddpm", cd)):
+            check(f"f32 {tag} {on}", counts, want(12 * S, 16 * S, 20 * S) if on else want())
+        f32[on].update({"uncond_ddim": c, "uncond_ddpm": d})
+    del unet, vae
+    torch.cuda.empty_cache()
+    errs = {}
+    for k, want_img in f32[False].items():
+        got = f32[True][k]
+        errs[k] = float((got - want_img).abs().max())
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, want_img, atol=1e-4, rtol=1e-4)):
+            fail(f"image_in f32 {k}: kernels on vs off max diff {errs[k]} "
+                 "over 1e-4 + 1e-4·|plain|")
+    emit({"phase": "image_in_f32", "steps": S, "img2img_evals": run,
+          "batch": {"img2img": 1, "inpaint": 1, "uncond": UNCOND_BATCH},
+          "max_abs_diff": errs, "tol": [1e-4, 1e-4],
+          "image_std": {k: float(v.std()) for k, v in f32[False].items()}})
+    del f32
+
+    # 2. bfloat16 with the entry points' flags
+    init_png, mask_png = os.path.join(root, "init.png"), os.path.join(root, "mask.png")
+    write_png(init_png, ((init[0] + 1.0) * 127.5 + 0.5).astype(np.uint8))
+    write_png(mask_png, np.repeat((mask[0] * 255).astype(np.uint8), 3, axis=-1))
+    init_t = torch.from_numpy(read_png(init_png).astype(np.float32)[None] / 127.5 - 1.0).to(dev)
+    base = ["--init", init_png, "--prompt", IMAGE_PROMPT, "--outdir", root]
+    cfg = img2img_cli.pipeline_config(img2img_cli.parse_args(base))
+    S = cfg.spacetime.num_steps
+    run = int(IMAGE_STRENGTH * S)          # img2img evaluations: S - start_step
+    sd = StableDiffusion.create(cfg, seed=0, device=dev)
+    cond, uncond = texts(sd)
+    key = prng.PRNGKey(1)                    # the CLI's default --seed
+    line = {"phase": "image_in", "dtype": "bfloat16", "steps": S, "img2img_evals": run,
+            "nvidia_smi": smi}
+    enc = [counted(lambda: sd.encode_images(init_t, key)) for _ in range(4)]
+    z = [e[0] for e in enc]
+    check("encode", enc[-1][1], want())
+    line["encode_s_per_image"] = [e[2] for e in enc[1:]]
+    if not (torch.isfinite(z[0].float()).all() and torch.equal(z[0], z[1])):
+        fail("image_in encode: not finite or not the same bytes on a repeat")
+    for mode in ("img2img", "inpaint"):
+        if mode == "img2img":
+            out, counts, s = counted(lambda: i2i.img2img(sd, init_t, cond, uncond, key,
+                                                         IMAGE_STRENGTH), record=True)
+            evals, argv = run, base
+        else:
+            out, counts, s = counted(lambda: i2i.inpaint(sd, init_t, mask_t, cond, uncond, key),
+                                     record=True)
+            evals, argv = S, base + ["--mask", mask_png]
+        check(f"bf16 {mode}", counts, want(16 * evals, 16 * evals))
+        img = (out[0].float().cpu().numpy() * 255.0 + 0.5).astype(np.uint8)
+        path, cli_counts, cli_s = counted(lambda: img2img_cli.main(argv), record=True)
+        check(f"bf16 {mode} cli", cli_counts, want(16 * evals, 16 * evals))
+        same = bool(np.array_equal(read_png(path), img))
+        line[mode] = {"s_per_image": s, "cli_s": cli_s, "evals": evals, "launches": counts,
+                      "finite": bool(torch.isfinite(out).all()), "image_std": float(img.std()),
+                      "cli_png_equal": same}
+        if not (line[mode]["finite"] and same and img.std() > 0):
+            fail(f"image_in {mode}: {line[mode]}")
+    del sd, cond, uncond
+    torch.cuda.empty_cache()
+
+    logdir = os.path.join(root, "uncond")
+    sargv = ["-n", str(UNCOND_BATCH), "--batch-size", str(UNCOND_BATCH), "--npz", "-l", logdir]
+    ucfg, vcfg, hw, scfg = sd_cli.configs(sd_cli.parse_args(sargv))
+    unet, vae = sd_cli.build_models(ucfg, vcfg, dev)
+    rng = prng.split(prng.PRNGKey(42), 3)[2]      # the script's key tree, first batch
+    _, k = prng.split(rng)
+    steps = 50
+    (ddim, counts, s) = counted(lambda: sd_cli.sample_batch(unet, vae, k, UNCOND_BATCH, hw,
+                                                            scfg, steps, 1.0), record=True)
+    check("bf16 uncond ddim", counts, want(32 * steps, 16 * steps))
+    ddpm_cfg = ScheduleConfig(num_train_timesteps=DDPM_T)
+    (ddpm, dcounts, ds) = counted(lambda: sd_cli.sample_batch(unet, vae, k, UNCOND_BATCH, hw,
+                                                              ddpm_cfg, vanilla=True),
+                                  record=True)
+    check("bf16 uncond ddpm", dcounts, want(32 * DDPM_T, 16 * DDPM_T))
+    del unet, vae
+    torch.cuda.empty_cache()
+    res, ccounts, cs = counted(lambda: sd_cli.main(sargv), record=True)
+    check("bf16 sample_diffusion cli", ccounts, want(32 * steps, 16 * steps))
+    npz = np.load(os.path.join(logdir, "samples.npz"))["arr_0"]
+    lib8 = (ddim.float().cpu().numpy() * 255.0 + 0.5).clip(0, 255).astype(np.uint8)
+    line["uncond"] = {"batch": UNCOND_BATCH, "ddim_steps": steps, "eta": 1.0,
+                      "ddim_s_per_image": s / UNCOND_BATCH, "ddim_launches": counts,
+                      "ddpm_train_steps": DDPM_T, "ddpm_s_per_image": ds / UNCOND_BATCH,
+                      "ddpm_launches": dcounts, "cli_s": cs,
+                      "cli_npz_equal": bool(np.array_equal(npz, lib8)),
+                      "finite": bool(torch.isfinite(ddim).all() and torch.isfinite(ddpm).all()),
+                      "image_std": float(lib8.std()),
+                      "files": sorted(os.listdir(logdir))}
+    emit(line)
+    u = line["uncond"]
+    if not (u["cli_npz_equal"] and u["finite"] and u["image_std"] > 0
+            and u["files"] == [f"{i:06}.png" for i in range(UNCOND_BATCH)]
+            + ["samples.npz", "sampling_config.json"]):
+        fail(f"image_in uncond: {u}")
+    return total
+
+
 TESTBED_ARRAYS = 583            # ext-1 arrays in saved/testbed/{unet,vae,clip}.msgpack
 
 
@@ -2094,6 +2345,7 @@ def ingest_load_child(path: str) -> None:
         t = time.perf_counter()
         out = read(p)
         times["read_s"] = time.perf_counter() - t
+        times["read_dtypes"] = sorted({str(v.dtype) for v in out.values()})
         return out
 
     def timed_upload(cls, *a, **k):
@@ -2142,7 +2394,8 @@ def ingest_load_child(path: str) -> None:
             matched[key] = name
     print(json.dumps({
         "file": os.path.basename(path), "bytes": os.path.getsize(path), "load_s": total,
-        "read_s": times["read_s"], "upload_s": times["upload_s"],
+        "read_s": times["read_s"], "read_dtypes": times["read_dtypes"],
+        "upload_s": times["upload_s"],
         "convert_s": total - times["read_s"] - times["upload_s"],
         "peak_rss_bytes": peak[0], "rss_before_load_bytes": rss_before,
         "getrusage_maxrss_bytes": maxrss,
@@ -2164,6 +2417,10 @@ def _ingest_load(path: str, smi: str) -> dict:
     emit({"phase": "ingest_load", **out, "nvidia_smi": smi})
     if not out["exact"]:
         fail(f"ingest: {out['file']} did not load parameter-exact: {out}")
+    # the reader keeps a .safetensors file's float16 to the card (the casts run there)
+    want = ["float16"] if path.endswith(".safetensors") else ["float32"]
+    if out["read_dtypes"] != want:
+        fail(f"ingest: {out['file']} read as {out['read_dtypes']}, expected {want}")
     return out
 
 
@@ -2978,6 +3235,9 @@ def main() -> int:
     dpm_launches = phase_samplers(engine)
     del engine
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        image_launches = phase_image_in(root, smi)
+    torch.cuda.empty_cache()
     phase_testbed()
     phase_layout()
     phase_slot()
@@ -3007,6 +3267,7 @@ def main() -> int:
                "loadtest_launches": loadtest_launches[kname],
                "cli_launches": cli_launches[kname],
                "ingest_launches": ingest_launches[kname],
+               "image_in_launches": image_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -3024,7 +3285,9 @@ def main() -> int:
     # runner_launches: the dataset sweep's three modes (phase runner);
     # http_launches, loadtest_launches, cli_launches: phases http (spatial),
     # loadtest (vanilla) and serve_cli (spacetime); ingest_launches: phase
-    # ingest's drill (both modes) and txt2img;
+    # ingest's drill (both modes) and txt2img; image_in_launches: phase
+    # image_in's bf16 runs (img2img, inpaint, the unconditional DDIM and DDPM,
+    # each through the library and the entry point but DDPM);
     # launches_by_design: the serving and optimization runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -150,30 +150,47 @@ class CrossAttention(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """Self-attn -> controlled cross-attn -> GEGLU FF, pre-LN residuals."""
+    """Self-attn -> controlled cross-attn -> GEGLU FF, pre-LN residuals.
 
-    def __init__(self, dim: int, heads: int, context_dim: int, radius: float = 0.2,
+    `context_dim=None` builds the unconditional block (the reference's
+    unconditional LDM configs): `attn2` is a second self-attention with
+    dim -> dim projections, routed flash ▸ mha ▸ plain by the same flags as
+    `attn1` (JAX `models/layers.py:193-214`).  A block built one way raises
+    when called the other way."""
+
+    def __init__(self, dim: int, heads: int, context_dim: Optional[int], radius: float = 0.2,
                  dtype=torch.float32, flash: bool = False, mha: bool = False,
                  fused_control: bool = False, fused_ff: bool = False):
         super().__init__()
+        self.conditional = context_dim is not None
         self.attn1 = CrossAttention(dim, heads=heads, dtype=dtype, flash=flash, mha=mha)
-        self.attn2 = CrossAttention(dim, context_dim=context_dim, heads=heads,
-                                    dtype=dtype, fused_control=fused_control)
+        if self.conditional:
+            self.attn2 = CrossAttention(dim, context_dim=context_dim, heads=heads,
+                                        dtype=dtype, fused_control=fused_control)
+        else:
+            self.attn2 = CrossAttention(dim, heads=heads, dtype=dtype, flash=flash, mha=mha)
         self.norm1, self.norm2, self.norm3 = (LayerNorm32(dim) for _ in range(3))
         self.ff = GEGLUFeedForward(dim, dtype=dtype, fused=fused_ff)
         self.radius = radius
 
-    def forward(self, x, context, control: Optional[SpatialControl] = None):
+    def forward(self, x, context=None, control: Optional[SpatialControl] = None):
+        if self.conditional != (context is not None):
+            raise ValueError("a conditional block needs a context and an unconditional "
+                             "one takes none")
         x = self.attn1(self.norm1(x)) + x
-        x = self.attn2.controlled(self.norm2(x), context, control, self.radius) + x
+        if self.conditional:
+            x = self.attn2.controlled(self.norm2(x), context, control, self.radius) + x
+        else:
+            x = self.attn2(self.norm2(x)) + x
         return self.ff(self.norm3(x), residual=x)
 
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1×1 proj_in -> transformer blocks over H·W tokens ->
-    1×1 proj_out, residual.  x: [B, C, H, W]."""
+    1×1 proj_out, residual.  x: [B, C, H, W]; `context_dim=None`: the
+    unconditional blocks."""
 
-    def __init__(self, channels: int, heads: int, context_dim: int, depth: int = 1,
+    def __init__(self, channels: int, heads: int, context_dim: Optional[int], depth: int = 1,
                  radius: float = 0.2, dtype=torch.float32, flash: bool = False,
                  mha: bool = False, fused_control: bool = False, fused_ff: bool = False):
         super().__init__()
@@ -186,7 +203,7 @@ class SpatialTransformer(nn.Module):
                 mha=mha, fused_control=fused_control, fused_ff=fused_ff))
         self.proj_out = Conv(channels, channels, 1, dtype=dtype)
 
-    def forward(self, x, context, control=None):
+    def forward(self, x, context=None, control=None):
         B, C, H, W = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)

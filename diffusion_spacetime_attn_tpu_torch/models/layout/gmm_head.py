@@ -15,10 +15,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ...config import LayoutConfig
+from ...utils import prng
 from ..layers import Dense
 from .roberta import _DTYPES
 
@@ -55,21 +57,20 @@ def gmm_log_likelihood(raw: torch.Tensor, xy: torch.Tensor, k: int = 5) -> torch
     return torch.log(raw_pdf + 1e-5)
 
 
-def sample_xy(raw: torch.Tensor, generator: Optional[torch.Generator] = None,
+def sample_xy(raw: torch.Tensor, rng: Optional[np.ndarray] = None,
               greedy_component: bool = False, k: int = 5) -> torch.Tensor:
     """(x, y) = the mean of one component per token: the argmax of π (its
-    first maximum) when `greedy_component` or no generator is given, the
+    first maximum) when `greedy_component` or no key is given, the
     reference's greedy mode (`bbox_head.py:138-180`, GREEDY=True in the
-    paper's config); else a categorical draw from `generator`.  JAX draws
-    with `jax.random.categorical`, whose stream this cannot match, so only
-    the greedy branch agrees with the JAX package (no caller of the port
-    samples)."""
+    paper's config); else `categorical(rng, log(max(π, 1e-12)))` with JAX's
+    bits (`utils/prng.py`), as the JAX package draws."""
     p = split_gmm(raw, k)
-    if greedy_component or generator is None:
+    if greedy_component or rng is None:
         idx = torch.argmax(p.pi, dim=-1)
     else:
-        flat = torch.clamp(p.pi, min=1e-12).reshape(-1, p.pi.shape[-1])
-        idx = torch.multinomial(flat, 1, generator=generator).reshape(p.pi.shape[:-1])
+        logits = torch.log(torch.clamp(p.pi, min=1e-12)).float().cpu().numpy()
+        idx = torch.from_numpy(prng.categorical(rng, logits, axis=-1)).to(
+            device=raw.device, dtype=torch.long)
     ux = torch.gather(p.mu_x, -1, idx[..., None])[..., 0]
     uy = torch.gather(p.mu_y, -1, idx[..., None])[..., 0]
     return torch.stack([ux, uy], dim=-1)

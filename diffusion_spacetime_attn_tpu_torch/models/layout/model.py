@@ -11,6 +11,7 @@ import hashlib
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,11 +33,11 @@ class LayoutPredictor(nn.Module):
         return self.head(self.backbone(token_ids, object_pos))
 
     def predict_xy(self, token_ids: torch.Tensor, object_pos: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None,
+                   rng: Optional[np.ndarray] = None,
                    greedy_component: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (xy [B, L, 2], raw [B, L, 6K])."""
         raw = self(token_ids, object_pos)
-        return sample_xy(raw, generator, greedy_component, self.cfg.gmm_components), raw
+        return sample_xy(raw, rng, greedy_component, self.cfg.gmm_components), raw
 
 
 def init_layout_(model: LayoutPredictor, seed: int) -> LayoutPredictor:

@@ -5,7 +5,10 @@ SpatialTransformers at downsample factors 1/2/4 (16 of them: 6 down, 1 mid,
 9 up), skip connections concatenated on the channel axis.  The public layout
 is the JAX one, latents [B, H, W, C]; convolutions run NCHW inside.  The
 spatial-control state is an explicit `SpatialControl` argument threaded to
-every cross-attention.
+every cross-attention.  `conditional=False` builds the unconditional UNet of
+the reference's unconditional LDM configs (JAX: `context=None`), whose
+second attention in every block is self-attention; it takes no context, and
+a conditional UNet raises without one.
 """
 from __future__ import annotations
 
@@ -38,9 +41,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class UNet(nn.Module):
-    def __init__(self, cfg: UNetConfig, radius: float = 0.2):
+    def __init__(self, cfg: UNetConfig, radius: float = 0.2, conditional: bool = True):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.conditional = cfg, conditional
         dt = self.dtype = torch_dtype(cfg.dtype)
         mc = cfg.model_channels
         emb_dim = mc * 4
@@ -50,9 +53,9 @@ class UNet(nn.Module):
         def transformer(ch):
             heads = ch // cfg.num_head_channels if cfg.num_head_channels else cfg.num_heads
             return SpatialTransformer(
-                ch, heads, cfg.context_dim, depth=cfg.transformer_depth, radius=radius,
-                dtype=dt, flash=cfg.use_flash, mha=cfg.use_mha,
-                fused_control=cfg.use_fused_control, fused_ff=cfg.use_fused_ff)
+                ch, heads, cfg.context_dim if conditional else None,
+                depth=cfg.transformer_depth, radius=radius, dtype=dt, flash=cfg.use_flash,
+                mha=cfg.use_mha, fused_control=cfg.use_fused_control, fused_ff=cfg.use_fused_ff)
 
         self.in_conv = Conv(cfg.in_channels, mc, 3, padding=1, dtype=dt)
         skips = [mc]
@@ -90,13 +93,19 @@ class UNet(nn.Module):
         self.out_norm = GroupNorm32(mc)
         self.out_conv = Conv(mc, cfg.out_channels, 3, padding=1, dtype=dt)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
                 control: Optional[SpatialControl] = None) -> torch.Tensor:
         """x [B, H, W, C] latents (B = 2·prompts under CFG), timesteps [B],
-        context [B, L, D] -> eps [B, H, W, C] float32."""
+        context [B, L, D] (None for the unconditional UNet) -> eps
+        [B, H, W, C] float32."""
         cfg, dt = self.cfg, self.dtype
+        if self.conditional != (context is not None):
+            raise ValueError(f"a {'' if self.conditional else 'un'}conditional UNet "
+                             f"{'needs a context' if self.conditional else 'takes no context'}")
         h = x.to(dt).permute(0, 3, 1, 2)
-        context = context.to(dt)
+        if context is not None:
+            context = context.to(dt)
         emb = timestep_embedding(timesteps, cfg.model_channels).to(dt)
         emb = self.time_embed_2(F.silu(self.time_embed_0(emb)))
 

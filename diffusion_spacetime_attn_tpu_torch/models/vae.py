@@ -1,4 +1,5 @@
-"""AutoencoderKL (f=8, z=4), port of the JAX package's `models/vae.py`.
+"""AutoencoderKL (f=8, z=4) and the VQ first stage (`VectorQuantizer`,
+`VQModel`), port of the JAX package's `models/vae.py`.
 
 CompVis details kept for weight compatibility: GroupNorm eps 1e-6, swish,
 the asymmetric (0,1)×(0,1) padding of the stride-2 downsample conv, and the
@@ -7,11 +8,15 @@ computes it outside any kernel).  Public layout NHWC, NCHW inside.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import VAEConfig
+from ..utils import prng
 from .layers import Conv, GroupNorm32
 from .unet import torch_dtype
 
@@ -162,7 +167,92 @@ class AutoencoderKL(nn.Module):
         mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
+    def encode(self, x, rng: Optional[np.ndarray] = None):
+        """The posterior's mean, or mean + std·z with z = jax.random.normal
+        of the key `rng` (`utils/prng.py`; drawn in float32 and rounded to
+        the mean's dtype)."""
+        mean, logvar = self.encode_moments(x)
+        if rng is None:
+            return mean
+        return mean + torch.exp(0.5 * logvar) * prng.normal_like(rng, mean)
+
     def decode(self, z):
         """[B, h, w, z] (unscaled) -> [B, H, W, 3] float32 in about [-1, 1]."""
         h = self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2))
         return self.decoder(h).permute(0, 2, 3, 1)
+
+
+class VectorQuantizer(nn.Module):
+    """Nearest-neighbour codebook quantizer (taming `VectorQuantizer2`, the
+    reference `VQModel`'s).  forward: z [B, h, w, C] -> (z_q with the
+    straight-through gradient, the VQ loss, indices [B, h, w]).  Distances
+    ‖z‖² + ‖e‖² − 2 z·e in float32, the first minimum wins; the loss is
+    taming's legacy weighting β·mean((sg[z_q] − z)²) + mean((z_q − sg[z])²).
+    The codebook is `weight` [n_embed, embed_dim] (flax's `embedding`)."""
+
+    def __init__(self, n_embed: int, embed_dim: int, beta: float = 0.25):
+        super().__init__()
+        self.n_embed, self.embed_dim, self.beta = n_embed, embed_dim, beta
+        self.weight = nn.Parameter(torch.empty(n_embed, embed_dim).uniform_(
+            -1.0 / n_embed, 1.0 / n_embed))
+
+    def forward(self, z):
+        z = z.float()
+        codebook = self.weight.float()
+        flat = z.reshape(-1, self.embed_dim)
+        d = ((flat ** 2).sum(dim=1, keepdim=True) + (codebook ** 2).sum(dim=1)[None, :]
+             - 2.0 * flat @ codebook.T)
+        idx = torch.argmin(d, dim=1)
+        z_q = codebook[idx].reshape(z.shape)
+        loss = (self.beta * torch.mean((z_q.detach() - z) ** 2)
+                + torch.mean((z_q - z.detach()) ** 2))
+        return z + (z_q - z).detach(), loss, idx.reshape(z.shape[:-1])
+
+    def embed_code(self, code):
+        """Indices [B, h, w] -> codebook vectors [B, h, w, C]."""
+        return self.weight[code]
+
+
+class VQModel(nn.Module):
+    """The reference `VQModel` (`ldm/models/autoencoder.py:14-283`): the KL
+    model's encoder and decoder around a vector-quantized bottleneck.
+    `encode` -> (quant, loss, indices); `decode` takes quantized latents;
+    `interface_encode` / `interface_decode` are `VQModelInterface`'s (the
+    LDM first stage encodes to the pre-quant h and quantizes in decode).
+    NHWC in and out."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = self.dtype = torch_dtype(cfg.dtype)
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quantize = VectorQuantizer(cfg.n_embed, cfg.embed_dim)
+        self.quant_conv = Conv(2 * cfg.z_channels, cfg.embed_dim, 1, dtype=dt)
+        self.post_quant_conv = Conv(cfg.embed_dim, cfg.z_channels, 1, dtype=dt)
+
+    def encode_to_prequant(self, x):
+        h = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)))
+        return h.permute(0, 2, 3, 1)
+
+    def encode(self, x):
+        return self.quantize(self.encode_to_prequant(x))
+
+    def decode(self, quant):
+        h = self.post_quant_conv(quant.to(self.dtype).permute(0, 3, 1, 2))
+        return self.decoder(h).permute(0, 2, 3, 1)
+
+    def decode_code(self, code):
+        return self.decode(self.quantize.embed_code(code))
+
+    def forward(self, x):
+        quant, loss, idx = self.encode(x)
+        return self.decode(quant), loss, idx
+
+    def interface_encode(self, x):
+        return self.encode_to_prequant(x)
+
+    def interface_decode(self, h, force_not_quantize: bool = False):
+        if not force_not_quantize:
+            h, _, _ = self.quantize(h)
+        return self.decode(h)

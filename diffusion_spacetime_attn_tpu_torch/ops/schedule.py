@@ -77,3 +77,14 @@ def make_schedule(cfg: ScheduleConfig, num_steps: int, eta: float = 0.0,
         alphas_cumprod=f32(alphas_cumprod),
         betas=f32(betas),
     )
+
+
+def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) per row at timesteps t [B] (reference
+    `ddpm.py` q_sample)."""
+    ac = schedule.alphas_cumprod.to(x0.device)
+    t = t.to(device=x0.device, dtype=torch.long)
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    return (torch.sqrt(ac)[t].reshape(shape) * x0
+            + torch.sqrt(1.0 - ac)[t].reshape(shape) * noise)

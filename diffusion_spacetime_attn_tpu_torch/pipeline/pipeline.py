@@ -22,6 +22,7 @@ from ..ops.schedule import DiffusionSchedule, make_schedule
 from ..samplers.ddim import ddim_sample
 from ..samplers.dpm_solver import dpm_solver_sample
 from ..samplers.plms import plms_sample
+from ..utils import prng
 from ..utils.testing import randomize_
 from ..utils.weights import load_flat
 
@@ -84,6 +85,11 @@ class StableDiffusion:
         img = self.vae.decode(z / self.cfg.vae.scale_factor)
         return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
 
+    def encode_images(self, img: torch.Tensor, rng: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Images [B, H, W, 3] in [-1, 1] -> scaled latents: the posterior's
+        mean, or a sample of it drawn with the JAX key `rng`."""
+        return self.vae.encode(img.to(self.device), rng) * self.cfg.vae.scale_factor
+
     # ---- eps function ----
     def make_eps_fn(self, cond: torch.Tensor, uncond: torch.Tensor,
                     guidance_scale: float, control: Optional[SpatialControl] = None,
@@ -119,22 +125,26 @@ class StableDiffusion:
             return dpm_solver_sample(eps_fn, x_T, self.schedule, remat=remat)
         raise ValueError(f"unknown sampler {sampler!r}")
 
-    def sample_latents(self, eps_fn, generator: torch.Generator, batch: int = 1,
+    def sample_latents(self, eps_fn, rng: np.ndarray, batch: int = 1,
                        sampler: str = "plms", remat=True):
+        """The chain from x_T = jax.random.normal(rng, [batch, h, w, C]) in
+        float32 (JAX's bits, `utils/prng.py`), made on the host and moved to
+        the bundle's device."""
         latent = self.cfg.spacetime.latent_size
-        x_T = torch.randn((batch, latent, latent, self.cfg.unet.in_channels),
-                          generator=generator, device=self.device)
+        shape = (batch, latent, latent, self.cfg.unet.in_channels)
+        x_T = torch.from_numpy(prng.normal(rng, shape)).to(self.device)
         return self.sample_from(eps_fn, x_T, sampler, remat)
 
     @torch.inference_mode()
-    def txt2img(self, cond, uncond, generator: torch.Generator,
+    def txt2img(self, cond, uncond, rng: np.ndarray,
                 guidance_scale: Optional[float] = None, sampler: str = "plms",
                 control: Optional[SpatialControl] = None,
                 coef_schedule: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Embeddings -> latents -> images in [0, 1]; control=None is the
-        vanilla path, a fixed coef_schedule the spatial-only path."""
+        vanilla path, a fixed coef_schedule the spatial-only path.  `rng` is a
+        JAX key (`utils/prng.PRNGKey`); the same key gives JAX's x_T."""
         gs = self.cfg.spacetime.guidance_scale if guidance_scale is None else guidance_scale
         eps_fn = self.make_eps_fn(cond, uncond, gs, control, coef_schedule)
-        z = self.sample_latents(eps_fn, generator, batch=cond.shape[0], sampler=sampler,
+        z = self.sample_latents(eps_fn, rng, batch=cond.shape[0], sampler=sampler,
                                 remat=False)
         return self.decode_latents(z)

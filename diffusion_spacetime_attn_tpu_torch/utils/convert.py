@@ -10,14 +10,14 @@ The four external checkpoints the reference consumes:
     archive, or its plain state dict);
   * HF RoBERTa-base and the fairseq Rel2Bbox layout checkpoint.
 
-Each converter takes a flat {name: numpy array} dict (`load_torch_checkpoint`)
+Each converter takes a flat {name: array} dict (`load_torch_checkpoint`)
 and returns the nested parameter tree of the JAX package's module, with
 flax's layouts: torch Linear [out, in] -> kernel [in, out], torch Conv
 [O, I, kh, kw] -> kernel [kh, kw, I, O], norm weight -> scale.  The port's
 modules carry the same names, so `utils/weights.flatten_tree` and `bridge`
 take such a tree onto a module strictly (a missing, unexpected or
-mis-shaped key raises).  The VQ and LPIPS converters wait for their modules
-(ROADMAP A.5, A.12) and raise.
+mis-shaped key raises).  The LPIPS converter waits for its module (ROADMAP
+A.12) and raises.
 """
 from __future__ import annotations
 
@@ -72,8 +72,9 @@ def _is_torchscript(path: str) -> bool:
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
-    """A `.ckpt` / `.pt` / `.pth` / `.safetensors` file -> {name: float32
-    numpy array} on the host.
+    """A `.ckpt` / `.pt` / `.pth` / `.safetensors` file -> {name: array} on
+    the host: float32 numpy for a torch file; a `.safetensors` file keeps
+    its dtype, as the JAX package's reader does (`utils/safetensors.py`).
 
     torch files: `torch.load(weights_only=True)` (memory-mapped when the file
     is a zip archive); a TorchScript archive (OpenAI's `ViT-B-32.pt`) through
@@ -108,8 +109,13 @@ def _dense(sd, name):
     return out
 
 
+def _hwio(w):
+    """OIHW -> HWIO, for numpy arrays and (bfloat16) tensors alike."""
+    return w.permute(2, 3, 1, 0) if isinstance(w, torch.Tensor) else np.transpose(w, (2, 3, 1, 0))
+
+
 def _conv(sd, name):
-    out = {"kernel": np.transpose(sd[f"{name}.weight"], (2, 3, 1, 0))}
+    out = {"kernel": _hwio(sd[f"{name}.weight"])}
     if f"{name}.bias" in sd:
         out["bias"] = sd[f"{name}.bias"]
     return out
@@ -337,7 +343,7 @@ def convert_hf_clip_vision(sd: Dict[str, np.ndarray], prefix: str = "vision_mode
     sd = _Stripped(sd, prefix)
     return _hf_layers(sd, {
         "patch_embedding": {
-            "kernel": np.transpose(sd["embeddings.patch_embedding.weight"], (2, 3, 1, 0))},
+            "kernel": _hwio(sd["embeddings.patch_embedding.weight"])},
         "class_embedding": sd["embeddings.class_embedding"],
         "position_embedding": sd["embeddings.position_embedding.weight"],
         "ln_pre": _norm(sd, "pre_layrnorm"),   # (sic) HF key spelling
@@ -376,7 +382,7 @@ def _openai_layers(sd, prefix, params):
 def convert_openai_clip(sd: Dict[str, np.ndarray]):
     """OpenAI CLIP (`clip.load`'s state dict) -> models.clip.CLIP params."""
     vision = _openai_layers(sd, "visual.transformer.", {
-        "patch_embedding": {"kernel": np.transpose(sd["visual.conv1.weight"], (2, 3, 1, 0))},
+        "patch_embedding": {"kernel": _hwio(sd["visual.conv1.weight"])},
         "class_embedding": sd["visual.class_embedding"],
         "position_embedding": sd["visual.positional_embedding"],
         "ln_pre": _norm(sd, "visual.ln_pre"),
@@ -498,9 +504,14 @@ def load_fairseq_dictionary(path: str) -> Dict[int, int]:
     return {int(sym): idx for idx, sym in enumerate(symbols) if sym.lstrip("-").isdigit()}
 
 
-def convert_sd_vq(*args, **kwargs):
-    """The CompVis `VQModel` converter waits for the port's VQModel."""
-    raise NotImplementedError("convert_sd_vq: the PyTorch port has no VQModel yet (ROADMAP A.5)")
+def convert_sd_vq(sd: Dict[str, np.ndarray], prefix: str = "first_stage_model.",
+                  ch_mult=(1, 2, 4, 4), num_res_blocks: int = 2):
+    """The reference `VQModel` state dict (`autoencoder.py:14-283`: the KL
+    layout plus `quantize.embedding.weight` [n_embed, embed_dim]) ->
+    models.vae.VQModel's tree."""
+    params = convert_sd_vae(sd, prefix=prefix, ch_mult=ch_mult, num_res_blocks=num_res_blocks)
+    params["quantize"] = {"embedding": _Stripped(sd, prefix)["quantize.embedding.weight"]}
+    return params
 
 
 def convert_lpips(*args, **kwargs):

@@ -2,9 +2,12 @@
 
 `encode_png` gives the bytes of an RGB file with filter type 0 on every row
 (the HTTP front sends them), and `write_png` writes them.  `decode_png`
-reads what they wrote and the 8-bit RGB and RGBA files other tools write
-(non-interlaced; every filter type 0-4 undone), so the evaluation can read
-images it did not write; `read_png` does so from a path.
+reads what they wrote and the 8-bit grey, grey + alpha, RGB and RGBA files
+other tools write (non-interlaced; every filter type 0-4 undone), so the
+evaluation can read images it did not write; `read_png` does so from a
+path.  `to_rgb` and `to_grey` convert as PIL's `convert("RGB")` and
+`convert("L")` do (alpha dropped; ITU-R 601-2 luma in PIL's integer
+arithmetic).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}         # colour type -> channels (RGB, RGBA)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> channels (grey, RGB, grey+alpha, RGBA)
 
 
 def encode_png(rgb: np.ndarray) -> bytes:
@@ -73,7 +76,8 @@ def read_png(path: str) -> np.ndarray:
 
 
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """An 8-bit RGB or RGBA PNG's bytes -> [H, W, 3 or 4] uint8; raises for
+    """An 8-bit grey, grey + alpha, RGB or RGBA PNG's bytes -> [H, W, 1, 2, 3
+    or 4] uint8; raises for
     any other bit depth, colour type or interlacing (`name` names the source
     in the message)."""
     if data[:8] != _SIGNATURE:
@@ -94,7 +98,7 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(f"{name}: bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace}; only 8-bit non-interlaced RGB / RGBA is read")
+                         f"{interlace}; only 8-bit non-interlaced grey / RGB (+ alpha) is read")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -106,3 +110,22 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     for y in range(h):
         prior = out[y] = _unfilter(int(rows[y, 0]), rows[y, 1:], prior, bpp)
     return out.reshape(h, w, bpp)
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """[H, W, 1-4] uint8 (`decode_png`) -> [H, W, 3]: alpha dropped, grey
+    repeated, as PIL's `convert("RGB")`."""
+    c = img.shape[-1]
+    if c in (1, 2):
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """[H, W, 1-4] uint8 -> [H, W] uint8 luma, as PIL's `convert("L")`:
+    (19595·R + 38470·G + 7471·B + 2¹⁵) >> 16."""
+    if img.shape[-1] in (1, 2):
+        return np.ascontiguousarray(img[..., 0])
+    rgb = img[..., :3].astype(np.uint32)
+    luma = (rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16
+    return luma.astype(np.uint8)

@@ -10,17 +10,24 @@ and draws different bits from the same key):
     to uint32 first, which gives (0, seed mod 2³²) for any int
     (`engine_key`);
   * `fold_in(key, data)` hashes the counter pair (0, data) under `key`;
+  * `split(key, num)` hashes the 64-bit counter i = 0 .. num−1, split into
+    (high, low) words, under `key`: key i is the pair of output words, so
+    `split(key, num)[i]` is `fold_in(key, i)`;
   * `bits(key, shape)` hashes the 64-bit counter i = 0, 1, ... of each
     element, row-major, split into (high, low) words, and xors the two
     output words;
   * `uniform` puts the top 23 bits in the mantissa of a float in [1, 2),
     subtracts 1, scales to [lo, hi) and clamps at lo, all in float32;
+  * `categorical(key, logits)` is the argmax of logits + gumbel, the gumbel
+    draw −log(−log(uniform(lo = tiny, hi = 1))) in float32 (jax's "low"
+    mode, its default; tiny = 2⁻¹²⁶), of the logits' shape;
   * `normal` is √2 · erfinv(uniform(lo = nextafter(−1, 0), hi = 1)), with
     the single-precision erfinv polynomial of XLA (M. Giles, "Approximating
     the erfinv function", GPU Computing Gems, 2011): w = −log1p(−x²), two
     9-term Horner branches split at w < 5.
 
-`bits` and `uniform` equal jax's bit for bit.  `normal` agrees within a few
+`split`, `bits` and `uniform` equal jax's bit for bit, and so do the indices
+`categorical` returns, but for logits within an ulp of a tie.  `normal` agrees within a few
 float32 ulp: each Horner step here is one float32 rounding of a float64
 multiply-add and log1p is numpy's, which need not round as XLA's fused code
 does.  Keys are uint32 arrays of shape (2,).
@@ -30,6 +37,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -70,6 +78,15 @@ def engine_key(seed: int) -> np.ndarray:
 def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     a, b = threefry2x32(key, np.zeros(1, np.uint32), np.array([data & 0xFFFFFFFF], np.uint32))
     return np.array([a[0], b[0]], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """`num` new keys, shape (num, 2)."""
+    idx = np.arange(num, dtype=np.uint64)
+    hi = (idx >> np.uint64(32)).astype(np.uint32)
+    lo = (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    a, b = threefry2x32(key, hi, lo)
+    return np.stack([a, b], axis=-1)
 
 
 def bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
@@ -118,3 +135,24 @@ def normal(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0)
     return np.float32(np.sqrt(2)) * erfinv(u)
+
+
+def normal_like(key: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """`normal(key, like.shape)` as a tensor on like's device in its dtype
+    (drawn in float32 on the host, then moved and cast)."""
+    z = torch.from_numpy(normal(key, tuple(like.shape)))
+    return z.to(device=like.device, dtype=like.dtype)
+
+
+def gumbel(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
+    """Standard Gumbel float32 of `shape`."""
+    tiny = np.finfo(np.float32).tiny
+    u = uniform(key, shape, tiny, 1.0)
+    return -np.log(-np.log(u))
+
+
+def categorical(key: np.ndarray, logits, axis: int = -1) -> np.ndarray:
+    """Indices drawn from softmax(logits) along `axis` (the axis removed),
+    int32."""
+    logits = np.asarray(logits, np.float32)
+    return np.argmax(gumbel(key, logits.shape) + logits, axis=axis).astype(np.int32)

@@ -6,10 +6,12 @@ little-endian header length N, N bytes of JSON mapping each tensor name to
 byte after the header; a `__metadata__` entry of strings is skipped), then
 the raw little-endian bytes of every tensor, C order.
 
-`load_file` maps the file and returns {name: float32 numpy array} (F32
-tensors as copy-on-write views of the map, the rest converted), the form
-`utils/convert.load_torch_checkpoint` returns for a torch file.  F32, F16,
-BF16, I32 and I64 are read; any other dtype raises.  The offsets must tile
+`load_file` maps the file and returns {name: array} in the file's dtype,
+as views of the copy-on-write map: F32 and F16 as numpy float32 / float16,
+BF16 (which numpy lacks) as torch.bfloat16 tensors; I32 and I64 become
+float32, as torch's `.float()` makes them.  Nothing is widened on the host:
+`utils/weights.load_flat` moves each tensor to the module's device in the
+file's dtype and casts it there.  Any other dtype raises.  The offsets must tile
 the data section exactly (sorted, no gap, no overlap, ending at its end),
 and each range must hold shape × item size bytes; a header that breaks any
 of these, or runs past the file, raises `ValueError`.
@@ -22,9 +24,10 @@ import struct
 from typing import Dict
 
 import numpy as np
+import torch
 
 # dtype name -> (numpy dtype of the stored words, bytes per element)
-_DTYPES = {"F32": ("<f4", 4), "F16": ("<f2", 2), "BF16": ("<u2", 2),
+_DTYPES = {"F32": ("<f4", 4), "F16": ("<f2", 2), "BF16": ("<i2", 2),
            "I32": ("<i4", 4), "I64": ("<i8", 8)}
 
 
@@ -67,21 +70,21 @@ def _check_tiling(path: str, header: dict, data_bytes: int) -> None:
                          f"{data_bytes} bytes")
 
 
-def load_file(path: str) -> Dict[str, np.ndarray]:
-    """{name: float32 array} of every tensor in the file (integers converted
-    too, as torch's `.float()` does)."""
+def load_file(path: str) -> Dict[str, object]:
+    """{name: array} of every tensor in the file, in its dtype (module
+    docstring)."""
     header, start, size = _read_header(path)
     _check_tiling(path, header, size - start)
-    # copy-on-write map: float32 tensors come back as views of the file
     raw = (np.memmap(path, dtype=np.uint8, mode="c", offset=start) if size > start
            else np.zeros(0, np.uint8))
     out = {}
     for name, info in header.items():
         begin, end = info["data_offsets"]
         words = raw[begin:end].view(_DTYPES[info["dtype"]][0]).reshape(info["shape"])
-        if info["dtype"] == "BF16":     # the high half of a float32
-            out[name] = (words.astype(np.uint32) << 16).view(np.float32)
+        if info["dtype"] == "BF16":
+            out[name] = torch.from_numpy(words).view(torch.bfloat16)
+        elif info["dtype"] in ("I32", "I64"):
+            out[name] = words.astype(np.float32)
         else:
-            out[name] = words.astype(np.float32, copy=False)
+            out[name] = words
     return out
-

@@ -279,6 +279,18 @@ def rel2bbox_shapes(cfg: LayoutConfig, prefix: str = "encoder.model.encoder.") -
     return {**keys.shapes, **head.shapes}
 
 
+def vq_shapes(cfg) -> Shapes:
+    """Keys and shapes of the reference `VQModel` (`ldm/models/autoencoder.py:14-283`)
+    under `first_stage_model.` at a `VAEConfig`'s widths: the KL layout with
+    quant_conv 2z -> embed_dim and the codebook `quantize.embedding.weight`
+    [n_embed, embed_dim]."""
+    keys = _Keys("first_stage_model.")
+    _vae_shapes(cfg, keys)
+    keys.conv("quant_conv", cfg.embed_dim, 2 * cfg.z_channels, 1)
+    keys.add("quantize.embedding.weight", cfg.n_embed, cfg.embed_dim)
+    return keys.shapes
+
+
 def seeded_state_dict(shapes: Shapes, seed: int, scale: float = 0.02) -> Dict[str, np.ndarray]:
     """{key: seeded_normal(seed, key, shape, scale)} for every key, drawn in
     threads (numpy's generators release the GIL)."""

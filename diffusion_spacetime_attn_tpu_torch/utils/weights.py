@@ -14,7 +14,11 @@ four rules:
   * `scale` (norms) and `embedding` (`nn.Embed`) become `weight`;
   * every other leaf keeps its name.
 
-`bridge` raises on a missing, unexpected, duplicate or mis-shaped key.  The
+`bridge` raises on a missing, unexpected, duplicate or mis-shaped key.  It
+keeps each value's dtype and makes no host copy where torch can view the
+array (a transposed kernel stays a strided view of the file's map);
+`load_flat` moves each value to its parameter's device in that dtype and
+casts it there, so a float16 or bfloat16 file is never widened on the host.  The
 same rules cover the SD trees (UNet, VAE, text tower), the dual-tower
 loss CLIP (`vision/...`, `text/...`, `class_embedding`,
 `position_embedding`, `visual_projection/kernel`, `text_projection/kernel`)
@@ -32,13 +36,26 @@ from torch import nn
 _AUTO_NAMES = {"GroupNorm_0"}
 
 
-def torch_key(path: str, value: np.ndarray):
-    """(state-dict key, value in torch layout) of one flat JAX entry."""
+def _as_tensor(a: np.ndarray) -> torch.Tensor:
+    """A tensor over `a`'s memory where torch can view it (writable, non-negative
+    strides, a dtype torch has), else over a contiguous copy."""
+    if a.flags.writeable:
+        try:
+            return torch.from_numpy(a)
+        except (ValueError, TypeError):
+            pass
+    return torch.from_numpy(np.array(a, order="C"))
+
+
+def torch_key(path: str, value):
+    """(state-dict key, value in torch layout) of one flat JAX entry (a
+    numpy array or a tensor)."""
     parts = [p for p in path.split("/") if p not in _AUTO_NAMES]
     leaf = parts[-1]
     if leaf == "kernel":
         if value.ndim == 4:
-            value = value.transpose(3, 2, 0, 1)
+            value = (value.permute(3, 2, 0, 1) if isinstance(value, torch.Tensor)
+                     else value.transpose(3, 2, 0, 1))
         elif value.ndim == 2:
             value = value.T
         else:
@@ -54,12 +71,12 @@ def bridge(flat: Dict[str, np.ndarray], model: nn.Module) -> Dict[str, torch.Ten
     and shapes match the model's exactly."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
-        if isinstance(arr, torch.Tensor):      # bfloat16 leaves of utils/msgpack.py
-            arr = arr.float().numpy()
-        key, value = torch_key(path, np.asarray(arr))
+        if not isinstance(arr, torch.Tensor):  # torch keeps bfloat16 leaves
+            arr = np.asarray(arr)
+        key, value = torch_key(path, arr)
         if key in sd:
             raise KeyError(f"two JAX parameters map to {key!r}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        sd[key] = value if isinstance(value, torch.Tensor) else _as_tensor(value)
     want = model.state_dict()
     missing = sorted(set(want) - set(sd))
     unexpected = sorted(set(sd) - set(want))
@@ -96,7 +113,11 @@ def layout_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def load_flat(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
-    """Load a flat JAX tree into `model` (values copied to each parameter's
-    device and dtype)."""
-    model.load_state_dict(bridge(flat, model), strict=True)
+    """Load a flat JAX tree into `model`: each value goes to its
+    parameter's device in its own dtype and is cast there."""
+    state = bridge(flat, model)
+    dst = model.state_dict()
+    with torch.no_grad():
+        for key, value in state.items():
+            dst[key].copy_(value.to(dst[key].device).to(dst[key].dtype))
     return model

@@ -290,7 +290,18 @@ def test_outputs_match_jax_on_the_same_file(tmp_path):
 
 
 def test_vq_and_lpips_converters_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tconvert.convert_sd_vq({})
+    """convert_sd_vq converts a VQModel file in the published key layout as
+    JAX's does, bit for bit, and raises naming a key the file lacks; the
+    LPIPS converter still raises naming its item (ROADMAP A.12)."""
+    vcfg = tcfg.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, n_embed=16)
+    sd = testing.seeded_state_dict(testing.vq_shapes(vcfg), seed=4)
+    kw = dict(ch_mult=vcfg.ch_mult, num_res_blocks=vcfg.num_res_blocks)
+    got = flatten_tree(tconvert.convert_sd_vq(sd, **kw))
+    want = flatten_tree(jconvert.convert_sd_vq(sd, **kw))
+    assert sorted(got) == sorted(want) and "quantize/embedding" in got
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    sd.pop("first_stage_model.quantize.embedding.weight")
+    with pytest.raises(KeyError, match="first_stage_model.quantize.embedding.weight"):
+        tconvert.convert_sd_vq(sd, **kw)
     with pytest.raises(NotImplementedError, match="A.12"):
         tconvert.convert_lpips({})

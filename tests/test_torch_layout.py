@@ -38,7 +38,7 @@ from diffusion_spacetime_attn_tpu_torch.models.layout.model import (
 )
 from diffusion_spacetime_attn_tpu_torch.pipeline import frontend as fe
 from diffusion_spacetime_attn_tpu_torch.scripts import layout_infer
-from diffusion_spacetime_attn_tpu_torch.utils import loader
+from diffusion_spacetime_attn_tpu_torch.utils import loader, prng
 from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_roberta_tokenizer
 from diffusion_spacetime_attn_tpu_torch.utils.weights import layout_state_dict
 
@@ -184,8 +184,10 @@ def test_gmm_functions_match_jax():
     txy = gmm_head.sample_xy(torch.from_numpy(raw), greedy_component=True).numpy()
     np.testing.assert_array_equal(txy, jxy)
     assert txy[0, 0, 0] == raw[0, 0, 6]              # component 1 of the tie
-    g = torch.Generator().manual_seed(0)
-    drawn = gmm_head.sample_xy(torch.from_numpy(raw), g).numpy()
+    # the non-greedy draw: JAX's categorical bits from the same key
+    jdrawn = np.asarray(jgmm.sample_xy(jnp.asarray(raw), jax.random.PRNGKey(3)))
+    drawn = gmm_head.sample_xy(torch.from_numpy(raw), prng.PRNGKey(3)).numpy()
+    np.testing.assert_array_equal(drawn, jdrawn)
     assert drawn.shape == (2, 7, 2) and np.isin(drawn[..., 0], raw[..., 5:10]).all()
 
 

@@ -125,14 +125,24 @@ def write_case(case, tmp_path):
                                   "torchscript", "safetensors_f32", "safetensors_f16",
                                   "safetensors_bf16_by_hand"])
 def test_reader_gives_float32_arrays_bit_equal(case, tmp_path):
+    """torch files come as float32 arrays; a .safetensors file keeps its
+    dtype (F16 float16, BF16 a torch.bfloat16 tensor, integers float32), as
+    JAX's reader does, and widens to the same float32 values."""
     path, want = write_case(case, tmp_path)
     got = tconvert.load_torch_checkpoint(path)
     assert sorted(got) == sorted(want)
+    kept = {"safetensors_f16": {"w": np.float16, "b": np.float16},
+            "safetensors_bf16_by_hand": {"w": torch.bfloat16}}.get(case, {})
     for k, v in want.items():
-        assert got[k].dtype == np.float32 and np.array_equal(got[k], v), k
-    if case in ("ckpt_state_dict", "pth_flat", "ckpt_f16_bf16", "safetensors_f32"):
+        g = got[k]
+        assert g.dtype == kept.get(k, np.float32), (k, g.dtype)
+        g = g.float().numpy() if isinstance(g, torch.Tensor) else np.asarray(g, np.float32)
+        assert np.array_equal(g, v), k
+    if case in ("ckpt_state_dict", "pth_flat", "ckpt_f16_bf16", "safetensors_f32",
+                "safetensors_f16"):
         ref = jconvert.load_torch_checkpoint(path)     # JAX reads these too
-        assert all(np.array_equal(got[k], ref[k]) for k in want)
+        assert all(got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k])
+                   for k in want)
 
 
 def _write_header(path, header, data: bytes, n=None):

@@ -26,6 +26,7 @@ from diffusion_spacetime_attn_tpu_torch import config as tcfg
 from diffusion_spacetime_attn_tpu_torch.ops.attention import SpatialControl
 from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
 from diffusion_spacetime_attn_tpu_torch.serving.server import TextToImageEngine
+from diffusion_spacetime_attn_tpu_torch.utils import prng
 from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -174,21 +175,31 @@ def test_engine_failed_layout_row_is_vanilla(engines):
     assert int(np.abs(a.astype(int) - b.astype(int)).max()) <= 1
 
 
-def test_txt2img_samples_from_the_given_generator(engines):
-    """txt2img = x_T from the caller's generator -> PLMS with CFG -> decode,
-    bit for bit (the same calls in the same order)."""
-    sd = engines[0].sd
-    latent, ch = sd.cfg.spacetime.latent_size, sd.cfg.unet.in_channels
-    ids = np.random.RandomState(1).randint(1, 49000, size=(2, sd.cfg.text_encoder.max_len))
+def test_txt2img_samples_from_the_given_generator():
+    """txt2img on a JAX key: x_T = jax.random.normal(key) (`utils/prng.py`)
+    -> PLMS with CFG -> decode, held against JAX's txt2img on the same key
+    and weights (smoke config, f32, ATOL); another key gives another image."""
+    cfg = smoke_pipeline_cfg(num_steps=3)
+    sd = JSD.create(cfg, jax.random.PRNGKey(0), abstract=True)
+    sd = dataclasses.replace(
+        sd,
+        unet_params=randomize_params(sd.unet_params, jax.random.PRNGKey(1), 0.2),
+        vae_params=randomize_params(sd.vae_params, jax.random.PRNGKey(2), 0.2),
+        text_params=randomize_params(sd.text_params, jax.random.PRNGKey(3), 0.2))
+    tsd = StableDiffusion.from_flat(port_cfg(cfg), flat(sd.unet_params),
+                                    flat(sd.vae_params), flat(sd.text_params), device="cpu")
+    V, L = cfg.text_encoder.vocab_size, cfg.text_encoder.max_len
+    ids = np.random.RandomState(1).randint(1, V - 1, size=(2, L)).astype(np.int32)
+    jimg = sd.txt2img(sd.encode_text(jnp.asarray(ids[:1])), sd.encode_text(jnp.asarray(ids[1:])),
+                      jax.random.PRNGKey(5))
     with torch.inference_mode():
-        cond, uncond = sd.encode_text(ids[:1]), sd.encode_text(ids[1:])
-        img = sd.txt2img(cond, uncond, torch.Generator().manual_seed(5))
-        x_T = torch.randn((1, latent, latent, ch), generator=torch.Generator().manual_seed(5))
-        eps = sd.make_eps_fn(cond, uncond, sd.cfg.spacetime.guidance_scale)
-        want = sd.decode_latents(sd.sample_from(eps, x_T))
-    size = sd.cfg.spacetime.image_size
+        cond, uncond = tsd.encode_text(ids[:1]), tsd.encode_text(ids[1:])
+        img = tsd.txt2img(cond, uncond, prng.PRNGKey(5))
+        other = tsd.txt2img(cond, uncond, prng.PRNGKey(6))
+    size = cfg.spacetime.image_size
     assert img.shape == (1, size, size, 3)
-    torch.testing.assert_close(img, want, atol=0, rtol=0)
+    np.testing.assert_allclose(img.numpy(), np.asarray(jimg), atol=ATOL, rtol=ATOL)
+    assert float((img - other).abs().max()) > 1e-3
 
 
 def test_engine_rejects_oversized_batch(engines):
@@ -246,7 +257,12 @@ def test_port_imports_nothing_of_jax():
     for new in (scripts / "serve.py", scripts / "txt2img.py", scripts / "measure_loadtest.py",
                 serving / "loadtest.py",
                 serving / "server.py", ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils"
-                / "watermark.py", scripts / "ingest_weights.py"):
+                / "watermark.py", scripts / "ingest_weights.py", scripts / "img2img.py",
+                scripts / "sample_diffusion.py", scripts / "evaluate.py",
+                scripts / "calibrate_clip_detector.py", scripts / "compare_outputs.py",
+                scripts / "eval_frontend_extraction.py", scripts / "eval_layout_consistency.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "pipeline" / "img2img.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "samplers" / "ddpm.py"):
         assert new in files, new
     bad = []
     for path in files:

@@ -255,9 +255,11 @@ def test_read_png_reads_write_png_pil_and_every_filter(tmp_path, channels):
         path.write_bytes(_png_bytes(img.reshape(23, -1), channels, ftype))
         np.testing.assert_array_equal(np.asarray(Image.open(path)), img)   # a valid file
         np.testing.assert_array_equal(read_png(str(path)), img)
-    Image.fromarray(img[..., 0], "L").save(tmp_path / "gray.png")
+    Image.fromarray(img[..., 0], "L").save(tmp_path / "gray.png")   # grey is read too
+    np.testing.assert_array_equal(read_png(str(tmp_path / "gray.png"))[..., 0], img[..., 0])
+    Image.fromarray(img[..., 0], "L").convert("P").save(tmp_path / "palette.png")
     with pytest.raises(ValueError, match="colour type"):
-        read_png(str(tmp_path / "gray.png"))
+        read_png(str(tmp_path / "palette.png"))
 
 
 def test_save_image_truncates_as_jax(tmp_path):

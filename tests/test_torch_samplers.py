@@ -27,6 +27,7 @@ from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
 from diffusion_spacetime_attn_tpu_torch.samplers.ddim import ddim_sample
 from diffusion_spacetime_attn_tpu_torch.samplers.dpm_solver import dpm_solver_sample
 from diffusion_spacetime_attn_tpu_torch.samplers.plms import plms_sample
+from diffusion_spacetime_attn_tpu_torch.utils import prng
 
 ATOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -170,13 +171,14 @@ def test_weight_gradient_through_chain_with_remat_matches_jax(name, S):
 
 
 def test_ddim_eta_schedule_matches_jax_and_generator_noise_is_seeded():
-    """With eta > 0 and no noise source both packages run the deterministic
-    update with the schedule's sigmas; a torch.Generator adds σ·z, the same
-    for the same seed (its bits are not JAX's)."""
+    """With eta > 0 and no key both packages run the deterministic update
+    with the schedule's sigmas; with a key both add σ·z drawn from
+    split(key, 2S)[0, i] (`utils/prng.py`): the same chain as JAX's within
+    the chain tolerance, the same for the same key, another for another."""
     S = 6
     x_T, w = inputs(S)
-    jz = jddim(jax_eps(jnp.asarray(w)), jnp.asarray(x_T),
-               jmake_schedule(JScheduleConfig(), S, eta=1.0), remat=False)
+    jsched = jmake_schedule(JScheduleConfig(), S, eta=1.0)
+    jz = jddim(jax_eps(jnp.asarray(w)), jnp.asarray(x_T), jsched, remat=False)
     sched = make_schedule(ScheduleConfig(), S, eta=1.0)
     eps = torch_eps(torch.from_numpy(w))
     tz = ddim_sample(eps, torch.from_numpy(x_T), sched, remat=False)
@@ -184,10 +186,13 @@ def test_ddim_eta_schedule_matches_jax_and_generator_noise_is_seeded():
     assert float(sched.sigmas.max()) > 0
 
     def noisy(seed):
-        g = torch.Generator().manual_seed(seed)
-        return ddim_sample(eps, torch.from_numpy(x_T), sched, generator=g, remat=False)
+        return ddim_sample(eps, torch.from_numpy(x_T), sched, rng=prng.PRNGKey(seed),
+                           remat=False)
 
     a, b, c = noisy(3), noisy(3), noisy(4)
+    ja = jddim(jax_eps(jnp.asarray(w)), jnp.asarray(x_T), jsched, rng=jax.random.PRNGKey(3),
+               remat=False)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), atol=ATOL, rtol=ATOL)
     assert a.shape == SHAPE and bool(torch.isfinite(a).all())
     torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert float((a - c).abs().max()) > 1e-3 and float((a - tz).abs().max()) > 1e-3
