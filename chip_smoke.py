@@ -92,7 +92,7 @@ script exits non-zero without its final line:
              batch, nothing else.
      loadtest: `serving/loadtest.run_loadtest` on the vanilla-flag engine
              (phase serve's bundle, no control), batch 2: capacity from 2
-             warm batches, stages at 0.5, 1.0 and 2.5 of it, 8 requests
+             warm batches, stages at 0.5, 1.0 and 2.5 of it, 4 requests
              each, max_queue 4: every accepted request completes, p50 <=
              p95 <= p99, no reject at 0.5 and its p50 at least one batch,
              the JAX artifact's keys; printed on one line with the card's
@@ -209,10 +209,32 @@ script exits non-zero without its final line:
              JAX's report keys, every weight "checkpoint", finite CLIP
              scores, both PNGs and exactly each mode's launches, with its
              seconds; the g++-built BPE core against the Python one.
- 17. the `kernels` summary line (times per UNet evaluation at the engine's
+ 17. train: the LDM training path at SD v1-4 width, built with the chain's
+             kernel flags (use_flash, use_fused_ff; no control), whose step
+             launches the GEGLU forward and dx at the 16 transformer blocks
+             and the flash forward and backward at the 10 level-0/1
+             self-attention sites (TRAIN_SITES).  `train_f32`: one step in
+             float32 at batch 1 from the same weights and keys, kernels on vs
+             off: loss within 1e-5 relative, every gradient within 1e-3
+             relative in norm, the AdamW-updated weights within 1e-5 +
+             1e-5·|plain|, launches exactly TRAIN_SITES.  `train_bench`:
+             `scripts/bench_train.py`'s `bench_ldm` (bf16 compute, float32
+             parameters, batch 4, AdamW + EMA, no remat; one warm-up and
+             TRAIN_STEPS timed steps): s per step (min, median), peak memory,
+             launches per step exactly TRAIN_SITES, EMA apart from the
+             weights, save -> restore equal bits, the next step after the
+             restore equal to the uninterrupted one bit for bit (cuDNN
+             deterministic).  `train_cli`: `train_ldm --synthetic --steps 3`
+             (3 × TRAIN_SITES launches), `train_vae --synthetic --steps 2
+             --disc-start 0` (KL-f8, 256², batch 4, random LPIPS, the
+             discriminator and its adaptive weight), `train_testbed` with every
+             stage at 20 steps (chunks of 10, 512 scenes) into a temporary
+             directory, then `load_bundle` of it and one vanilla PLMS-10
+             image, finite; s per step and per stage.
+ 18. the `kernels` summary line (times per UNet evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
      the dataset sweep, of phases http, loadtest and serve_cli, of phase
-     image_in and of phase ingest; each
+     image_in, of phase ingest and of phase train_bench; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -236,6 +258,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2651,6 +2674,267 @@ def phase_profile_train(sd):
           "device_idle_share": (1.0 - busy / (1e3 * host_s)) if groups else None})
 
 
+# launches per LDM training step at SD v1-4 width (latents 64², batch any):
+# GEGLU forward and dx at the 16 transformer blocks, flash forward and
+# backward at the 10 self-attention sites of levels 0 and 1 (4096 and 1024
+# tokens pass flash_ok; level 2 and mid take the plain attention: use_mha is
+# off); every site gets a backward, each block's input depending on the weights
+TRAIN_SITES = {"geglu_fwd": 16, "geglu_bwd": 16, "flash_fwd": 10, "flash_bwd": 10}
+TRAIN_STEPS = 5                 # bench_train's timed steps (after one warm-up)
+
+
+def train_launches(kernel: str, steps: int) -> int:
+    return steps * TRAIN_SITES.get(kernel, 0)
+
+
+def _train_parts(unet, batch: int, seed: int):
+    """(loss, {name: grad}, {name: updated param}) of one AdamW step from the
+    unet's current weights, with kernels as its flags say; the weights are
+    left updated."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LDMTrainConfig, ScheduleConfig
+    from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
+    from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer as tldm
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+
+    dev = next(unet.parameters()).device
+    cfg = LDMTrainConfig(batch_size=batch, use_ema=False)
+    sched_cfg = ScheduleConfig()
+    state = tldm.init_state(cfg, sched_cfg, unet, tldm.scaled_lr(cfg, batch, 1))
+    k1, k2 = prng.split(prng.PRNGKey(seed))
+    x0 = torch.from_numpy(prng.normal(k1, (batch, 64, 64, 4))).to(dev)
+    ctx = torch.from_numpy(prng.normal(k2, (batch, CONTEXT_LEN, 768))).to(dev) * 0.02
+    lvlb = torch.from_numpy(tldm.lvlb_weights(sched_cfg)).to(dev)
+    with deterministic():
+        loss, _ = tldm.p_losses(cfg, make_schedule(sched_cfg, 50, device=dev), lvlb, unet,
+                                state.logvar, x0, ctx, prng.PRNGKey(seed + 1))
+        loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in unet.named_parameters()}
+    state.opt_state.update()
+    unet.zero_grad(set_to_none=True)
+    return loss.detach(), grads, {k: p.detach().clone() for k, p in unet.named_parameters()}
+
+
+def phase_train_check():
+    """(a) one full-width SD v1-4 LDM training step in float32 at batch 1,
+    AdamW, from the same weights and keys with the kernels on (use_flash,
+    use_fused_ff) and off: the loss within 1e-5 relative, every parameter's
+    gradient within 1e-3 relative in norm (the chain's limit), the updated
+    parameters within 1e-5 + 1e-5·|plain|, and the launches of the step
+    exactly TRAIN_SITES."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    wrappers = _wrappers()
+    with torch.device("cuda"):
+        unet = UNet(UNetConfig(use_flash=True, use_fused_ff=True), radius=0.2)
+    randomize_(unet, 1)
+    start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    t0 = time.perf_counter()
+    loss_on, g_on, p_on = _train_parts(unet, 1, 21)
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    expected = {k: train_launches(k, 1) for k in wrappers}
+    with torch.no_grad():
+        unet.load_state_dict(start)
+    del start
+    _kernels_off(unet)
+    _reset_counts(wrappers.values())
+    t0 = time.perf_counter()
+    loss_off, g_off, p_off = _train_parts(unet, 1, 21)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    off_counts = {k: w.launches for k, w in wrappers.items()}
+    loss_rel = float((loss_on - loss_off).abs() / loss_off.abs())
+    grad_rel = {k: float(torch.linalg.vector_norm(g_on[k] - g_off[k])
+                         / torch.linalg.vector_norm(g_off[k]).clamp_min(1e-30)) for k in g_off}
+    worst = max(grad_rel, key=grad_rel.get)
+    param_ratio = max(float(((p_on[k] - p_off[k]).abs() / (1e-5 + 1e-5 * p_off[k].abs())).max())
+                      for k in p_off)
+    emit({"phase": "train_f32", "loss_on": float(loss_on), "loss_off": float(loss_off),
+          "loss_rel": loss_rel, "grad_rel_norm_max": grad_rel[worst], "grad_worst": worst,
+          "param_ratio_max": param_ratio, "launches": counts, "off_launches": off_counts,
+          "step_on_s": on_s, "step_off_s": off_s,
+          "limits": {"loss_rel": 1e-5, "grad_rel_norm": 1e-3,
+                     "params": "|on - off| <= 1e-5 + 1e-5·|off| (ratio <= 1)"}})
+    if counts != expected or any(off_counts.values()):
+        fail(f"train_f32: launches {counts} (off {off_counts}), expected {expected}")
+    if not (loss_rel <= 1e-5 and grad_rel[worst] <= 1e-3 and param_ratio <= 1.0):
+        fail(f"train_f32: kernels on vs off over the limit: loss {loss_rel}, "
+             f"{worst} {grad_rel[worst]}, params {param_ratio}")
+    del unet, g_on, g_off, p_on, p_off
+    torch.cuda.empty_cache()
+
+
+def phase_train_bench(root: str, smi: str) -> dict:
+    """(b) `scripts/bench_train.py --what ldm`'s operating point through its
+    `bench_ldm`: SD v1-4 UNet, float32 parameters and bf16 compute, batch 4,
+    AdamW with EMA, no remat; one warm-up and TRAIN_STEPS timed steps.  s
+    per step (min, median), peak device memory and launches per step by
+    kernel (exactly TRAIN_SITES); the loss finite; EMA apart from the
+    parameters; `LDMTrainer.save` -> `restore` giving equal bits; and a step
+    after `restore` equal, bit for bit, to the step the run took without
+    it; then one more step under torch.profiler (device ms by kernel family,
+    busy vs the step's host clock).  Returns {kernel: launches} of the
+    warm-up and timed steps."""
+    import argparse
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import bench_train
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+
+    wrappers = _wrappers()
+    args = argparse.Namespace(what="ldm", batch_size=4, iters=TRAIN_STEPS, dtype="bfloat16",
+                              no_ema=False, tiny=False)
+    per_step = []
+
+    def on_step(i):
+        per_step.append({k: w.launches for k, w in wrappers.items()})
+        _reset_counts(wrappers.values())
+
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    line, trainer, state, batch_for = bench_train.bench_ldm(args, torch.device("cuda"), on_step)
+    launches = {k: sum(c[k] for c in per_step) for k in wrappers}
+    expected = {k: train_launches(k, 1) for k in wrappers}
+    bad = [c for c in per_step if c != expected]
+    params = dict(state.params.named_parameters())
+    ema_apart = sum(int(not torch.equal(state.ema_params[k], params[k].detach())) for k in params)
+    finite = all(math.isfinite(v) for v in line["losses"])
+
+    # save -> restore -> one more step, against the same step without the round trip
+    trainer.ckpt_dir = root
+    n = state.step
+    t0 = time.perf_counter()
+    trainer.save(state, n)
+    save_s = time.perf_counter() - t0
+    saved = {k: v.detach().clone() for k, v in state.params.state_dict().items()}
+    key, (x0, ctx) = prng.fold_in(prng.PRNGKey(42), n), batch_for(n)
+    with deterministic():
+        state, _ = trainer.train_step(state, x0, ctx, key)
+    on_run = {k: v.detach().clone() for k, v in state.params.state_dict().items()}
+    on_ema = {k: v.clone() for k, v in state.ema_params.items()}
+    t0 = time.perf_counter()
+    state = trainer.restore(n, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_equal = all(torch.equal(v, saved[k]) for k, v in state.params.state_dict().items())
+    del saved
+    with deterministic():
+        state, _ = trainer.train_step(state, x0, ctx, key)
+    resumed_equal = (all(torch.equal(v, on_run[k]) for k, v in state.params.state_dict().items())
+                     and all(torch.equal(v, on_ema[k]) for k, v in state.ema_params.items()))
+    os.remove(os.path.join(root, f"step_{n}.pt"))
+    del on_run, on_ema
+    # where one step's time goes: device time by kernel family under the
+    # profiler, against the step's host clock
+    x0, ctx = batch_for(n + 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, x0, ctx, prng.fold_in(prng.PRNGKey(42), n + 1))
+        torch.cuda.synchronize()
+        prof_step_s = time.perf_counter() - t0
+    groups, kernels = _families(prof)
+    busy = sum(v for k, v in groups.items() if not k.startswith("("))
+    _no_slices("train_bench", groups)
+    # the optimizer's byte floor: AdamW reads p, g, m, v and writes p, m, v;
+    # EMA's lerp reads the EMA copy and p and writes the copy (f32 each)
+    n_params = sum(p.numel() for p in params.values())
+    opt_bytes = 4 * n_params * (7 + 3)
+    emit({"phase": "train_bench", "metric": line["metric"], "nvidia_smi": smi,
+          "s_per_step_min": line["s_per_step"], "s_per_step_median": statistics.median(line["times"]),
+          "times": line["times"], "first_step_s": line["compile_s"],
+          "peak_bytes": line["peak_bytes"], "losses": line["losses"],
+          "launches_per_step": per_step[-1], "ema_apart_params": ema_apart,
+          "params": len(params), "save_s": save_s, "restore_s": restore_s,
+          "restore_equal": restored_equal, "resume_bit_equal": resumed_equal,
+          "n_params": n_params, "optimizer_bytes": opt_bytes,
+          "optimizer_bound_ms": 1e3 * opt_bytes / PEAK_BYTES,
+          "profiled_step_s": prof_step_s, "device_ms_by_family": groups or None,
+          "device_busy_ms": busy if groups else None, "device_kernels": kernels,
+          "device_idle_share": (1.0 - busy / (1e3 * prof_step_s)) if groups else None})
+    if bad or len(per_step) != TRAIN_STEPS + 1:
+        fail(f"train_bench: launches per step {per_step}, expected {expected}")
+    if not (finite and ema_apart == len(params) and restored_equal and resumed_equal):
+        fail(f"train_bench: finite {finite}, EMA apart {ema_apart}/{len(params)}, "
+             f"restore {restored_equal}, resume {resumed_equal}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cli(root: str) -> dict:
+    """(c) the entry points: `train_ldm --synthetic --steps 3` at SD v1-4
+    width (launches exactly 3 × TRAIN_SITES), `train_vae --synthetic --steps
+    2 --disc-start 0` at KL-f8 width on 256² images (the discriminator and
+    the adaptive weight with random LPIPS), and `train_testbed` with every
+    stage at a few steps into a directory that the port's `load_bundle`
+    then reads, one vanilla testbed image from it finite.  s per step and
+    per stage; returns {kernel: launches} of train_ldm."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import train_ldm, train_testbed, train_vae
+    from diffusion_spacetime_attn_tpu_torch.testbed import scenes
+    from diffusion_spacetime_attn_tpu_torch.testbed.bundle import load_bundle
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    ldm = train_ldm.main(["--synthetic", "--steps", "3", "--ckpt-dir", os.path.join(root, "ldm"),
+                          "--log-every", "1", "--ckpt-every", "0"])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expected = {k: train_launches(k, 3) for k in wrappers}
+    ldm_ok = launches == expected and all(math.isfinite(m["loss"]) for m in ldm["metrics"])
+    ckpt_bytes = os.path.getsize(os.path.join(root, "ldm", "step_3.pt"))
+    shutil.rmtree(os.path.join(root, "ldm"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vae = train_vae.main(["--synthetic", "--steps", "2", "--disc-start", "0", "--log-every", "1",
+                          "--ckpt-dir", os.path.join(root, "vae"), "--ckpt-every", "0"])
+    vae_peak = torch.cuda.max_memory_allocated()
+    vae_ok = all(math.isfinite(v) for m in vae["metrics"] for v in m.values()) and \
+        all(m["d_weight"] > 0 for m in vae["metrics"])
+    torch.cuda.empty_cache()
+    tb_dir = os.path.join(root, "testbed")
+    tb = train_testbed.main(["--ckpt-dir", tb_dir, "--data-cache", os.path.join(root, "s.npz"),
+                             "--scenes", "512", "--vae-steps", "20", "--clip-steps", "20",
+                             "--ldm-steps", "20", "--chunk", "10"])
+    bundle = load_bundle(tb_dir, num_steps=10, device="cuda")
+    caption = scenes.make_eval_prompts(1, seed=777)[0].caption
+    with torch.inference_mode():
+        cond = bundle.encode_captions([caption])
+        img = bundle.sd.txt2img(cond, bundle.encode_captions([""]), prng.PRNGKey(3))
+    tb_ok = bool(torch.isfinite(img).all()) and tuple(img.shape) == (1, 64, 64, 3) and \
+        all(k in bundle.meta for k in ("scale_factor", "guidance_scale", "ldm_loss_simple"))
+    emit({"phase": "train_cli", "train_ldm_step_s": ldm["step_s"],
+          "train_ldm_losses": [m["loss"] for m in ldm["metrics"]], "train_ldm_launches": launches,
+          "train_ldm_ckpt_bytes": ckpt_bytes, "train_vae_step_s": vae["step_s"],
+          "train_vae_metrics": vae["metrics"], "train_vae_peak_bytes": vae_peak,
+          "train_testbed_s": tb["seconds"], "train_testbed_meta": tb["meta"],
+          "testbed_image_mean": float(img.mean()), "testbed_caption": caption})
+    if not (ldm_ok and vae_ok and tb_ok):
+        fail(f"train_cli: train_ldm {ldm_ok} (launches {launches}, expected {expected}), "
+             f"train_vae {vae_ok}, train_testbed {tb_ok}")
+    del bundle
+    torch.cuda.empty_cache()
+    return launches
+
+
 FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
             ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_",)),
             ("spacetime_bwd", ("spacetime_bwd_",)),
@@ -2659,7 +2943,8 @@ FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
             ("geglu_sum_slices", ("sum_slices",)),
             ("convolution", ("conv", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
             ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma")),
-            ("softmax", ("softmax",)), ("norm", ("norm",))]
+            ("softmax", ("softmax",)), ("norm", ("norm",)),
+            ("optimizer", ("adam", "multi_tensor"))]    # AdamW, EMA's lerp (training)
 
 
 def _no_slices(phase: str, groups: dict):
@@ -2936,8 +3221,8 @@ def phase_loadtest(sd, smi: str):
     """`run_loadtest` on the vanilla-flag engine at full SD v1-4 width (phase
     serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-50, batch
     2: capacity from 2 warm batches, then stages at 0.5, 1.0 and 2.5 of it,
-    8 requests each, max_queue 4, max_wait_s 0.2.  A functional check, not a
-    measurement (percentiles of 8 samples; `scripts/measure_loadtest.py`
+    4 requests each, max_queue 4, max_wait_s 0.2.  A functional check, not a
+    measurement (percentiles of 4 samples; `scripts/measure_loadtest.py`
     measures): every accepted request must complete, p50 <= p95 <= p99, the
     0.5 stage must reject nothing, its p50 be at least the wall time of the
     fastest batch it ran (a request waits for its own batch) and its load,
@@ -2960,14 +3245,15 @@ def phase_loadtest(sd, smi: str):
     wrappers = _wrappers()
     _reset_counts(wrappers.values())
     t0 = time.perf_counter()
-    art = run_loadtest(engine, capacity_fractions=(0.5, 1.0, 2.5), stage_requests=8,
+    # 4 requests per stage keep the whole script inside its 600 s budget
+    art = run_loadtest(engine, capacity_fractions=(0.5, 1.0, 2.5), stage_requests=4,
                        max_wait_s=0.2, max_queue=4)
     seconds = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
     batches = len(engine.rows)
     expect = {k: batches * LAUNCHES_PER_BATCH if k in VANILLA_KERNELS else 0 for k in wrappers}
     emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": 50,
-          "functional_check": "8 requests per stage: not a measurement",
+          "functional_check": "4 requests per stage: not a measurement",
           "seconds": seconds, "batches": batches, "launches": counts,
           "batch_rows": [n for n, _ in engine.rows], "artifact": art})
     if counts != expect:
@@ -3247,6 +3533,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         ingest_launches = phase_ingest(root, smi)
+    torch.cuda.empty_cache()
+    phase_train_check()
+    with tempfile.TemporaryDirectory() as root:
+        train_counts = phase_train_bench(root, smi)
+        phase_train_cli(root)
     for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
                          ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
@@ -3268,6 +3559,7 @@ def main() -> int:
                "cli_launches": cli_launches[kname],
                "ingest_launches": ingest_launches[kname],
                "image_in_launches": image_launches[kname],
+               "train_launches": train_counts[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -3287,7 +3579,9 @@ def main() -> int:
     # loadtest (vanilla) and serve_cli (spacetime); ingest_launches: phase
     # ingest's drill (both modes) and txt2img; image_in_launches: phase
     # image_in's bf16 runs (img2img, inpaint, the unconditional DDIM and DDPM,
-    # each through the library and the entry point but DDPM);
+    # each through the library and the entry point but DDPM); train_launches:
+    # phase train_bench's bf16 training steps (bench_train's warm-up and
+    # TRAIN_STEPS timed steps at batch 4; GEGLU and flash only);
     # launches_by_design: the serving and optimization runs
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

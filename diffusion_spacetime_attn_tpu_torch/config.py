@@ -163,6 +163,36 @@ class LayoutConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LDMTrainConfig:
+    """UNet (latent-diffusion) training hyperparameters (reference:
+    `main.py:674-689` LR scaling, `ddpm.py:55-113` loss / EMA knobs,
+    `ddpm.py:1379-1388` AdamW)."""
+
+    batch_size: int = 4                  # per device
+    base_lr: float = 1e-4
+    scale_lr: bool = True                # lr = accum × ndev × batch × base_lr
+    accum_steps: int = 1                 # accumulate_grad_batches
+    weight_decay: float = 1e-2           # torch AdamW's default, as the reference
+    grad_clip_norm: float = 0.0          # 0 = no clipping (Lightning's default)
+    use_ema: bool = True
+    ema_decay: float = 0.9999            # LitEma's default
+    parameterization: str = "eps"        # "eps" | "x0"
+    loss_type: str = "l2"                # "l2" | "l1"
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
+    learn_logvar: bool = False
+    logvar_init: float = 0.0
+    # LR-multiplier schedule over the scaled lr (reference `main.py:691-701`):
+    # "none" | "lambda_linear" | "warmup_cosine"
+    lr_schedule: str = "none"
+    lr_warmup_steps: int = 10000
+    lr_f_start: float = 1e-6
+    lr_f_min: float = 1.0
+    lr_f_max: float = 1.0
+    lr_cycle_steps: int = 1_000_000_000  # one unbounded cycle
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     unet: UNetConfig = UNetConfig()
     vae: VAEConfig = VAEConfig()

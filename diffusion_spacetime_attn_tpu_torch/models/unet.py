@@ -93,6 +93,18 @@ class UNet(nn.Module):
         self.out_norm = GroupNorm32(mc)
         self.out_conv = Conv(mc, cfg.out_channels, 3, padding=1, dtype=dt)
 
+    def zero_init_modules(self):
+        """Names of the convolutions the JAX UNet zero-initializes: every
+        ResBlock's out_conv, every SpatialTransformer's proj_out and the
+        final out_conv (`models/layers.py:254,285`, `unet.py:134` there)."""
+        names = ["out_conv"]
+        for name, m in self.named_modules():
+            if isinstance(m, ResBlock):
+                names.append(f"{name}.out_conv")
+            elif isinstance(m, SpatialTransformer):
+                names.append(f"{name}.proj_out")
+        return names
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 control: Optional[SpatialControl] = None) -> torch.Tensor:

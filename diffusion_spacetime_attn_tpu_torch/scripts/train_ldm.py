@@ -1,0 +1,208 @@
+"""LDM (UNet) training CLI; port of the JAX package's `scripts/train_ldm.py`
+(reference `attention_optimization/stable-diffusion/main.py`), with its flags
+and defaults and `--cpu`:
+
+    python -m diffusion_spacetime_attn_tpu_torch.scripts.train_ldm --synthetic --steps 3
+    python -m diffusion_spacetime_attn_tpu_torch.scripts.train_ldm --tiny --cpu --steps 4 \\
+        --conditioning class --ckpt-every 2 --ckpt-dir /tmp/ldm
+
+Conditioning: `text` (cross-attention on a [B, 77, 768] context, SD-style),
+`class` (a `ClassEmbedder` trained with the UNet, cin256-style) or `none`
+(the unconditional UNet).  Data: `--synthetic` random latents and contexts
+(numpy's RandomState(step), as in JAX); it is also what runs without
+`--data-dir`.  Raise, naming ROADMAP A.12's remainder: `--data-dir`
+(its image loaders, `training/image_data.py`, and PIL's resize) and
+`--conditioning superres` (`training/degradation.py`, whose JPEG round trip
+and resizes need PIL).  `--unet-ckpt` warm-starts from a CompVis SD v1
+checkpoint (`utils/convert.convert_sd_unet`).  One device: `--fsdp` warns and
+is ignored, as the JAX script does on one device.
+
+At full width the UNet runs the chain's kernel flags, `use_flash` (levels 0
+and 1) and `use_fused_ff` (every transformer block), with no control: the
+JAX script leaves every flag off.  Initial weights are flax-like and seeded
+(`utils/testing.init_flax_like_`); the step's keys are JAX's,
+fold_in(PRNGKey(42), step).  Checkpoints are the port's own
+(`LDMTrainer.save`: `<ckpt-dir>/step_<n>.pt`); `--resume-step` reads one.
+Runs on the card and raises without one, unless `--cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import LDMTrainConfig, ScheduleConfig, UNetConfig
+from ..models.encoders import ClassEmbedder
+from ..models.unet import UNet
+from ..ops.schedule import make_schedule
+from ..training.ldm_trainer import LDMTrainer
+from ..utils import convert, prng
+from ..utils.profiling import JsonLogger
+from ..utils.testing import init_flax_like_
+from ..utils.weights import flatten_tree, load_flat
+from .layout_infer import pick_device
+
+logger = logging.getLogger("train_ldm")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--data-dir", default=None, help="directory with images + captions.jsonl")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="random latents / contexts (smoke and benchmark mode)")
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--batch-size", type=int, default=4, help="per device")
+    ap.add_argument("--base-lr", type=float, default=1e-4)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--no-ema", action="store_true")
+    ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--ckpt-dir", default="saved/ldm")
+    ap.add_argument("--ckpt-every", type=int, default=500)
+    ap.add_argument("--resume-step", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=50)
+    ap.add_argument("--unet-ckpt", default=None, help="warm start from sd-v1-4 (CompVis ckpt)")
+    ap.add_argument("--tiny", action="store_true", help="tiny UNet (CPU smoke)")
+    ap.add_argument("--conditioning", default="text",
+                    choices=["text", "class", "superres", "none"])
+    ap.add_argument("--num-classes", type=int, default=1000)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the state over devices (one device here: ignored)")
+    ap.add_argument("--sr-factor", type=int, default=4)
+    ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    return ap.parse_args(argv)
+
+
+class ClassConditioned(nn.Module):
+    """The UNet with a jointly trained `ClassEmbedder` context (the
+    reference's cond_stage_trainable, `encoders/modules.py:21-33`); the
+    context is the class id as float [B, 1]."""
+
+    def __init__(self, unet: UNet, cond: ClassEmbedder):
+        super().__init__()
+        self.unet, self.cond = unet, cond
+
+    def forward(self, x, t, context):
+        return self.unet(x, t, self.cond(context[:, 0]))
+
+
+class Unconditional(nn.Module):
+    """The unconditional UNet behind the trainer's (x, t, context) call; the
+    context is a placeholder."""
+
+    def __init__(self, unet: UNet):
+        super().__init__()
+        self.unet = unet
+
+    def forward(self, x, t, context):
+        return self.unet(x, t)
+
+
+def configs(args):
+    """(UNetConfig, latent size, context shape) of the flags."""
+    if args.tiny:
+        cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                         attention_resolutions=(1, 2), num_heads=2, context_dim=16,
+                         dtype=args.dtype)
+        return cfg, 16, (7, 16)
+    cfg = UNetConfig(dtype=args.dtype, use_flash=True, use_fused_ff=True)
+    return cfg, 64, (77, 768)
+
+
+def build_model(args, unet_cfg: UNetConfig, device) -> nn.Module:
+    """The trained module for the conditioning mode, float32 parameters."""
+    with torch.device(device):
+        unet = UNet(unet_cfg, radius=0.2, conditional=args.conditioning != "none")
+    if args.unet_ckpt:
+        sd = convert.load_torch_checkpoint(args.unet_ckpt)
+        load_flat(unet, flatten_tree(convert.convert_sd_unet(
+            sd, channel_mult=unet_cfg.channel_mult, num_res_blocks=unet_cfg.num_res_blocks,
+            attention_ds=unet_cfg.attention_resolutions)))
+    else:
+        init_flax_like_(unet, 0, unet.zero_init_modules())
+    if args.conditioning == "class":
+        with torch.device(device):
+            cond = ClassEmbedder(args.num_classes, unet_cfg.context_dim)
+        return ClassConditioned(unet, init_flax_like_(cond, 1))
+    if args.conditioning == "none":
+        return Unconditional(unet)
+    return unet
+
+
+def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device):
+    """next_batch(i) -> (x0, context), numpy's RandomState(i) draws as JAX's
+    script makes them."""
+    def next_batch(i):
+        r = np.random.RandomState(i)
+        x0 = r.randn(B, latent_hw, latent_hw, 4)
+        if args.conditioning == "class":
+            ctx = r.randint(0, args.num_classes, (B, 1))
+        elif args.conditioning == "none":
+            ctx = np.zeros((B, 1))
+        else:
+            ctx = r.randn(B, *ctx_shape)
+        return (torch.from_numpy(x0.astype(np.float32)).to(device),
+                torch.from_numpy(ctx.astype(np.float32)).to(device))
+    return next_batch
+
+
+def main(argv=None) -> dict:
+    """Train; returns {"metrics": [per logged step], "step_s": [s per step],
+    "steps": n}."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
+    if args.conditioning == "superres":
+        raise NotImplementedError("--conditioning superres needs training/degradation.py "
+                                  "(BSRGAN-light: a JPEG round trip and PIL resizes), not "
+                                  "ported yet (ROADMAP A.12)")
+    if args.data_dir and not args.synthetic:
+        raise NotImplementedError("--data-dir needs the image loaders of "
+                                  "training/image_data.py (PIL), not ported yet (ROADMAP A.12); "
+                                  "use --synthetic")
+    if args.fsdp:
+        logger.warning("--fsdp ignored: single device (no mesh to shard state over) — "
+                       "training runs fully replicated")
+    device = pick_device(args.cpu)
+    unet_cfg, latent_hw, ctx_shape = configs(args)
+    sched_cfg = ScheduleConfig()
+    train_cfg = LDMTrainConfig(batch_size=args.batch_size, base_lr=args.base_lr,
+                               accum_steps=args.accum, use_ema=not args.no_ema)
+    model = build_model(args, unet_cfg, device)
+    trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device),
+                         model, ckpt_dir=args.ckpt_dir)
+    logger.info("devices=1 lr=%.2e (scaled)", trainer.lr)
+    state = trainer.init()
+    start = 0
+    if args.resume_step is not None:
+        state = trainer.restore(args.resume_step, state)
+        start = args.resume_step
+        logger.info("resumed from step %d", start)
+    next_batch = synthetic_batches(args, args.batch_size, latent_hw, ctx_shape, device)
+
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    jlog = JsonLogger(os.path.join(args.ckpt_dir, "train_log.jsonl"))
+    key = prng.PRNGKey(42)
+    logged, step_s = [], []
+    for i in range(start, args.steps):
+        t0 = time.perf_counter()
+        x0, ctx = next_batch(i)
+        state, metrics = trainer.train_step(state, x0, ctx, prng.fold_in(key, i))
+        m = {k: float(v) for k, v in metrics.items()}   # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        if (i + 1) % args.log_every == 0 or i == start:
+            logger.info("step %d %s", i + 1, m)
+            jlog.log("ldm_train_step", step=i + 1, **m)
+            logged.append({"step": i + 1, **m})
+        if (args.ckpt_every and (i + 1) % args.ckpt_every == 0) or i + 1 == args.steps:
+            trainer.save(state, i + 1)
+            logger.info("checkpoint @ %d", i + 1)
+    jlog.close()
+    return {"metrics": logged, "step_s": step_s, "steps": state.step}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""The trained testbed models as one bundle, port of `load_bundle` in the JAX
-package's `testbed/bundle.py`.
+"""The trained testbed models as one bundle, port of `save_bundle` and
+`load_bundle` in the JAX package's `testbed/bundle.py`.
 
 A checkpoint directory holds three parameter trees written by flax's
 `msgpack_serialize` (`unet.msgpack`, `vae.msgpack`, `clip.msgpack`) and a
@@ -9,6 +9,10 @@ and loaded through the weight bridge (`utils/weights.py`), which raises on a
 missing, unexpected or mis-shaped key.  The trained CLIP's text tower is
 also the SD conditioning encoder, and the whole CLIP is the DCLIP judge,
 fed [0, 1] images without CLIP's normalization, as it was trained.
+
+`save_bundle` writes flat flax trees (`utils/weights.flax_flat`) with the
+port's msgpack writer, in the bytes flax would write, so JAX's `load_bundle`
+reads what the port trained; `meta.json` is merged as JAX merges it.
 """
 from __future__ import annotations
 
@@ -22,11 +26,31 @@ import torch
 
 from ..pipeline.losses import DCLIPLoss
 from ..pipeline.pipeline import StableDiffusion
-from ..utils.msgpack import load_flat
+from ..utils.msgpack import load_flat, save_flat
 from .configs import testbed_clip_cfg, testbed_pipeline_cfg
 from .scenes import tokenize as scene_tokenize
 
 TREES = ("unet", "vae", "clip")
+
+
+def save_bundle(ckpt_dir: str, *, vae_params: Optional[Dict[str, np.ndarray]] = None,
+                clip_params: Optional[Dict[str, np.ndarray]] = None,
+                unet_params: Optional[Dict[str, np.ndarray]] = None,
+                meta: Optional[Dict] = None) -> None:
+    """Write any subset of the three flat trees (staged training saves as it
+    goes) and merge `meta` into meta.json."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for name, flat in (("vae", vae_params), ("clip", clip_params), ("unet", unet_params)):
+        if flat is not None:
+            save_flat(os.path.join(ckpt_dir, f"{name}.msgpack"), flat)
+    meta_path = os.path.join(ckpt_dir, "meta.json")
+    merged = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            merged = json.load(f)
+    merged.update(meta or {})
+    with open(meta_path, "w") as f:
+        json.dump(merged, f, indent=2, sort_keys=True)
 
 
 @dataclasses.dataclass

@@ -8,7 +8,8 @@ The four external checkpoints the reference consumes:
     `CLIPVisionModel`);
   * OpenAI CLIP ViT-B/32 (`clip.load`'s `ViT-B-32.pt`, a TorchScript
     archive, or its plain state dict);
-  * HF RoBERTa-base and the fairseq Rel2Bbox layout checkpoint.
+  * HF RoBERTa-base and the fairseq Rel2Bbox layout checkpoint;
+  * taming-transformers' LPIPS (VGG16 + linear heads), for VAE training.
 
 Each converter takes a flat {name: array} dict (`load_torch_checkpoint`)
 and returns the nested parameter tree of the JAX package's module, with
@@ -16,8 +17,7 @@ flax's layouts: torch Linear [out, in] -> kernel [in, out], torch Conv
 [O, I, kh, kw] -> kernel [kh, kw, I, O], norm weight -> scale.  The port's
 modules carry the same names, so `utils/weights.flatten_tree` and `bridge`
 take such a tree onto a module strictly (a missing, unexpected or
-mis-shaped key raises).  The LPIPS converter waits for its module (ROADMAP
-A.12) and raises.
+mis-shaped key raises).
 """
 from __future__ import annotations
 
@@ -514,7 +514,22 @@ def convert_sd_vq(sd: Dict[str, np.ndarray], prefix: str = "first_stage_model.",
     return params
 
 
-def convert_lpips(*args, **kwargs):
-    """The taming-transformers LPIPS converter waits for the port's trainers."""
-    raise NotImplementedError("convert_lpips: the PyTorch port has no LPIPS module yet "
-                              "(ROADMAP A.12)")
+# torchvision VGG16 `features` indices of the 13 convolutions, and the taming
+# LPIPS slice each sits in (`taming/modules/losses/lpips.py` vgg16 slices)
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG16_SLICE_OF = {0: 1, 2: 1, 5: 2, 7: 2, 10: 3, 12: 3, 14: 3,
+                   17: 4, 19: 4, 21: 4, 24: 5, 26: 5, 28: 5}
+
+
+def convert_lpips(sd: Dict[str, np.ndarray]):
+    """A taming-transformers LPIPS checkpoint (`net.slice{k}.{i}.weight`,
+    the VGG16 convolutions at torchvision's feature indices, and
+    `lin{j}.model.1.weight`, the 1×1 heads) -> `training.perceptual.LPIPS`'s
+    tree.  The scaling layer's constants are in the module."""
+    vgg = {}
+    for j, i in enumerate(_VGG16_CONV_IDX):
+        vgg[f"conv_{j}"] = _conv(sd, f"net.slice{_VGG16_SLICE_OF[i]}.{i}")
+    params = {"vgg": vgg}
+    for j in range(5):
+        params[f"lin_{j}"] = {"kernel": _hwio(sd[f"lin{j}.model.1.weight"])}
+    return params

@@ -1,4 +1,5 @@
-"""A msgpack reader for the parameter trees flax writes, with numpy only.
+"""A msgpack reader and writer for the parameter trees flax writes, with numpy
+only.
 
 `flax.serialization.msgpack_serialize` packs a nested dict of arrays with
 msgpack (`https://github.com/msgpack/msgpack/blob/master/spec.md`); each
@@ -17,6 +18,12 @@ come back as a `torch.bfloat16` tensor.  Any other ext code (flax's complex
 numbers and numpy scalars, codes 2 and 3), and any type byte outside the
 list above, raises `ValueError` with the byte offset.  flax splits arrays
 over 2³⁰ bytes into chunked dicts; this reader returns such a dict as it is.
+
+`packb` writes the same layout, as `msgpack_serialize` of a tree flax's
+`tree_map` has passed through (dict keys sorted at every level, every type
+in its shortest form, as the `msgpack` package packs it); `save_flat`
+writes a flat "a/b/c" tree to a file JAX's `load_bundle` reads.  Arrays of
+2³⁰ bytes or more raise (flax would chunk them).
 """
 from __future__ import annotations
 
@@ -115,6 +122,126 @@ class _Reader:
             words = np.frombuffer(buf, dtype=np.int16).reshape(shape).copy()
             return torch.from_numpy(words).view(torch.bfloat16)
         return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+
+
+def _header(out: bytearray, n: int, fix_base: int, fix_max: int, codes) -> None:
+    """A length header: the fix form below fix_max, else the first of
+    (code8, code16, code32) whose width holds n (None: no such width)."""
+    if fix_base is not None and n < fix_max:
+        out.append(fix_base | n)
+        return
+    for code, width in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * width):
+            out.append(code)
+            out += struct.pack(_LENGTH[width], n)
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack_int(out: bytearray, n: int) -> None:
+    if 0 <= n < 128:
+        out.append(n)
+    elif -32 <= n < 0:
+        out.append(n & 0xFF)
+    elif n >= 0:
+        for code, fmt, lim in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                               (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if n < lim:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack: int {n} too large")
+    else:
+        for code, fmt, lim in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                               (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63)):
+            if n >= -lim:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack: int {n} too small")
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _header(out, len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(obj, (bytes, bytearray)):
+        _header(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k in sorted(obj):
+            _pack(k, out)
+            _pack(obj[k], out)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor)):
+        _pack_array(obj, out)
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def _pack_array(a, out: bytearray) -> None:
+    """ext 1: [shape, dtype name, C-order bytes]; a bfloat16 tensor as its
+    16-bit words under the name `bfloat16`."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            shape, name, raw = list(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+        else:
+            a = t.numpy()
+    if isinstance(a, np.ndarray):
+        shape, name, raw = list(a.shape), a.dtype.name, np.ascontiguousarray(a).tobytes()
+    if len(raw) >= 1 << 30:
+        raise ValueError("msgpack: arrays of 2^30 bytes or more are chunked by flax")
+    payload = bytearray()
+    _pack([shape, name, raw], payload)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(fixext[n])
+    else:
+        _header(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", NDARRAY_EXT)
+    out += payload
+
+
+def packb(obj: Any) -> bytes:
+    """Encode `obj` (nested dicts / lists of str, int, float, bool, None,
+    bytes and arrays) as flax's `msgpack_serialize` does."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict:
+    """{"a/b": x} -> {"a": {"b": x}}."""
+    tree: Dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def save_flat(path: str, flat: Dict[str, Any]) -> None:
+    """Write a flat "a/b/c" tree as the nested file flax writes."""
+    with open(path, "wb") as f:
+        f.write(packb(unflatten(flat)))
 
 
 def unpackb(data: bytes) -> Any:

@@ -16,6 +16,10 @@ and draws different bits from the same key):
   * `bits(key, shape)` hashes the 64-bit counter i = 0, 1, ... of each
     element, row-major, split into (high, low) words, and xors the two
     output words;
+  * `randint(key, shape, lo, hi)` draws two words per element, from the
+    two halves of `split(key)`, and reduces them into [lo, hi) as jax's
+    `_randint` does: (hi_word mod span · (2³² mod span) + lo_word mod span)
+    mod span in uint32 arithmetic (int32 bounds);
   * `uniform` puts the top 23 bits in the mantissa of a float in [1, 2),
     subtracts 1, scales to [lo, hi) and clamps at lo, all in float32;
   * `categorical(key, logits)` is the argmax of logits + gumbel, the gumbel
@@ -26,7 +30,7 @@ and draws different bits from the same key):
     the erfinv function", GPU Computing Gems, 2011): w = −log1p(−x²), two
     9-term Horner branches split at w < 5.
 
-`split`, `bits` and `uniform` equal jax's bit for bit, and so do the indices
+`split`, `bits`, `randint` and `uniform` equal jax's bit for bit, and so do the indices
 `categorical` returns, but for logits within an ulp of a tie.  `normal` agrees within a few
 float32 ulp: each Horner step here is one float32 rounding of a float64
 multiply-add and log1p is numpy's, which need not round as XLA's fused code
@@ -106,6 +110,25 @@ def uniform(key: np.ndarray, shape: Sequence[int], lo: float = 0.0,
     mant = (bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
     f = mant.view(np.float32) - np.float32(1.0)
     return np.maximum(lo32, f * (hi32 - lo32) + lo32)
+
+
+_I32 = np.iinfo(np.int32)
+
+
+def randint(key: np.ndarray, shape: Sequence[int], minval: int, maxval: int) -> np.ndarray:
+    """int32 of `shape` in [minval, maxval) (minval where maxval <= minval),
+    `jax.random.randint`'s draw for the int32 dtype."""
+    if not all(_I32.min <= int(b) <= _I32.max for b in (minval, maxval)):
+        raise ValueError(f"randint bounds ({minval}, {maxval}) outside int32")
+    lo, hi = int(minval), int(maxval)
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = np.uint32(1 if hi <= lo else hi - lo)
+    mult = np.uint32((1 << 16) % int(span))
+    mult = np.uint32(int(mult) * int(mult) % (1 << 32) % int(span))  # the uint32 product wraps
+    with np.errstate(over="ignore"):
+        offset = (higher % span * mult + lower % span) % span
+    return (lo + offset.astype(np.int64)).astype(np.int32)
 
 
 _W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,

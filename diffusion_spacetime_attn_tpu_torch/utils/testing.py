@@ -28,15 +28,48 @@ from torch import nn
 from ..config import CLIPConfig, LayoutConfig, PipelineConfig
 
 
+def _generator(seed: int, name: str, device) -> torch.Generator:
+    h = int.from_bytes(hashlib.sha1(name.encode()).digest()[:4], "little")
+    g = torch.Generator(device=device)
+    g.manual_seed((seed ^ h) & 0x7FFFFFFF)
+    return g
+
+
 def randomize_(module: nn.Module, seed: int, scale: float = 0.02) -> nn.Module:
     """Fill every parameter of `module` in place with seeded N(0, scale²)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
-            h = int.from_bytes(hashlib.sha1(name.encode()).digest()[:4], "little")
-            g = torch.Generator(device=p.device)
-            g.manual_seed((seed ^ h) & 0x7FFFFFFF)
+            g = _generator(seed, name, p.device)
             noise = torch.randn(p.shape, generator=g, device=p.device, dtype=torch.float32)
             p.copy_(noise * scale)
+    return module
+
+
+def init_flax_like_(module: nn.Module, seed: int, zero=()) -> nn.Module:
+    """Initial weights for training, in place, with the distributions of
+    flax's default initializers (not flax's bits): Linear and Conv kernels
+    lecun_normal (N(0, 1/fan_in) truncated at ±2σ, rescaled), biases 0, 1-D
+    norm weights 1, `nn.Embedding` N(0, 1/features), other parameters
+    N(0, 0.02²); the modules named in `zero` (the UNet's zero-initialized
+    convolutions, `UNet.zero_init_modules`) all 0.  One generator per
+    parameter, seeded from `seed` and its name, on its device."""
+    zero = set(zero)
+    with torch.no_grad():
+        for mname, m in module.named_modules():
+            for pname, p in m.named_parameters(recurse=False):
+                name = f"{mname}.{pname}" if mname else pname
+                g = _generator(seed, name, p.device)
+                if mname in zero or pname == "bias":
+                    p.zero_()
+                elif isinstance(m, (nn.Linear, nn.Conv2d)):
+                    std = (1.0 / p[0].numel()) ** 0.5 / 0.87962566103423978
+                    nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=g).mul_(std)
+                elif isinstance(m, nn.Embedding):
+                    p.normal_(0.0, p.shape[1] ** -0.5, generator=g)
+                elif pname == "weight" and p.ndim == 1:
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02, generator=g)
     return module
 
 

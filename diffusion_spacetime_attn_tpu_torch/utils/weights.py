@@ -12,7 +12,14 @@ four rules:
     [out, in], a conv HWIO is permuted to OIHW (this covers the GEGLU
     `_DenseParams`, which store Dense-shaped kernels);
   * `scale` (norms) and `embedding` (`nn.Embed`) become `weight`;
+  * the per-head kernels of flax's `MultiHeadDotProductAttention`
+    (`query` / `key` / `value` [dim, heads, dh], `out` [heads, dh, dim]) and
+    their [heads, dh] biases fold the heads into one Linear
+    (`models/encoders.py`);
   * every other leaf keeps its name.
+
+`flax_flat` goes the other way, from a module's tensors to the flat tree
+flax writes (`testbed/bundle.py` `save_bundle`).
 
 `bridge` raises on a missing, unexpected, duplicate or mis-shaped key.  It
 keeps each value's dtype and makes no host copy where torch can view the
@@ -27,7 +34,7 @@ and the layout predictor (`layout_state_dict`: `backbone/...` with its
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -52,7 +59,13 @@ def torch_key(path: str, value):
     numpy array or a tensor)."""
     parts = [p for p in path.split("/") if p not in _AUTO_NAMES]
     leaf = parts[-1]
-    if leaf == "kernel":
+    if leaf == "kernel" and value.ndim == 3:   # flax attention: heads folded
+        value = (value.reshape(-1, value.shape[-1]) if parts[-2] == "out"
+                 else value.reshape(value.shape[0], -1))
+        value, leaf = value.T, "weight"
+    elif leaf == "bias" and value.ndim == 2:
+        value = value.reshape(-1)
+    elif leaf == "kernel":
         if value.ndim == 4:
             value = (value.permute(3, 2, 0, 1) if isinstance(value, torch.Tensor)
                      else value.transpose(3, 2, 0, 1))
@@ -110,6 +123,39 @@ def layout_state_dict(params, model: nn.Module) -> Dict[str, torch.Tensor]:
     and LayerNorm `scale` renamed to `weight` unchanged, and
     `backbone/object_embedding` [1, hidden] kept as it is."""
     return bridge(flatten_tree(params), model)
+
+
+def flax_flat(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None,
+              norm_scope: bool = False) -> Dict[str, np.ndarray]:
+    """The flat flax tree ("a/b/kernel": float32 array in flax's layout) of
+    `model`'s parameters, or of `tensors` keyed like them (an EMA copy):
+    Linear weights transposed to [in, out], convolutions permuted to HWIO,
+    norm weights named `scale`, `nn.Embedding` weights `embedding`.
+    `norm_scope`: the model's `GroupNorm32`s hold their parameters under
+    flax's `GroupNorm_0` (the UNet's do; the VAE's are plain flax
+    GroupNorms).  Models with per-head attention kernels are not covered."""
+    from ..models.layers import GroupNorm32
+
+    values = dict(model.named_parameters()) if tensors is None else tensors
+    flat: Dict[str, np.ndarray] = {}
+    for mname, m in model.named_modules():
+        prefix = mname.replace(".", "/")
+        if norm_scope and isinstance(m, GroupNorm32):
+            prefix += "/GroupNorm_0"
+        for pname, _ in m.named_parameters(recurse=False):
+            v = values[f"{mname}.{pname}" if mname else pname].detach().float().cpu()
+            if pname == "weight" and isinstance(m, nn.Linear):
+                leaf, v = "kernel", v.T
+            elif pname == "weight" and isinstance(m, nn.Conv2d):
+                leaf, v = "kernel", v.permute(2, 3, 1, 0)
+            elif pname == "weight" and isinstance(m, nn.Embedding):
+                leaf = "embedding"
+            elif pname == "weight" and isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                leaf = "scale"
+            else:
+                leaf = pname
+            flat[f"{prefix}/{leaf}" if prefix else leaf] = np.ascontiguousarray(v.numpy())
+    return flat
 
 
 def load_flat(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:

@@ -291,8 +291,8 @@ def test_outputs_match_jax_on_the_same_file(tmp_path):
 
 def test_vq_and_lpips_converters_raise_naming_their_items():
     """convert_sd_vq converts a VQModel file in the published key layout as
-    JAX's does, bit for bit, and raises naming a key the file lacks; the
-    LPIPS converter still raises naming its item (ROADMAP A.12)."""
+    JAX's does, bit for bit, and raises naming a key the file lacks; so does
+    the LPIPS converter (its parity: `test_torch_vae_training.py`)."""
     vcfg = tcfg.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, n_embed=16)
     sd = testing.seeded_state_dict(testing.vq_shapes(vcfg), seed=4)
     kw = dict(ch_mult=vcfg.ch_mult, num_res_blocks=vcfg.num_res_blocks)
@@ -303,5 +303,5 @@ def test_vq_and_lpips_converters_raise_naming_their_items():
     sd.pop("first_stage_model.quantize.embedding.weight")
     with pytest.raises(KeyError, match="first_stage_model.quantize.embedding.weight"):
         tconvert.convert_sd_vq(sd, **kw)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(KeyError, match="net.slice1.0.weight"):
         tconvert.convert_lpips({})

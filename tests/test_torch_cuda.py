@@ -485,6 +485,79 @@ def test_unet_kernels_on_matches_off(cuda):
     _check(a, b, "unet")  # float32: 1e-4 per element
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,dim", [(16384, 320), (4096, 640), (1024, 1280), (256, 1280)])
+def test_geglu_weight_gradients_at_sd_training_sites(cuda, dtype, M, dim):
+    """The GEGLU autograd Function at the SD v1-4 training sites (batch 4,
+    M = 4·L): dx (the dx kernel), dW1, db1, dW2, db2 (plain products, as JAX
+    takes them outside its Pallas body) and the residual's cotangent against
+    autograd of the plain forward on the same inputs, with the kernel
+    forward; tolerances of `compare` ("geglu": float32 1e-4 + 1e-4·|plain|;
+    bf16 2 % of rms + 2^-6·|plain| and 1e-2 in relative norm)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, w1, b1, w2 = _geglu_weights(g, cuda, dtype, M, dim)
+    args = (x, w1, b1, w2, _randn(g, cuda, dtype, dim, scale=0.1), _randn(g, cuda, dtype, M, dim))
+    before = (cuda_geglu.geglu_ff.launches, cuda_geglu.geglu_dx.launches)
+    got = _grads(cuda_geglu.geglu_ff, args)
+    want = _grads(cuda_geglu.geglu_plain, [a.float() for a in args])
+    assert (cuda_geglu.geglu_ff.launches, cuda_geglu.geglu_dx.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dx", "dW1", "db1", "dW2", "db2", "dres"), got, want):
+        assert a.dtype == dtype, name
+        cmp = compare(a, b.to(dtype), "geglu")
+        assert cmp["ok"], (name, cmp)
+
+
+@pytest.mark.gpu
+def test_flash_gradients_inside_a_training_step(cuda):
+    """One LDM training step (float32, AdamW) of a small UNet whose level-0
+    self-attention sees 1024 tokens, so it takes the flash kernels forward
+    and backward, and whose feed-forward takes the GEGLU kernels, against
+    the same step with the flags off: the loss, every parameter's gradient
+    (the attention projections carry flash's dq, dK and dV) within 1e-4
+    relative in norm, the updated weights within 1e-4 + 1e-4·|plain|, and
+    one flash backward and one GEGLU dx launch per site."""
+    from diffusion_spacetime_attn_tpu_torch.config import LDMTrainConfig, ScheduleConfig, UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
+    from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer as tldm
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    small = dict(model_channels=64, channel_mult=(1, 2), num_res_blocks=1,
+                 attention_resolutions=(1, 2), num_heads=2, context_dim=32)
+    with torch.device(cuda):
+        on = UNet(UNetConfig(use_flash=True, use_fused_ff=True, **small))
+        off = UNet(UNetConfig(**small))
+    randomize_(on, seed=4, scale=0.2)
+    off.load_state_dict(on.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x0 = torch.randn((2, 32, 32, 4), generator=g, device=cuda)
+    ctx = torch.randn((2, 12, 32), generator=g, device=cuda)
+    cfg, sched_cfg = LDMTrainConfig(batch_size=2, use_ema=False), ScheduleConfig()
+    sched = make_schedule(sched_cfg, 50, device=cuda)
+    lvlb = torch.from_numpy(tldm.lvlb_weights(sched_cfg)).to(cuda)
+    out = {}
+    for name, model in (("on", on), ("off", off)):
+        state = tldm.init_state(cfg, sched_cfg, model, 1e-3)
+        counts = (cuda_flash.flash_bwd.launches, cuda_geglu.geglu_dx.launches)
+        loss, _ = tldm.p_losses(cfg, sched, lvlb, model, state.logvar, x0, ctx, prng.PRNGKey(2))
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        state.opt_state.update()
+        out[name] = (loss.detach(), grads, model.state_dict(),
+                     (cuda_flash.flash_bwd.launches - counts[0],
+                      cuda_geglu.geglu_dx.launches - counts[1]))
+    (l_on, g_on, p_on, n_on), (l_off, g_off, p_off, n_off) = out["on"], out["off"]
+    assert n_on == (3, 7) and n_off == (0, 0)   # 3 blocks at level 0 of 7
+    assert abs(float(l_on - l_off)) <= 1e-5 * abs(float(l_off))
+    for k in g_off:
+        err = torch.linalg.vector_norm(g_on[k] - g_off[k])
+        assert float(err) <= 1e-4 * float(torch.linalg.vector_norm(g_off[k])) + 1e-12, k
+        _check(p_on[k], p_off[k], "geglu")
+
+
 # ------------------------------------------------------------ no card needed
 
 

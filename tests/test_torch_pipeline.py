@@ -247,7 +247,7 @@ def test_import_rule_matches_names_exactly():
 def test_port_imports_nothing_of_jax():
     """AST walk over every module of the port and the on-card scripts
     (chip_smoke.py, chip_spacetime_variants.py): no import
-    of jax, flax, optax or the JAX package, nor of msgpack, PIL,
+    of jax, flax, optax, orbax or the JAX package, nor of msgpack, PIL,
     safetensors, transformers, pytorch_lightning or fairseq, which the
     card's machine lacks (relative imports stay inside the port)."""
     files = _port_files()
@@ -262,7 +262,14 @@ def test_port_imports_nothing_of_jax():
                 scripts / "calibrate_clip_detector.py", scripts / "compare_outputs.py",
                 scripts / "eval_frontend_extraction.py", scripts / "eval_layout_consistency.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "pipeline" / "img2img.py",
-                ROOT / "diffusion_spacetime_attn_tpu_torch" / "samplers" / "ddpm.py"):
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "samplers" / "ddpm.py",
+                *(ROOT / "diffusion_spacetime_attn_tpu_torch" / "training" / f"{m}.py"
+                  for m in ("schedules", "ldm_trainer", "perceptual", "vae_trainer",
+                            "clip_trainer")),
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "models" / "encoders.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "testbed" / "data.py",
+                scripts / "train_testbed.py", scripts / "train_ldm.py", scripts / "train_vae.py",
+                scripts / "bench_train.py"):
         assert new in files, new
     bad = []
     for path in files:
