@@ -60,6 +60,15 @@ script exits non-zero without its final line:
              tile.  The flash
              backward's yardstick is the backward of
              `scaled_dot_product_attention` under autograd.
+     kernel_rdm: MHA and GEGLU forward the same way at the sites of the
+             768² RDM UNet (`pipeline/knn2img.py`, RDM_SITES: dims 448,
+             896, 1344, 1792, L = 2304, 576, 144, 36, head width 32, so
+             14-56 heads) in bf16 at 1 and RDM_PROMPTS = 3 prompts and in
+             float32 at 1: every bf16 MHA site must run the mma_sync loop
+             (dh 32 is no wgmma head width) and every bf16 GEGLU width
+             wgmma; the GEGLU faults include the last output column tile
+             (the N tail: no RDM width is a multiple of 160) served from
+             the tile before it.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
   5. slice:  the full-width pipeline in float32 (text encoder, controlled
@@ -98,10 +107,12 @@ script exits non-zero without its final line:
              the JAX artifact's keys; printed on one line with the card's
              name and power limit; MHA and GEGLU 816 per batch.
      serve_cli: `scripts/serve.main(["--mode", "spacetime", "--batch",
-             "2", "--soak", "2"])` in this process (full width, bf16
-             parameters, PLMS-50, 3 epochs, layout predictor, ViT-B/32
-             loss CLIP): the soak summary, finite non-constant images,
-             and per batch (warmup and soak) opt_launches(k, 51) of the
+             "2", "--soak", "2", "--steps", "10"])` in this process (full
+             width, bf16 parameters, PLMS-10 (SERVE_CLI_STEPS: phase
+             optimize runs this path at PLMS-50), 3 epochs, layout
+             predictor, ViT-B/32 loss CLIP): the soak summary, finite
+             non-constant images, and per batch (warmup and soak)
+             opt_launches(k, 11) of the
              flash and spacetime kernels, forward and backward, GEGLU and
              MHA none.
   9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
@@ -204,7 +215,9 @@ script exits non-zero without its final line:
              reader must hand over the file's dtype: float16 stays float16
              to the card and is cast there);
              `txt2img --ckpt` on the `.safetensors`; the drill
-             (`scripts/ingest_weights.main`, bf16, PLMS-50, 3 epochs) on the
+             (`scripts/ingest_weights.main`, bf16, PLMS at DRILL_STEPS = 10,
+             3 epochs: phases optimize and runner run its method at
+             PLMS-50) on the
              `.ckpt`, an OpenAI ViT-B/32 file and a fairseq Rel2Bbox file:
              JAX's report keys, every weight "checkpoint", finite CLIP
              scores, both PNGs and exactly each mode's launches, with its
@@ -231,10 +244,30 @@ script exits non-zero without its final line:
              stage at 20 steps (chunks of 10, 512 scenes) into a temporary
              directory, then `load_bundle` of it and one vanilla PLMS-10
              image, finite; s per step and per stage.
- 18. the `kernels` summary line (times per UNet evaluation at the engine's
+ 18. knn2img: retrieval-augmented diffusion at the 768² RDM's width.
+             `knn2img_f32`: the RDM in float32, DDIM-4, 10 neighbours,
+             kernels on vs off within 1e-4 + 1e-4·|plain| (latents and
+             images), exactly 16 MHA and 16 GEGLU launches per evaluation.
+             `knn2img` (bf16): a 1,000,000 x 768 float32 database on the
+             card (3 queries, k = 10: the CPU's indices, ms), `train_searcher
+             --synthetic 256` through the ViT-L/14 vision tower, then
+             `scripts/knn2img.main` with neighbours at DDIM-50, batch 3:
+             three 768² PNGs equal to the library's bytes, exactly 800 MHA
+             and 800 GEGLU launches, s per batch, peak memory, the decode's
+             share; one batch without neighbours at 10 steps.
+ 19. safety: diffusers' safety checker from a synthetic ViT-L/14 state
+             dict (17 + 3 concepts) on the three knn2img images, card vs
+             CPU (scores within 1e-3, equal flags), one image flagged and
+             black.
+ 20. train_layout: `bench_train --what layout` (RoBERTa-base, batch 64:
+             s per step, min and median of 5), `train_layout --synthetic
+             512 --epochs 2` into a temporary run dir, and
+             `load_layout_predictor` of it against the in-memory params.
+ 21. the wall time, then the `kernels` summary line (times per UNet
+     evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
      the dataset sweep, of phases http, loadtest and serve_cli, of phase
-     image_in, of phase ingest and of phase train_bench; each
+     image_in, of phase ingest, of phase train_bench and of phase knn2img; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -283,6 +316,17 @@ SLICE_STEPS = 4                 # PLMS steps of the float32 on-vs-off checks
 # takes the self-attention of levels 0 and 1, MHA that of level 2 and mid
 SITES_PER_EVAL = {"spacetime_fwd": 16, "spacetime_bwd": 16, "geglu_fwd": 16, "geglu_bwd": 16,
                   "flash_fwd": 10, "flash_bwd": 10, "mha_fwd": 6}
+# the RDM UNet's sites (`pipeline/knn2img.py` rdm_unet_config: 448 channels,
+# mult 1/2/3/4, attention at downsample 1, 2 and 4 and in the mid block,
+# head width 32; 48² latents): (level, L, inner, count), 16 blocks
+RDM_SITES = [("level0", 2304, 448, 5), ("level1", 576, 896, 5),
+             ("level2", 144, 1344, 5), ("mid", 36, 1792, 1)]
+RDM_HEAD_WIDTH = 32
+RDM_PROMPTS = 3                 # knn2img's --n-samples
+# dh 32 is not a wgmma head width (`ops/cuda_mha.py` WGMMA_DH): every bf16
+# RDM attention site runs the mma_sync loop; GEGLU runs wgmma at every width
+RDM_DESIGNS = {("mha", "bfloat16"): "mma_sync", ("geglu", "bfloat16"): "wgmma",
+               ("mha", "float32"): "simt", ("geglu", "float32"): "simt"}
 # backward sites per chain that get no gradient: the first self-attention of
 # the first evaluation sees only x_T and the timestep, so autograd records no
 # backward there; every other site depends on the blend weights
@@ -384,7 +428,7 @@ def cuda_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _design_device_ms(kind: str, args) -> dict:
+def _design_device_ms(kind: str, args, heads: int = HEADS) -> dict:
     """{design: ms per call} of a bf16 attention call straight through the C
     entry (CUDA events over 20 back-to-back calls, the host ahead of the
     card: the kernels' own time, without the wrapper's host work or PyTorch
@@ -397,27 +441,27 @@ def _design_device_ms(kind: str, args) -> dict:
     lib, code = cuda_lib.library(), cuda_mha.DESIGN_CODES
     q, k, v = args[:3]
     B, L, inner = q.shape
-    dh = inner // HEADS
+    dh = inner // heads
     designs = ["mma_sync"] + (["wgmma"] if cuda_mha.attention_design(q.dtype, dh) == "wgmma"
                               else [])
-    qs = cuda_flash.scaled_query(q, k, HEADS)
+    qs = cuda_flash.scaled_query(q, k, heads)
     out = torch.empty_like(q)
     if kind == "mha":
         entry, ptrs, rest = "dsta_mha_fwd", (q, k, v, out), (dh ** -0.5,)
     elif kind == "flash":
-        lse = torch.empty((B * HEADS, L), dtype=torch.float32, device="cuda")
+        lse = torch.empty((B * heads, L), dtype=torch.float32, device="cuda")
         entry, ptrs, rest = "dsta_flash_fwd", (qs, k, v, out, lse), ()
     else:
         o, lse, g = args[3:]
         rows = -(-L // cuda_flash.SCRATCH_ROWS) * cuda_flash.SCRATCH_ROWS
-        scratch = torch.empty(2 * B * HEADS * rows, dtype=torch.float32, device="cuda")
+        scratch = torch.empty(2 * B * heads * rows, dtype=torch.float32, device="cuda")
         entry, ptrs, rest = ("dsta_flash_bwd", (qs, k, v, g, o, lse, scratch, out,
                                                 torch.empty_like(k), torch.empty_like(v)),
-                             (cuda_flash.query_scale(q, HEADS),))
+                             (cuda_flash.query_scale(q, heads),))
     fn = getattr(lib, entry)
 
     def launch(design):
-        c_args = (1, code[design], *(t.data_ptr() for t in ptrs), B, L, L, HEADS, dh, *rest,
+        c_args = (1, code[design], *(t.data_ptr() for t in ptrs), B, L, L, heads, dh, *rest,
                   cuda_lib.stream_ptr(q))
         return lambda: cuda_lib.check(fn(*c_args), entry)
 
@@ -621,7 +665,7 @@ def _stale_cols(t, tile: int = 64):
     return t
 
 
-def _planted_faults(kind: str, args, kern):
+def _planted_faults(kind: str, args, kern, heads: int = HEADS):
     """Outputs of the kernel with a planted fault, which the comparison with
     the plain version must reject: a skipped key tile (the last 64 keys; 32
     at L = 64) or a 5 % wrong softmax scale for attention, the log-sum-exp
@@ -629,9 +673,10 @@ def _planted_faults(kind: str, args, kern):
     replaced by the first (a stale ring stage) where the wgmma loop runs; for
     GEGLU a skipped 64-wide inner tile, the second 64-deep k-step of h and g
     replaced by the first (a stale ring stage) and the last k-step of the
-    second product skipped; and for the spacetime blend only the first 64 of
-    the 77 context keys, and object 2's K/V served from object 1's ring
-    stage."""
+    second product skipped, and the last output column tile (the N tail where
+    dim is not a multiple of the tile) served from the tile before it; and
+    for the spacetime blend only the first 64 of the 77 context keys, and
+    object 2's K/V served from object 1's ring stage."""
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_mha
 
     if kind in ("mha", "flash"):
@@ -646,7 +691,7 @@ def _planted_faults(kind: str, args, kern):
             lse = lse.clone()
             lse[:, :64] += math.log(2.0)
             faults["lse_off_by_log2_on_one_query_tile"] = (o, lse)
-        if cuda_mha.attention_design(q.dtype, q.shape[2] // HEADS) == "wgmma":
+        if cuda_mha.attention_design(q.dtype, q.shape[2] // heads) == "wgmma":
             faults["stale_ring_stage_for_one_key_tile"] = kern(
                 (q, _stale_tile(k, WGMMA_FWD_TILE), _stale_tile(v, WGMMA_FWD_TILE)))
         return faults
@@ -658,11 +703,26 @@ def _planted_faults(kind: str, args, kern):
         return {"skip_inner_tile": kern(args[:3] + (skip,) + args[4:]),
                 "stale_ring_stage_for_one_k_tile_of_h_g": kern(
                     (_stale_cols(x), _stale_cols(w1), b1, w2) + args[4:]),
-                "last_k_tile_of_second_product_skipped": kern(args[:3] + (last,) + args[4:])}
+                "last_k_tile_of_second_product_skipped": kern(args[:3] + (last,) + args[4:]),
+                "stale_last_column_tile": _stale_last_cols(kern(args))}
     ctx = tuple(t[..., :64, :].contiguous() for t in args[2:6])
     return {"first_key_tile_only": kern(args[:2] + ctx + args[6:]),
             "stale_ring_stage_for_object_2": kern(args[:4] + _stale_object(*args[4:6])
                                                   + args[6:])}
+
+
+def _stale_last_cols(out):
+    """out [M, dim] with its last output column tile (dim mod the tile
+    width, or a whole tile) replaced by the same columns of the tile before:
+    what a store of the wrong tile into the N tail would leave."""
+    from diffusion_spacetime_attn_tpu_torch.ops.cuda_geglu import out_tile_width
+
+    M, dim = out.shape
+    bn = out_tile_width(M, dim)
+    start = (dim - 1) // bn * bn
+    out = out.clone()
+    out[:, start:] = out[:, start - bn:dim - bn]
+    return out
 
 
 def _stale_object(lk, lv):
@@ -731,11 +791,15 @@ def _design_ran(name: str, counter, before):
     return ran[0]
 
 
-def phase_kernels():
+def phase_kernels(sites=None, prompts: int = SERVE_PROMPTS, head_width=None,
+                  phase: str = "kernel", designs=None, kinds=("mha", "flash", "geglu", "spacetime")):
     """Every kernel vs its plain version at every main-path shape: in bf16 at
-    one prompt (CFG rows = 2) and at the serving batch of SERVE_PROMPTS, and
-    in f32 at one prompt.  Returns per-kernel aggregates over one UNet
-    evaluation at the serving batch (bf16 sites x counts)."""
+    one prompt (CFG rows = 2) and at `prompts` prompts, and in f32 at one
+    prompt.  Returns per-kernel aggregates over one UNet evaluation at
+    `prompts` prompts (bf16 sites x counts).  The defaults are the SD v1-4
+    serving path (8 heads); `sites`, `head_width` (heads = inner / width)
+    and `designs` ({(kind, dtype): the design every site must run}) give
+    another model's."""
     import torch
     import torch.nn.functional as F
 
@@ -747,9 +811,12 @@ def phase_kernels():
     )
     from diffusion_spacetime_attn_tpu_torch.utils.testing import compare
 
+    def nh(a):
+        return HEADS if head_width is None else a[0].shape[-1] // head_width
+
     impl = {
-        "mha": ("mha_fwd", lambda a: cuda_mha.mha_attention(*a, HEADS),
-                lambda a: cuda_mha.mha_attention_plain(*a, HEADS),
+        "mha": ("mha_fwd", lambda a: cuda_mha.mha_attention(*a, nh(a)),
+                lambda a: cuda_mha.mha_attention_plain(*a, nh(a)),
                 lambda a, it: cuda_mha.mha_cost(a[0].shape[0], a[0].shape[1], a[1].shape[1],
                                                 a[0].shape[2], it)),
         "flash": ("flash_fwd", lambda a: cuda_flash.flash_fwd(*a, HEADS),
@@ -767,7 +834,8 @@ def phase_kernels():
                           a[0].shape[0], OBJECTS, a[0].shape[1], CONTEXT_LEN, a[0].shape[2],
                           it)),
     }
-    cases = [("bfloat16", 1), ("bfloat16", SERVE_PROMPTS), ("float32", 1)]
+    impl = {k: impl[k] for k in kinds}
+    cases = [("bfloat16", 1), ("bfloat16", prompts), ("float32", 1)]
     agg = {}
     gen = torch.Generator(device="cuda")
     case = 0
@@ -775,17 +843,21 @@ def phase_kernels():
         a_ = agg.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
                                    "exps_ms": 0.0, "library_ms": None})
-        for dtype_name, prompts in cases:
+        for dtype_name, n_prompts in cases:
             dtype = getattr(torch, dtype_name)
-            for level, Lq, inner, count in _sites(kind):
+            for level, Lq, inner, count in (_sites(kind) if sites is None else sites):
                 case += 1
                 gen.manual_seed(case)
-                args = _inputs(kind, prompts, Lq, inner, dtype, gen)
+                args = _inputs(kind, n_prompts, Lq, inner, dtype, gen)
                 counter = _design_counter(kind)
                 before = dict(counter)
                 got = _outs(kern(args))
                 design = _design_ran(name, counter, before)
-                if design == "mma_sync" and (kind in ("flash", "geglu") or level in FLASH_LEVELS):
+                must = (designs or {}).get((kind, dtype_name))
+                if must is not None and design != must:
+                    fail(f"{name} {level} {dtype_name}: ran the {design} design, not {must}")
+                if sites is None and design == "mma_sync" and (kind in ("flash", "geglu")
+                                                               or level in FLASH_LEVELS):
                     fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync loop")
                 if kind == "spacetime" and dtype_name == "bfloat16" and design != "wgmma":
                     fail(f"{name} {level}: a bf16 main-path site ran the {design} kernel")
@@ -795,11 +867,11 @@ def phase_kernels():
                 torch.cuda.synchronize()
                 cmps = [compare(g_, w_, kind) for g_, w_ in zip(got, want)]
                 if not all(c["ok"] for c in cmps):
-                    fail(f"{name} {level} {dtype_name} {prompts} prompt(s): {cmps}")
+                    fail(f"{name} {level} {dtype_name} {n_prompts} prompt(s): {cmps}")
                 if not all(torch.equal(g_, a2) for again in agains for g_, a2 in zip(got, again)):
                     fail(f"{name} {level} {dtype_name}: launches on the same inputs differ")
                 faults = {}
-                for fault, outs in _planted_faults(kind, args, kern).items():
+                for fault, outs in _planted_faults(kind, args, kern, nh(args)).items():
                     fc = [compare(o, w_, kind) for o, w_ in zip(_outs(outs), want)]
                     if all(c["ok"] for c in fc):
                         fail(f"{name} {level} {dtype_name}: planted fault {fault} passes {fc}")
@@ -815,10 +887,10 @@ def phase_kernels():
                 lib_ms = None
                 if kind in ("mha", "flash"):
                     B, L, _ = args[0].shape
-                    qh, kh, vh = (t.view(B, L, HEADS, -1).transpose(1, 2) for t in args)
+                    qh, kh, vh = (t.view(B, L, nh(args), -1).transpose(1, 2) for t in args)
                     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
-                row = {"phase": "kernel", "name": name, "site": level, "dtype": dtype_name,
-                       "prompts": prompts, "Lq": Lq, "inner": inner, "design": design,
+                row = {"phase": phase, "name": name, "site": level, "dtype": dtype_name,
+                       "prompts": n_prompts, "Lq": Lq, "inner": inner, "design": design,
                        "max_abs_err": max_err,
                        "rel_norm": cmp["rel_norm"], "atol": cmp["atol"], "rtol": cmp["rtol"],
                        "rel_norm_limit": cmp["rel_norm_limit"], "deterministic": True,
@@ -833,7 +905,7 @@ def phase_kernels():
                 if kind == "flash":
                     row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
                 if kind in ("mha", "flash") and dtype_name == "bfloat16":
-                    row["device_ms"] = _design_device_ms(kind, args)
+                    row["device_ms"] = _design_device_ms(kind, args, nh(args))
                 if kind == "geglu" and dtype_name == "bfloat16":
                     row["device_ms"] = _geglu_device_ms(args, dx=False)
                     row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=False), 20)
@@ -843,7 +915,7 @@ def phase_kernels():
                                                                "spacetime_fwd_wgmma")}
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
-                if (dtype_name, prompts) == ("bfloat16", SERVE_PROMPTS):  # the serving shapes
+                if (dtype_name, n_prompts) == ("bfloat16", prompts):  # the serving shapes
                     a_["ms"] += count * ms
                     a_["plain_ms"] += count * plain_ms
                     a_["bound_ms"] += count * b_ms
@@ -2210,8 +2282,9 @@ INGEST_PROMPT = "a black cat sitting on a desk next to a laptop"
 DRILL_KEYS = ["prompt", "steps", "epochs", "seed", "sampler", "sd_weights", "layout_weights",
               "clip_weights", "vanilla_clip_score", "vanilla_image", "method_clip_score",
               "method_image"]
-# launches per drill mode at PLMS-50 (51 UNet evaluations, one prompt): the
-# drill's UNet flags are flash, GEGLU and the spacetime kernel (MHA off)
+# the drill's PLMS steps (DRILL_STEPS + 1 UNet evaluations, one prompt); its
+# UNet flags are flash, GEGLU and the spacetime kernel (MHA off)
+DRILL_STEPS = 10
 DRILL_METHOD = ("spacetime_fwd", "spacetime_bwd", "geglu_fwd", "geglu_bwd", "flash_fwd",
                 "flash_bwd")
 
@@ -2238,10 +2311,11 @@ def _fstype(path: str) -> str:
 
 
 def _drill_want(mode: str, wrappers) -> dict:
+    evals = chain_evals("plms", DRILL_STEPS)
     if mode == "vanilla":
-        want = {"geglu_fwd": 16 * 51, "flash_fwd": 10 * 51}
+        want = {"geglu_fwd": 16 * evals, "flash_fwd": 10 * evals}
     else:
-        want = {k: opt_launches(k, 51) for k in DRILL_METHOD}
+        want = {k: opt_launches(k, evals) for k in DRILL_METHOD}
     return {k: want.get(k, 0) for k in wrappers}
 
 
@@ -2475,11 +2549,12 @@ def phase_ingest(root: str, smi: str) -> dict:
          for bit against JAX's converters);
       2. `txt2img.main(["--ckpt", (b), ...])` (bf16, PLMS-50, vanilla:
          MHA and GEGLU 816 launches each), then (b) is deleted;
-      3. `ingest_weights.main` on (a), (c) and (d) (bf16, PLMS-50, 3
-         epochs, one prompt): JAX's report keys, every weight "checkpoint",
-         finite CLIP scores, both PNGs, and per mode exactly the launches
-         of its kernels (vanilla: GEGLU and flash forward 816 / 510;
-         method: opt_launches(k, 51) of the spacetime, GEGLU and flash
+      3. `ingest_weights.main` on (a), (c) and (d) (bf16, PLMS at
+         DRILL_STEPS, 3 epochs, one prompt): JAX's report keys, every weight
+         "checkpoint", finite CLIP scores, both PNGs, and per mode exactly
+         the launches of its kernels (vanilla: GEGLU and flash forward
+         16 / 10 per evaluation; method: opt_launches(k, DRILL_STEPS + 1)
+         of the spacetime, GEGLU and flash
          kernels, forward and backward), with each mode's seconds;
       4. the native BPE core built with g++ here, against the Python core
          on small synthetic vocab files.
@@ -2539,7 +2614,7 @@ def phase_ingest(root: str, smi: str) -> dict:
         t0 = time.perf_counter()
         report = ingest_weights.main(["--sd-ckpt", paths["ckpt"], "--clip-ckpt", paths["clip"],
                                       "--layout-ckpt", paths["layout"], "--outdir", out,
-                                      "--prompt", INGEST_PROMPT])
+                                      "--prompt", INGEST_PROMPT, "--steps", str(DRILL_STEPS)])
         drill_s = time.perf_counter() - t0
     finally:
         runners.PromptRunner.run_one = real
@@ -2935,6 +3010,342 @@ def phase_train_cli(root: str) -> dict:
     return launches
 
 
+RDM_STEPS = 50                  # knn2img's --ddim-steps
+RDM_F32_STEPS = 4               # DDIM steps of the float32 on-vs-off check
+RDM_KNN = 10                    # knn2img's --knn
+RDM_DB_ROWS = 1_000_000         # the retrieval database's rows (768 wide, f32: 3.07 GB)
+RDM_NO_NEIGHBOR_STEPS = 10      # the batch without neighbours
+RDM_KERNELS = ("mha_fwd", "geglu_fwd")
+RDM_SEARCHER_IMAGES = 256       # train_searcher --synthetic
+LAYOUT_TRAIN_EXAMPLES = 512     # train_layout --synthetic
+
+
+def _rdm_want(wrappers, evals: int) -> dict:
+    """Launches of `evals` RDM UNet evaluations: MHA and GEGLU at its 16
+    transformer blocks, nothing else."""
+    return {k: 16 * evals if k in RDM_KERNELS else 0 for k in wrappers}
+
+
+def _random_database(rows: int, gen):
+    """A Retriever of `rows` seeded random unit rows, 768 wide, made on the
+    card (no host copy)."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline.retrieval import Retriever
+
+    emb = torch.randn((rows, 768), generator=gen, device="cuda")
+    emb /= torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-8
+    return Retriever(embedding=emb, img_id=np.arange(rows),
+                     patch_coords=np.zeros((rows, 4), np.float32))
+
+
+def phase_knn2img_f32():
+    """The full-width RDM (`pipeline/knn2img.py`: 448-channel UNet, f16 VAE,
+    768²) in float32, seeded weights, one prompt with RDM_KNN neighbours
+    from a 4096-row random database, DDIM at RDM_F32_STEPS, the MHA and
+    GEGLU kernels on vs off on the same weights: latents and images within
+    1e-4 + 1e-4·|plain|, launches exactly 16 MHA and 16 GEGLU per UNet
+    evaluation (none with the kernels off)."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline.knn2img import RetrievalAugmentedDiffusion
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    rdm = RetrievalAugmentedDiffusion.create(seed=0, steps=RDM_F32_STEPS, dtype="float32",
+                                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    db = _random_database(4096, gen)
+    cond = rdm.build_conditioning(torch.randn((1, 768), generator=gen, device="cuda"), db, RDM_KNN)
+    key = prng.PRNGKey(3)
+    wrappers = _wrappers()
+    runs = {}
+    for name in ("on", "off"):
+        if name == "off":
+            _kernels_off(rdm.unet)
+        _reset_counts(wrappers.values())
+        z = rdm.sample_latents(cond, key)
+        img = rdm.decode(z)
+        torch.cuda.synchronize()
+        runs[name] = (z, img, {k: w.launches for k, w in wrappers.items()})
+    (z_on, img_on, on), (z_off, img_off, off) = runs["on"], runs["off"]
+    z_err, img_err = _within(z_on, z_off, 1e-4, 1e-4), _within(img_on, img_off, 1e-4, 1e-4)
+    want = _rdm_want(wrappers, RDM_F32_STEPS)
+    emit({"phase": "knn2img_f32", "steps": RDM_F32_STEPS, "context_len": cond.shape[1],
+          "latent_shape": list(z_on.shape), "image_shape": list(img_on.shape),
+          "latents_within": z_err, "images_within": img_err,
+          "latents_max_abs_diff": float((z_on - z_off).abs().max()),
+          "images_max_abs_diff": float((img_on - img_off).abs().max()),
+          "launches_on": on, "launches_off": off, "seconds": time.perf_counter() - t0})
+    if not (torch.isfinite(z_on).all() and torch.isfinite(img_on).all()):
+        fail("knn2img_f32: non-finite output")
+    if z_err > 1 or img_err > 1:
+        fail(f"knn2img_f32: kernels on vs off {z_err}, {img_err} (> 1 = outside 1e-4 + 1e-4·|x|)")
+    if on != want or any(off.values()):
+        fail(f"knn2img_f32: launches on {on} (expected {want}), off {off}")
+    del rdm, db
+    torch.cuda.empty_cache()
+
+
+def phase_knn2img(root: str, smi: str):
+    """Retrieval-augmented diffusion at the 768² RDM's full width, bf16:
+      1. a Retriever over RDM_DB_ROWS x 768 float32 rows made on the card
+         from a seeded generator; 3 queries at k = RDM_KNN: the indices equal
+         `exact_search` on a host copy (the CPU), the search's ms (CUDA
+         events) beside its byte bound;
+      2. `train_searcher.main(["--synthetic", "256", ...])`: 256 images
+         through the ViT-L/14 vision tower into a database npz; seconds;
+      3. `knn2img.main(["--use-neighbors", "--database", <it>, "--knn",
+         "10", "--n-samples", "3", "--ddim-steps", "50"])` on seeded weights
+         (RDM and ViT-L/14 text tower): three 768x768x3 PNGs, exactly 800
+         MHA and 800 GEGLU launches per batch (16 blocks x 50 evaluations),
+         nothing else, and the PNG bytes of `RetrievalAugmentedDiffusion.
+         sample` on the same key and weights (finite images); s per batch,
+         peak memory (the 1 M database resident), the decode's share;
+      4. one batch without neighbours (context length 1) at
+         RDM_NO_NEIGHBOR_STEPS steps: 3 PNGs, 16 x 10 launches each.
+    Returns (the main run's launches, the library's images [3, 768, 768, 3])."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline import knn2img as knn
+    from diffusion_spacetime_attn_tpu_torch.pipeline import retrieval
+    from diffusion_spacetime_attn_tpu_torch.pipeline.runners import save_image
+    from diffusion_spacetime_attn_tpu_torch.scripts import knn2img as knn2img_cli
+    from diffusion_spacetime_attn_tpu_torch.scripts import train_searcher
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png
+
+    wrappers = _wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    t0 = time.perf_counter()
+    big = _random_database(RDM_DB_ROWS, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q = torch.randn((RDM_PROMPTS, 768), generator=gen, device="cuda")
+    found = big.search(q, RDM_KNN)
+    search_ms = cuda_ms(lambda: retrieval.exact_search(big.embedding, q, RDM_KNN), 20)
+    host = big.embedding.cpu()
+    cpu_scores, cpu_idx = retrieval.exact_search(host, q.cpu(), RDM_KNN)
+    del host
+    same_idx = torch.equal(cpu_idx, found["nns"].cpu())
+    score_err = float((cpu_scores - found["scores"].cpu()).abs().max())
+    nbytes = 4 * (RDM_DB_ROWS * 768 + RDM_PROMPTS * 768) + 12 * RDM_PROMPTS * RDM_KNN
+    flops = 2 * RDM_PROMPTS * 768 * RDM_DB_ROWS
+    b_ms, b_by = bound_ms(flops, nbytes, "float32")
+    emit({"phase": "knn2img_search", "rows": RDM_DB_ROWS, "dim": 768, "queries": RDM_PROMPTS,
+          "k": RDM_KNN, "build_s": build_s, "search_ms": search_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "fraction_of_bound": b_ms / search_ms,
+          "indices_equal_cpu": same_idx, "scores_max_abs_diff_cpu": score_err,
+          "nvidia_smi": smi})
+    if not same_idx or score_err > 1e-5:
+        fail(f"knn2img search: indices equal {same_idx}, scores {score_err} from the CPU's")
+
+    db_path = os.path.join(root, "database.npz")
+    searcher = train_searcher.main(["--synthetic", str(RDM_SEARCHER_IMAGES), "--out", db_path])
+    emit({"phase": "knn2img_searcher", **searcher})
+    if (searcher["rows"], searcher["dim"]) != (RDM_SEARCHER_IMAGES, 768):
+        fail(f"train_searcher: {searcher}")
+
+    t0 = time.perf_counter()
+    rdm = knn.RetrievalAugmentedDiffusion.create(seed=0, steps=RDM_STEPS, dtype="bfloat16",
+                                                 device="cuda")
+    clip = train_searcher.build_clip(False, "cuda", seed=4)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out = os.path.join(root, "knn2img")
+    _reset_counts(wrappers.values())
+    summary = knn2img_cli.main(["--use-neighbors", "--database", db_path, "--knn", str(RDM_KNN),
+                                "--n-samples", str(RDM_PROMPTS), "--ddim-steps", str(RDM_STEPS),
+                                "--outdir", out], models=(rdm, clip))
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    shapes = [list(read_png(p).shape) for p in summary["paths"]]
+
+    # the library on the same key and weights, timed by part
+    retr = retrieval.Retriever.from_npz(db_path, device="cuda")
+    tokenize = knn2img_cli.padded(knn2img_cli.make_clip_tokenizer(), 77)
+    parser = knn2img_cli.parse_args([])
+    ids = torch.as_tensor(np.tile(np.asarray(tokenize(parser.prompt))[None], (RDM_PROMPTS, 1)),
+                          device="cuda")
+    with torch.inference_mode():
+        cond = rdm.build_conditioning(clip.encode_text(ids), retr, RDM_KNN)
+    key = prng.split(prng.PRNGKey(parser.seed))[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = rdm.sample_latents(cond, key, guidance_scale=parser.scale)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    images = rdm.decode(z)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = []
+    for i, path in enumerate(summary["paths"]):
+        lib = os.path.join(root, f"lib_{i}.png")
+        save_image(images[i].float().cpu().numpy(), lib)
+        with open(path, "rb") as a, open(lib, "rb") as b:
+            same.append(a.read() == b.read())
+    want = _rdm_want(wrappers, RDM_STEPS)
+    line = {"phase": "knn2img", "dtype": "bfloat16", "steps": RDM_STEPS, "batch": RDM_PROMPTS,
+            "knn": RDM_KNN, "context_len": summary["context_len"], "png_shapes": shapes,
+            "s_per_batch": summary["s_per_batch"], "setup_s": setup_s,
+            "library_chain_s": t1 - t0, "library_decode_s": t2 - t1,
+            "decode_share": (t2 - t1) / (t2 - t0),
+            "max_memory_allocated_bytes": peak, "launches": counts,
+            "launches_per_batch": summary["launches"], "png_bytes_equal_library": same,
+            "finite": bool(torch.isfinite(images).all()),
+            "image_std": float(images.float().std()), "nvidia_smi": smi}
+    emit(line)
+    problems = []
+    if shapes != [[768, 768, 3]] * RDM_PROMPTS:
+        problems.append(f"PNG shapes {shapes}")
+    if not line["finite"] or line["image_std"] == 0.0:
+        problems.append("images not finite or constant")
+    if counts != want or summary["launches"] != [{k: want[k] for k in RDM_KERNELS}]:
+        problems.append(f"launches {counts} / {summary['launches']}, expected {want}")
+    if summary["context_len"] != 1 + RDM_KNN:
+        problems.append(f"context length {summary['context_len']}")
+    if not all(same):
+        problems.append(f"PNG bytes equal to the library's: {same}")
+
+    _reset_counts(wrappers.values())
+    short = knn2img_cli.main(["--n-samples", str(RDM_PROMPTS), "--ddim-steps",
+                              str(RDM_NO_NEIGHBOR_STEPS), "--outdir", os.path.join(root, "plain")],
+                             models=(rdm, clip))
+    short_counts = {k: w.launches for k, w in wrappers.items()}
+    emit({"phase": "knn2img_no_neighbors", "steps": RDM_NO_NEIGHBOR_STEPS,
+          "context_len": short["context_len"], "s_per_batch": short["s_per_batch"],
+          "launches": short_counts, "pngs": len(short["paths"])})
+    if (short["context_len"] != 1 or len(short["paths"]) != RDM_PROMPTS
+            or short_counts != _rdm_want(wrappers, RDM_NO_NEIGHBOR_STEPS)):
+        problems.append(f"without neighbours: {short}, launches {short_counts}")
+    if problems:
+        fail(f"knn2img: {problems}")
+    del big, rdm, clip, retr
+    torch.cuda.empty_cache()
+    return counts, images
+
+
+def phase_safety(images, smi: str):
+    """diffusers' safety checker (`pipeline/safety.DiffusersSafetyChecker`)
+    from a seeded synthetic state dict in diffusers' key layout
+    (`utils/testing.safety_checker_shapes`: a ViT-L/14 tower at 224², 17
+    concept and 3 special-care embeddings; the tower's dims inferred from
+    the state dict) on phase knn2img's three images, the card against the
+    port on the CPU: concept scores within 1e-3 and equal flags; then the
+    concept weights raised to the midpoint of the two highest image scores,
+    so that exactly one image is flagged, on both: that image's output is
+    exactly 0 and the others are the input."""
+    import dataclasses
+
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import VIT_L14_JOINT_CLIP
+    from diffusion_spacetime_attn_tpu_torch.pipeline.safety import DiffusersSafetyChecker
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import (
+        safety_checker_shapes,
+        seeded_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    state = seeded_state_dict(safety_checker_shapes(VIT_L14_JOINT_CLIP.vision), 2028)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = DiffusersSafetyChecker.from_checkpoint(state, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu = DiffusersSafetyChecker.from_checkpoint(state, device="cpu")
+    if card.vision.cfg != dataclasses.replace(VIT_L14_JOINT_CLIP.vision, projection_dim=512):
+        fail(f"safety: inferred tower {card.vision.cfg}")
+    images = images.float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_card = card.scores(images)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    s_cpu = cpu.scores(images.cpu())
+    err = float((s_card.cpu() - s_cpu).abs().max())
+    flags_card = (s_card > 0).any(-1).cpu().tolist()
+    flags_cpu = (s_cpu > 0).any(-1).tolist()
+    top = sorted(s_card.max(-1).values.tolist(), reverse=True)
+    shift = 0.5 * (top[0] + top[1])
+    for c in (card, cpu):
+        c.concept_w += shift
+    out, flagged = card(images)
+    out_cpu, flagged_cpu = cpu(images.cpu())
+    i = int(flagged.argmax())
+    line = {"phase": "safety", "tower": dataclasses.asdict(card.vision.cfg),
+            "concepts": tuple(card.concepts.shape), "special": tuple(card.specials.shape),
+            "generate_s": gen_s, "load_s": load_s, "score_s": score_s,
+            "scores_max_abs_diff_cpu": err, "flags_card": flags_card, "flags_cpu": flags_cpu,
+            "threshold_shift": shift, "flagged": flagged.tolist(),
+            "flagged_cpu": flagged_cpu.tolist(), "nvidia_smi": smi}
+    emit(line)
+    if err > 1e-3 or flags_card != flags_cpu:
+        fail(f"safety: card vs cpu scores {err}, flags {flags_card} / {flags_cpu}")
+    if flagged.sum() != 1 or flagged.tolist() != flagged_cpu.tolist():
+        fail(f"safety: threshold flags {flagged} / {flagged_cpu}")
+    keep = [j for j in range(len(flagged)) if j != i]
+    if float(out[i].abs().max()) != 0.0 or not torch.equal(out[keep], images[keep]):
+        fail("safety: the flagged image is not black, or a clean one changed")
+    del card, cpu, state
+
+
+def phase_train_layout(root: str, smi: str):
+    """The layout trainer at LayoutConfig() (RoBERTa-base, float32): (a)
+    `bench_train --what layout` at its point (batch 64, JAX's 512 synthetic
+    sentences, one step then 5 timed): s per step, min and median, peak
+    memory; (b) `train_layout --synthetic 512 --epochs 2` into a temporary
+    run dir: JAX's run-dir files, finite losses; (c)
+    `load_layout_predictor(run_dir)` on the card against the in-memory best
+    params: the same greedy centers on 4 captions (LayoutInference)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig
+    from diffusion_spacetime_attn_tpu_torch.models.layout.model import LayoutPredictor
+    from diffusion_spacetime_attn_tpu_torch.pipeline.frontend import LayoutInference
+    from diffusion_spacetime_attn_tpu_torch.scripts import bench_train, train_layout
+    from diffusion_spacetime_attn_tpu_torch.utils import loader
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_roberta_tokenizer
+
+    args = bench_train.parse_args(["--what", "layout"])
+    line = bench_train.bench_layout(args, torch.device("cuda"))
+    times = line["times"]
+    emit({"phase": "train_layout_bench", **line, "s_per_step_min": min(times),
+          "s_per_step_median": statistics.median(times), "nvidia_smi": smi})
+    if line["metric"] != "layout_pretrain_step_b64_synthetic" or len(times) != args.iters:
+        fail(f"bench_train --what layout: {line}")
+    torch.cuda.empty_cache()
+
+    run = os.path.join(root, "layout_run")
+    out = train_layout.main(["--synthetic", str(LAYOUT_TRAIN_EXAMPLES), "--epochs", "2",
+                             "--ckpt-dir", run])
+    files = sorted(os.listdir(run))
+    model = loader.load_layout_predictor(LayoutConfig(), run, device="cuda")
+    mem = LayoutPredictor(model.cfg).to("cuda").eval().requires_grad_(False)
+    mem.load_state_dict(out["best_params"])
+    tok = make_roberta_tokenizer()
+    got = [LayoutInference(model, tok)(s) for s in LAYOUT_CAPTIONS[:4]]
+    want = [LayoutInference(mem, tok)(s) for s in LAYOUT_CAPTIONS[:4]]
+    emit({"phase": "train_layout", "argv": f"--synthetic {LAYOUT_TRAIN_EXAMPLES} --epochs 2",
+          "steps": out["steps"], "seconds": out["seconds"], "files": files,
+          "first_loss": out["train_losses"][0], "last_loss": out["train_losses"][-1],
+          "best": out["best"], "centers": got, "centers_equal_in_memory": got == want})
+    n_train = LAYOUT_TRAIN_EXAMPLES - int(LAYOUT_TRAIN_EXAMPLES * 0.1)
+    if out["steps"] != 2 * (n_train // 64) or not np.isfinite(out["train_losses"]).all():
+        fail(f"train_layout: {out['steps']} steps, losses {out['train_losses']}")
+    if not {"config.json", "best.json", "best_params.pt", "train_log.jsonl"} <= set(files):
+        fail(f"train_layout: run dir {files}")
+    if got != want or not any(got):
+        fail(f"train_layout: loaded centers {got} vs in-memory {want}")
+
+
 FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
             ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_",)),
             ("spacetime_bwd", ("spacetime_bwd_",)),
@@ -3027,6 +3438,7 @@ HTTP_SEED = 2 ** 31 + 5         # past int32: the engines take it as JAX's uint3
 SPATIAL_KERNELS = ("mha_fwd", "geglu_fwd", "spacetime_fwd")
 VANILLA_KERNELS = ("mha_fwd", "geglu_fwd")
 # serve --mode spacetime: use_flash only (and the controlled cross-attention)
+SERVE_CLI_STEPS = 10            # phase serve_cli's PLMS steps
 CLI_KERNELS = ("flash_fwd", "flash_bwd", "spacetime_fwd", "spacetime_bwd")
 # the JAX package's load-test artifact (`serving/loadtest.py`): its keys
 LOADTEST_KEYS = {"capacity_req_per_s", "stage_requests", "batch_size", "max_wait_s", "max_queue",
@@ -3288,10 +3700,11 @@ def phase_loadtest(sd, smi: str):
 def phase_serve_cli():
     """The serving entry point in spacetime mode, in this process:
     `scripts/serve.main(["--mode", "spacetime", "--batch", "2", "--soak",
-    "2"])` (full SD v1-4 width, bf16 parameters by default, PLMS-50, 3
-    epochs, the layout predictor at LayoutConfig(), a ViT-B/32 loss CLIP):
-    its summary line, finite and non-constant images and losses, and per
-    batch (the warmup's and the soak's) opt_launches(k, 51) launches of the
+    "2", "--steps", "10"])` (full SD v1-4 width, bf16 parameters by
+    default, PLMS at SERVE_CLI_STEPS, 3 epochs, the layout predictor at
+    LayoutConfig(), a ViT-B/32 loss CLIP): its summary line, finite and
+    non-constant images and losses, and per batch (the warmup's and the
+    soak's) opt_launches(k, SERVE_CLI_STEPS + 1) launches of the
     flash and spacetime kernels, forward and backward, and none of GEGLU or
     MHA (the JAX script's spacetime flags)."""
     import torch
@@ -3319,15 +3732,17 @@ def phase_serve_cli():
     SpaceTimeEngine.optimize_batch = recorded
     t0 = time.perf_counter()
     try:
-        summary = serve_cli.main(["--mode", "spacetime", "--batch", "2", "--soak", "2"])
+        summary = serve_cli.main(["--mode", "spacetime", "--batch", "2", "--soak", "2",
+                                  "--steps", str(SERVE_CLI_STEPS)])
     finally:
         SpaceTimeEngine.optimize_batch = optimize
     seconds = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
-    evals = chain_evals("plms", 50)
+    evals = chain_evals("plms", SERVE_CLI_STEPS)
     expect = {k: len(batches) * opt_launches(k, evals) if k in CLI_KERNELS else 0
               for k in wrappers}
-    emit({"phase": "serve_cli", "argv": "--mode spacetime --batch 2 --soak 2", "seconds": seconds,
+    emit({"phase": "serve_cli", "argv": f"--mode spacetime --batch 2 --soak 2 --steps "
+          f"{SERVE_CLI_STEPS}", "seconds": seconds,
           "summary": summary, "warmup_s": batches[0]["seconds"] if batches else None,
           "soak_batch_s": [b["seconds"] for b in batches[1:]], "batches": batches,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": counts})
@@ -3499,10 +3914,13 @@ def compare_trees(other: str) -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         return compare_trees(os.path.abspath(sys.argv[2]))
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     agg = phase_kernels()
     agg.update(phase_kernels_bwd())
+    phase_kernels(RDM_SITES, RDM_PROMPTS, RDM_HEAD_WIDTH, "kernel_rdm", RDM_DESIGNS,
+                  ("mha", "geglu"))
     phase_unet()
     phase_slice()
     phase_chain()
@@ -3538,6 +3956,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         train_counts = phase_train_bench(root, smi)
         phase_train_cli(root)
+    torch.cuda.empty_cache()
+    phase_knn2img_f32()
+    with tempfile.TemporaryDirectory() as root:
+        knn2img_launches, knn2img_images = phase_knn2img(root, smi)
+    phase_safety(knn2img_images, smi)
+    del knn2img_images
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        phase_train_layout(root, smi)
     for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
                          ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
@@ -3560,6 +3987,7 @@ def main() -> int:
                "ingest_launches": ingest_launches[kname],
                "image_in_launches": image_launches[kname],
                "train_launches": train_counts[kname],
+               "knn2img_launches": knn2img_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -3582,7 +4010,10 @@ def main() -> int:
     # each through the library and the entry point but DDPM); train_launches:
     # phase train_bench's bf16 training steps (bench_train's warm-up and
     # TRAIN_STEPS timed steps at batch 4; GEGLU and flash only);
-    # launches_by_design: the serving and optimization runs
+    # knn2img_launches: phase knn2img's entry-point batch (RDM, DDIM-50,
+    # 3 prompts; MHA and GEGLU only); launches_by_design: the serving and
+    # optimization runs
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -112,6 +112,20 @@ class CLIPConfig:
     projection_dim: int = 512
 
 
+# The ViT-L/14 joint-space CLIP (OpenAI's `ViT-L/14`): a 768-wide text tower
+# of 12 layers and 12 heads, a 224² vision tower with patch 14, width 1024,
+# 24 layers and 16 heads, both projected to 768.  The retrieval-augmented
+# diffusion model is conditioned on this space (`pipeline/knn2img.py`), so
+# knn2img's text tower and train_searcher's image tower take it at full
+# width; the JAX scripts build `CLIPConfig()` (ViT-B/32, 512 wide) there,
+# which cannot feed the RDM's 768-wide context.
+VIT_L14_JOINT_CLIP = CLIPConfig(
+    vision=CLIPVisionConfig(image_size=224, patch_size=14, width=1024, layers=24, heads=16,
+                            projection_dim=768),
+    text=CLIPTextConfig(width=768, layers=12, heads=12),
+    projection_dim=768)
+
+
 @dataclasses.dataclass(frozen=True)
 class ScheduleConfig:
     """DDPM noise schedule (reference `v1-inference.yaml:5-6`)."""
@@ -160,6 +174,24 @@ class LayoutConfig:
     refine_layers: int = 2
     refine_heads: int = 2
     dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutTrainConfig:
+    """Layout-predictor training hyperparameters (reference:
+    `configs/coco/coco_seq2seq_v9_ablation_4.yaml:47-63`, `trainer/Pretrain.py`)."""
+
+    batch_size: int = 64
+    epochs: int = 100
+    encoder_max_lr: float = 1e-6
+    head_max_lr: float = 4e-5
+    warmup_steps: int = 1000
+    hold_steps: int = 2000
+    decay_steps: int = 100000
+    gmm_loss_weight: float = 0.1        # `Pretrain.py:262-266`
+    hinge_margin: float = 0.2           # `loss.py:315-333`
+    grad_clip_norm: float = 0.0         # 0 = off (the reference has none)
+    checkpoint_every: int = 10          # epochs
 
 
 @dataclasses.dataclass(frozen=True)

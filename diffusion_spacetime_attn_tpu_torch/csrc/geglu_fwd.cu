@@ -353,6 +353,13 @@ extern "C" int dsta_geglu_chunks(int dtype, int M, int inner) {
   return (inner + BI - 1) / BI;
 }
 
+// The output columns per tile (160 or 64) that the wgmma GEGLU products into
+// [M, dim] take on the current device, or -1 for sizes below 1.
+extern "C" int dsta_geglu_out_width(int M, int dim) {
+  if (M < 1 || dim < 1) return -1;
+  return dsta::geglu_out_width(M, dim, hop::sm_count());
+}
+
 // x [M, dim]; w1 [2*inner, dim]; b1 [2*inner]; w2 [dim, inner]; b2 [dim];
 // res [M, dim] or null; out [M, dim].  All contiguous; x, weights, biases,
 // res and out share one dtype.  bfloat16 (the wgmma design) needs dim and

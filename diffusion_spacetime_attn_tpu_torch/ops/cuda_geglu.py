@@ -140,6 +140,12 @@ def _check(name, x, w1, b1, w2, tensors, operands):
     return x.numel() // dim, dim, inner, design
 
 
+def out_tile_width(M: int, dim: int) -> int:
+    """The output columns per tile (160 or 64) of the wgmma design's
+    products into [M, dim] on the current card, as the kernels pick it."""
+    return cuda_lib.library().dsta_geglu_out_width(M, dim)
+
+
 def _scratch(design, M, dim, inner, cols, device):
     """The wgmma design's bf16 intermediate [M, cols], or the simt design's
     f32 slices [chunks, M, dim]."""

@@ -1,8 +1,17 @@
 """Training step-time benchmark; port of the JAX package's
-`scripts/bench_train.py` `--what ldm`, with its flags and `--cpu`:
+`scripts/bench_train.py`, with its flags and `--cpu`:
 
     python -m diffusion_spacetime_attn_tpu_torch.scripts.bench_train --what ldm
+    python -m diffusion_spacetime_attn_tpu_torch.scripts.bench_train --what layout
     python -m diffusion_spacetime_attn_tpu_torch.scripts.bench_train --what ldm --tiny --cpu --iters 2
+
+`--what layout`: the layout trainer's step (`training/layout_trainer.py`)
+on `LayoutConfig()` (RoBERTa-base, float32) at batch 64, the reference's
+`S.TRAIN.BATCH_SIZE`, over `--gpt3-pkl` rows (no default: the file is not
+shipped), or JAX's 512 synthetic sentences when that flag is not given or
+names no file; one step first, then `--iters` timed steps on distinct batches (`compile_s`, `s_per_step` the minimum), JAX's
+metric name `layout_pretrain_step_b{batch}_{gpt-3.pkl|synthetic}`.  `--tiny`
+does not apply to it.
 
 `--what ldm`: the SD v1-4 UNet (860 M parameters; float32 parameters, bf16
 compute by default), AdamW with EMA, no remat, batch 4 of latents
@@ -11,24 +20,29 @@ compute by default), AdamW with EMA, no remat, batch 4 of latents
 weights.  One step first (`compile_s`: kernels loaded, allocator warmed),
 then the minimum over `--iters` timed steps, each synchronized.  The UNet
 runs the chain's kernel flags (`use_flash`, `use_fused_ff`) at full width;
-JAX's bench leaves every flag off.  `--what layout` raises: the layout
-trainer is ROADMAP A.12's remainder.  Prints one JSON line.  Runs on the
+JAX's bench leaves every flag off.  Prints one JSON line.  Runs on the
 card and raises without one, unless `--cpu` is given.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
+import numpy as np
 import torch
 
-from ..config import LDMTrainConfig, ScheduleConfig, UNetConfig
+from ..config import LayoutConfig, LayoutTrainConfig, LDMTrainConfig, ScheduleConfig, UNetConfig
+from ..models.layout.model import create_layout_predictor
 from ..models.unet import UNet
 from ..ops.schedule import make_schedule
+from ..training import datasets
+from ..training.layout_trainer import LayoutTrainer
 from ..training.ldm_trainer import LDMTrainer
 from ..utils import prng
 from ..utils.testing import randomize_
+from ..utils.tokenizer import make_roberta_tokenizer
 from .layout_infer import pick_device
 
 
@@ -40,7 +54,8 @@ def parse_args(argv=None):
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--no-ema", action="store_true")
     ap.add_argument("--tiny", action="store_true", help="tiny UNet (CPU smoke)")
-    ap.add_argument("--gpt3-pkl", default=None, help="layout data (--what layout)")
+    ap.add_argument("--gpt3-pkl", default=None,
+                    help="layout data (--what layout); synthetic sentences without it")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
     args = ap.parse_args(argv)
     if args.batch_size is None:
@@ -51,6 +66,56 @@ def parse_args(argv=None):
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize()
+
+
+def bench_layout(args, device) -> dict:
+    """-> the JSON line."""
+    cfg = LayoutConfig()
+    trainer = LayoutTrainer.create(cfg, LayoutTrainConfig(batch_size=args.batch_size))
+    params = create_layout_predictor(cfg, seed=0, device=device)
+    opt_state = trainer.init_state(params)
+    tok = make_roberta_tokenizer()
+    rng = np.random.RandomState(0)
+    if args.gpt3_pkl is not None and os.path.exists(args.gpt3_pkl):
+        examples, src = datasets.load_gpt3_examples(args.gpt3_pkl), "gpt-3.pkl"
+    else:
+        examples, src = datasets.synthetic_examples(512, rng), "synthetic"
+    batch_list = []
+    # cycle over the data until there are iters + 1 batches: a short source
+    # must not time fewer steps
+    while len(batch_list) < args.iters + 1:
+        before = len(batch_list)
+        for b in datasets.batches(examples, tok, args.batch_size, rng, max_len=cfg.max_len):
+            batch_list.append(b.to(device))
+            if len(batch_list) >= args.iters + 1:
+                break
+        if len(batch_list) == before:
+            raise SystemExit(f"data source yields no full batch of {args.batch_size} "
+                             f"({len(examples)} examples): lower --batch-size")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, opt_state, loss, _ = trainer.train_step(params, opt_state, batch_list[0])
+    float(loss)
+    compile_s = time.perf_counter() - t0
+    times = []
+    for b in batch_list[1:]:
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = trainer.train_step(params, opt_state, b)
+        float(loss)        # the step's end: its loss on the host
+        times.append(time.perf_counter() - t0)
+    line = {
+        "metric": f"layout_pretrain_step_b{args.batch_size}_{src}",
+        "iters": len(times),
+        "s_per_step": min(times),
+        "items_per_s": args.batch_size / min(times),
+        "compile_s": compile_s,
+        "times": times,
+        "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    return line
 
 
 def bench_ldm(args, device, on_step=None):
@@ -114,10 +179,8 @@ def bench_ldm(args, device, on_step=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.what == "layout":
-        raise NotImplementedError("--what layout: the layout trainer "
-                                  "(training/layout_trainer.py) is not ported yet (ROADMAP A.12)")
-    line = bench_ldm(args, pick_device(args.cpu))[0]
+    device = pick_device(args.cpu)
+    line = bench_layout(args, device) if args.what == "layout" else bench_ldm(args, device)[0]
     print(json.dumps(line))
     return line
 

@@ -83,6 +83,18 @@ def lr_multiplier(cfg: LDMTrainConfig):
                 [cfg.lr_cycle_steps])
 
 
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax's `clip_by_global_norm` in place: g unchanged while the global
+    norm is below max_norm, else (g / norm) · max_norm; 0 = off."""
+    if not max_norm:
+        return
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if bool(norm < max_norm):
+        return
+    torch._foreach_div_(grads, norm)
+    torch._foreach_mul_(grads, max_norm)
+
+
 class Optimizer:
     """optax's `MultiSteps(chain(clip_by_global_norm(c), adamw(lr · mult(count),
     weight_decay)), k)` over `params` (`make_optimizer` in JAX).  `update()`
@@ -102,16 +114,6 @@ class Optimizer:
         if cfg.accum_steps > 1:
             self.acc = [torch.zeros_like(p) for p in self.params]
 
-    def _clip(self, grads: List[torch.Tensor]) -> None:
-        c = self.cfg.grad_clip_norm
-        if not c:
-            return
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if bool(norm < c):
-            return
-        torch._foreach_div_(grads, norm)      # optax: (g / norm) · c
-        torch._foreach_mul_(grads, c)
-
     def update(self) -> bool:
         grads = [p.grad for p in self.params]
         if self.acc is not None:
@@ -126,7 +128,7 @@ class Optimizer:
                 p.grad = a.clone()
             torch._foreach_zero_(self.acc)
             grads = [p.grad for p in self.params]
-        self._clip(grads)
+        clip_by_global_norm_(grads, self.cfg.grad_clip_norm)
         lr = self.lr if self.mult is None else self.lr * float(self.mult(self.count))
         for group in self.adamw.param_groups:
             group["lr"] = lr

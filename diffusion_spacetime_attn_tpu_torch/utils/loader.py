@@ -7,17 +7,22 @@ With a path the weights come from the file, and a key the file lacks
 raises, naming it: nothing is filled with random values.  Without a path
 the weights are seeded and random, as the JAX package falls back to.
 
-A trained run dir of the JAX trainer (`scripts/train_layout.py`) holds
-`best.json`, `config.json` and an orbax params dir; `saved/layout_gpt3/`
+A trained run dir of `scripts/train_layout.py` holds `best.json`,
+`config.json` and the params `best.json` names; `saved/layout_gpt3/`
 commits the first two, and the params are git-ignored.  The port finds a
-run dir as the JAX package does and rebuilds its config, but reads no orbax
-params: that needs orbax and tensorstore (ROADMAP A.15).
+run dir as the JAX package does and rebuilds its config.  The port's
+trainer writes its params as a `torch.save` state dict, which loads; the
+JAX trainer's orbax params dir raises: reading it needs orbax and
+tensorstore (ROADMAP A.15).
 """
 from __future__ import annotations
 
 import json
 import os
 from typing import Optional
+
+import numpy as np
+import torch
 
 from ..config import CLIPConfig, LayoutConfig, PipelineConfig
 from ..models.layout.model import LayoutPredictor, create_layout_predictor
@@ -98,8 +103,9 @@ def load_layout_predictor(cfg: LayoutConfig, ckpt_path: Optional[str] = None, se
       * such a file otherwise: HF RoBERTa under `roberta.` for the backbone,
         the object embedding and the GMM head seeded;
       * a run dir (best.json): its config.json rebuilds the trained config,
-        then its orbax params dir raises `NotImplementedError`, as a bare
-        params dir does;
+        and its params file (the port's `scripts/train_layout.py`: the
+        model's own state dict) loads strictly; a JAX run dir's orbax
+        params dir raises `NotImplementedError`, as a bare params dir does;
       * a path that does not exist: `FileNotFoundError`."""
     if ckpt_path and os.path.isfile(os.path.join(ckpt_path, "best.json")):
         with open(os.path.join(ckpt_path, "best.json")) as f:
@@ -116,7 +122,11 @@ def load_layout_predictor(cfg: LayoutConfig, ckpt_path: Optional[str] = None, se
     state = convert.load_torch_checkpoint(ckpt_path) if ckpt_path else None
     model = create_layout_predictor(cfg, seed, device)
     if state is not None:
-        if any("sentence_encoder." in k for k in state):
+        if set(state) == set(model.state_dict()):      # the port's trainer's params
+            with torch.no_grad():
+                model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                                       state.items()})
+        elif any("sentence_encoder." in k for k in state):
             load_flat(model, flatten_tree(convert.convert_fairseq_rel2bbox(state)))
         else:
             flat = flatten_tree(convert.convert_hf_roberta(state, prefix="roberta."))

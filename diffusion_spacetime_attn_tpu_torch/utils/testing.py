@@ -7,10 +7,11 @@ is replaced by N(0, scale²) noise, as the JAX package's `randomize_params`
 does.  One generator per state-dict key, seeded from the seed and a hash of
 the key, on the parameter's own device (no host-side generation of GBs).
 
-`compvis_shapes`, `openai_clip_shapes` and `rel2bbox_shapes` give the keys
-and shapes of the published checkpoints the converters read (CompVis
-`sd-v1-4.ckpt`, OpenAI `ViT-B-32.pt`, the reference's fairseq
-`checkpoint_90_0.0.pth`) at a config's widths; `seeded_normal` draws any one
+`compvis_shapes`, `openai_clip_shapes`, `rel2bbox_shapes` and
+`safety_checker_shapes` give the keys and shapes of the published
+checkpoints the converters read (CompVis `sd-v1-4.ckpt`, OpenAI
+`ViT-B-32.pt`, the reference's fairseq `checkpoint_90_0.0.pth`, diffusers'
+`StableDiffusionSafetyChecker`) at a config's widths; `seeded_normal` draws any one
 array of such a file with numpy, alone, from the seed and its key.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import CLIPConfig, LayoutConfig, PipelineConfig
+from ..config import CLIPConfig, CLIPVisionConfig, LayoutConfig, PipelineConfig
 
 
 def _generator(seed: int, name: str, device) -> torch.Generator:
@@ -310,6 +311,38 @@ def rel2bbox_shapes(cfg: LayoutConfig, prefix: str = "encoder.model.encoder.") -
     head.linear("output_Layer", h, h)
     head.linear("box_predictor.xy_bivariate", 6 * cfg.gmm_components, h)
     return {**keys.shapes, **head.shapes}
+
+
+def safety_checker_shapes(cfg: CLIPVisionConfig, concepts: int = 17,
+                          special: int = 3) -> Shapes:
+    """Keys and shapes of diffusers' `StableDiffusionSafetyChecker` state
+    dict (what `pipeline/safety.DiffusersSafetyChecker.from_checkpoint`
+    reads) at `cfg`'s widths: the transformers CLIPVisionModel under
+    `vision_model.vision_model.`, the bias-free `visual_projection` to
+    `cfg.projection_dim`, and the concept and special-care embeddings with
+    their weights (the published checker: ViT-L/14, 17 and 3)."""
+    keys = _Keys("vision_model.vision_model.")
+    w, n = cfg.width, (cfg.image_size // cfg.patch_size) ** 2
+    keys.conv("embeddings.patch_embedding", w, 3, cfg.patch_size, bias=False)
+    keys.add("embeddings.class_embedding", w)
+    keys.add("embeddings.position_embedding.weight", n + 1, w)
+    keys.norm("pre_layrnorm", w)                       # (sic) transformers' spelling
+    for i in range(cfg.layers):
+        p = f"encoder.layers.{i}"
+        for q in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            keys.linear(f"{p}.self_attn.{q}", w, w)
+        keys.norm(f"{p}.layer_norm1", w)
+        keys.linear(f"{p}.mlp.fc1", 4 * w, w)
+        keys.linear(f"{p}.mlp.fc2", w, 4 * w)
+        keys.norm(f"{p}.layer_norm2", w)
+    keys.norm("post_layernorm", w)
+    top = _Keys()
+    top.linear("visual_projection", cfg.projection_dim, w, bias=False)
+    top.add("concept_embeds", concepts, cfg.projection_dim)
+    top.add("concept_embeds_weights", concepts)
+    top.add("special_care_embeds", special, cfg.projection_dim)
+    top.add("special_care_embeds_weights", special)
+    return {**keys.shapes, **top.shapes}
 
 
 def vq_shapes(cfg) -> Shapes:

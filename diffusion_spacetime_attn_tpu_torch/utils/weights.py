@@ -27,9 +27,13 @@ array (a transposed kernel stays a strided view of the file's map);
 `load_flat` moves each value to its parameter's device in that dtype and
 casts it there, so a float16 or bfloat16 file is never widened on the host.  The
 same rules cover the SD trees (UNet, VAE, text tower), the dual-tower
-loss CLIP (`vision/...`, `text/...`, `class_embedding`,
-`position_embedding`, `visual_projection/kernel`, `text_projection/kernel`)
-and the layout predictor (`layout_state_dict`: `backbone/...` with its
+CLIPs (the ViT-B/32 loss CLIP and knn2img's ViT-L/14 joint-space CLIP:
+`vision/...`, `text/...`, `class_embedding`, `position_embedding`,
+`visual_projection/kernel`, `text_projection/kernel`), the RDM UNet and its
+f16 VAE (`pipeline/knn2img.RetrievalAugmentedDiffusion.from_flat`), the
+diffusers safety checker's vision tower
+(`pipeline/safety.DiffusersSafetyChecker.from_flat`) and the layout
+predictor, trained or not (`layout_state_dict`: `backbone/...` with its
 `object_embedding` row, `head/...`).
 """
 from __future__ import annotations

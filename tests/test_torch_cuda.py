@@ -69,6 +69,9 @@ def _check(got, want, kind):
     (1, 200, 330, 2, 64),        # the wgmma loop at dh 64 and 128, Lq != Lk
     (1, 330, 200, 2, 128),
     (2, 256, 256, 8, 160),       # SD level 2: the mma_sync loop
+    # the 768² RDM (head width 32: the mma_sync loop) at 3 prompts: levels 0
+    # and 2 and the mid block, whose 144 and 36 tokens leave row tails
+    (6, 2304, 2304, 14, 32), (6, 144, 144, 42, 32), (6, 36, 36, 56, 32),
 ])
 def test_mha_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, dh):
     g = torch.Generator(device=cuda).manual_seed(dh + Lq)
@@ -123,6 +126,10 @@ GEGLU_SHAPES = [
     (1000, 40),                  # M not a multiple of 64; inner 160 not a multiple of 64
     (300, 72),                   # dim and inner (288) not multiples of 64
     (64, 36),                    # width not a multiple of 8: float32 only
+    # the 768² RDM at 3 prompts: levels 0 and 2 take 160-column output
+    # tiles with a tail (448 = 2·160 + 128, 1344 = 8·160 + 64); the mid
+    # block takes 64-column tiles (1792 = 28·64)
+    (13824, 448), (864, 1344), (216, 1792),
 ]
 
 

@@ -416,8 +416,6 @@ def test_train_ldm_and_bench_train_raise_where_not_ported(tmp_path):
         train_ldm.main(["--tiny", "--cpu", "--conditioning", "superres"])
     with pytest.raises(NotImplementedError, match="image_data"):
         train_ldm.main(["--tiny", "--cpu", "--data-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="layout_trainer"):
-        bench_train.main(["--what", "layout", "--cpu"])
     line = bench_train.main(["--what", "ldm", "--tiny", "--cpu", "--iters", "2",
                              "--dtype", "float32"])
     assert line["metric"] == "ldm_v1_train_step_b4_float32_ema" and len(line["times"]) == 2
