@@ -185,15 +185,16 @@ script exits non-zero without its final line:
              differ (a measurement; bf16 rounds a row differently per slot).
  14. runner: the dataset sweep entry point (`scripts/run_dataset.main`, in
              this process) at SD v1-4 width, seeded random weights, bf16,
-             PLMS-50, seed 1, on a temporary mscoco.txt of RUNNER_CAPTIONS
-             (index 2 repeats index 0, index 3 has no COCO object):
-             vanilla and spatial at batch 1, spacetime through BatchedRunner
-             at batch 2 with 3 epochs.  Per mode: the files
+             seed 1, on a temporary mscoco.txt of RUNNER_CAPTIONS (index 2
+             repeats index 0, index 3 has no COCO object): vanilla and
+             spatial at batch 1 and PLMS-50, spacetime through BatchedRunner
+             at batch 2 with 3 epochs and PLMS-10 (RUNNER_SPACETIME_STEPS;
+             phase optimize runs the method at PLMS-50).  Per mode: the files
              final2_s1_index_{0,1,2}.png and no index 3, the manifest, a
              --resume call that makes and launches nothing, the same PNG
              bytes for the repeated (prompt, seed), and launches of exactly
              the mode's kernels (RUNNER_MODES: vanilla and spatial 816 per
-             prompt; spacetime opt_launches(k, 51) per batch, MHA off);
+             prompt; spacetime opt_launches(k, 11) per batch, MHA off);
              s per prompt and peak memory.
  15. eval:   the port's CLIP grid detector (ViT-B/32 width, seeded random
              weights) and the protocol's scoring over the spacetime images,
@@ -216,8 +217,7 @@ script exits non-zero without its final line:
              to the card and is cast there);
              `txt2img --ckpt` on the `.safetensors`; the drill
              (`scripts/ingest_weights.main`, bf16, PLMS at DRILL_STEPS = 10,
-             3 epochs: phases optimize and runner run its method at
-             PLMS-50) on the
+             3 epochs: phase optimize runs its method at PLMS-50) on the
              `.ckpt`, an OpenAI ViT-B/32 file and a fairseq Rel2Bbox file:
              JAX's report keys, every weight "checkpoint", finite CLIP
              scores, both PNGs and exactly each mode's launches, with its
@@ -263,11 +263,33 @@ script exits non-zero without its final line:
              s per step, min and median of 5), `train_layout --synthetic
              512 --epochs 2` into a temporary run dir, and
              `load_layout_predictor` of it against the in-memory params.
- 21. the wall time, then the `kernels` summary line (times per UNet
+ 21. image_io: the port's PIL-free image I/O on this machine (no PIL
+             here): the C++ JPEG codec built by g++ at first use; its bytes
+             for a seeded 640x480 image at quality 75, its decode and the
+             bicubic resize to 512² must have the SHA-256 of PIL's
+             (JPEG_SHA256, DECODE_SHA256, RESIZE_SHA256, checked against PIL
+             by tests/test_torch_image_io.py); ms per encode, decode, resize.
+ 22. train_data: training from image folders at SD v1-4 width, bf16,
+             batch 2: `train_ldm --data-dir` over 8 port-written 640x480
+             JPEGs with captions.jsonl (3 steps), over a synset tree with
+             class conditioning (2 steps) and `--conditioning superres
+             --synthetic` (2 steps, BSRGAN-light rows): launches exactly
+             GEGLU 16 / 16 and flash 10 / 10 per step (superres, the
+             unconditional UNet: flash 20 / 20), finite losses, s per step
+             and host ms per batch; `train_vae --paths-txt` at 256² (2
+             steps, then one with `--lpips-ckpt` on a seeded file in
+             taming's `vgg.pth` + torchvision's VGG16 layout, loaded
+             parameter-exact); `train_searcher --image-dir` on the JPEGs.
+ 23. legacy_vg: `infer_vg_msdn` at LayoutConfig() width on the card vs
+             the same model on the CPU (centers within 1e-4, the same
+             files), and 3 steps of each legacy trainer (LegacyConfig(),
+             batch 8) on the card: finite losses, s per step.
+ 24. the wall time, then the `kernels` summary line (times per UNet
      evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
      the dataset sweep, of phases http, loadtest and serve_cli, of phase
-     image_in, of phase ingest, of phase train_bench and of phase knn2img; each
+     image_in, of phase ingest, of phase train_bench, of phase knn2img and of
+     phase train_data's train_ldm runs; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -297,6 +319,7 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): the roofline bound;
 # exps: 16 a clock per SM (the SFU's ex2), 132 SMs at the 1.98 GHz boost clock
@@ -331,6 +354,27 @@ RDM_DESIGNS = {("mha", "bfloat16"): "mma_sync", ("geglu", "bfloat16"): "wgmma",
 # the first evaluation sees only x_T and the timestep, so autograd records no
 # backward there; every other site depends on the blend weights
 NO_GRAD_SITES = {"flash_bwd": 1}
+
+
+# phase image_io: the codec's and the resize's bytes on the card's machine
+# (no PIL there) are held to PIL's, whose SHA-256 are these constants
+# (`tests/test_torch_image_io.py` checks them against PIL)
+CODEC_QUALITY = 75
+JPEG_SHA256 = "cdd160828b4cabbfc31a2b1cb11ad68f048514f82df11fb01a65513e6aa44a3a"
+DECODE_SHA256 = "e4dc05cb6d7690946a3fd023eb5f20cf2994ee22a411cd15876a655a8fc029f7"
+RESIZE_SHA256 = "752fcb85a65ae4cfb968441617023db3013b4c21aa21c6add79f034d89b91eba"
+
+
+def codec_image(h: int = 480, w: int = 640, seed: int = 14):
+    """The seeded 640x480 RGB image of phase image_io: integer gradients
+    plus RandomState noise (no floating-point functions, so every numpy
+    gives the same bytes)."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(3)], -1)
+    return np.clip(base + r.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
 def chain_launches(kernel: str, evals: int) -> int:
@@ -2011,6 +2055,7 @@ LAYOUT_CAPTIONS = [GOLDEN, "a dog to the left of a cat", "a car above a bench",
 # no COCO object (skipped)
 RUNNER_CAPTIONS = [GOLDEN, "a dog to the left of a cat", GOLDEN, "no objects here at all"]
 RUNNER_FILES = [f"final2_s1_index_{i}.png" for i in (0, 1, 2)]
+RUNNER_SPACETIME_STEPS = 10     # the spacetime sweep's PLMS steps (phase optimize runs PLMS-50)
 # kernels each sweep mode runs (run_dataset's per-mode flags): MHA and GEGLU
 # everywhere outside spacetime mode, the spacetime forward where there is
 # control, flash and every backward in spacetime mode (MHA off there)
@@ -2124,13 +2169,14 @@ def phase_layout():
 
 def phase_runner(root: str):
     """The sweep entry point (`run_dataset.main`, in this process) at SD
-    v1-4 width with seeded random weights, bf16, PLMS-50, seed 1, on a
-    `mscoco.txt` of RUNNER_CAPTIONS: vanilla and spatial at batch 1,
-    spacetime through BatchedRunner at batch 2 with 3 epochs.  Per mode: the
-    expected PNGs (the skipped prompt absent), the manifest, a `--resume`
-    call that makes nothing, equal PNG bytes for the repeated (prompt,
-    seed), and launches of exactly RUNNER_MODES[mode] (spacetime: each
-    opt_launches(k, 51) per batch; vanilla and spatial 816 per prompt).
+    v1-4 width with seeded random weights, bf16, seed 1, on a `mscoco.txt`
+    of RUNNER_CAPTIONS: vanilla and spatial at batch 1 and PLMS-50,
+    spacetime through BatchedRunner at batch 2 with 3 epochs and
+    PLMS-RUNNER_SPACETIME_STEPS (phase optimize runs the method at PLMS-50).
+    Per mode: the expected PNGs (the skipped prompt absent), the manifest, a
+    `--resume` call that makes nothing, equal PNG bytes for the repeated
+    (prompt, seed), and launches of exactly RUNNER_MODES[mode] (spacetime:
+    each opt_launches(k, 11) per batch; vanilla and spatial 816 per prompt).
     Returns ({kernel: launches over the modes}, the spacetime outdir)."""
     import numpy as np
     import torch
@@ -2144,12 +2190,13 @@ def phase_runner(root: str):
         f.write("\n".join(RUNNER_CAPTIONS) + "\n")
     wrappers = _wrappers()
     total = {k: 0 for k in wrappers}
-    evals = chain_evals("plms", 50)
     for mode, kernels in RUNNER_MODES.items():
         out = os.path.join(root, mode)
         batch = 2 if mode == "spacetime" else 1
+        steps = RUNNER_SPACETIME_STEPS if mode == "spacetime" else 50
+        evals = chain_evals("plms", steps)
         args = ["--dataset", "mscoco", "--data-root", data, "--mode", mode, "--seed", "1",
-                "--outdir", out, "--batch-size", str(batch)]
+                "--outdir", out, "--batch-size", str(batch), "--steps", str(steps)]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts(wrappers.values())
@@ -2191,7 +2238,7 @@ def phase_runner(root: str):
             fail(f"runner {mode}: --resume produced {again['produced']}, launched {relaunched}")
         for k, n in counts.items():
             total[k] += n
-        emit({"phase": "runner", "mode": mode, "batch_size": batch, "steps": 50,
+        emit({"phase": "runner", "mode": mode, "batch_size": batch, "steps": steps,
               "prompts": len(RUNNER_CAPTIONS), "produced": produced, "files": files,
               "sweep_s": summary["seconds"], "call_s": call_s,
               "s_per_prompt": summary["seconds"] / produced, "resume_s": resume_s,
@@ -2762,10 +2809,11 @@ def train_launches(kernel: str, steps: int) -> int:
     return steps * TRAIN_SITES.get(kernel, 0)
 
 
-def _train_parts(unet, batch: int, seed: int):
+def _train_parts(unet, batch: int, seed: int, ctx_shape=(CONTEXT_LEN, 768),
+                 ctx_scale: float = 0.02):
     """(loss, {name: grad}, {name: updated param}) of one AdamW step from the
-    unet's current weights, with kernels as its flags say; the weights are
-    left updated."""
+    unet's current weights, with kernels as its flags say, on a context of
+    [batch, *ctx_shape] N(0, ctx_scale²); the weights are left updated."""
     import torch
 
     from diffusion_spacetime_attn_tpu_torch.config import LDMTrainConfig, ScheduleConfig
@@ -2780,7 +2828,7 @@ def _train_parts(unet, batch: int, seed: int):
     state = tldm.init_state(cfg, sched_cfg, unet, tldm.scaled_lr(cfg, batch, 1))
     k1, k2 = prng.split(prng.PRNGKey(seed))
     x0 = torch.from_numpy(prng.normal(k1, (batch, 64, 64, 4))).to(dev)
-    ctx = torch.from_numpy(prng.normal(k2, (batch, CONTEXT_LEN, 768))).to(dev) * 0.02
+    ctx = torch.from_numpy(prng.normal(k2, (batch, *ctx_shape))).to(dev) * ctx_scale
     lvlb = torch.from_numpy(tldm.lvlb_weights(sched_cfg)).to(dev)
     with deterministic():
         loss, _ = tldm.p_losses(cfg, make_schedule(sched_cfg, 50, device=dev), lvlb, unet,
@@ -2792,39 +2840,31 @@ def _train_parts(unet, batch: int, seed: int):
     return loss.detach(), grads, {k: p.detach().clone() for k, p in unet.named_parameters()}
 
 
-def phase_train_check():
-    """(a) one full-width SD v1-4 LDM training step in float32 at batch 1,
-    AdamW, from the same weights and keys with the kernels on (use_flash,
-    use_fused_ff) and off: the loss within 1e-5 relative, every parameter's
-    gradient within 1e-3 relative in norm (the chain's limit), the updated
-    parameters within 1e-5 + 1e-5·|plain|, and the launches of the step
-    exactly TRAIN_SITES."""
+def _train_on_off(unet, batch: int, seed: int, sites: dict, phase: str, **ctx):
+    """One float32 AdamW step of `unet` from the same weights and keys with
+    its kernels on and off: the loss within 1e-5 relative, every gradient
+    within 1e-3 relative in norm (the chain's limit), the updated parameters
+    within 1e-5 + 1e-5·|plain|, and the launches of the step exactly
+    `sites` (none with the kernels off)."""
     import torch
 
-    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
-    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
-    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
-
     wrappers = _wrappers()
-    with torch.device("cuda"):
-        unet = UNet(UNetConfig(use_flash=True, use_fused_ff=True), radius=0.2)
-    randomize_(unet, 1)
     start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
     torch.cuda.synchronize()
     _reset_counts(wrappers.values())
     t0 = time.perf_counter()
-    loss_on, g_on, p_on = _train_parts(unet, 1, 21)
+    loss_on, g_on, p_on = _train_parts(unet, batch, seed, **ctx)
     torch.cuda.synchronize()
     on_s = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
-    expected = {k: train_launches(k, 1) for k in wrappers}
+    expected = {k: sites.get(k, 0) for k in wrappers}
     with torch.no_grad():
         unet.load_state_dict(start)
     del start
     _kernels_off(unet)
     _reset_counts(wrappers.values())
     t0 = time.perf_counter()
-    loss_off, g_off, p_off = _train_parts(unet, 1, 21)
+    loss_off, g_off, p_off = _train_parts(unet, batch, seed, **ctx)
     torch.cuda.synchronize()
     off_s = time.perf_counter() - t0
     off_counts = {k: w.launches for k, w in wrappers.items()}
@@ -2834,18 +2874,48 @@ def phase_train_check():
     worst = max(grad_rel, key=grad_rel.get)
     param_ratio = max(float(((p_on[k] - p_off[k]).abs() / (1e-5 + 1e-5 * p_off[k].abs())).max())
                       for k in p_off)
-    emit({"phase": "train_f32", "loss_on": float(loss_on), "loss_off": float(loss_off),
-          "loss_rel": loss_rel, "grad_rel_norm_max": grad_rel[worst], "grad_worst": worst,
+    emit({"phase": phase, "batch": batch, "loss_on": float(loss_on),
+          "loss_off": float(loss_off), "loss_rel": loss_rel,
+          "grad_rel_norm_max": grad_rel[worst], "grad_worst": worst,
           "param_ratio_max": param_ratio, "launches": counts, "off_launches": off_counts,
           "step_on_s": on_s, "step_off_s": off_s,
           "limits": {"loss_rel": 1e-5, "grad_rel_norm": 1e-3,
                      "params": "|on - off| <= 1e-5 + 1e-5·|off| (ratio <= 1)"}})
     if counts != expected or any(off_counts.values()):
-        fail(f"train_f32: launches {counts} (off {off_counts}), expected {expected}")
+        fail(f"{phase}: launches {counts} (off {off_counts}), expected {expected}")
     if not (loss_rel <= 1e-5 and grad_rel[worst] <= 1e-3 and param_ratio <= 1.0):
-        fail(f"train_f32: kernels on vs off over the limit: loss {loss_rel}, "
+        fail(f"{phase}: kernels on vs off over the limit: loss {loss_rel}, "
              f"{worst} {grad_rel[worst]}, params {param_ratio}")
-    del unet, g_on, g_off, p_on, p_off
+
+
+def phase_train_check():
+    """(a) One full-width SD v1-4 LDM training step in float32, AdamW, with
+    the kernels on vs off (`_train_on_off`): the conditional UNet at batch 1,
+    launches exactly TRAIN_SITES ("train_f32"); and the superres model of
+    `train_ldm --conditioning superres` (7 input channels, unconditional,
+    attn2 as self-attention through flash) at batch 2 on a [2, 64, 64, 3]
+    low-resolution context, launches exactly UNCOND_TRAIN_SITES
+    ("train_f32_superres")."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.scripts.train_ldm import SuperRes
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    with torch.device("cuda"):
+        unet = UNet(UNetConfig(use_flash=True, use_fused_ff=True), radius=0.2)
+    randomize_(unet, 1)
+    _train_on_off(unet, 1, 21, TRAIN_SITES, "train_f32")
+    del unet
+    torch.cuda.empty_cache()
+    with torch.device("cuda"):
+        model = SuperRes(UNet(UNetConfig(use_flash=True, use_fused_ff=True, in_channels=7),
+                              radius=0.2, conditional=False))
+    randomize_(model, 2)
+    _train_on_off(model, 2, 22, UNCOND_TRAIN_SITES, "train_f32_superres",
+                  ctx_shape=(64, 64, 3), ctx_scale=0.5)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -3344,6 +3414,254 @@ def phase_train_layout(root: str, smi: str):
         fail(f"train_layout: run dir {files}")
     if got != want or not any(got):
         fail(f"train_layout: loaded centers {got} vs in-memory {want}")
+
+
+DATA_IMAGES = 8                 # phase train_data: port-written 640x480 JPEGs
+# train_ldm runs of phase train_data: (conditioning, steps); per step the
+# conditional UNet launches TRAIN_SITES, the unconditional one (superres:
+# 7 input channels, no context) runs its second attention as self-attention,
+# so its flash sites double (levels 0 and 1: 20 forward, 20 backward)
+DATA_RUNS = (("text", 3), ("class", 2), ("superres", 2))
+UNCOND_TRAIN_SITES = {**TRAIN_SITES, "flash_fwd": 20, "flash_bwd": 20}
+LEGACY_STEPS = 3
+
+
+def _time_ms(fn, n: int = 5) -> float:
+    """Median wall ms of n calls (host work, no card)."""
+    import statistics
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_image_io(smi: str):
+    """The port's image I/O on the card's machine (no PIL there): the JPEG
+    codec built by g++ at first use; its bytes for the seeded 640x480 image
+    at quality CODEC_QUALITY, its decode of them and the bicubic resize to
+    512² must have the SHA-256 of PIL's (constants above, checked against
+    PIL by the CPU tests); ms per encode, decode and resize (median of 5)."""
+    import hashlib
+
+    from diffusion_spacetime_attn_tpu_torch.utils import jpeg
+    from diffusion_spacetime_attn_tpu_torch.utils.resample import resize
+
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t0
+    img = codec_image()
+    data = jpeg.encode_jpeg(img, CODEC_QUALITY)
+    dec = jpeg.decode_jpeg(data)
+    out = resize(img, (512, 512))
+    digests = {"encode": hashlib.sha256(data).hexdigest() == JPEG_SHA256,
+               "decode": hashlib.sha256(dec.tobytes()).hexdigest() == DECODE_SHA256,
+               "resize": hashlib.sha256(out.tobytes()).hexdigest() == RESIZE_SHA256}
+    emit({"phase": "image_io", "build_s": build_s, "jpeg_bytes": len(data),
+          "digests_equal_pil": digests,
+          "encode_ms": _time_ms(lambda: jpeg.encode_jpeg(img, CODEC_QUALITY)),
+          "decode_ms": _time_ms(lambda: jpeg.decode_jpeg(data)),
+          "resize_bicubic_640x480_to_512_ms": _time_ms(lambda: resize(img, (512, 512))),
+          "phase_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    if not all(digests.values()):
+        fail(f"image_io: bytes differ from PIL's: {digests}")
+
+
+def _write_jpeg_folder(root: str) -> dict:
+    """DATA_IMAGES port-written 640x480 JPEGs with captions.jsonl, an
+    LSUN-style split of them and a two-synset tree of the same files."""
+    from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
+
+    d = os.path.join(root, "jpegs")
+    os.makedirs(d)
+    rows = []
+    for i in range(DATA_IMAGES):
+        name = f"img{i}.jpg"
+        data = encode_jpeg(codec_image(seed=100 + i), CODEC_QUALITY)
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+        syn = os.path.join(root, "tree", f"n0{i % 2}")
+        os.makedirs(syn, exist_ok=True)
+        with open(os.path.join(syn, f"{i}.JPEG"), "wb") as f:
+            f.write(data)
+        rows.append({"file": name, "text": OBJECT_NAMES[i % 4] + " " + LAYOUT_CAPTIONS[i % 4]})
+    with open(os.path.join(d, "captions.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    with open(os.path.join(d, "paths.txt"), "w") as f:
+        f.write("\n".join(r["file"] for r in rows) + "\n")
+    return {"jpegs": d, "tree": os.path.join(root, "tree")}
+
+
+def phase_train_data(root: str, smi: str) -> dict:
+    """Training from image folders at SD v1-4 width, bf16, batch 2 (the
+    checkpoint each train_ldm run writes at its end is left out by patching
+    `LDMTrainer.save` for the phase's runs only: phase train_cli times one): `train_ldm --data-dir` over DATA_IMAGES
+    port-written JPEGs with captions.jsonl (3 steps), over the synset tree
+    with class conditioning (2 steps) and `--conditioning superres
+    --synthetic` (2 steps, BSRGAN-light rows): launches exactly TRAIN_SITES
+    per step (superres: UNCOND_TRAIN_SITES), finite losses, s per step and
+    host ms per batch; `train_vae --paths-txt` at 256² for 2 steps and one
+    step with `--lpips-ckpt` on a seeded file in taming's `vgg.pth` +
+    torchvision's VGG16 `features.*` layout (loaded parameter-exact);
+    `train_searcher --image-dir` on the JPEGs (ViT-L/14).  Returns
+    {kernel: launches over the train_ldm runs}."""
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import train_ldm, train_searcher, train_vae
+    from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer
+    from diffusion_spacetime_attn_tpu_torch.utils import convert
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import lpips_shapes, seeded_state_dict
+
+    t_phase = time.perf_counter()
+    dirs = _write_jpeg_folder(root)
+    wrappers = _wrappers()
+    total = {k: 0 for k in wrappers}
+    # each run's final checkpoint (float32 weights, AdamW moments and EMA,
+    # about 14 GB) is left out: JAX's script has no flag for that, and
+    # phase train_cli writes and times one
+    with mock.patch.object(ldm_trainer.LDMTrainer, "save", lambda self, state, step: None):
+        for cond, steps in DATA_RUNS:
+            argv = ["--steps", str(steps), "--batch-size", "2", "--log-every", "1",
+                    "--ckpt-every", "0", "--ckpt-dir", os.path.join(root, f"ldm_{cond}"),
+                    "--conditioning", cond]
+            argv += (["--synthetic"] if cond == "superres" else
+                     ["--data-dir", dirs["tree"], "--num-classes", "2"] if cond == "class" else
+                     ["--data-dir", dirs["jpegs"]])
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            _reset_counts(wrappers.values())
+            out = train_ldm.main(argv)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            sites = UNCOND_TRAIN_SITES if cond == "superres" else TRAIN_SITES
+            want = {k: steps * sites.get(k, 0) for k in wrappers}
+            losses = [m["loss"] for m in out["metrics"]]
+            x0, ctx = out["first_batch"]
+            emit({"phase": "train_data", "run": f"train_ldm {cond}", "steps": steps,
+                  "batch": 2, "s_per_step": out["step_s"],
+                  "host_ms_per_batch": [t * 1e3 for t in out["host_s"]], "losses": losses,
+                  "latents": list(x0.shape), "context": list(ctx.shape), "launches": counts})
+            if counts != want or not all(math.isfinite(v) for v in losses):
+                fail(f"train_data {cond}: launches {counts}, expected {want}, losses {losses}")
+            for k, n in counts.items():
+                total[k] += n
+            del out, x0, ctx
+    torch.cuda.empty_cache()
+    vae_argv = ["--data-dir", dirs["jpegs"], "--paths-txt",
+                os.path.join(dirs["jpegs"], "paths.txt"), "--batch-size", "2",
+                "--disc-start", "0", "--log-every", "1", "--ckpt-every", "0",
+                "--ckpt-dir", os.path.join(root, "vae")]
+    vae = train_vae.main(vae_argv + ["--steps", "2"])
+    sd = seeded_state_dict(lpips_shapes(), seed=5, scale=0.05)
+    lpips_path = os.path.join(root, "lpips.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, lpips_path)
+    loaded = {k: v.cpu().numpy() for k, v in train_vae.load_lpips(lpips_path, "cuda")
+              .state_dict().items()}
+    exact = all(np.array_equal(loaded[f"vgg.conv_{j}.{p}"], sd[f"features.{i}.{p}"])
+                for j, i in enumerate(convert._VGG16_CONV_IDX) for p in ("weight", "bias")) and \
+        all(np.array_equal(loaded[f"lin_{j}.weight"], sd[f"lin{j}.model.1.weight"])
+            for j in range(5))
+    vae_lp = train_vae.main(vae_argv + ["--steps", "1", "--lpips-ckpt", lpips_path])
+    metrics = vae["metrics"] + vae_lp["metrics"]
+    torch.cuda.empty_cache()
+    searcher = train_searcher.main(["--image-dir", dirs["jpegs"], "--batch", "8",
+                                    "--out", os.path.join(root, "db.npz")])
+    emb = np.load(os.path.join(root, "db.npz"))["embedding"]
+    emit({"phase": "train_data", "run": "train_vae --paths-txt", "image_size": 256,
+          "s_per_step": vae["step_s"] + vae_lp["step_s"],
+          "host_ms_per_batch": [t * 1e3 for t in vae["host_s"] + vae_lp["host_s"]],
+          "metrics": metrics, "lpips_parameter_exact": exact,
+          "searcher_rows": searcher["rows"], "searcher_s": searcher["seconds"],
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    if not (exact and all(math.isfinite(v) for m in metrics for v in m.values())
+            and searcher["rows"] == DATA_IMAGES and np.isfinite(emb).all()):
+        fail(f"train_data: lpips exact {exact}, vae metrics {metrics}, searcher {searcher}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def _legacy_batch(cfg, kind: str, seed: int, B: int = 8, L: int = 32, T: int = 16):
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    tokens = r.randint(4, cfg.vocab_size, (B, L))
+    tokens[:, L - 4:] = 0
+    b = {"tokens": tokens, "obj_ids": r.randint(0, cfg.obj_id_size, (B, L)),
+         "segments": r.randint(0, cfg.max_rel_pair, (B, L)),
+         "token_types": r.randint(0, 4, (B, L))}
+    if kind == "finetune":
+        b["labels"] = np.where(r.rand(B, L) < 0.15, tokens, 0)
+        b["type_labels"] = r.randint(0, 4, (B, L))
+    else:
+        b.update(cats=r.randint(1, cfg.cls_size, (B, T)), pos=r.randint(1, cfg.pos_size, (B, T)),
+                 shapes=r.randint(1, cfg.shape_size, (B, T)),
+                 boxes=r.rand(B, T, 4).astype(np.float32))
+    return b
+
+
+def phase_legacy_vg(root: str, smi: str):
+    """`infer_vg_msdn` at LayoutConfig() width on the card (seeded weights)
+    against the same model on the CPU: centers within 1e-4, the same files;
+    then each legacy trainer (LegacyConfig(): 512 wide, 6 layers) takes
+    LEGACY_STEPS steps on the card at batch 8: finite losses, s per step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig
+    from diffusion_spacetime_attn_tpu_torch.models.layout.legacy import LegacyConfig
+    from diffusion_spacetime_attn_tpu_torch.scripts import infer_vg_msdn
+    from diffusion_spacetime_attn_tpu_torch.training import legacy_trainer
+    from diffusion_spacetime_attn_tpu_torch.utils.loader import load_layout_predictor
+
+    t_phase = time.perf_counter()
+    graphs = [{"id": i, "objects": [{"class": n} for n in OBJECT_NAMES],
+               "relationships": [{"sub_id": i % 4, "obj_id": (i + 1) % 4, "predicate": p}
+                                 for p in ("left of", "above")[: 1 + i % 2]]}
+              for i in range(6)]
+    path = os.path.join(root, "sg.json")
+    with open(path, "w") as f:
+        json.dump(graphs, f)
+    model = load_layout_predictor(LayoutConfig(), None, device="cuda")
+    cpu = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    card = infer_vg_msdn.main(["--instances", path, "--out", os.path.join(root, "vg_card")],
+                              model=model)
+    card_s = time.perf_counter() - t0
+    host = infer_vg_msdn.main(["--instances", path, "--out", os.path.join(root, "vg_cpu"),
+                               "--cpu"], model=cpu)
+    err = max(float(np.abs(np.asarray(a["centers"]) - np.asarray(b["centers"])).max())
+              for a, b in zip(card, host))
+    files = sorted(os.listdir(os.path.join(root, "vg_card")))
+    same_files = files == sorted(os.listdir(os.path.join(root, "vg_cpu")))
+    line = {"phase": "legacy_vg", "vg_graphs": len(graphs), "vg_card_s": card_s,
+            "vg_centers_max_abs_diff_cpu": err, "vg_files": len(files),
+            "vg_same_files": same_files}
+    del model, cpu
+    cfg = LegacyConfig()
+    for kind, cls in (("discrete", legacy_trainer.LegacyDiscreteTrainer),
+                      ("reg", legacy_trainer.LegacyRegTrainer),
+                      ("finetune", legacy_trainer.LegacyFinetuneTrainer)):
+        trainer = cls(cfg, device="cuda")
+        state = trainer.init_state(seed=0)
+        losses, times = [], []
+        for i in range(LEGACY_STEPS):
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, _legacy_batch(cfg, kind, i))
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        line[f"{kind}_losses"], line[f"{kind}_s_per_step"] = losses, times
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"legacy_vg: {kind} losses {losses}")
+        del trainer, state
+    line["phase_s"], line["nvidia_smi"] = time.perf_counter() - t_phase, smi
+    emit(line)
+    torch.cuda.empty_cache()
+    if err > 1e-4 or not same_files or sum("png" in r for r in card) != len(graphs):
+        fail(f"legacy_vg: centers differ by {err} from the CPU's, files {files}")
 
 
 FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
@@ -3965,6 +4283,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         phase_train_layout(root, smi)
+    torch.cuda.empty_cache()
+    phase_image_io(smi)
+    with tempfile.TemporaryDirectory() as root:
+        data_launches = phase_train_data(root, smi)
+    with tempfile.TemporaryDirectory() as root:
+        phase_legacy_vg(root, smi)
     for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
                          ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
@@ -3988,6 +4312,7 @@ def main() -> int:
                "image_in_launches": image_launches[kname],
                "train_launches": train_counts[kname],
                "knn2img_launches": knn2img_launches[kname],
+               "data_train_launches": data_launches[kname],
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -4011,8 +4336,9 @@ def main() -> int:
     # phase train_bench's bf16 training steps (bench_train's warm-up and
     # TRAIN_STEPS timed steps at batch 4; GEGLU and flash only);
     # knn2img_launches: phase knn2img's entry-point batch (RDM, DDIM-50,
-    # 3 prompts; MHA and GEGLU only); launches_by_design: the serving and
-    # optimization runs
+    # 3 prompts; MHA and GEGLU only); data_train_launches: phase train_data's
+    # train_ldm runs from image folders (text, class, superres; GEGLU and
+    # flash only); launches_by_design: the serving and optimization runs
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

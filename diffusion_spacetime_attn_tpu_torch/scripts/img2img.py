@@ -10,9 +10,10 @@ with its flags and `--tiny` / `--cpu`.
         --steps 4 --init in.png --prompt "a cat"
 
 Writes `{img2img|inpaint}_s{seed}.png` into `--outdir` and prints its path.
-The images are read with `utils/png.py` (the init image as RGB, the mask as
-PIL's luma: white = keep, black = generate); both must already be
-`--size` square, since the port has no PIL resize and raises otherwise.  The
+The images (PNG or baseline JPEG, `utils/image_io.py`) are read as JAX's
+script reads them with PIL: the init image converted to RGB, the mask to
+PIL's luma (white = keep, black = generate), each resized to `--size`
+square with PIL's default bicubic filter (`utils/resample.py`).  The
 noise is JAX's from `PRNGKey(--seed)` (`pipeline/img2img.py`).  Without
 `--ckpt` the weights are seeded and random (smoke mode).  At full width the
 UNet runs self-attention through the MHA kernel and the feed-forward through
@@ -36,7 +37,9 @@ from ..pipeline.img2img import img2img, inpaint
 from ..utils import prng
 from ..utils.cudnn import deterministic
 from ..utils.loader import load_stable_diffusion
-from ..utils.png import read_png, to_grey, to_rgb, write_png
+from ..utils.image_io import open_image
+from ..utils.png import write_png
+from ..utils.resample import resize
 from ..utils.tokenizer import make_clip_tokenizer, padded
 from .layout_infer import pick_device
 from .run_dataset import tiny_configs
@@ -44,9 +47,9 @@ from .run_dataset import tiny_configs
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--init", required=True, help="init image (png)")
+    ap.add_argument("--init", required=True, help="init image (png or jpeg)")
     ap.add_argument("--mask", default=None,
-                    help="inpaint mask png: white = keep, black = generate")
+                    help="inpaint mask (png or jpeg): white = keep, black = generate")
     ap.add_argument("--prompt", required=True)
     ap.add_argument("--strength", type=float, default=0.75,
                     help="img2img: fraction of the chain to run")
@@ -79,13 +82,10 @@ def pipeline_config(args) -> PipelineConfig:
 
 
 def read_square(path: str, size: int, grey: bool = False) -> np.ndarray:
-    """[size, size, 3] (or [size, size] luma) uint8 of a PNG file; raises
-    when the file is not size × size."""
-    img = read_png(path)
-    if img.shape[:2] != (size, size):
-        raise ValueError(f"{path} is {img.shape[1]}x{img.shape[0]}, not {size}x{size}: "
-                         "the port does not resize (pass an image of --size)")
-    return to_grey(img) if grey else to_rgb(img)
+    """[size, size, 3] (or [size, size] luma) uint8 of an image file:
+    `Image.open(path).convert("RGB" or "L").resize((size, size))`, PIL's
+    default (bicubic) filter, PIL-exact (`utils/resample.py`)."""
+    return resize(open_image(path, "L" if grey else "RGB"), (size, size))
 
 
 def main(argv=None) -> str:

@@ -10,12 +10,22 @@ Conditioning: `text` (cross-attention on a [B, 77, 768] context, SD-style),
 `class` (a `ClassEmbedder` trained with the UNet, cin256-style) or `none`
 (the unconditional UNet).  Data: `--synthetic` random latents and contexts
 (numpy's RandomState(step), as in JAX); it is also what runs without
-`--data-dir`.  Raise, naming ROADMAP A.12's remainder: `--data-dir`
-(its image loaders, `training/image_data.py`, and PIL's resize) and
-`--conditioning superres` (`training/degradation.py`, whose JPEG round trip
-and resizes need PIL).  `--unet-ckpt` warm-starts from a CompVis SD v1
-checkpoint (`utils/convert.convert_sd_unet`).  One device: `--fsdp` warns and
-is ignored, as the JAX script does on one device.
+`--data-dir`.  `--conditioning superres` concatenates a low-resolution image
+on the UNet's input channels (7 in, the unconditional UNet); its synthetic
+rows are `training/degradation.degradation_bsrgan_light` of RandomState(step)
+images.  `--data-dir` with text conditioning reads `captions.jsonl`
+({"file", "text"} per line): RandomState(step) picks the rows, the images are
+opened (`utils/image_io.py`: PNG, baseline JPEG) and resized to the VAE's
+input with PIL's default filter (`utils/resample.py`, PIL-exact), encoded
+by the VAE on JAX's key PRNGKey(step) and the captions by the CLIP text
+tower; with class conditioning it reads an ImageNet-style synset tree
+(`training/image_data.imagenet_tree`, labels the sorted synset index).  The
+VAE and text tower are seeded random (no checkpoint flag in JAX either);
+`--tiny` takes the tiny VAE and text tower of `run_dataset.tiny_configs`
+(JAX's script builds the full-width ones under `--tiny`, whose 768-wide
+context the tiny UNet cannot take).  `--unet-ckpt` warm-starts from a
+CompVis SD v1 checkpoint (`utils/convert.convert_sd_unet`).  One device:
+`--fsdp` warns and is ignored, as the JAX script does on one device.
 
 At full width the UNet runs the chain's kernel flags, `use_flash` (levels 0
 and 1) and `use_fused_ff` (every transformer block), with no control: the
@@ -28,6 +38,8 @@ Runs on the card and raises without one, unless `--cpu` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import logging
 import os
 import time
@@ -36,16 +48,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import LDMTrainConfig, ScheduleConfig, UNetConfig
+from ..config import LDMTrainConfig, PipelineConfig, ScheduleConfig, UNetConfig
+from ..models.clip import CLIPTextTower
 from ..models.encoders import ClassEmbedder
+from ..models.layers import cast_matmul_weights
 from ..models.unet import UNet
+from ..models.vae import AutoencoderKL
 from ..ops.schedule import make_schedule
+from ..training.degradation import degradation_bsrgan_light
+from ..training.image_data import imagenet_tree
 from ..training.ldm_trainer import LDMTrainer
 from ..utils import convert, prng
+from ..utils.image_io import open_image
 from ..utils.profiling import JsonLogger
-from ..utils.testing import init_flax_like_
+from ..utils.resample import resize
+from ..utils.testing import init_flax_like_, randomize_
+from ..utils.tokenizer import make_clip_tokenizer, padded
 from ..utils.weights import flatten_tree, load_flat
 from .layout_infer import pick_device
+from .run_dataset import tiny_configs
 
 logger = logging.getLogger("train_ldm")
 
@@ -90,6 +111,18 @@ class ClassConditioned(nn.Module):
         return self.unet(x, t, self.cond(context[:, 0]))
 
 
+class SuperRes(nn.Module):
+    """The unconditional UNet on the noisy latent with the low-resolution
+    image concatenated on its channels (`DiffusionWrapper`'s 'concat')."""
+
+    def __init__(self, unet: UNet):
+        super().__init__()
+        self.unet = unet
+
+    def forward(self, x, t, context):
+        return self.unet(torch.cat([x, context.to(x.dtype)], dim=-1), t)
+
+
 class Unconditional(nn.Module):
     """The unconditional UNet behind the trainer's (x, t, context) call; the
     context is a placeholder."""
@@ -104,19 +137,37 @@ class Unconditional(nn.Module):
 
 def configs(args):
     """(UNetConfig, latent size, context shape) of the flags."""
+    in_ch = 4 + (3 if args.conditioning == "superres" else 0)
     if args.tiny:
         cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
                          attention_resolutions=(1, 2), num_heads=2, context_dim=16,
-                         dtype=args.dtype)
+                         dtype=args.dtype, in_channels=in_ch)
         return cfg, 16, (7, 16)
-    cfg = UNetConfig(dtype=args.dtype, use_flash=True, use_fused_ff=True)
+    cfg = UNetConfig(dtype=args.dtype, use_flash=True, use_fused_ff=True, in_channels=in_ch)
     return cfg, 64, (77, 768)
+
+
+def data_encoders(args, device):
+    """(VAE, CLIP text tower) that turn `--data-dir` images and captions
+    into latents and contexts: seeded N(0, 0.02²) weights, eval mode, the
+    matmul weights in the compute dtype.  Only the VAE follows `--dtype`:
+    JAX's script builds `PipelineConfig(vae=VAEConfig(dtype=args.dtype))`
+    and leaves the text tower at its own (float32)."""
+    cfg = tiny_configs(1)[0] if args.tiny else PipelineConfig()
+    vcfg = dataclasses.replace(cfg.vae, dtype=args.dtype)
+    with torch.device(device):
+        vae, text = AutoencoderKL(vcfg), CLIPTextTower(cfg.text_encoder)
+    for m, seed in ((vae, 2), (text, 3)):
+        cast_matmul_weights(m).eval().requires_grad_(False)
+        randomize_(m, seed, 0.02)
+    return vae, text
 
 
 def build_model(args, unet_cfg: UNetConfig, device) -> nn.Module:
     """The trained module for the conditioning mode, float32 parameters."""
     with torch.device(device):
-        unet = UNet(unet_cfg, radius=0.2, conditional=args.conditioning != "none")
+        unet = UNet(unet_cfg, radius=0.2,
+                    conditional=args.conditioning not in ("none", "superres"))
     if args.unet_ckpt:
         sd = convert.load_torch_checkpoint(args.unet_ckpt)
         load_flat(unet, flatten_tree(convert.convert_sd_unet(
@@ -128,6 +179,8 @@ def build_model(args, unet_cfg: UNetConfig, device) -> nn.Module:
         with torch.device(device):
             cond = ClassEmbedder(args.num_classes, unet_cfg.context_dim)
         return ClassConditioned(unet, init_flax_like_(cond, 1))
+    if args.conditioning == "superres":
+        return SuperRes(unet)
     if args.conditioning == "none":
         return Unconditional(unet)
     return unet
@@ -138,6 +191,13 @@ def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device):
     script makes them."""
     def next_batch(i):
         r = np.random.RandomState(i)
+        if args.conditioning == "superres":      # synthetic HQ -> BSRGAN-light LR
+            hq = r.rand(B, latent_hw * args.sr_factor, latent_hw * args.sr_factor,
+                        3).astype(np.float32)
+            lrs = np.stack([degradation_bsrgan_light(hq[b], sf=args.sr_factor, seed=i * B + b)[0]
+                            for b in range(B)])
+            return (torch.from_numpy(r.randn(B, latent_hw, latent_hw, 4).astype(np.float32))
+                    .to(device), torch.from_numpy((lrs * 2.0 - 1.0).astype(np.float32)).to(device))
         x0 = r.randn(B, latent_hw, latent_hw, 4)
         if args.conditioning == "class":
             ctx = r.randint(0, args.num_classes, (B, 1))
@@ -150,19 +210,58 @@ def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device):
     return next_batch
 
 
-def main(argv=None) -> dict:
+def folder_batches(args, B: int, latent_hw: int, device, encoders):
+    """next_batch(i) -> (latents, context) from `--data-dir`, as JAX's
+    script makes them: text, RandomState(i) rows of captions.jsonl; class,
+    the synset tree's `batches(B, seed=0)`.  Latents are the VAE's posterior
+    sample on PRNGKey(i) times the scale factor."""
+    vae, text = encoders
+    factor = 2 ** (len(vae.cfg.ch_mult) - 1)
+    size = latent_hw * factor                 # 512 at SD width, as JAX resizes
+
+    def encode(imgs, i):
+        with torch.no_grad():
+            z = vae.encode(torch.from_numpy(imgs).to(device), prng.PRNGKey(i))
+        return z * vae.cfg.scale_factor
+
+    if args.conditioning == "class":
+        it = imagenet_tree(args.data_dir, size=size).batches(B, seed=0)
+
+        def next_batch(i):
+            imgs, labels = next(it)
+            return (encode(imgs, i),
+                    torch.from_numpy(labels[:, None].astype(np.float32)).to(device))
+        return next_batch
+    if args.conditioning != "text":
+        raise SystemExit(f"--data-dir loading implements text and class conditioning; use "
+                         f"--synthetic with --conditioning {args.conditioning}")
+    with open(os.path.join(args.data_dir, "captions.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    L = text.cfg.max_len
+    tokenize = padded(make_clip_tokenizer(max_len=L), L)
+
+    def next_batch(i):
+        r = np.random.RandomState(i)
+        pick = [rows[j] for j in r.randint(0, len(rows), B)]
+        imgs = np.stack([resize(open_image(os.path.join(args.data_dir, p["file"]), "RGB"),
+                                (size, size)) / 127.5 - 1.0 for p in pick]).astype(np.float32)
+        ids = np.stack([tokenize(p["text"]) for p in pick]).astype(np.int64)
+        with torch.no_grad():
+            ctx = text(torch.from_numpy(ids).to(device))[0]
+        return encode(imgs, i), ctx.float()
+    return next_batch
+
+
+def main(argv=None, init=None, encoders=None) -> dict:
     """Train; returns {"metrics": [per logged step], "step_s": [s per step],
-    "steps": n}."""
+    "host_s": [s per step making the batch], "steps": n, "first_batch":
+    (x0, context) of the first step}.  `init`: a flat JAX tree of the
+    trained module's initial weights (the UNet's; class conditioning's
+    `unet/...` and `cond/...`) instead of the seeded flax-like ones;
+    `encoders`: the (VAE, text tower) of `--data-dir` instead of seeded
+    ones."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
-    if args.conditioning == "superres":
-        raise NotImplementedError("--conditioning superres needs training/degradation.py "
-                                  "(BSRGAN-light: a JPEG round trip and PIL resizes), not "
-                                  "ported yet (ROADMAP A.12)")
-    if args.data_dir and not args.synthetic:
-        raise NotImplementedError("--data-dir needs the image loaders of "
-                                  "training/image_data.py (PIL), not ported yet (ROADMAP A.12); "
-                                  "use --synthetic")
     if args.fsdp:
         logger.warning("--fsdp ignored: single device (no mesh to shard state over) — "
                        "training runs fully replicated")
@@ -172,6 +271,8 @@ def main(argv=None) -> dict:
     train_cfg = LDMTrainConfig(batch_size=args.batch_size, base_lr=args.base_lr,
                                accum_steps=args.accum, use_ema=not args.no_ema)
     model = build_model(args, unet_cfg, device)
+    if init is not None:
+        load_flat(model.unet if isinstance(model, (SuperRes, Unconditional)) else model, init)
     trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device),
                          model, ckpt_dir=args.ckpt_dir)
     logger.info("devices=1 lr=%.2e (scaled)", trainer.lr)
@@ -181,15 +282,21 @@ def main(argv=None) -> dict:
         state = trainer.restore(args.resume_step, state)
         start = args.resume_step
         logger.info("resumed from step %d", start)
-    next_batch = synthetic_batches(args, args.batch_size, latent_hw, ctx_shape, device)
+    if args.data_dir and not args.synthetic:
+        next_batch = folder_batches(args, args.batch_size, latent_hw, device,
+                                    encoders or data_encoders(args, device))
+    else:
+        next_batch = synthetic_batches(args, args.batch_size, latent_hw, ctx_shape, device)
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     jlog = JsonLogger(os.path.join(args.ckpt_dir, "train_log.jsonl"))
     key = prng.PRNGKey(42)
-    logged, step_s = [], []
+    logged, step_s, host_s, first = [], [], [], None
     for i in range(start, args.steps):
         t0 = time.perf_counter()
         x0, ctx = next_batch(i)
+        host_s.append(time.perf_counter() - t0)
+        first = first if first is not None else (x0, ctx)
         state, metrics = trainer.train_step(state, x0, ctx, prng.fold_in(key, i))
         m = {k: float(v) for k, v in metrics.items()}   # waits for the step
         step_s.append(time.perf_counter() - t0)
@@ -201,7 +308,8 @@ def main(argv=None) -> dict:
             trainer.save(state, i + 1)
             logger.info("checkpoint @ %d", i + 1)
     jlog.close()
-    return {"metrics": logged, "step_s": step_s, "steps": state.step}
+    return {"metrics": logged, "step_s": step_s, "host_s": host_s, "steps": state.step,
+            "first_batch": first}
 
 
 if __name__ == "__main__":

@@ -10,10 +10,10 @@ The "index" is the normalized embedding matrix (`pipeline/retrieval.py`:
 exact search).  Input: an embeddings npz in the reference format
 (`embedding`, optional `img_id` / `patch_coords`), or images embedded by the
 CLIP vision tower in batches of `--batch`: `--synthetic N` numpy
-`RandomState(0)` images at 224², as the JAX script draws them, or the PNGs
-of `--image-dir` read with `utils/png.py` and resized to 224² by the port's
-half-pixel bilinear resize (JPEG and WebP raise: the PIL-free JPEG codec
-is ROADMAP A.12).  The tower is the ViT-L/14 joint-space CLIP
+`RandomState(0)` images at 224², as the JAX script draws them, or the
+images of `--image-dir` (PNG and baseline JPEG, `utils/image_io.py`; WebP
+raises, ROADMAP A.12) converted to RGB and resized to 224² with PIL's
+default filter (`utils/resample.py`, PIL-exact), as the JAX script does.  The tower is the ViT-L/14 joint-space CLIP
 (`config.VIT_L14_JOINT_CLIP`), whose 768-wide space the RDM is conditioned
 on; the JAX script builds ViT-B/32 (512 wide), whose databases cannot feed
 the RDM.  `--tiny` takes a tiny CLIP (`pipeline/knn2img.joint_clip_config`).
@@ -32,10 +32,10 @@ import torch
 
 from ..models.clip import CLIP, clip_normalize
 from ..pipeline.knn2img import joint_clip_config
-from ..pipeline.losses import bilinear_resize
 from ..pipeline.retrieval import Retriever, build_database_from_images
 from ..utils import convert
-from ..utils.png import read_png, to_rgb
+from ..utils.image_io import open_image
+from ..utils.resample import resize
 from ..utils.testing import randomize_
 from ..utils.weights import flatten_tree, load_flat
 from .layout_infer import pick_device
@@ -60,18 +60,11 @@ def parse_args(argv=None):
 
 def load_image_dir(path: str) -> np.ndarray:
     """The directory's images (sorted by name) as [N, 224, 224, 3] float32
-    in [0, 1]: PNGs as RGB, resized by the half-pixel bilinear resize."""
+    in [0, 1]: `Image.open(f).convert("RGB").resize((224, 224)) / 255`."""
     files = sorted(f for f in os.listdir(path)
                    if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
-    other = [f for f in files if not f.lower().endswith(".png")]
-    if other:
-        raise NotImplementedError(f"{other[0]}: the PyTorch port reads PNG only; a PIL-free "
-                                  "JPEG / WebP decoder is ROADMAP A.12")
-    out = []
-    for f in files:
-        img = torch.from_numpy(to_rgb(read_png(os.path.join(path, f))).astype(np.float32) / 255.0)
-        out.append(bilinear_resize(img[None], IMAGE_SIZE)[0].numpy())
-    return np.stack(out).astype(np.float32)
+    return np.stack([resize(open_image(os.path.join(path, f), "RGB"), (IMAGE_SIZE, IMAGE_SIZE))
+                     / 255.0 for f in files]).astype(np.float32)
 
 
 def build_clip(tiny: bool, device, clip_ckpt=None, seed: int = 1) -> CLIP:

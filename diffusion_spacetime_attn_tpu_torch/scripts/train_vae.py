@@ -9,8 +9,12 @@ LPIPSWithDiscriminator), with its flags and defaults and `--cpu`:
 `training/vae_trainer.py` does the step: LPIPS + KL + PatchGAN with the
 adaptive adversarial weight, both optimizer updates.  Data: `--synthetic`
 uniform images in [-1, 1] (numpy's RandomState(step % 37), as in JAX), also
-what runs without `--data-dir`; `--data-dir` / `--paths-txt` raise: their
-loaders (`training/image_data.py`, PIL) are ROADMAP A.12's remainder.
+what runs without `--data-dir`; `--paths-txt` (an LSUN-style split of paths
+under `--data-dir`, `training/image_data.lsun_split`) or `--data-dir` alone
+(its PNG / JPEG / WebP files by name) through `ImagePathsDataset`: center
+crop, PIL-exact bicubic resize to the image size, flips at `--flip-p`, the
+same shuffles as JAX (`batches(B, seed=0)`); `host_s` per step is the
+loader's time.
 `--lpips-ckpt` reads a taming LPIPS checkpoint (`utils/convert.convert_lpips`);
 without it LPIPS is seeded random (smoke mode), and `--tiny` turns the
 perceptual term off, as in JAX.  Checkpoints: `torch.save` of the state's
@@ -30,6 +34,7 @@ import torch
 
 from ..config import VAEConfig
 from ..models.vae import AutoencoderKL
+from ..training.image_data import ImagePathsDataset, lsun_split
 from ..training.perceptual import LPIPS
 from ..training.vae_trainer import VAETrainConfig, VAETrainer, VAETrainState
 from ..utils import convert, prng
@@ -80,13 +85,32 @@ def save_state(state: VAETrainState, path: str) -> None:
                 "opt_disc": state.opt_disc.state_dict(), "step": state.step}, path)
 
 
+def image_batches(args, B: int, hw: int, device):
+    """next_batch(i) -> [B, hw, hw, 3] in [-1, 1] on `device`: synthetic
+    (RandomState(i % 37)) unless a data flag names images."""
+    if args.synthetic or not (args.data_dir or args.paths_txt):
+        def next_batch(i):
+            r = np.random.RandomState(i % 37)
+            return torch.from_numpy((r.rand(B, hw, hw, 3) * 2 - 1).astype(np.float32)).to(device)
+        return next_batch
+    if args.paths_txt:
+        ds = lsun_split(args.paths_txt, args.data_dir or ".", size=hw, flip_p=args.flip_p)
+    else:
+        files = sorted(os.path.join(args.data_dir, f) for f in os.listdir(args.data_dir)
+                       if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
+        ds = ImagePathsDataset(paths=files, size=hw, flip_p=args.flip_p)
+    it = ds.batches(B, seed=0)
+
+    def next_batch(i):
+        return torch.from_numpy(next(it)[0]).to(device)
+    return next_batch
+
+
 def main(argv=None) -> dict:
-    """Train; returns {"metrics": [per logged step], "step_s": [s per step]}."""
+    """Train; returns {"metrics": [per logged step], "step_s": [s per step],
+    "host_s": [the loader's s per step]}."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
-    if (args.data_dir or args.paths_txt) and not args.synthetic:
-        raise NotImplementedError("--data-dir / --paths-txt need training/image_data.py (PIL "
-                                  "loaders), not ported yet (ROADMAP A.12); use --synthetic")
     if args.fsdp:
         logger.warning("--fsdp ignored: single device — training runs fully replicated")
     device = pick_device(args.cpu)
@@ -105,18 +129,16 @@ def main(argv=None) -> dict:
     lpips = load_lpips(args.lpips_ckpt, device) if args.lpips_ckpt else None
     state = trainer.init(seed=0, lpips=lpips)
 
-    B = args.batch_size
-
-    def next_batch(i):
-        r = np.random.RandomState(i % 37)
-        return torch.from_numpy((r.rand(B, hw, hw, 3) * 2 - 1).astype(np.float32)).to(device)
+    next_batch = image_batches(args, args.batch_size, hw, device)
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     jlog = JsonLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"))
-    logged, step_s = [], []
+    logged, step_s, host_s = [], [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
-        state, m = trainer.train_step(state, next_batch(i), prng.PRNGKey(i))
+        x = next_batch(i)
+        host_s.append(time.perf_counter() - t0)
+        state, m = trainer.train_step(state, x, prng.PRNGKey(i))
         vals = {k: float(v) for k, v in m.items()}      # waits for the step
         step_s.append(time.perf_counter() - t0)
         if i % args.log_every == 0:
@@ -127,7 +149,7 @@ def main(argv=None) -> dict:
             save_state(state, os.path.join(args.ckpt_dir, f"step_{i + 1}.pt"))
             logger.info("checkpointed step %d", i + 1)
     jlog.close()
-    return {"metrics": logged, "step_s": step_s}
+    return {"metrics": logged, "step_s": step_s, "host_s": host_s}
 
 
 if __name__ == "__main__":

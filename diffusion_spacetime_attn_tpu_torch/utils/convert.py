@@ -525,10 +525,16 @@ def convert_lpips(sd: Dict[str, np.ndarray]):
     """A taming-transformers LPIPS checkpoint (`net.slice{k}.{i}.weight`,
     the VGG16 convolutions at torchvision's feature indices, and
     `lin{j}.model.1.weight`, the 1×1 heads) -> `training.perceptual.LPIPS`'s
-    tree.  The scaling layer's constants are in the module."""
+    tree.  The convolutions may also come as torchvision's VGG16
+    `features.{i}.*` beside taming's `vgg.pth` heads (the two published
+    files taming's LPIPS loads).  The scaling layer's constants are in the
+    module."""
     vgg = {}
     for j, i in enumerate(_VGG16_CONV_IDX):
-        vgg[f"conv_{j}"] = _conv(sd, f"net.slice{_VGG16_SLICE_OF[i]}.{i}")
+        name = f"net.slice{_VGG16_SLICE_OF[i]}.{i}"
+        tv = f"features.{i}"              # torchvision's key; a missing key names taming's
+        vgg[f"conv_{j}"] = _conv(sd, tv if f"{name}.weight" not in sd and f"{tv}.weight" in sd
+                                 else name)
     params = {"vgg": vgg}
     for j in range(5):
         params[f"lin_{j}"] = {"kernel": _hwio(sd[f"lin{j}.model.1.weight"])}

@@ -34,27 +34,34 @@ class NativeBuildError(RuntimeError):
     """The C++ core could not be compiled or loaded."""
 
 
-def build() -> Path:
-    """Compile the core unless this source and these flags are built already;
-    returns the library's path."""
-    if not SOURCE.is_file():
-        raise NativeBuildError(f"no source {SOURCE}")
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libbpe_{digest}.so"
+def compile_shared(source: Path, name: str) -> Path:
+    """Compile one C++ source into `_build/lib<name>_<hash>.so` unless this
+    source and these flags are built already; returns the library's path.
+    The JPEG codec (`utils/jpeg.py`) is built the same way."""
+    if not source.is_file():
+        raise NativeBuildError(f"no source {source}")
+    digest = hashlib.sha256(" ".join(FLAGS).encode() + source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = Path(tmp) / lib.name
         try:
-            r = subprocess.run(["g++", *FLAGS, "-o", str(out), str(SOURCE)],
+            r = subprocess.run(["g++", *FLAGS, "-o", str(out), str(source)],
                                capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
             raise NativeBuildError(f"g++ did not run: {e}") from e
         if r.returncode != 0:
-            raise NativeBuildError(f"g++ failed on {SOURCE}:\n{r.stderr}")
+            raise NativeBuildError(f"g++ failed on {source}:\n{r.stderr}")
         os.replace(out, lib)      # atomic: concurrent builders load a whole file
     return lib
+
+
+def build() -> Path:
+    """Compile the BPE core unless this source and these flags are built
+    already; returns the library's path."""
+    return compile_shared(SOURCE, "bpe")
 
 
 def load_library() -> ctypes.CDLL:

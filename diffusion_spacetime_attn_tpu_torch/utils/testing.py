@@ -357,6 +357,26 @@ def vq_shapes(cfg) -> Shapes:
     return keys.shapes
 
 
+LPIPS_VGG_CHANNELS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+LPIPS_LIN_CHANNELS = (64, 128, 256, 512, 512)
+
+
+def lpips_shapes() -> Shapes:
+    """Key -> shape of LPIPS's published weights: taming's `vgg.pth` heads
+    (`lin{j}.model.1.weight` [1, c, 1, 1]) beside torchvision's VGG16
+    convolutions (`features.{i}.*`)."""
+    from .convert import _VGG16_CONV_IDX
+
+    shapes, cin = {}, 3
+    for i, c in zip(_VGG16_CONV_IDX, LPIPS_VGG_CHANNELS):
+        shapes[f"features.{i}.weight"] = (c, cin, 3, 3)
+        shapes[f"features.{i}.bias"] = (c,)
+        cin = c
+    for j, c in enumerate(LPIPS_LIN_CHANNELS):
+        shapes[f"lin{j}.model.1.weight"] = (1, c, 1, 1)
+    return shapes
+
+
 def seeded_state_dict(shapes: Shapes, seed: int, scale: float = 0.02) -> Dict[str, np.ndarray]:
     """{key: seeded_normal(seed, key, shape, scale)} for every key, drawn in
     threads (numpy's generators release the GIL)."""

@@ -317,7 +317,8 @@ def test_inpaint_matches_jax(bundles):
 def test_img2img_cli_writes_the_pipeline_image(bundles, tmp_path):
     """The CLI (--tiny --cpu: seeded weights) reads the PNGs (the mask as
     PIL's luma), runs the pipeline on the key of --seed and writes the
-    rounded image; an image that is not --size square raises."""
+    rounded image; an image that is not --size square is resized as PIL's
+    default filter does."""
     init = ((bundles["img"][0] + 1.0) * 127.5).astype(np.uint8)
     write_png(str(tmp_path / "in.png"), init)
     mask = np.repeat((bundles["mask"][0] * 255).astype(np.uint8), 3, axis=-1)
@@ -338,8 +339,11 @@ def test_img2img_cli_writes_the_pipeline_image(bundles, tmp_path):
     np.testing.assert_array_equal(read_png(path),
                                   (want[0].numpy() * 255.0 + 0.5).astype(np.uint8))
     assert img2img_cli.main(base).endswith("img2img_s3.png")
-    with pytest.raises(ValueError, match="32x32"):
-        img2img_cli.main([*base[:5], "64", *base[6:]])
+    big = np.random.RandomState(5).randint(0, 256, (40, 48, 3), dtype=np.uint8)
+    write_png(str(tmp_path / "big.png"), big)
+    from PIL import Image
+    want = np.asarray(Image.fromarray(big).resize((32, 32)))
+    np.testing.assert_array_equal(img2img_cli.read_square(str(tmp_path / "big.png"), 32), want)
 
 
 # ---------------------------------------------------------------- sample_diffusion

@@ -372,6 +372,12 @@ def test_train_searcher_reads_png_dirs_and_refuses_jpeg(tmp_path):
     s = train_searcher.main(["--tiny", "--cpu", "--image-dir", str(d), "--out", out])
     assert s["rows"] == 2
     assert np.load(out)["patch_coords"].tolist() == [[0, 0, 224, 224]] * 2
-    (d / "c.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="A.12"):
+    (d / "c.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBP")
+    with pytest.raises(ValueError, match="A.12"):
+        train_searcher.load_image_dir(str(d))
+    (d / "c.webp").unlink()
+    from PIL import Image
+    Image.fromarray(rng.randint(0, 256, (16, 16, 3), dtype=np.uint8)).save(
+        d / "c.jpg", "JPEG", progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
         train_searcher.load_image_dir(str(d))

@@ -19,9 +19,12 @@ import torch
 
 from diffusion_spacetime_attn_tpu.config import VAEConfig as JVAEConfig
 from diffusion_spacetime_attn_tpu.models.vae import AutoencoderKL as JAutoencoderKL
+from diffusion_spacetime_attn_tpu.training import image_data as jdata
 from diffusion_spacetime_attn_tpu.training import perceptual as jper
 from diffusion_spacetime_attn_tpu.training import vae_trainer as jvt
 from diffusion_spacetime_attn_tpu.utils import convert as jconvert
+from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
+from diffusion_spacetime_attn_tpu_torch.utils.png import write_png
 from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
 from diffusion_spacetime_attn_tpu_torch.scripts import train_vae
 from diffusion_spacetime_attn_tpu_torch.training import perceptual as tper
@@ -177,7 +180,8 @@ def test_train_vae_cli(lpips_sd, tmp_path):
     """`train_vae --tiny --cpu --synthetic` with the discriminator from step
     0: finite metrics, a checkpoint readable with weights_only; with
     `--lpips-ckpt` the perceptual term runs on the converted weights;
-    --data-dir raises, naming its item."""
+    without --synthetic, --data-dir trains on the folder's sorted images,
+    the batches equal to JAX's `ImagePathsDataset` over the same files."""
     argv = ["--tiny", "--cpu", "--synthetic", "--disc-start", "0", "--log-every", "1",
             "--ckpt-dir", str(tmp_path)]
     out = train_vae.main(argv + ["--steps", "3", "--ckpt-every", "2"])
@@ -189,7 +193,22 @@ def test_train_vae_cli(lpips_sd, tmp_path):
     torch.save({k: torch.from_numpy(v) for k, v in lpips_sd.items()}, path)
     out = train_vae.main(argv + ["--steps", "1", "--lpips-ckpt", str(path), "--ckpt-every", "0"])
     assert all(np.isfinite(v) for v in out["metrics"][0].values())
-    with pytest.raises(NotImplementedError, match="image_data"):
-        train_vae.main(["--tiny", "--cpu", "--data-dir", str(tmp_path)])
+    imgs = tmp_path / "imgs"
+    imgs.mkdir()
+    for i in range(2):
+        write_png(str(imgs / f"{i}.png"), np.random.RandomState(i).randint(0, 256, (40, 36, 3),
+                                                                            dtype=np.uint8))
+    (imgs / "2.JPG").write_bytes(encode_jpeg(np.random.RandomState(2).randint(
+        0, 256, (30, 52, 3), dtype=np.uint8), 80))
+    (imgs / "notes.txt").write_text("not an image")
+    folder = ["--tiny", "--cpu", "--disc-start", "0", "--log-every", "1", "--batch-size", "2",
+              "--data-dir", str(imgs), "--ckpt-dir", str(tmp_path / "folder")]
+    nb = train_vae.image_batches(train_vae.parse_args(folder), 2, 32, "cpu")
+    files = sorted(str(imgs / f) for f in ("0.png", "1.png", "2.JPG"))
+    it = jdata.ImagePathsDataset(paths=files, size=32, flip_p=0.5).batches(2, seed=0)
+    for i in range(3):                          # past the first epoch's one batch
+        np.testing.assert_array_equal(nb(i).numpy(), next(it)[0])
+    out = train_vae.main(folder + ["--steps", "1", "--ckpt-every", "0"])
+    assert all(np.isfinite(v) for v in out["metrics"][0].values())
     with pytest.raises(NotImplementedError, match="A.13"):
         tvt.VAETrainer(AutoencoderKL(port_cfg(VAE_CFG)), tvt.VAETrainConfig(), mesh=object())
