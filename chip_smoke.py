@@ -97,35 +97,37 @@ script exits non-zero without its final line:
              burst into max_queue=1 while a batch runs at least one 503;
              request_timeout_s=0.01 a 504 behind a running batch; 404
              elsewhere.  Seconds per request, the HTTP, PNG and base64
-             overhead; MHA, GEGLU and spacetime forward 816 launches per
-             batch, nothing else.
+             overhead; MHA, GEGLU and spacetime forward 416 launches per
+             batch (PLMS at FRONT_STEPS = 25: phase serve runs PLMS-50),
+             nothing else.
      loadtest: `serving/loadtest.run_loadtest` on the vanilla-flag engine
-             (phase serve's bundle, no control), batch 2: capacity from 2
-             warm batches, stages at 0.5, 1.0 and 2.5 of it, 4 requests
+             (phase serve's bundle at PLMS-25, no control), batch 2: capacity from 2
+             warm batches, stages at 0.5, 1.0 and 2.5 of it, 3 requests
              each, max_queue 4: every accepted request completes, p50 <=
              p95 <= p99, no reject at 0.5 and its p50 at least one batch,
              the JAX artifact's keys; printed on one line with the card's
-             name and power limit; MHA and GEGLU 816 per batch.
+             name and power limit; MHA and GEGLU 416 per batch.
      serve_cli: `scripts/serve.main(["--mode", "spacetime", "--batch",
              "2", "--soak", "2", "--steps", "10"])` in this process (full
-             width, bf16 parameters, PLMS-10 (SERVE_CLI_STEPS: phase
-             optimize runs this path at PLMS-50), 3 epochs, layout
+             width, bf16 parameters, PLMS-10 (SERVE_CLI_STEPS, as phase
+             optimize), 3 epochs, layout
              predictor, ViT-B/32 loss CLIP): the soak summary, finite
              non-constant images, and per batch (warmup and soak)
              opt_launches(k, 11) of the
              flash and spacetime kernels, forward and backward, GEGLU and
              MHA none.
   9. optimize: SpaceTimeEngine (the paper's temporal optimization) at the
-             same width with the ViT-B/32 loss CLIP, bf16, PLMS-50, batch 2,
+             same width with the ViT-B/32 loss CLIP, bf16, PLMS-10
+             (OPTIMIZE_STEPS: 11 UNet evaluations per chain), batch 2,
              4 objects, 3 Adam epochs (the last forward only), use_flash on as
              in the JAX package's spacetime mode: 2 requests, then the first
              again beside a pad row (same bytes).  A forward kernel at n sites
-             per evaluation must be launched 2 x 51 x 2 x n + 51 x n times per
-             batch (2 training epochs x 51 evaluations x 2 for the remat
+             per evaluation must be launched 2 x 26 x 2 x n + 26 x n times per
+             batch (2 training epochs x 26 evaluations x 2 for the remat
              recompute, + the forward-only epoch) and a backward kernel
-             2 x 51 x n: n = 16 for spacetime and GEGLU (4080 / 1632), 10 for
-             flash (2550 / 1018: the first self-attention of each chain sees
-             only x_T and gets no backward), 6 for MHA (1530); losses finite;
+             2 x 26 x n: n = 16 for spacetime and GEGLU (2080 / 832), 10 for
+             flash (1300 / 518: the first self-attention of each chain sees
+             only x_T and gets no backward), 6 for MHA (780); losses finite;
              coef moved on active slots, 0 on padded ones; flash, GEGLU and
              spacetime launches (forward and dq pass) all on the wgmma
              design.
@@ -187,13 +189,13 @@ script exits non-zero without its final line:
              this process) at SD v1-4 width, seeded random weights, bf16,
              seed 1, on a temporary mscoco.txt of RUNNER_CAPTIONS (index 2
              repeats index 0, index 3 has no COCO object): vanilla and
-             spatial at batch 1 and PLMS-50, spacetime through BatchedRunner
-             at batch 2 with 3 epochs and PLMS-10 (RUNNER_SPACETIME_STEPS;
-             phase optimize runs the method at PLMS-50).  Per mode: the files
+             spatial at batch 1 and PLMS-25 (RUNNER_STEPS), spacetime
+             through BatchedRunner at batch 2 with 3 epochs and PLMS-10
+             (RUNNER_SPACETIME_STEPS, as phase optimize).  Per mode: the files
              final2_s1_index_{0,1,2}.png and no index 3, the manifest, a
              --resume call that makes and launches nothing, the same PNG
              bytes for the repeated (prompt, seed), and launches of exactly
-             the mode's kernels (RUNNER_MODES: vanilla and spatial 816 per
+             the mode's kernels (RUNNER_MODES: vanilla and spatial 416 per
              prompt; spacetime opt_launches(k, 11) per batch, MHA off);
              s per prompt and peak memory.
  15. eval:   the port's CLIP grid detector (ViT-B/32 width, seeded random
@@ -217,7 +219,7 @@ script exits non-zero without its final line:
              to the card and is cast there);
              `txt2img --ckpt` on the `.safetensors`; the drill
              (`scripts/ingest_weights.main`, bf16, PLMS at DRILL_STEPS = 10,
-             3 epochs: phase optimize runs its method at PLMS-50) on the
+             3 epochs, as phase optimize) on the
              `.ckpt`, an OpenAI ViT-B/32 file and a fairseq Rel2Bbox file:
              JAX's report keys, every weight "checkpoint", finite CLIP
              scores, both PNGs and exactly each mode's launches, with its
@@ -284,12 +286,30 @@ script exits non-zero without its final line:
              the same model on the CPU (centers within 1e-4, the same
              files), and 3 steps of each legacy trainer (LegacyConfig(),
              batch 8) on the card: finite losses, s per step.
- 24. the wall time, then the `kernels` summary line (times per UNet
+ 24. mesh:   the data mesh over a one-rank NCCL group in this process:
+             the SD v1-4 UNet training step in float32 through the GEGLU and
+             flash kernels, data-parallel and then FSDP (`fully_shard`), each
+             against the one-device step from the same weights and keys
+             (train_f32's limits; launches exactly TRAIN_SITES per step);
+             TextToImageEngine(mesh=) and Retriever(mesh=) equal to the same
+             without a mesh (bytes, top-10).
+     mesh2:  two processes on cuda:0 over gloo (`--mesh2-rank`; NCCL
+             refuses two ranks on one card), one spawn: the float32
+             data-parallel step at a global batch of 4 (2 rows per rank)
+             against the one-process step on that batch (the loss, the
+             averaged gradients, the updated weights and EMA), the same
+             under FSDP over the two ranks but the gradients (state and
+             allocated bytes per rank), `sharded_search` over a 1,000,000 x 768 database split
+             over the ranks against `exact_search` (the same top-10), and
+             TextToImageEngine(mesh=) at batch 2 (one row per rank),
+             PLMS-10, float32, within one uint8 level of one process.  A
+             rank that fails makes the script fail.
+ 25. the wall time, then the `kernels` summary line (times per UNet
      evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
      the dataset sweep, of phases http, loadtest and serve_cli, of phase
-     image_in, of phase ingest, of phase train_bench, of phase knn2img and of
-     phase train_data's train_ldm runs; each
+     image_in, of phase ingest, of phase train_bench, of phase knn2img, of
+     phase train_data's train_ldm runs and of phases mesh and mesh2; each
      kernel's design and, for the attention kernels, launches by design),
      the nvidia-smi line, and the final {"ok": true, ...} line.
 
@@ -448,8 +468,13 @@ KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with `t`: the seconds since the script started (each
+    phase's share of the wall time)."""
+    print(json.dumps({**obj, "t": round(time.perf_counter() - _T0, 2)}), flush=True)
 
 
 def fail(msg: str):
@@ -1414,6 +1439,11 @@ def _reset_counts(wrappers):
             w.launches_by_design[d] = 0
 
 
+def _sum_launches(total: dict, counts: dict):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
 def _add_counts(total: dict, counts: dict):
     for name, by in counts.items():
         for d, n in by.items():
@@ -1604,9 +1634,12 @@ def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
     return line, u8
 
 
+OPTIMIZE_STEPS = 10             # phase optimize's PLMS steps (cut from 50 to hold the time budget)
+
+
 def phase_optimize():
     """SpaceTimeEngine at full SD v1-4 width (UNet, VAE, ViT-L/14 text
-    tower; ViT-B/32 loss CLIP), bf16, PLMS-50, batch 2, 4 objects, 3 epochs
+    tower; ViT-B/32 loss CLIP), bf16, PLMS-10 (OPTIMIZE_STEPS), batch 2, 4 objects, 3 epochs
     with the last forward only, the four kernel flags on (use_flash, as the
     JAX package's spacetime mode sets it): two requests, then the first
     (prompt, seed) again beside a pad row, which must give the same bytes."""
@@ -1629,6 +1662,8 @@ def phase_optimize():
         unet=UNetConfig(dtype="bfloat16", use_flash=True, use_mha=True, use_fused_ff=True,
                         use_fused_control=True),
         vae=VAEConfig(dtype="bfloat16"))
+    cfg = dataclasses.replace(cfg, spacetime=dataclasses.replace(cfg.spacetime,
+                                                                 num_steps=OPTIMIZE_STEPS))
     clip_cfg = CLIPConfig(vision=CLIPVisionConfig(dtype="bfloat16"),
                           text=dataclasses.replace(CLIPConfig().text, dtype="bfloat16"))
     t0 = time.perf_counter()
@@ -1644,7 +1679,8 @@ def phase_optimize():
     images, launches, batch_s, by_design = [], {k: 0 for k in wrappers}, [], {}
     torch.cuda.reset_peak_memory_stats()
     for prompts, sds in zip(requests, seeds):
-        line, u8 = _optimize_batch(engine, wrappers, prompts, sds, chain_evals("plms", 50))
+        line, u8 = _optimize_batch(engine, wrappers, prompts, sds,
+                                   chain_evals("plms", OPTIMIZE_STEPS))
         for k, n in line["launches"].items():
             launches[k] += n
         _add_counts(by_design, line["launches_by_design"])
@@ -1657,7 +1693,7 @@ def phase_optimize():
         fail(f"optimize: request (prompt, seed 11) served twice differs: "
              f"{int((diff > 0).sum())} bytes, max {int(diff.max())}")
     emit({"phase": "optimize", "requests": sum(map(len, requests)), "batches": len(requests),
-          "batch_size": SERVE_PROMPTS, "steps": 50, "epochs": sd.cfg.spacetime.epochs,
+          "batch_size": SERVE_PROMPTS, "steps": OPTIMIZE_STEPS, "epochs": sd.cfg.spacetime.epochs,
           "repeat_request_same_bytes": repeat_equal, "setup_s": setup_s,
           "s_per_batch": batch_s, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches, "launches_by_design": by_design})
@@ -1673,17 +1709,10 @@ def phase_samplers(engine):
     `engine` (phase `optimize`'s weights and CLIP) through a DPM-Solver++
     chain of DPM_STEPS steps, 3 epochs, 2 prompts x 4 objects, each kernel
     launched opt_launches(k, DPM_STEPS) times."""
-    import dataclasses
-
     import torch
 
-    from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
-
     phase_chain(("ddim", "dpm"), phase="samplers_chain")
-    sd = engine.runner.sd
-    st = dataclasses.replace(sd.cfg.spacetime, num_steps=DPM_STEPS)
-    sd = dataclasses.replace(sd, cfg=dataclasses.replace(sd.cfg, spacetime=st),
-                             schedule=make_schedule(sd.cfg.schedule, DPM_STEPS, device=sd.device))
+    sd = with_steps(engine.runner.sd, DPM_STEPS)
     dpm = _spacetime_engine(sd, engine.runner.clip_loss, SERVE_PROMPTS, sampler="dpm")
     wrappers = _wrappers()
     torch.cuda.empty_cache()
@@ -2055,7 +2084,8 @@ LAYOUT_CAPTIONS = [GOLDEN, "a dog to the left of a cat", "a car above a bench",
 # no COCO object (skipped)
 RUNNER_CAPTIONS = [GOLDEN, "a dog to the left of a cat", GOLDEN, "no objects here at all"]
 RUNNER_FILES = [f"final2_s1_index_{i}.png" for i in (0, 1, 2)]
-RUNNER_SPACETIME_STEPS = 10     # the spacetime sweep's PLMS steps (phase optimize runs PLMS-50)
+RUNNER_SPACETIME_STEPS = 10     # the spacetime sweep's PLMS steps
+RUNNER_STEPS = 25               # the vanilla and spatial sweeps' PLMS steps (cut from 50)
 # kernels each sweep mode runs (run_dataset's per-mode flags): MHA and GEGLU
 # everywhere outside spacetime mode, the spacetime forward where there is
 # control, flash and every backward in spacetime mode (MHA off there)
@@ -2170,13 +2200,13 @@ def phase_layout():
 def phase_runner(root: str):
     """The sweep entry point (`run_dataset.main`, in this process) at SD
     v1-4 width with seeded random weights, bf16, seed 1, on a `mscoco.txt`
-    of RUNNER_CAPTIONS: vanilla and spatial at batch 1 and PLMS-50,
+    of RUNNER_CAPTIONS: vanilla and spatial at batch 1 and PLMS-RUNNER_STEPS,
     spacetime through BatchedRunner at batch 2 with 3 epochs and
-    PLMS-RUNNER_SPACETIME_STEPS (phase optimize runs the method at PLMS-50).
+    PLMS-RUNNER_SPACETIME_STEPS.
     Per mode: the expected PNGs (the skipped prompt absent), the manifest, a
     `--resume` call that makes nothing, equal PNG bytes for the repeated
     (prompt, seed), and launches of exactly RUNNER_MODES[mode] (spacetime:
-    each opt_launches(k, 11) per batch; vanilla and spatial 816 per prompt).
+    each opt_launches(k, 11) per batch; vanilla and spatial 416 per prompt).
     Returns ({kernel: launches over the modes}, the spacetime outdir)."""
     import numpy as np
     import torch
@@ -2193,7 +2223,7 @@ def phase_runner(root: str):
     for mode, kernels in RUNNER_MODES.items():
         out = os.path.join(root, mode)
         batch = 2 if mode == "spacetime" else 1
-        steps = RUNNER_SPACETIME_STEPS if mode == "spacetime" else 50
+        steps = RUNNER_SPACETIME_STEPS if mode == "spacetime" else RUNNER_STEPS
         evals = chain_evals("plms", steps)
         args = ["--dataset", "mscoco", "--data-root", data, "--mode", mode, "--seed", "1",
                 "--outdir", out, "--batch-size", str(batch), "--steps", str(steps)]
@@ -2211,7 +2241,7 @@ def phase_runner(root: str):
             batches = -(-len(RUNNER_CAPTIONS) // batch)
             want = {k: batches * opt_launches(k, evals) if k in kernels else 0 for k in wrappers}
         else:
-            want = {k: produced * LAUNCHES_PER_BATCH if k in kernels else 0 for k in wrappers}
+            want = {k: produced * 16 * evals if k in kernels else 0 for k in wrappers}
         if counts != want:
             fail(f"runner {mode}: launches {counts}, expected {want}")
         files = sorted(f for f in os.listdir(out) if f.endswith(".png"))
@@ -2942,7 +2972,7 @@ def phase_train_bench(root: str, smi: str) -> dict:
 
     wrappers = _wrappers()
     args = argparse.Namespace(what="ldm", batch_size=4, iters=TRAIN_STEPS, dtype="bfloat16",
-                              no_ema=False, tiny=False)
+                              no_ema=False, tiny=False, mesh="none", profile=False)
     per_step = []
 
     def on_step(i):
@@ -3023,7 +3053,9 @@ def phase_train_bench(root: str, smi: str) -> dict:
 
 def phase_train_cli(root: str) -> dict:
     """(c) the entry points: `train_ldm --synthetic --steps 3` at SD v1-4
-    width (launches exactly 3 × TRAIN_SITES), `train_vae --synthetic --steps
+    width (launches exactly 3 × TRAIN_SITES; its final ~14 GB checkpoint
+    left out, `LDMTrainer.save` patched: phase train_bench saves and
+    restores one), `train_vae --synthetic --steps
     2 --disc-start 0` at KL-f8 width on 256² images (the discriminator and
     the adaptive weight with random LPIPS), and `train_testbed` with every
     stage at a few steps into a directory that the port's `load_bundle`
@@ -3034,18 +3066,19 @@ def phase_train_cli(root: str) -> dict:
 
     from diffusion_spacetime_attn_tpu_torch.scripts import train_ldm, train_testbed, train_vae
     from diffusion_spacetime_attn_tpu_torch.testbed import scenes
+    from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer
     from diffusion_spacetime_attn_tpu_torch.testbed.bundle import load_bundle
     from diffusion_spacetime_attn_tpu_torch.utils import prng
 
     wrappers = _wrappers()
     torch.cuda.synchronize()
     _reset_counts(wrappers.values())
-    ldm = train_ldm.main(["--synthetic", "--steps", "3", "--ckpt-dir", os.path.join(root, "ldm"),
-                          "--log-every", "1", "--ckpt-every", "0"])
+    with mock.patch.object(ldm_trainer.LDMTrainer, "save", lambda self, state, step: None):
+        ldm = train_ldm.main(["--synthetic", "--steps", "3", "--ckpt-dir",
+                              os.path.join(root, "ldm"), "--log-every", "1", "--ckpt-every", "0"])
     launches = {k: w.launches for k, w in wrappers.items()}
     expected = {k: train_launches(k, 3) for k in wrappers}
     ldm_ok = launches == expected and all(math.isfinite(m["loss"]) for m in ldm["metrics"])
-    ckpt_bytes = os.path.getsize(os.path.join(root, "ldm", "step_3.pt"))
     shutil.rmtree(os.path.join(root, "ldm"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3068,7 +3101,7 @@ def phase_train_cli(root: str) -> dict:
         all(k in bundle.meta for k in ("scale_factor", "guidance_scale", "ldm_loss_simple"))
     emit({"phase": "train_cli", "train_ldm_step_s": ldm["step_s"],
           "train_ldm_losses": [m["loss"] for m in ldm["metrics"]], "train_ldm_launches": launches,
-          "train_ldm_ckpt_bytes": ckpt_bytes, "train_vae_step_s": vae["step_s"],
+          "train_vae_step_s": vae["step_s"],
           "train_vae_metrics": vae["metrics"], "train_vae_peak_bytes": vae_peak,
           "train_testbed_s": tb["seconds"], "train_testbed_meta": tb["meta"],
           "testbed_image_mean": float(img.mean()), "testbed_caption": caption})
@@ -3820,9 +3853,29 @@ def _serve_front(engine, **kw):
     return svc, httpd, httpd.server_address[1]
 
 
+# the PLMS steps of phases http and loadtest: functional checks of the
+# serving front and the ramp, at fewer steps than phase serve's 50 to keep
+# the whole script inside its 600 s budget; a batch must still outlast
+# phase http's 0.5 s sleeps (its 503 and 504 checks)
+FRONT_STEPS = 25                # phases http and loadtest (cut from 50); http's burst
+                                # and timeout checks need a batch longer than their 0.5 s wait
+FRONT_LAUNCHES = 16 * (FRONT_STEPS + 1)     # per batch of each forward kernel on the path
+
+
+def with_steps(sd, steps: int):
+    """The bundle `sd` (same modules) with a chain of `steps` steps."""
+    import dataclasses
+
+    from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
+
+    st = dataclasses.replace(sd.cfg.spacetime, num_steps=steps)
+    return dataclasses.replace(sd, cfg=dataclasses.replace(sd.cfg, spacetime=st),
+                               schedule=make_schedule(sd.cfg.schedule, steps, device=sd.device))
+
+
 def phase_http(sd):
     """The HTTP front in spatial mode at full SD v1-4 width (phase serve's
-    bundle: bf16, PLMS-50, MHA, GEGLU and spacetime kernels), batch 2, the
+    bundle at PLMS-FRONT_STEPS: bf16, MHA, GEGLU and spacetime kernels), batch 2, the
     layout predictor at LayoutConfig() behind `PromptRunner.prepare_host`,
     a BatchingService (max_wait_s 0.2) behind `serve` on 127.0.0.1.  A lone
     request must return the PNG of `engine.generate_batch([p], [s])[0]`
@@ -3831,7 +3884,7 @@ def phase_http(sd):
     max_queue=1 hit by a burst while a batch runs must answer 503; one with
     request_timeout_s=0.01 must answer 504 for a request queued behind a
     running batch.  Every batch launches the MHA, GEGLU and spacetime
-    forward kernels 816 times each and nothing else."""
+    forward kernels 16 x (FRONT_STEPS + 1) times each and nothing else."""
     import base64
 
     import numpy as np
@@ -3848,6 +3901,7 @@ def phase_http(sd):
         make_roberta_tokenizer,
     )
 
+    sd = with_steps(sd, FRONT_STEPS)
     L = sd.cfg.text_encoder.max_len
     tok = make_clip_tokenizer(max_len=L)
 
@@ -3933,10 +3987,10 @@ def phase_http(sd):
             svc.stop()
     counts = {k: w.launches for k, w in wrappers.items()}
     batches = direct + sum(svc.stats["batches"] for svc, _ in fronts)
-    expect = {k: batches * LAUNCHES_PER_BATCH if k in SPATIAL_KERNELS else 0 for k in wrappers}
+    expect = {k: batches * FRONT_LAUNCHES if k in SPATIAL_KERNELS else 0 for k in wrappers}
     if counts != expect:
         fail(f"http: launches {counts} over {batches} batches, expected {expect}")
-    emit({"phase": "http", "mode": "spatial", "batch_size": SERVE_PROMPTS, "steps": 50,
+    emit({"phase": "http", "mode": "spatial", "batch_size": SERVE_PROMPTS, "steps": FRONT_STEPS,
           "setup_s": setup_s, "lone_request_s": lone_s, "lone_batch_s": batch_s,
           "http_overhead_s": lone_s - batch_s, "png_b64_ms": png_b64_ms,
           "png_b64_bytes": len(b64), "lone_same_bytes": True,
@@ -3947,19 +4001,25 @@ def phase_http(sd):
     return counts
 
 
+# requests per stage of phase loadtest: few, to keep the whole script inside
+# its 600 s budget (a functional check; scripts/measure_loadtest.py measures)
+LOADTEST_REQUESTS = 3
+
+
 def phase_loadtest(sd, smi: str):
     """`run_loadtest` on the vanilla-flag engine at full SD v1-4 width (phase
-    serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-50, batch
+    serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-FRONT_STEPS, batch
     2: capacity from 2 warm batches, then stages at 0.5, 1.0 and 2.5 of it,
-    4 requests each, max_queue 4, max_wait_s 0.2.  A functional check, not a
-    measurement (percentiles of 4 samples; `scripts/measure_loadtest.py`
+    LOADTEST_REQUESTS (3) requests each, max_queue 4, max_wait_s 0.2.  A
+    functional check, not a measurement (percentiles of 3 samples;
+    `scripts/measure_loadtest.py`
     measures): every accepted request must complete, p50 <= p95 <= p99, the
     0.5 stage must reject nothing, its p50 be at least the wall time of the
     fastest batch it ran (a request waits for its own batch) and its load,
     offered rate × its median batch time / batch size, stay below 1 (else
     the capacity batches ran more than twice as fast as the stage's, and
     "0.5" was not below saturation); the artifact must have the JAX
-    package's keys, and every batch launches MHA and GEGLU 816 times."""
+    package's keys, and every batch launches MHA and GEGLU FRONT_LAUNCHES times."""
     from diffusion_spacetime_attn_tpu_torch.scripts.measure_loadtest import (
         TimedEngine,
         ramp_record,
@@ -3968,6 +4028,7 @@ def phase_loadtest(sd, smi: str):
     from diffusion_spacetime_attn_tpu_torch.serving.loadtest import run_loadtest
     from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
 
+    sd = with_steps(sd, FRONT_STEPS)
     L = sd.cfg.text_encoder.max_len
     tok = make_clip_tokenizer(max_len=L)
     engine = TimedEngine(TextToImageEngine(
@@ -3975,15 +4036,14 @@ def phase_loadtest(sd, smi: str):
     wrappers = _wrappers()
     _reset_counts(wrappers.values())
     t0 = time.perf_counter()
-    # 4 requests per stage keep the whole script inside its 600 s budget
-    art = run_loadtest(engine, capacity_fractions=(0.5, 1.0, 2.5), stage_requests=4,
-                       max_wait_s=0.2, max_queue=4)
+    art = run_loadtest(engine, capacity_fractions=(0.5, 1.0, 2.5),
+                       stage_requests=LOADTEST_REQUESTS, max_wait_s=0.2, max_queue=4)
     seconds = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
     batches = len(engine.rows)
-    expect = {k: batches * LAUNCHES_PER_BATCH if k in VANILLA_KERNELS else 0 for k in wrappers}
-    emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": 50,
-          "functional_check": "4 requests per stage: not a measurement",
+    expect = {k: batches * FRONT_LAUNCHES if k in VANILLA_KERNELS else 0 for k in wrappers}
+    emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": FRONT_STEPS,
+          "functional_check": f"{LOADTEST_REQUESTS} requests per stage: not a measurement",
           "seconds": seconds, "batches": batches, "launches": counts,
           "batch_rows": [n for n, _ in engine.rows], "artifact": art})
     if counts != expect:
@@ -4229,9 +4289,430 @@ def compare_trees(other: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- the mesh phases
+
+MESH2_RANKS = 2                 # phase mesh2: processes on cuda:0 over gloo
+MESH2_ROWS = 2                  # rows per rank of phase mesh2's training steps (global 4)
+MESH2_TIMEOUT_S = 480           # the parent's join of the two ranks
+MESH_ENGINE_STEPS = 10          # the engines' PLMS steps in phases mesh and mesh2
+MESH_DB_ROWS = 1_000_000        # phase knn2img's database size, split over mesh2's ranks
+MESH_KNN = 10
+# train_f32's limits (`_train_on_off`)
+MESH_LIMITS = {"loss_rel": 1e-5, "grad_rel_norm": 1e-3,
+               "params": "|mesh - one| <= 1e-5 + 1e-5·|one| (ratio <= 1)"}
+
+
+def _mesh_unet(dtype: str = "float32"):
+    """The SD v1-4 UNet with the training kernel flags (use_flash,
+    use_fused_ff), seeded N(0, 0.02²) weights, on the card."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    with torch.device("cuda"):
+        unet = UNet(UNetConfig(dtype=dtype, use_flash=True, use_fused_ff=True), radius=0.2)
+    return randomize_(unet, 1)
+
+
+def _mesh_batch(B: int, seed: int):
+    """(x0 [B, 64, 64, 4], context [B, 77, 768]) from JAX keys, on the card."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+
+    k1, k2 = prng.split(prng.PRNGKey(seed))
+    return (torch.from_numpy(prng.normal(k1, (B, 64, 64, 4))).cuda(),
+            torch.from_numpy(prng.normal(k2, (B, CONTEXT_LEN, 768))).cuda() * 0.02)
+
+
+def _ldm_mesh_step(unet, mesh, fsdp: bool, x0, ctx, seed: int, grads: bool = True) -> dict:
+    """One `LDMTrainer` step (AdamW, EMA) of `unet` from its weights over
+    `mesh` (None: one device; x0 and ctx are this rank's rows), with the
+    step's own keys: the loss, the whole gradients (a `gradients` call
+    before the step), the whole updated weights and EMA, the step's launches
+    (counted around `train_step` only), seconds, the state's bytes on this
+    rank and the card's allocated bytes after `init`."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import LDMTrainConfig, ScheduleConfig
+    from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import barrier
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import (
+        full,
+        full_tree,
+        moments,
+        state_bytes,
+    )
+    from diffusion_spacetime_attn_tpu_torch.training.ldm_trainer import LDMTrainer
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+
+    cfg = LDMTrainConfig(batch_size=x0.shape[0], use_ema=True)
+    sched = ScheduleConfig()
+    tr = LDMTrainer(cfg, sched, make_schedule(sched, 50, device=x0.device), unet, mesh=mesh,
+                    fsdp=fsdp)
+    state = tr.init()
+    torch.cuda.synchronize()
+    out = {"allocated_after_init": torch.cuda.memory_allocated(), "lr": tr.lr}
+    key = prng.PRNGKey(seed)
+    wrappers = _wrappers()
+    with deterministic():
+        if grads:
+            tr.gradients(state, x0, ctx, key)
+            out["grads"] = {k: full(p.grad).clone() for k, p in unet.named_parameters()}
+        torch.cuda.synchronize()
+        barrier(mesh)                     # the ranks start the timed step together
+        _reset_counts(wrappers.values())
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, x0, ctx, key)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    opt = state.opt_state
+    pairs = moments(opt.adamw, opt.params, opt.views)       # AdamW's m and v, this rank's
+    tensors = list(unet.parameters()) + list(state.ema_params.values())
+    out.update(loss=loss, state_bytes=state_bytes(tensors + [m for _, m in pairs]),
+               replicated_bytes=sum(t.numel() * t.element_size()
+                                    for t in tensors + [p for p, _ in pairs]),
+               params={k: v.detach().clone()
+                       for k, v in full_tree(dict(unet.named_parameters())).items()},
+               ema={k: v.detach().clone() for k, v in full_tree(state.ema_params).items()})
+    return out
+
+
+def _mesh_compare(tag: str, got: dict, ref: dict) -> dict:
+    """train_f32's limits: the loss, every gradient (when both have them),
+    every updated weight and EMA copy of a mesh step against the one-device
+    step; launches exactly TRAIN_SITES.  Fails over a limit."""
+    import torch
+
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel = {}
+    if "grads" in got and "grads" in ref:
+        grad_rel = {k: float(torch.linalg.vector_norm(got["grads"][k] - g)
+                             / torch.linalg.vector_norm(g).clamp_min(1e-30))
+                    for k, g in ref["grads"].items()}
+    ratio = max(float(((got[part][k] - w).abs() / (1e-5 + 1e-5 * w.abs())).max())
+                for part in ("params", "ema") for k, w in ref[part].items())
+    worst = max(grad_rel, key=grad_rel.get) if grad_rel else None
+    line = {"loss": got["loss"], "loss_one": ref["loss"], "loss_rel": loss_rel,
+            "grad_rel_norm_max": grad_rel.get(worst, 0.0), "grad_worst": worst,
+            "param_ema_ratio_max": ratio, "launches": got["launches"],
+            "limits": MESH_LIMITS}
+    expected = {k: TRAIN_SITES.get(k, 0) for k in got["launches"]}
+    if got["launches"] != expected:
+        fail(f"{tag}: launches {got['launches']}, expected {expected}")
+    if not (loss_rel <= 1e-5 and line["grad_rel_norm_max"] <= 1e-3 and ratio <= 1.0):
+        fail(f"{tag}: against the one-device step: {line}")
+    return line
+
+
+def _mesh_engines(mesh, dtype: str, prompts, seeds, one_rank: bool):
+    """TextToImageEngine at SD v1-4 width (serving flags, PLMS at
+    MESH_ENGINE_STEPS, batch 2) over `mesh` and, on rank 0 or with
+    `one_rank`, without: (mesh images, one-device images or None, the mesh
+    run's launches, seconds)."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        PipelineConfig,
+        SpaceTimeConfig,
+        UNetConfig,
+        VAEConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.serving.server import TextToImageEngine
+    from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
+
+    cfg = PipelineConfig(unet=UNetConfig(dtype=dtype, use_mha=True, use_fused_ff=True),
+                         vae=VAEConfig(dtype=dtype),
+                         spacetime=SpaceTimeConfig(num_steps=MESH_ENGINE_STEPS))
+    sd = StableDiffusion.create(cfg, seed=0, device="cuda")
+    tok = make_clip_tokenizer(max_len=CONTEXT_LEN)
+
+    def tokenize(t):
+        return tok.pad_to(tok.encode(t), CONTEXT_LEN)
+
+    wrappers = _wrappers()
+    eng = TextToImageEngine(sd=sd, tokenize=tokenize, batch_size=2, mesh=mesh)
+    one = None
+    if one_rank or mesh.rank == 0:
+        one = TextToImageEngine(sd=sd, tokenize=tokenize, batch_size=2).generate_batch(
+            prompts, seeds)
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    t0 = time.perf_counter()
+    got = eng.generate_batch(prompts, seeds)
+    seconds = time.perf_counter() - t0
+    return got, one, {k: w.launches for k, w in wrappers.items()}, seconds
+
+
+def phase_mesh(smi: str) -> dict:
+    """The mesh over a one-rank NCCL group in this process (the real
+    backend's code path): the SD v1-4 UNet training step in float32 through
+    the GEGLU and flash kernels, data-parallel and then FSDP, each against
+    the one-device step from the same weights and keys (train_f32's limits,
+    launches exactly TRAIN_SITES per step); TextToImageEngine(mesh=) (bf16,
+    PLMS-10, batch 2) and Retriever(mesh=) (a 100,000 x 768 database, 3
+    queries, k 10) against the same without a mesh: equal bytes, equal
+    top-10.  Returns the mesh runs' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:      # the store lives as long as the group
+        mesh = make_mesh(backend="nccl", device=torch.device("cuda", 0),
+                         store=dist.FileStore(os.path.join(d, "store"), 1), rank=0,
+                         world_size=1, timeout_s=600)
+        try:
+            total = _mesh_checks(mesh)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase, "launches": total,
+          "nvidia_smi": smi})
+    return total
+
+
+def _mesh_checks(mesh) -> dict:
+    """Phase mesh's checks over `mesh`; returns the mesh runs' launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline.retrieval import Retriever, shard_database
+
+    emit({"phase": "mesh_group", "backend": dist.get_backend(), "world": mesh.data,
+          "device": torch.cuda.get_device_name(0)})
+    total = {k: 0 for k in KERNELS}
+    unet = _mesh_unet()
+    start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    x0, ctx = _mesh_batch(1, 31)
+    ref = _ldm_mesh_step(unet, None, False, x0, ctx, 32)
+    for fsdp in (False, True):
+        with torch.no_grad():
+            unet.load_state_dict(start)
+        got = _ldm_mesh_step(unet, mesh, fsdp, x0, ctx, 32)
+        tag = "mesh_fsdp" if fsdp else "mesh_dp"
+        line = _mesh_compare(tag, got, ref)
+        _sum_launches(total, got["launches"])
+        emit({"phase": tag, "backend": "nccl", "ranks": 1, "batch": 1, "dtype": "float32",
+              **line, "s_per_step": got["step_s"], "s_per_step_one": ref["step_s"],
+              "state_bytes": got["state_bytes"], "replicated_bytes": got["replicated_bytes"],
+              "allocated_after_init": got["allocated_after_init"]})
+        del got
+    del unet, start, ref
+    torch.cuda.empty_cache()
+    prompts, seeds = ["a cat above a dog", "a red car on a road"], [3, 4]
+    got, one, launches, seconds = _mesh_engines(mesh, "bfloat16", prompts, seeds, True)
+    _sum_launches(total, launches)
+    if not np.array_equal(got, one):
+        fail(f"mesh_engine: the one-rank mesh's images differ from the engine's: "
+             f"max {int(np.abs(got.astype(int) - one.astype(int)).max())}")
+    emit({"phase": "mesh_engine", "backend": "nccl", "steps": MESH_ENGINE_STEPS,
+          "same_bytes": True, "seconds": seconds, "launches": launches})
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    db = _random_database(100_000, gen)
+    q = torch.randn((3, 768), generator=gen, device="cuda")
+    want = db.search(q, MESH_KNN)
+    sharded = Retriever(embedding=shard_database(db.embedding, mesh), img_id=db.img_id,
+                        patch_coords=db.patch_coords, mesh=mesh, rows=db.embedding.shape[0])
+    got = sharded.search(q, MESH_KNN)
+    if not (torch.equal(got["nns"], want["nns"]) and torch.equal(got["scores"], want["scores"])
+            and torch.equal(got["nn_embeddings"], want["nn_embeddings"])):
+        fail("mesh_retriever: the one-rank mesh's top-10 differs from the Retriever's")
+    emit({"phase": "mesh_retriever", "backend": "nccl", "rows": db.embedding.shape[0],
+          "k": MESH_KNN, "same_top_k": True})
+    return total
+
+
+def mesh2_rank(rank: int, d: str) -> None:
+    """One of phase mesh2's processes (`chip_smoke.py --mesh2-rank R DIR`):
+    the group over gloo on cuda:0 through a FileStore in DIR; writes
+    `<DIR>/rank<R>.json`.  A failed check or collective raises, and the
+    process exits non-zero."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh, rows
+    from diffusion_spacetime_attn_tpu_torch.pipeline.retrieval import (
+        exact_search,
+        shard_database,
+        sharded_search,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(backend="gloo", device=torch.device("cuda", 0),
+                     store=dist.FileStore(os.path.join(d, "store"), MESH2_RANKS), rank=rank,
+                     world_size=MESH2_RANKS, timeout_s=MESH2_TIMEOUT_S)
+    out = {"rank": rank, "device": torch.cuda.get_device_name(0), "backend": dist.get_backend(),
+           "launches": {k: 0 for k in KERNELS}, "t_starts": {}}
+    B = MESH2_ROWS * MESH2_RANKS
+    mine = rows(mesh, B)
+    x0, ctx = _mesh_batch(B, 41)
+    # (a) the data-parallel f32 step against the one-process step on the global batch
+    emit({"mesh2_rank": rank, "starts": "dp"})
+    out["t_starts"]["dp"] = round(time.perf_counter() - _T0, 1)
+    unet = _mesh_unet()
+    start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+    dp = _ldm_mesh_step(unet, mesh, False, x0[mine], ctx[mine], 42)
+    _sum_launches(out["launches"], dp["launches"])
+    check = float(sum(p.double().sum() for p in dp["params"].values()))
+    sums = [torch.zeros(1, dtype=torch.float64, device="cuda") for _ in range(MESH2_RANKS)]
+    dist.all_gather(sums, torch.tensor([check], dtype=torch.float64, device="cuda"))
+    if len({float(s) for s in sums}) != 1:
+        fail(f"mesh2_dp: the ranks' weights differ after the step: {[float(s) for s in sums]}")
+    out["dp"] = {"s_per_step": dp["step_s"], "launches": dp["launches"],
+                 "state_bytes": dp["state_bytes"],
+                 "allocated_after_init": dp["allocated_after_init"], "lr": dp["lr"]}
+    ref = None
+    if rank == 0:     # the one-process step after the mesh's: its state is freed by then
+        with torch.no_grad():
+            unet.load_state_dict(start)
+        ref = _ldm_mesh_step(unet, None, False, x0, ctx, 42)
+        out["dp"].update(_mesh_compare("mesh2_dp", dp, ref), s_per_step_one=ref["step_s"])
+        ref = {k: ref[k] for k in ("loss", "params", "ema")}
+    del dp
+    torch.cuda.empty_cache()
+    # (b) FSDP over the two ranks (gloo carries reduce_scatter / all_gather on CUDA tensors)
+    emit({"mesh2_rank": rank, "starts": "fsdp"})
+    out["t_starts"]["fsdp"] = round(time.perf_counter() - _T0, 1)
+    with torch.no_grad():
+        unet.load_state_dict(start)
+    del start
+    torch.cuda.empty_cache()
+    fs = _ldm_mesh_step(unet, mesh, True, x0[mine], ctx[mine], 42, grads=False)
+    _sum_launches(out["launches"], fs["launches"])
+    out["fsdp"] = {"s_per_step": fs["step_s"], "launches": fs["launches"],
+                   "state_bytes": fs["state_bytes"], "replicated_bytes": fs["replicated_bytes"],
+                   "allocated_after_init": fs["allocated_after_init"]}
+    if rank == 0:
+        out["fsdp"].update(_mesh_compare("mesh2_fsdp", fs, ref))
+    del fs, unet, ref
+    torch.cuda.empty_cache()
+    # (c) the sharded search over phase knn2img's database size
+    emit({"mesh2_rank": rank, "starts": "search"})
+    out["t_starts"]["search"] = round(time.perf_counter() - _T0, 1)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    db = _random_database(MESH_DB_ROWS, gen).embedding
+    q = torch.randn((3, 768), generator=gen, device="cuda")
+    want = exact_search(db, q, MESH_KNN) if rank == 0 else None
+    shard = shard_database(db, mesh).clone()
+    del db
+    torch.cuda.empty_cache()
+    sharded_search(shard, q, MESH_KNN, mesh, MESH_DB_ROWS)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, i = sharded_search(shard, q, MESH_KNN, mesh, MESH_DB_ROWS)
+    torch.cuda.synchronize()
+    out["search"] = {"ms": 1e3 * (time.perf_counter() - t0), "shard_rows": shard.shape[0]}
+    if rank == 0:
+        score_diff = float((s - want[0]).abs().max())
+        if not torch.equal(i, want[1]) or score_diff > 1e-6:
+            fail(f"mesh2_search: top-{MESH_KNN} {i.tolist()} vs {want[1].tolist()}, "
+                 f"scores {score_diff}")
+        out["search"].update(same_top_k=True, max_score_diff=score_diff)
+    del shard
+    torch.cuda.empty_cache()
+    # (d) TextToImageEngine over the two ranks, float32, one row each
+    emit({"mesh2_rank": rank, "starts": "engine"})
+    out["t_starts"]["engine"] = round(time.perf_counter() - _T0, 1)
+    prompts, seeds = ["a cat above a dog", "a red car on a road"], [3, 4]
+    got, one, launches, seconds = _mesh_engines(mesh, "float32", prompts, seeds, False)
+    _sum_launches(out["launches"], launches)
+    out["engine"] = {"seconds": seconds, "launches": launches, "shape": list(got.shape)}
+    if rank == 0:
+        diff = int(np.abs(got.astype(int) - one.astype(int)).max())
+        if diff > 1:
+            fail(f"mesh2_engine: {diff} uint8 levels from the one-process engine")
+        out["engine"]["max_uint8_diff"] = diff
+    out["t_starts"]["end"] = round(time.perf_counter() - _T0, 1)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh2(smi: str) -> dict:
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    card), one spawn for all of it (`mesh2_rank`): the SD v1-4 UNet
+    data-parallel f32 step at a global batch of 4 (2 rows per rank) against
+    the one-process step on the same batch (train_f32's limits: the loss,
+    the gradients averaged over the ranks, the updated weights and EMA), the
+    same under FSDP over the two ranks but the gradients (state bytes and
+    allocated bytes per rank), `sharded_search` over a 1,000,000 x 768 database split over the
+    ranks against `exact_search`, and TextToImageEngine(mesh=) at batch 2
+    (one row per rank), PLMS-10, float32, within one uint8 level of the
+    one-process engine.  A rank that fails exits non-zero and so does this
+    phase.  Returns the ranks' summed launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh2-rank",
+                                   str(r), d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(MESH2_RANKS)]
+        logs = ["" for _ in procs]
+        try:
+            deadline = time.monotonic() + MESH2_TIMEOUT_S
+            for r, p in enumerate(procs):
+                logs[r], _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            for r in bad:
+                print(f"--- mesh2 rank {r} (exit {procs[r].returncode}):\n{logs[r][-6000:]}",
+                      flush=True)
+            fail(f"mesh2: ranks {bad} failed or hung")
+        outs = []
+        for r in range(MESH2_RANKS):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    for o in outs:
+        emit({"phase": "mesh2_rank", **{k: o[k] for k in ("rank", "device", "backend",
+                                                           "t_starts")}})
+    for part in ("dp", "fsdp", "search", "engine"):
+        emit({"phase": f"mesh2_{part}", "backend": "gloo", "ranks": MESH2_RANKS,
+              "per_rank": [o[part] for o in outs]})
+    total = {k: 0 for k in KERNELS}
+    for o in outs:
+        _sum_launches(total, o["launches"])
+    emit({"phase": "mesh2", "seconds": time.perf_counter() - t0, "launches": total,
+          "nvidia_smi": smi})
+    return total
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         return compare_trees(os.path.abspath(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh2-rank":
+        import faulthandler
+
+        faulthandler.enable()             # a crash in native code still shows where
+        try:
+            mesh2_rank(int(sys.argv[2]), sys.argv[3])
+        except BaseException:
+            # exit at once: the other rank's next collective then fails
+            # instead of waiting out its timeout
+            import traceback
+
+            traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
+        return 0
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
@@ -4289,6 +4770,13 @@ def main() -> int:
         data_launches = phase_train_data(root, smi)
     with tempfile.TemporaryDirectory() as root:
         phase_legacy_vg(root, smi)
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(smi)
+    _sum_launches(mesh_launches, phase_mesh2(smi))
+    missing = [k for k in ("geglu_fwd", "geglu_bwd", "flash_fwd", "flash_bwd", "mha_fwd")
+               if mesh_launches.get(k, 0) == 0]
+    if missing:
+        fail(f"kernels never launched on the mesh path: {missing}")
     for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
                          ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
         missing = [k for k in KERNELS if counts.get(k, 0) == 0]
@@ -4313,6 +4801,7 @@ def main() -> int:
                "train_launches": train_counts[kname],
                "knn2img_launches": knn2img_launches[kname],
                "data_train_launches": data_launches[kname],
+               "mesh_launches": mesh_launches.get(kname, 0),
                "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                "bound_ms": a["bound_ms"],
                "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -4338,7 +4827,10 @@ def main() -> int:
     # knn2img_launches: phase knn2img's entry-point batch (RDM, DDIM-50,
     # 3 prompts; MHA and GEGLU only); data_train_launches: phase train_data's
     # train_ldm runs from image folders (text, class, superres; GEGLU and
-    # flash only); launches_by_design: the serving and optimization runs
+    # flash only); mesh_launches: phases mesh and mesh2 (the training
+    # steps over the mesh, counted around train_step, and the engines over
+    # it, both ranks of mesh2 summed); launches_by_design: the serving and
+    # optimization runs
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,4 @@
-"""Batched dataset runner; port of the JAX package's `pipeline/batch_runner.py`
-for one device (the JAX runner's data mesh has no counterpart on one card).
+"""Batched dataset runner; port of the JAX package's `pipeline/batch_runner.py`.
 
 Prompts are packed into fixed-size batches; a prompt whose layout fails,
 and every tail slot, is a filler row with active = 0 (its blend and losses
@@ -12,6 +11,14 @@ issue of batch i's kernels is host work of its own, and in spacetime mode
 the loss reads its crop windows back once per chain
 (`losses.DCLIPLoss.local_loss`), which waits for the chain queued before
 it, so there only the last loss's tail is left to overlap.
+
+Over a data mesh (`BatchedRunner(mesh=...)`, JAX `batch_runner.py:44,
+145-166`) every rank runs the same deterministic host stage and assembles
+the same batch, computes its rows (the spacetime mode's per-prompt weight
+optimization included: its loss is a sum over rows, so a row's gradient
+does not depend on the others), and the images are gathered in row order;
+rank 0 writes the files a one-device sweep writes.  The batch size must
+divide by the rank count.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..ops.attention import SpatialControl
+from ..parallel.mesh import Mesh, check_mesh, gather_rows, shard_batch
 from ..utils.cudnn import deterministic
 from .runners import PromptRunner, result_name, save_image, spatial_coef_schedule
 from .spacetime import optimize_prompt
@@ -30,10 +38,18 @@ from .spacetime import optimize_prompt
 
 @dataclasses.dataclass
 class BatchedRunner:
-    """Wraps a PromptRunner with fixed-size batching."""
+    """Wraps a PromptRunner with fixed-size batching, optionally split over
+    a data mesh."""
 
     runner: PromptRunner
     batch_size: int = 4
+    mesh: Optional[Mesh] = None
+
+    def __post_init__(self):
+        self.mesh = check_mesh(self.mesh, "BatchedRunner")
+        if self.mesh is not None and self.batch_size % self.mesh.data:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by the mesh data "
+                             f"axis ({self.mesh.data})")
 
     def _dummy_host(self) -> dict:
         """Inactive filler slot (empty caption, no objects, active = 0)."""
@@ -89,8 +105,9 @@ class BatchedRunner:
         """Sweep `indices` (default: all) in chunks of batch_size; returns the
         number of images written.  `on_chunk_done(chunk_indices)` is called
         after each chunk's images are on disk (run_dataset.py writes its
-        resume manifest there)."""
-        r = self.runner
+        resume manifest there; on rank 0 only, with a mesh)."""
+        r, mesh = self.runner, self.mesh
+        writer = mesh is None or mesh.rank == 0
         cfg = r.cfg
         indices = indices if indices is not None else list(range(len(prompts)))
         B = self.batch_size
@@ -103,22 +120,29 @@ class BatchedRunner:
             t0 = time.perf_counter()
             with deterministic():
                 batch = r.assemble_inputs(hosts, seed)
+                if mesh is not None:                      # this rank's rows
+                    batch = shard_batch(mesh, batch)
                 images, epoch_images = self._launch(batch)
             if ci + 1 < len(chunks):                      # overlaps the card's work
                 next_hosts, next_ok = self._prep_chunk(prompts, chunks[ci + 1])
+            if mesh is not None:                          # every rank's rows, in order
+                images = gather_rows(mesh, images.float())
+                epoch_images = {e: gather_rows(mesh, v.float()) for e, v in epoch_images.items()}
             images = images.float().cpu().numpy()         # the wait
             dt = time.perf_counter() - t0
             for img, idx in zip(images, ok_idx):
                 if idx is not None:
-                    save_image(img, os.path.join(r.outdir, result_name(cfg.epochs - 1, seed, idx)))
+                    if writer:
+                        save_image(img, os.path.join(r.outdir,
+                                                     result_name(cfg.epochs - 1, seed, idx)))
                     produced += 1
             for e, imgs in epoch_images.items():          # --save-epochs only
                 for img, idx in zip(imgs.float().cpu().numpy(), ok_idx):
-                    if idx is not None:
+                    if idx is not None and writer:
                         save_image(img, os.path.join(r.outdir, result_name(e, seed, idx)))
-            if log:
+            if log and writer:
                 log.log("batch_done", first=chunk[0], n=len(chunk), seconds=round(dt, 3))
-            if on_chunk_done is not None:
+            if on_chunk_done is not None and writer:
                 on_chunk_done(list(chunk))
             if ci + 1 < len(chunks):
                 hosts, ok_idx = next_hosts, next_ok

@@ -22,12 +22,24 @@ then the minimum over `--iters` timed steps, each synchronized.  The UNet
 runs the chain's kernel flags (`use_flash`, `use_fused_ff`) at full width;
 JAX's bench leaves every flag off.  Prints one JSON line.  Runs on the
 card and raises without one, unless `--cpu` is given.
+
+`--mesh dp|fsdp` (`--what ldm`) trains over a data mesh
+(`parallel/mesh.py`): torchrun's ranks, or else a one-rank group made here
+(`--backend`; gloo with `--cpu`), each rank a batch of `--batch-size` rows
+of the global batch, data-parallel or FSDP-sharded.  `--profile` runs one
+more step under `torch.profiler` and adds the 25 entries with the most
+host time (`profile`: name, calls, host ms, self host ms, device ms), the
+optimizer's step and FSDP's hooks among them:
+
+    python -m diffusion_spacetime_attn_tpu_torch.scripts.bench_train --what ldm --dtype float32 --batch-size 1 --iters 2 --mesh fsdp --profile
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +49,7 @@ from ..config import LayoutConfig, LayoutTrainConfig, LDMTrainConfig, ScheduleCo
 from ..models.layout.model import create_layout_predictor
 from ..models.unet import UNet
 from ..ops.schedule import make_schedule
+from ..parallel.mesh import add_mesh_args, make_mesh, mesh_from_env, shard_batch
 from ..training import datasets
 from ..training.layout_trainer import LayoutTrainer
 from ..training.ldm_trainer import LDMTrainer
@@ -57,6 +70,11 @@ def parse_args(argv=None):
     ap.add_argument("--gpt3-pkl", default=None,
                     help="layout data (--what layout); synthetic sentences without it")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    ap.add_argument("--mesh", choices=["none", "dp", "fsdp"], default="none",
+                    help="--what ldm over a data mesh: data-parallel or FSDP")
+    ap.add_argument("--profile", action="store_true",
+                    help="one more step under torch.profiler: the top entries by host time")
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
     if args.batch_size is None:
         args.batch_size = 64 if args.what == "layout" else 4
@@ -118,9 +136,25 @@ def bench_layout(args, device) -> dict:
     return line
 
 
-def bench_ldm(args, device, on_step=None):
+def _profile_top(step, device, n: int = 25) -> list:
+    """step() once under torch.profiler -> the n entries with the most host
+    time (ms; device ms where the card was traced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        step()
+        _sync(device)
+    rows = sorted(prof.key_averages(), key=lambda e: e.cpu_time_total, reverse=True)[:n]
+    return [{"name": e.key, "calls": e.count, "host_ms": e.cpu_time_total / 1e3,
+             "self_host_ms": e.self_cpu_time_total / 1e3,
+             "device_ms": getattr(e, "device_time_total", 0.0) / 1e3} for e in rows]
+
+
+def bench_ldm(args, device, on_step=None, mesh=None):
     """-> (the JSON line, the trainer, its state, batch_for).  on_step(i),
-    when given, runs after each step's synchronization."""
+    when given, runs after each step's synchronization.  With `mesh`, each
+    rank trains on its `--batch-size` rows of the global batch."""
     if args.tiny:
         unet_cfg = UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
                               attention_resolutions=(1, 2), num_heads=2, context_dim=16,
@@ -132,15 +166,16 @@ def bench_ldm(args, device, on_step=None):
     with torch.device(device):
         unet = UNet(unet_cfg, radius=0.2)
     randomize_(unet, 1)
-    trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device), unet)
+    trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device), unet,
+                         mesh=mesh, fsdp=args.mesh == "fsdp")
     state = trainer.init()
-    B, hw = args.batch_size, (16 if args.tiny else 64)
+    B, hw = args.batch_size * (1 if mesh is None else mesh.data), (16 if args.tiny else 64)
 
     def batch_for(i):
         k1, k2 = prng.split(prng.PRNGKey(1000 + i))
         x0 = torch.from_numpy(prng.normal(k1, (B, hw, hw, 4))).to(device)
         ctx = torch.from_numpy(prng.normal(k2, (B, 77, unet_cfg.context_dim))).to(device) * 0.02
-        return x0, ctx
+        return (x0, ctx) if mesh is None else shard_batch(mesh, (x0, ctx))
 
     key = prng.PRNGKey(42)
     if device.type == "cuda":
@@ -174,14 +209,50 @@ def bench_ldm(args, device, on_step=None):
         "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    if mesh is not None:
+        line.update(mesh=args.mesh, ranks=mesh.data, backend=mesh.backend)
+    if args.profile:
+        x0, ctx = batch_for(args.iters + 1)
+        line["profile"] = _profile_top(
+            lambda: trainer.train_step(state, x0, ctx, prng.fold_in(key, args.iters + 1)),
+            device)
     return line, trainer, state, batch_for
+
+
+@contextlib.contextmanager
+def _mesh(args):
+    """The run's mesh: None without `--mesh`; torchrun's ranks; or a
+    one-rank group over a FileStore, destroyed on exit."""
+    import torch.distributed as dist
+
+    if args.mesh == "none":
+        yield None
+        return
+    if args.what != "ldm":
+        raise SystemExit("--mesh applies to --what ldm")
+    backend = "gloo" if args.cpu else args.backend
+    mesh = mesh_from_env(backend, args.cpu)
+    if mesh is not None:
+        yield mesh
+        return
+    with tempfile.TemporaryDirectory() as d:      # the store outlives the group
+        mesh = make_mesh(backend=backend, device="cpu" if args.cpu else "cuda:0",
+                         store=dist.FileStore(os.path.join(d, "store"), 1), rank=0,
+                         world_size=1)
+        try:
+            yield mesh
+        finally:
+            dist.destroy_process_group()
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    device = pick_device(args.cpu)
-    line = bench_layout(args, device) if args.what == "layout" else bench_ldm(args, device)[0]
-    print(json.dumps(line))
+    with _mesh(args) as mesh:
+        device = mesh.device if mesh is not None else pick_device(args.cpu)
+        line = (bench_layout(args, device) if args.what == "layout"
+                else bench_ldm(args, device, mesh=mesh)[0])
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(line))
     return line
 
 

@@ -32,8 +32,9 @@ prints its artifact; otherwise it serves (`serving/server.serve`).
 `--ckpt` (CompVis sd-v1-4), `--clip-ckpt` (OpenAI ViT-B/32, spacetime
 mode), `--clip-vocab` (CLIP's BPE) and `--layout-ckpt` (fairseq Rel2Bbox
 or HF RoBERTa) read the published files; without them the weights are
-seeded and random.  No mesh: one card (ROADMAP A.13).  Runs on the card and raises
-without one, unless `--cpu` is given.
+seeded and random.  One process on one card, as JAX's `serve`: no entry
+point serves over a mesh (the engines take one, `serving/server.py`).  Runs
+on the card and raises without one, unless `--cpu` is given.
 """
 from __future__ import annotations
 

@@ -24,8 +24,14 @@ params, flushed every `--save-best-every` epochs and at the end) and
 resume checkpoints `step_<n>.pt` every `--ckpt-every` epochs and at the
 end; the params are `torch.save` files (JAX writes orbax) that
 `utils/loader.load_layout_predictor` reads.  `--resume-step` reads a
-checkpoint.  `--fsdp` raises: one device (ROADMAP A.13).  Runs on the card
-and raises without one, unless `--cpu` is given.
+checkpoint.  Under `torchrun --nproc-per-node N` (`--backend nccl`, or
+gloo with `--cpu` or ranks sharing a card) with `--fsdp` the step is
+sharded over the N ranks as JAX's is over its devices (`--batch-size` is
+the global batch; every rank makes the same batches and trains on its
+rows; the predictor and the Adam moments are sharded; rank 0 alone writes
+the run dir); a run of N ranks without `--fsdp` is data-parallel with
+replicated state, and `--fsdp` on one device is ignored, as in JAX.  Runs
+on the card and raises without one, unless `--cpu` is given.
 """
 from __future__ import annotations
 
@@ -41,6 +47,8 @@ import torch
 
 from ..config import LayoutConfig, LayoutTrainConfig
 from ..models.layout.model import create_layout_predictor
+from ..parallel.mesh import add_mesh_args, mesh_from_env, shard_batch
+from ..parallel.sharding import full_tree
 from ..training import datasets
 from ..training.layout_trainer import LayoutTrainer
 from ..utils.profiling import JsonLogger
@@ -86,6 +94,7 @@ def parse_args(argv=None):
     ap.add_argument("--synthetic", type=int, nargs="?", const=512, default=0, metavar="N",
                     help="N synthetic relation sentences (512 without N)")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    add_mesh_args(ap)
     ap.add_argument("--save-best-every", type=int, default=25,
                     help="epochs between best-params flushes (also flushed at the end)")
     ap.add_argument("--ckpt-every", type=int, default=50,
@@ -148,10 +157,13 @@ def main(argv=None) -> dict:
     memory, or None), "train_losses", "seconds"}."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
-    if args.fsdp:
-        raise NotImplementedError("--fsdp: the PyTorch port trains on one device; sharding "
-                                  "is ROADMAP A.13")
-    device = pick_device(args.cpu)
+    mesh = mesh_from_env(args.backend, args.cpu)
+    if args.fsdp and mesh is None:
+        logger.warning("--fsdp ignored: single device")
+    device = mesh.device if mesh is not None else pick_device(args.cpu)
+    writer = mesh is None or mesh.rank == 0
+    if not writer:                            # rank 0 alone logs
+        logger.setLevel(logging.WARNING)
     t_start = time.perf_counter()
     rng = np.random.RandomState(0)
     examples, sta = load_examples(args, rng)
@@ -171,7 +183,7 @@ def main(argv=None) -> dict:
 
     cfg, train_cfg = configs(args)
     params = create_layout_predictor(cfg, seed=0, device=device)
-    trainer = LayoutTrainer.create(cfg, train_cfg, params)
+    trainer = LayoutTrainer.create(cfg, train_cfg, params, mesh=mesh, fsdp=args.fsdp)
     opt_state = trainer.init_state(params)
     tok = make_roberta_tokenizer(args.vocab, args.merges)
     ckpt_dir = os.path.abspath(args.ckpt_dir)
@@ -180,15 +192,19 @@ def main(argv=None) -> dict:
                                                        opt_state)
         logger.info(f"resumed from step {args.resume_step}")
 
-    os.makedirs(ckpt_dir, exist_ok=True)
-    jlog = JsonLogger(os.path.join(ckpt_dir, "train_log.jsonl"))
-    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
-        json.dump({"layout": dataclasses.asdict(cfg), "train": dataclasses.asdict(train_cfg)},
-                  f, indent=1)
+    jlog = None
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        jlog = JsonLogger(os.path.join(ckpt_dir, "train_log.jsonl"))
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            json.dump({"layout": dataclasses.asdict(cfg), "train": dataclasses.asdict(train_cfg)},
+                      f, indent=1)
 
     def save_best_params(state, step, epoch, vmean, vmetrics):
         """The params-only file and the best.json pointer that
         `utils/loader.load_layout_predictor` reads."""
+        if not writer:
+            return
         torch.save(state, os.path.join(ckpt_dir, BEST_PARAMS))
         with open(os.path.join(ckpt_dir, "best.json"), "w") as f:
             json.dump({"step": step, "epoch": epoch, "val_loss": vmean,
@@ -216,12 +232,15 @@ def main(argv=None) -> dict:
     try:
         for epoch in range(args.epochs):
             for batch in datasets.batches(train, tok, args.batch_size, rng, max_len=cfg.max_len):
+                if mesh is not None:          # this rank's rows of the global batch
+                    batch = shard_batch(mesh, batch)
                 params, opt_state, loss, metrics = trainer.train_step(params, opt_state, batch)
                 losses.append(float(loss))
                 if step % args.log_every == 0:
                     logger.info(f"epoch {epoch} step {step}: loss {float(loss):.4f} " + " ".join(
                         f"{k}={float(v):.4f}" for k, v in metrics.items()))
-                    jlog.log("train", epoch=epoch, step=step, loss=float(loss))
+                    if jlog is not None:
+                        jlog.log("train", epoch=epoch, step=step, loss=float(loss))
                 step += 1
             if val:
                 vlosses, vmetrics = [], {}
@@ -235,11 +254,13 @@ def main(argv=None) -> dict:
                 vmetrics = {k: float(np.mean(v)) for k, v in vmetrics.items()}
                 logger.info(f"epoch {epoch}: val_loss {vmean:.4f} "
                             + " ".join(f"{k}={v:.4f}" for k, v in vmetrics.items()))
-                jlog.log("val", epoch=epoch, val_loss=vmean, **vmetrics)
+                if jlog is not None:
+                    jlog.log("val", epoch=epoch, val_loss=vmean, **vmetrics)
                 score = selection_score(vmean, vmetrics)
                 if score < best_val:
                     best_val = score
-                    snap = {k: v.detach().clone() for k, v in params.state_dict().items()}
+                    snap = {k: v.detach().clone()
+                            for k, v in full_tree(params.state_dict()).items()}
                     best_snapshot = (snap, step, epoch, vmean, vmetrics)
                     best_dirty = True
             if epoch and epoch % args.save_best_every == 0:
@@ -250,7 +271,8 @@ def main(argv=None) -> dict:
         trainer.save_checkpoint(ckpt_dir, step, params, opt_state,
                                 extra={"epoch": args.epochs - 1, "final": True})
     finally:
-        jlog.close()
+        if jlog is not None:
+            jlog.close()
     logger.info(f"training complete; best {args.select_metric} score {best_val} "
                 f"(epoch {best_snapshot[2] if best_snapshot else -1})")
     best = None

@@ -24,8 +24,16 @@ VAE and text tower are seeded random (no checkpoint flag in JAX either);
 `--tiny` takes the tiny VAE and text tower of `run_dataset.tiny_configs`
 (JAX's script builds the full-width ones under `--tiny`, whose 768-wide
 context the tiny UNet cannot take).  `--unet-ckpt` warm-starts from a
-CompVis SD v1 checkpoint (`utils/convert.convert_sd_unet`).  One device:
-`--fsdp` warns and is ignored, as the JAX script does on one device.
+CompVis SD v1 checkpoint (`utils/convert.convert_sd_unet`).
+
+Several devices: under `torchrun --nproc-per-node N` (`--backend nccl`,
+one card per rank; `--backend gloo` with `--cpu`, or ranks sharing a card)
+the run is data-parallel over the N ranks, as the JAX script is over its
+devices: `--batch-size` is per device (the global batch is N times it),
+the learning rate scales by N, every rank makes the same global batch and
+trains on its rows, and rank 0 alone writes the log and the checkpoints.
+`--fsdp` shards the UNet, AdamW's moments and EMA over the ranks; on one
+device it warns and is ignored, as in JAX.
 
 At full width the UNet runs the chain's kernel flags, `use_flash` (levels 0
 and 1) and `use_fused_ff` (every transformer block), with no control: the
@@ -55,6 +63,7 @@ from ..models.layers import cast_matmul_weights
 from ..models.unet import UNet
 from ..models.vae import AutoencoderKL
 from ..ops.schedule import make_schedule
+from ..parallel.mesh import add_mesh_args, mesh_from_env, normal_rows, rows
 from ..training.degradation import degradation_bsrgan_light
 from ..training.image_data import imagenet_tree
 from ..training.ldm_trainer import LDMTrainer
@@ -95,6 +104,7 @@ def parse_args(argv=None):
                     help="shard the state over devices (one device here: ignored)")
     ap.add_argument("--sr-factor", type=int, default=4)
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
 
 
@@ -186,18 +196,24 @@ def build_model(args, unet_cfg: UNetConfig, device) -> nn.Module:
     return unet
 
 
-def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device):
-    """next_batch(i) -> (x0, context), numpy's RandomState(i) draws as JAX's
-    script makes them."""
+def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device, mesh=None):
+    """next_batch(i) -> (x0, context), numpy's RandomState(i) draws of the
+    global batch of B as JAX's script makes them; with `mesh`, this rank's
+    rows of it."""
+    mine = slice(None) if mesh is None else rows(mesh, B)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a[mine]).astype(np.float32)).to(device)
+
     def next_batch(i):
         r = np.random.RandomState(i)
         if args.conditioning == "superres":      # synthetic HQ -> BSRGAN-light LR
             hq = r.rand(B, latent_hw * args.sr_factor, latent_hw * args.sr_factor,
                         3).astype(np.float32)
             lrs = np.stack([degradation_bsrgan_light(hq[b], sf=args.sr_factor, seed=i * B + b)[0]
-                            for b in range(B)])
-            return (torch.from_numpy(r.randn(B, latent_hw, latent_hw, 4).astype(np.float32))
-                    .to(device), torch.from_numpy((lrs * 2.0 - 1.0).astype(np.float32)).to(device))
+                            for b in range(B)[mine]])
+            return tensor(r.randn(B, latent_hw, latent_hw, 4)), \
+                torch.from_numpy((lrs * 2.0 - 1.0).astype(np.float32)).to(device)
         x0 = r.randn(B, latent_hw, latent_hw, 4)
         if args.conditioning == "class":
             ctx = r.randint(0, args.num_classes, (B, 1))
@@ -205,27 +221,31 @@ def synthetic_batches(args, B: int, latent_hw: int, ctx_shape, device):
             ctx = np.zeros((B, 1))
         else:
             ctx = r.randn(B, *ctx_shape)
-        return (torch.from_numpy(x0.astype(np.float32)).to(device),
-                torch.from_numpy(ctx.astype(np.float32)).to(device))
+        return tensor(x0), tensor(ctx)
     return next_batch
 
 
-def folder_batches(args, B: int, latent_hw: int, device, encoders):
+def folder_batches(args, B: int, latent_hw: int, device, encoders, mesh=None):
     """next_batch(i) -> (latents, context) from `--data-dir`, as JAX's
     script makes them: text, RandomState(i) rows of captions.jsonl; class,
     the synset tree's `batches(B, seed=0)`.  Latents are the VAE's posterior
-    sample on PRNGKey(i) times the scale factor."""
+    sample on PRNGKey(i) times the scale factor.  With `mesh`, this rank's
+    rows of the global batch of B: the picks, the flips and the posterior
+    noise are drawn for the global batch, and only this rank's images are
+    read, encoded and captioned."""
     vae, text = encoders
     factor = 2 ** (len(vae.cfg.ch_mult) - 1)
     size = latent_hw * factor                 # 512 at SD width, as JAX resizes
+    mine = slice(None) if mesh is None else rows(mesh, B)
 
     def encode(imgs, i):
         with torch.no_grad():
-            z = vae.encode(torch.from_numpy(imgs).to(device), prng.PRNGKey(i))
+            mean, logvar = vae.encode_moments(torch.from_numpy(imgs).to(device))
+            z = mean + torch.exp(0.5 * logvar) * normal_rows(prng.PRNGKey(i), mean, mesh)
         return z * vae.cfg.scale_factor
 
     if args.conditioning == "class":
-        it = imagenet_tree(args.data_dir, size=size).batches(B, seed=0)
+        it = imagenet_tree(args.data_dir, size=size).batches(B, seed=0, rows=mine)
 
         def next_batch(i):
             imgs, labels = next(it)
@@ -236,13 +256,13 @@ def folder_batches(args, B: int, latent_hw: int, device, encoders):
         raise SystemExit(f"--data-dir loading implements text and class conditioning; use "
                          f"--synthetic with --conditioning {args.conditioning}")
     with open(os.path.join(args.data_dir, "captions.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
+        captions = [json.loads(line) for line in f]
     L = text.cfg.max_len
     tokenize = padded(make_clip_tokenizer(max_len=L), L)
 
     def next_batch(i):
         r = np.random.RandomState(i)
-        pick = [rows[j] for j in r.randint(0, len(rows), B)]
+        pick = [captions[j] for j in r.randint(0, len(captions), B)[mine]]
         imgs = np.stack([resize(open_image(os.path.join(args.data_dir, p["file"]), "RGB"),
                                 (size, size)) / 127.5 - 1.0 for p in pick]).astype(np.float32)
         ids = np.stack([tokenize(p["text"]) for p in pick]).astype(np.int64)
@@ -262,10 +282,15 @@ def main(argv=None, init=None, encoders=None) -> dict:
     ones."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
-    if args.fsdp:
+    mesh = mesh_from_env(args.backend, args.cpu)
+    if args.fsdp and mesh is None:
         logger.warning("--fsdp ignored: single device (no mesh to shard state over) — "
                        "training runs fully replicated")
-    device = pick_device(args.cpu)
+    device = mesh.device if mesh is not None else pick_device(args.cpu)
+    ndev = 1 if mesh is None else mesh.data
+    writer = mesh is None or mesh.rank == 0
+    if not writer:                            # rank 0 alone logs
+        logger.setLevel(logging.WARNING)
     unet_cfg, latent_hw, ctx_shape = configs(args)
     sched_cfg = ScheduleConfig()
     train_cfg = LDMTrainConfig(batch_size=args.batch_size, base_lr=args.base_lr,
@@ -274,22 +299,25 @@ def main(argv=None, init=None, encoders=None) -> dict:
     if init is not None:
         load_flat(model.unet if isinstance(model, (SuperRes, Unconditional)) else model, init)
     trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device),
-                         model, ckpt_dir=args.ckpt_dir)
-    logger.info("devices=1 lr=%.2e (scaled)", trainer.lr)
+                         model, mesh=mesh, ckpt_dir=args.ckpt_dir,
+                         fsdp=args.fsdp and mesh is not None)
+    logger.info("devices=%d lr=%.2e (scaled)", ndev, trainer.lr)
     state = trainer.init()
     start = 0
     if args.resume_step is not None:
         state = trainer.restore(args.resume_step, state)
         start = args.resume_step
         logger.info("resumed from step %d", start)
-    if args.data_dir and not args.synthetic:
-        next_batch = folder_batches(args, args.batch_size, latent_hw, device,
-                                    encoders or data_encoders(args, device))
+    B = args.batch_size * ndev                # per-device batch semantics, as in JAX
+    if args.data_dir and not args.synthetic:        # each rank its rows of the global batch
+        next_batch = folder_batches(args, B, latent_hw, device,
+                                    encoders or data_encoders(args, device), mesh)
     else:
-        next_batch = synthetic_batches(args, args.batch_size, latent_hw, ctx_shape, device)
+        next_batch = synthetic_batches(args, B, latent_hw, ctx_shape, device, mesh)
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    jlog = JsonLogger(os.path.join(args.ckpt_dir, "train_log.jsonl"))
+    if writer:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+    jlog = JsonLogger(os.path.join(args.ckpt_dir, "train_log.jsonl")) if writer else None
     key = prng.PRNGKey(42)
     logged, step_s, host_s, first = [], [], [], None
     for i in range(start, args.steps):
@@ -302,12 +330,14 @@ def main(argv=None, init=None, encoders=None) -> dict:
         step_s.append(time.perf_counter() - t0)
         if (i + 1) % args.log_every == 0 or i == start:
             logger.info("step %d %s", i + 1, m)
-            jlog.log("ldm_train_step", step=i + 1, **m)
+            if jlog is not None:
+                jlog.log("ldm_train_step", step=i + 1, **m)
             logged.append({"step": i + 1, **m})
         if (args.ckpt_every and (i + 1) % args.ckpt_every == 0) or i + 1 == args.steps:
             trainer.save(state, i + 1)
             logger.info("checkpoint @ %d", i + 1)
-    jlog.close()
+    if jlog is not None:
+        jlog.close()
     return {"metrics": logged, "step_s": step_s, "host_s": host_s, "steps": state.step,
             "first_batch": first}
 

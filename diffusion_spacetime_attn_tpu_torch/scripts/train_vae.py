@@ -19,8 +19,13 @@ loader's time.
 without it LPIPS is seeded random (smoke mode), and `--tiny` turns the
 perceptual term off, as in JAX.  Checkpoints: `torch.save` of the state's
 tensors at `<ckpt-dir>/step_<n>.pt` every `--ckpt-every` steps (JAX writes
-orbax).  One device: `--fsdp` warns and is ignored.  Runs on the card and
-raises without one, unless `--cpu` is given.
+orbax).  Under `torchrun --nproc-per-node N` (`--backend nccl`, or gloo
+with `--cpu` or ranks sharing a card) the step is data-parallel over the N
+ranks as JAX's is over its devices: `--batch-size` is per device, every
+rank makes the same global batch and trains on its rows, rank 0 alone
+writes the log and the checkpoints; `--fsdp` shards the state over them
+and on one device warns and is ignored.  Runs on the card and raises
+without one, unless `--cpu` is given.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 
 from ..config import VAEConfig
 from ..models.vae import AutoencoderKL
+from ..parallel.mesh import add_mesh_args, barrier, mesh_from_env, rows
+from ..parallel.sharding import full_tree
 from ..training.image_data import ImagePathsDataset, lsun_split
 from ..training.perceptual import LPIPS
 from ..training.vae_trainer import VAETrainConfig, VAETrainer, VAETrainState
@@ -57,7 +64,7 @@ def parse_args(argv=None):
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--base-lr", type=float, default=4.5e-6)
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard the state over devices (one device here: ignored)")
+                    help="shard the state over the ranks (one device: ignored)")
     ap.add_argument("--kl-weight", type=float, default=1e-6)
     ap.add_argument("--disc-start", type=int, default=50001)
     ap.add_argument("--disc-weight", type=float, default=0.5)
@@ -68,6 +75,7 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=25)
     ap.add_argument("--tiny", action="store_true", help="tiny model (CPU smoke)")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    add_mesh_args(ap)
     return ap.parse_args(argv)
 
 
@@ -77,21 +85,28 @@ def load_lpips(path: str, device) -> LPIPS:
         convert.load_torch_checkpoint(path))))
 
 
-def save_state(state: VAETrainState, path: str) -> None:
+def save_state(state: VAETrainState, path: str, mesh=None) -> None:
     """The state's tensors (autoencoder, logvar, discriminator with its
-    running statistics, both optimizers, step) with `torch.save`."""
-    torch.save({"ae": state.ae_params.state_dict(), "logvar": state.logvar.detach(),
-                "disc": state.disc_params.state_dict(), "opt_ae": state.opt_ae.state_dict(),
-                "opt_disc": state.opt_disc.state_dict(), "step": state.step}, path)
+    running statistics, both optimizers, step) with `torch.save`; FSDP
+    shards gathered (every rank calls it), rank 0 writes."""
+    d = full_tree({"ae": state.ae_params.state_dict(), "logvar": state.logvar.detach(),
+                   "disc": state.disc_params.state_dict(), "opt_ae": state.opt_ae.state_dict(),
+                   "opt_disc": state.opt_disc.state_dict(), "step": state.step})
+    if mesh is None or mesh.rank == 0:
+        torch.save(d, path)
+    barrier(mesh)
 
 
-def image_batches(args, B: int, hw: int, device):
+def image_batches(args, B: int, hw: int, device, mesh=None):
     """next_batch(i) -> [B, hw, hw, 3] in [-1, 1] on `device`: synthetic
-    (RandomState(i % 37)) unless a data flag names images."""
+    (RandomState(i % 37)) unless a data flag names images.  With `mesh`,
+    this rank's rows of the global batch of B (only its files read)."""
+    mine = slice(None) if mesh is None else rows(mesh, B)
     if args.synthetic or not (args.data_dir or args.paths_txt):
         def next_batch(i):
             r = np.random.RandomState(i % 37)
-            return torch.from_numpy((r.rand(B, hw, hw, 3) * 2 - 1).astype(np.float32)).to(device)
+            x = (r.rand(B, hw, hw, 3) * 2 - 1).astype(np.float32)[mine]
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
         return next_batch
     if args.paths_txt:
         ds = lsun_split(args.paths_txt, args.data_dir or ".", size=hw, flip_p=args.flip_p)
@@ -99,7 +114,7 @@ def image_batches(args, B: int, hw: int, device):
         files = sorted(os.path.join(args.data_dir, f) for f in os.listdir(args.data_dir)
                        if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
         ds = ImagePathsDataset(paths=files, size=hw, flip_p=args.flip_p)
-    it = ds.batches(B, seed=0)
+    it = ds.batches(B, seed=0, rows=mine)
 
     def next_batch(i):
         return torch.from_numpy(next(it)[0]).to(device)
@@ -111,9 +126,14 @@ def main(argv=None) -> dict:
     "host_s": [the loader's s per step]}."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s %(message)s")
-    if args.fsdp:
+    mesh = mesh_from_env(args.backend, args.cpu)
+    if args.fsdp and mesh is None:
         logger.warning("--fsdp ignored: single device — training runs fully replicated")
-    device = pick_device(args.cpu)
+    device = mesh.device if mesh is not None else pick_device(args.cpu)
+    ndev = 1 if mesh is None else mesh.data
+    writer = mesh is None or mesh.rank == 0
+    if not writer:                            # rank 0 alone logs
+        logger.setLevel(logging.WARNING)
     if args.tiny:
         vcfg, hw = VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=2,
                              embed_dim=2), 32
@@ -125,14 +145,16 @@ def main(argv=None) -> dict:
                          perceptual_weight=0.0 if (args.tiny and not args.lpips_ckpt) else 1.0)
     with torch.device(device):
         vae = AutoencoderKL(vcfg)
-    trainer = VAETrainer(vae, cfg)
+    trainer = VAETrainer(vae, cfg, mesh=mesh, fsdp=args.fsdp)
     lpips = load_lpips(args.lpips_ckpt, device) if args.lpips_ckpt else None
     state = trainer.init(seed=0, lpips=lpips)
 
-    next_batch = image_batches(args, args.batch_size, hw, device)
+    # per-device batch semantics, as in JAX; each rank its rows of the global batch
+    next_batch = image_batches(args, args.batch_size * ndev, hw, device, mesh)
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    jlog = JsonLogger(os.path.join(args.ckpt_dir, "metrics.jsonl"))
+    if writer:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+    jlog = JsonLogger(os.path.join(args.ckpt_dir, "metrics.jsonl")) if writer else None
     logged, step_s, host_s = [], [], []
     for i in range(args.steps):
         t0 = time.perf_counter()
@@ -143,12 +165,14 @@ def main(argv=None) -> dict:
         step_s.append(time.perf_counter() - t0)
         if i % args.log_every == 0:
             logger.info("step %d %s", i, vals)
-            jlog.log("train_vae", step=i, **vals)
+            if jlog is not None:
+                jlog.log("train_vae", step=i, **vals)
             logged.append({"step": i, **vals})
         if args.ckpt_every and (i + 1) % args.ckpt_every == 0:
-            save_state(state, os.path.join(args.ckpt_dir, f"step_{i + 1}.pt"))
+            save_state(state, os.path.join(args.ckpt_dir, f"step_{i + 1}.pt"), mesh)
             logger.info("checkpointed step %d", i + 1)
-    jlog.close()
+    if jlog is not None:
+        jlog.close()
     return {"metrics": logged, "step_s": step_s, "host_s": host_s}
 
 

@@ -29,7 +29,14 @@ card the worker is the only thread that touches CUDA.  `serve` is the
 standard library's ThreadingHTTPServer: POST /txt2img, GET /healthz.  Images
 go out as PNG from `utils/png.encode_png`; the JAX front falls back to
 `np.save` bytes where PIL is missing, the port always has its own encoder.
-No mesh: the engines' multi-device batch sharding is ROADMAP A.13.
+
+With `mesh` (a `parallel.mesh.Mesh`; JAX `server.py:58,119-138,238-305`)
+an engine splits its batch over the data axis: `generate_batch` is a
+collective, every rank calls it with the same prompts and seeds, builds the
+same padded batch on the host, computes its rows and gets every rank's
+images gathered in row order.  The batch size must divide by the rank
+count.  `BatchingService` and `serve` stay one-process, as in JAX, where
+no entry point serves over a mesh.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import SpatialControl
+from ..parallel.mesh import check_mesh, gather_rows, rows, shard_batch
 from ..utils import prng
 from ..utils.cudnn import deterministic
 from ..utils.png import encode_png
@@ -65,6 +73,13 @@ def _watermarked(imgs: np.ndarray, message: Optional[str]) -> np.ndarray:
     if not message:
         return imgs
     return np.stack([embed_watermark(im, message) for im in imgs])
+
+
+def _check_mesh(engine) -> None:
+    engine.mesh = check_mesh(engine.mesh, type(engine).__name__)
+    if engine.mesh is not None and engine.batch_size % engine.mesh.data:
+        raise ValueError(f"batch_size {engine.batch_size} not divisible by the mesh data axis "
+                         f"({engine.mesh.data})")
 
 
 def _warmup(engine) -> float:
@@ -86,9 +101,11 @@ class TextToImageEngine:
     watermark: Optional[str] = None             # payload string or None
     prepare_host: Optional[Callable] = None     # prompt -> dict | None (spatial)
     init_coef: Optional[float] = None           # default: cfg.spacetime.init_coef
+    mesh: Optional[object] = None               # parallel.mesh.Mesh: split the batch
     _uncond_ids: np.ndarray = field(default=None, repr=False)
 
     def __post_init__(self):
+        _check_mesh(self)
         self._uncond_ids = np.asarray(self.tokenize(""), np.int32)
 
     def warmup(self) -> float:
@@ -114,9 +131,22 @@ class TextToImageEngine:
     @torch.inference_mode()
     def _run(self, token_ids: np.ndarray, seeds: np.ndarray, local_ids=None,
              centers=None, active=None) -> torch.Tensor:
+        """The images of the padded batch; with a mesh this rank computes
+        its rows and every rank's are gathered."""
+        if self.mesh is not None:
+            mine = rows(self.mesh, len(seeds))
+            token_ids, seeds = token_ids[mine], list(seeds)[mine]
+            if local_ids is not None:
+                local_ids, centers, active = local_ids[mine], centers[mine], active[mine]
+            return gather_rows(self.mesh, self._rows(token_ids, seeds, local_ids, centers,
+                                                     active))
+        return self._rows(token_ids, seeds, local_ids, centers, active)
+
+    def _rows(self, token_ids: np.ndarray, seeds, local_ids=None, centers=None,
+              active=None) -> torch.Tensor:
         sd = self.sd
         cfg, dev = sd.cfg, sd.device
-        B, N, S = self.batch_size, cfg.spacetime.max_objects, sd.schedule.num_steps
+        B, N, S = token_ids.shape[0], cfg.spacetime.max_objects, sd.schedule.num_steps
         if self.prepare_host is not None:
             # one encoder call for captions + all local contexts
             emb = sd.encode_text(np.concatenate([token_ids, local_ids.reshape(B * N, -1)]))
@@ -181,12 +211,17 @@ class SpaceTimeEngine:
     runner: object                       # pipeline.runners.PromptRunner
     batch_size: int = 4
     watermark: Optional[str] = None
+    mesh: Optional[object] = None        # parallel.mesh.Mesh: split the batch
+
+    def __post_init__(self):
+        _check_mesh(self)
 
     def warmup(self) -> float:
         return _warmup(self)
 
     def _inputs(self, prompts: List[str], seeds: List[int]):
-        """The padded batch's SpaceTimeInputs, x_T per request."""
+        """The padded batch's SpaceTimeInputs, x_T per request (with a mesh,
+        this rank's rows)."""
         runner = self.runner
         pad = self.batch_size - len(prompts)
         hosts = [runner.prepare_host(p) or runner.empty_host(p) for p in prompts]
@@ -194,11 +229,14 @@ class SpaceTimeEngine:
         inputs = runner.assemble_inputs(hosts, seed=0)
         x_T = engine_noise(list(seeds) + [0] * pad, runner.cfg.latent_size,
                            runner.sd.cfg.unet.in_channels, runner.sd.device)
-        return inputs._replace(x_T=x_T)
+        inputs = inputs._replace(x_T=x_T)
+        return inputs if self.mesh is None else shard_batch(self.mesh, inputs)
 
     def optimize_batch(self, prompts: List[str], seeds: List[int], on_epoch=None):
         """(images [batch_size, H, W, 3] in [0, 1], coef, losses) of one
-        padded batch; `on_epoch(e, images)` as in `optimize_prompt`."""
+        padded batch; `on_epoch(e, images)` as in `optimize_prompt`.  With a
+        mesh: images and coef of every row (gathered), the losses summed
+        over the ranks; `on_epoch` sees this rank's rows."""
         from ..pipeline.spacetime import optimize_prompt
 
         n = len(prompts)
@@ -208,8 +246,15 @@ class SpaceTimeEngine:
         with torch.no_grad():
             inputs = self._inputs(prompts, seeds)
         with deterministic():
-            return optimize_prompt(runner.sd, runner.clip_loss, inputs, runner.cfg,
-                                   sampler=runner.sampler, on_epoch=on_epoch)
+            images, coef, losses = optimize_prompt(runner.sd, runner.clip_loss, inputs,
+                                                   runner.cfg, sampler=runner.sampler,
+                                                   on_epoch=on_epoch)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            images, coef = gather_rows(self.mesh, images), gather_rows(self.mesh, coef)
+            dist.all_reduce(losses)
+        return images, coef, losses
 
     @staticmethod
     def to_uint8(images: torch.Tensor) -> np.ndarray:

@@ -54,9 +54,11 @@ class ImagePathsDataset:
         return len(self.paths)
 
     def __getitem__(self, i: int, rng: Optional[random.Random] = None):
-        rng = rng or random
+        return self._example(i, (rng or random).random() < self.flip_p)
+
+    def _example(self, i: int, flip: bool) -> dict:
         img = load_image(self.paths[i], self.size, self.interpolation)
-        if rng.random() < self.flip_p:
+        if flip:
             img = img[:, ::-1]
         example = {
             "image": (img.astype(np.float32) / 127.5 - 1.0),
@@ -67,17 +69,23 @@ class ImagePathsDataset:
             example["class_label"] = int(self.labels[i])
         return example
 
-    def batches(self, batch_size: int, seed: int = 0, epochs: Optional[int] = None
+    def batches(self, batch_size: int, seed: int = 0, epochs: Optional[int] = None,
+                rows: Optional[slice] = None
                 ) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray]]]:
         """Fixed-shape [B, size, size, 3] float32 in [-1, 1] (+ [B] int32
-        labels), shuffled per epoch; tail dropped (static shapes)."""
+        labels), shuffled per epoch; tail dropped (static shapes).  `rows`:
+        only these rows of each batch (a rank's), no other file read; the
+        shuffle and the flips are drawn for the whole batch."""
         rng = random.Random(seed)
         epoch = 0
         order = list(range(len(self.paths)))
         while epochs is None or epoch < epochs:
             rng.shuffle(order)
             for s in range(0, len(order) - batch_size + 1, batch_size):
-                exs = [self.__getitem__(i, rng) for i in order[s:s + batch_size]]
+                picks = order[s:s + batch_size]
+                flips = [rng.random() < self.flip_p for _ in picks]
+                keep = range(len(picks))[rows or slice(None)]
+                exs = [self._example(picks[j], flips[j]) for j in keep]
                 imgs = np.stack([e["image"] for e in exs])
                 labels = (np.asarray([e["class_label"] for e in exs], np.int32)
                           if self.labels is not None else None)

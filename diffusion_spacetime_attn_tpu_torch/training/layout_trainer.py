@@ -20,9 +20,20 @@ they were, the count not advanced) and counted; after more than
 The trainer's `train_step(params, opt_state, batch)` has JAX's signature:
 `params` is the `LayoutPredictor` module, `opt_state` its `Optimizer`;
 both are updated in place and returned.  Checkpoints are `torch.save` files
-read back with `weights_only=True` (JAX's are orbax, ROADMAP A.15).  One
-device: a mesh or FSDP raises (ROADMAP A.13).  As in JAX, the backward is
-not wrapped in the reference's bare try/except (`Pretrain.py:262-266`).
+read back with `weights_only=True` (JAX's are orbax, ROADMAP A.15).  As in
+JAX, the backward is not wrapped in the reference's bare try/except
+(`Pretrain.py:262-266`).
+
+Over a data mesh (`create(mesh=...)`; JAX `layout_trainer.py:74-117`) each
+rank takes its rows of the global batch.  The loss is a sum over the
+batch, so the global loss and its gradient are the sums over the ranks
+(each rank's loss is scaled by the rank count before the gradients are
+averaged).  `fsdp=True` shards the predictor and the two groups' Adam
+moments (`parallel/sharding.py`); the finiteness check and the clip's
+norm are taken over the whole gradient.  JAX shards only with `fsdp` and
+a mesh (a mesh alone compiles the one-device step); the port's mesh alone
+is data-parallel with replicated state, the same global step.  `fsdp`
+without a mesh is ignored, as in JAX.
 """
 from __future__ import annotations
 
@@ -37,6 +48,18 @@ from torch import nn
 from ..config import LayoutConfig, LayoutTrainConfig
 from ..models.layout.gmm_head import sample_xy
 from ..models.layout.model import LayoutPredictor
+from ..parallel.mesh import Mesh, all_reduce_, barrier, check_mesh, replicate
+from ..parallel.sharding import (
+    bind_grads_,
+    full_tree,
+    fsdp as fully_shard_module,
+    is_sharded,
+    load_full_,
+    local,
+    optimizer_state_full,
+    optimizer_state_like,
+    shard_views,
+)
 from .ldm_trainer import clip_by_global_norm_
 from .losses import LayoutBatch, _take, layout_total_loss
 from .schedules import bert_schedule
@@ -53,17 +76,22 @@ def _param_group(name: str) -> str:
 class Optimizer:
     """`make_optimizer`'s transformation over `model`'s parameters.
     `update()` takes the gradients in each parameter's `.grad` and returns
-    True when it applied them."""
+    True when it applied them.  Adam runs on the parameters' local storage
+    (`shard_views`), fused on the card."""
 
-    def __init__(self, cfg: LayoutTrainConfig, model: nn.Module, skip_nonfinite: bool = True):
-        self.cfg = cfg
+    def __init__(self, cfg: LayoutTrainConfig, model: nn.Module, skip_nonfinite: bool = True,
+                 mesh: Optional[Mesh] = None):
+        self.cfg, self.mesh = cfg, mesh
         groups: Dict[str, List[torch.Tensor]] = {g: [] for g in GROUPS}
         for name, p in model.named_parameters():
             groups[_param_group(name)].append(p)
         self.params = [p for g in GROUPS for p in groups[g]]
-        fused = all(p.device.type == "cuda" for p in self.params)
+        self.views = shard_views(self.params)
+        views = dict(zip(map(id, self.params), self.views))
+        fused = all(v.device.type == "cuda" for v in self.views)
         self.adam = torch.optim.Adam(
-            [{"params": groups[g], "name": g} for g in GROUPS if groups[g]], lr=0.0,
+            [{"params": [views[id(p)] for p in groups[g]], "name": g}
+             for g in GROUPS if groups[g]], lr=0.0,
             betas=(0.9, 0.999), eps=1e-8, fused=fused or None, foreach=None if fused else True)
         max_lr = {"encoder": cfg.encoder_max_lr, "head": cfg.head_max_lr}
         self.schedules = {g: bert_schedule(max_lr[g], 1e-8, cfg.warmup_steps, cfg.hold_steps,
@@ -77,52 +105,66 @@ class Optimizer:
     def update(self) -> bool:
         grads = [p.grad for p in self.params]
         if self.max_errors is not None:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            ok = torch.stack([torch.isfinite(local(g)).all() for g in grads]).all().float()
+            if self.mesh is not None:
+                import torch.distributed as dist
+
+                dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            finite = bool(ok)
             self.last_finite = finite
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not (finite or self.notfinite_count > self.max_errors):
                 return False
-        clip_by_global_norm_(grads, self.cfg.grad_clip_norm)
+        clip_by_global_norm_(grads, self.cfg.grad_clip_norm, self.mesh)
         for group in self.adam.param_groups:
             group["lr"] = float(self.schedules[group["name"]](self.count))
+        bind_grads_(self.views, self.params)
         self.adam.step()
+        for v in self.views:
+            v.grad = None
         self.count += 1
         return True
 
     def state_dict(self) -> Dict:
-        return {"adam": self.adam.state_dict(), "count": self.count,
+        """Whole tensors (FSDP shards gathered: a collective)."""
+        return {"adam": optimizer_state_full(self.adam, self.params), "count": self.count,
                 "notfinite_count": self.notfinite_count,
                 "total_notfinite": self.total_notfinite, "last_finite": self.last_finite}
 
     def load_state_dict(self, sd: Dict) -> None:
-        self.adam.load_state_dict(sd["adam"])
+        self.adam.load_state_dict(optimizer_state_like(sd["adam"], self.params))
         self.count, self.notfinite_count = int(sd["count"]), int(sd["notfinite_count"])
         self.total_notfinite, self.last_finite = int(sd["total_notfinite"]), bool(sd["last_finite"])
 
 
 def make_optimizer(cfg: LayoutTrainConfig, params: nn.Module,
-                   skip_nonfinite: bool = True) -> Optimizer:
-    return Optimizer(cfg, params, skip_nonfinite)
+                   skip_nonfinite: bool = True, mesh: Optional[Mesh] = None) -> Optimizer:
+    return Optimizer(cfg, params, skip_nonfinite, mesh)
 
 
 @dataclasses.dataclass
 class LayoutTrainer:
     cfg: LayoutConfig
     train_cfg: LayoutTrainConfig
+    mesh: Optional[Mesh] = None
+    fsdp: bool = False
 
     @classmethod
     def create(cls, cfg: LayoutConfig, train_cfg: LayoutTrainConfig, params=None,
                mesh=None, fsdp: bool = False) -> "LayoutTrainer":
-        if mesh is not None or fsdp:
-            raise NotImplementedError("LayoutTrainer: the PyTorch port trains on one device; a "
-                                      "mesh or FSDP is ROADMAP A.13")
-        return cls(cfg, train_cfg)
+        mesh = check_mesh(mesh, "LayoutTrainer")
+        return cls(cfg, train_cfg, mesh, fsdp and mesh is not None)
 
     def init_state(self, params: LayoutPredictor) -> Optimizer:
-        """The optimizer over `params`, which become trainable."""
+        """The optimizer over `params`, which become trainable (with a mesh,
+        rank 0's weights, sharded under fsdp)."""
         params.train().requires_grad_(True)
-        return make_optimizer(self.train_cfg, params)
+        if self.mesh is not None:
+            replicate(self.mesh, params)
+            if self.fsdp:
+                fully_shard_module(params, self.mesh)
+        return make_optimizer(self.train_cfg, params, mesh=self.mesh)
 
     def loss_fn(self, params: LayoutPredictor, batch: LayoutBatch):
         gmm = params(batch.tokens, batch.object_pos)
@@ -132,16 +174,29 @@ class LayoutTrainer:
         return loss, metrics, gmm
 
     def train_step(self, params: LayoutPredictor, opt_state: Optimizer, batch: LayoutBatch):
-        """One step -> (params, opt_state, loss, metrics), both updated in place."""
-        batch = LayoutBatch(*batch).to(params.head.xy_bivariate.weight.device)
+        """One step -> (params, opt_state, loss, metrics), both updated in
+        place.  With a mesh, `batch` is this rank's rows of the global batch
+        (`parallel.mesh.shard_batch`); the loss and metrics are the global
+        batch's sums."""
+        mesh = self.mesh
+        batch = LayoutBatch(*batch).to(local(params.head.xy_bivariate.weight).device)
         for p in opt_state.params:
             p.grad = None
         loss, metrics, _ = self.loss_fn(params, batch)
-        loss.backward()
+        if mesh is None:
+            loss.backward()
+        else:
+            (loss * mesh.data).backward()     # averaged below: the sum over the ranks
+            all_reduce_([p.grad for p in opt_state.params if p.grad is not None
+                         and not is_sharded(p.grad)], mesh)
         opt_state.update()
         for p in opt_state.params:
             p.grad = None
-        return params, opt_state, loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        out = {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        if mesh is not None:
+            all_reduce_(list(out.values()), mesh, op="sum")
+        loss = out.pop("loss")
+        return params, opt_state, loss, out
 
     @torch.no_grad()
     def eval_step(self, params: LayoutPredictor, batch: LayoutBatch):
@@ -175,17 +230,20 @@ class LayoutTrainer:
 
     def save_checkpoint(self, ckpt_dir: str, step: int, params: LayoutPredictor,
                         opt_state: Optimizer, extra=None) -> None:
-        os.makedirs(ckpt_dir, exist_ok=True)
-        torch.save({"params": params.state_dict(), "opt_state": opt_state.state_dict(),
-                    "extra": extra or {}}, self.checkpoint_path(ckpt_dir, step))
+        """Whole tensors; with a mesh every rank calls it and rank 0 writes."""
+        d = {"params": full_tree(params.state_dict()), "opt_state": opt_state.state_dict(),
+             "extra": extra or {}}
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            torch.save(d, self.checkpoint_path(ckpt_dir, step))
+        barrier(self.mesh)
 
     def restore_checkpoint(self, ckpt_dir: str, step: int, params: LayoutPredictor,
                            opt_state: Optimizer) -> Tuple[LayoutPredictor, Optimizer]:
         """Load step `step` into `params` and `opt_state` and return them."""
         d = torch.load(self.checkpoint_path(ckpt_dir, step), map_location="cpu",
                        weights_only=True)
-        with torch.no_grad():
-            params.load_state_dict(d["params"])
+        load_full_(params, d["params"])
         opt_state.load_state_dict(d["opt_state"])
         return params, opt_state
 

@@ -19,10 +19,22 @@ package's `training/ldm_trainer.py`, the reference's Lightning trainer
   * `learn_logvar` trains the [T] logvar in the same optimizer.
 
 The state holds the trained module itself (`params`): the step updates it
-in place and returns the state, so callers rebind as in JAX.  One device:
-`LDMTrainer(mesh=...)` and `fsdp=True` raise (ROADMAP A.13).  `save` /
-`restore` use the port's own format, `torch.save` of plain tensors read
-back with `weights_only=True`; JAX's orbax steps are ROADMAP A.15.
+in place and returns the state, so callers rebind as in JAX.
+
+Over a data mesh (`LDMTrainer(mesh=...)`, `parallel/mesh.py`; JAX's
+`Mesh(('data',))` step, `ldm_trainer.py:215-307` there) each rank takes its
+rows of the global batch; t and the noise are drawn for the global batch
+from the one key and each rank takes its rows (threefry's bits depend on
+the shape), so a rank's rows see JAX's draws.  The loss is a batch mean, so
+the gradients are averaged over the ranks (all-reduced, or reduce-scattered
+under FSDP), and the learning rate scales by the rank count as
+`scaled_lr` says.  `fsdp=True` shards the module with `fully_shard`
+(`parallel/sharding.py`): AdamW's moments, the accumulation buffers and the
+EMA copies are shards of the same layout, and the global-norm clip sums the
+shards' squared norms over the ranks.  `save` / `restore` use the port's
+own format, `torch.save` of whole tensors (gathered; rank 0 writes) read
+back with `weights_only=True`, so a mesh run's checkpoint loads on one
+device and back; JAX's orbax steps are ROADMAP A.15.
 """
 from __future__ import annotations
 
@@ -36,6 +48,29 @@ from torch import nn
 
 from ..config import LDMTrainConfig, ScheduleConfig
 from ..ops.schedule import DiffusionSchedule, make_beta_schedule, q_sample
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    barrier,
+    check_mesh,
+    global_rows,
+    metrics_mean,
+    normal_rows,
+    replicate,
+)
+from ..parallel.sharding import (
+    bind_grads_,
+    full_tree,
+    fsdp as fully_shard_module,
+    grad_norm_sq,
+    is_sharded,
+    load_full_,
+    local,
+    optimizer_state_full,
+    optimizer_state_like,
+    shard_like,
+    shard_views,
+)
 from ..utils import prng
 from .schedules import lambda_linear_schedule, warmup_cosine_schedule2
 
@@ -83,15 +118,19 @@ def lr_multiplier(cfg: LDMTrainConfig):
                 [cfg.lr_cycle_steps])
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         mesh: Optional[Mesh] = None) -> None:
     """optax's `clip_by_global_norm` in place: g unchanged while the global
-    norm is below max_norm, else (g / norm) · max_norm; 0 = off."""
+    norm is below max_norm, else (g / norm) · max_norm; 0 = off.  With
+    FSDP-sharded gradients the squared norms of the shards are summed over
+    `mesh`'s ranks first."""
     if not max_norm:
         return
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm = torch.sqrt(grad_norm_sq(grads, mesh))
     if bool(norm < max_norm):
         return
-    torch._foreach_div_(grads, norm)
+    grads = [local(g) for g in grads]
+    torch._foreach_div_(grads, norm.to(grads[0].device))
     torch._foreach_mul_(grads, max_norm)
 
 
@@ -99,13 +138,18 @@ class Optimizer:
     """optax's `MultiSteps(chain(clip_by_global_norm(c), adamw(lr · mult(count),
     weight_decay)), k)` over `params` (`make_optimizer` in JAX).  `update()`
     takes the gradients in each parameter's `.grad`; it returns True when it
-    applied an update (every k-th call)."""
+    applied an update (every k-th call).  AdamW and the accumulation run on
+    the parameters' local storage (`shard_views`: an FSDP-sharded
+    parameter's local shard), fused on the card; `mesh` sums the clip's
+    squared norms over the ranks."""
 
-    def __init__(self, cfg: LDMTrainConfig, lr: float, params: List[torch.Tensor]):
-        self.cfg, self.lr, self.params = cfg, lr, list(params)
+    def __init__(self, cfg: LDMTrainConfig, lr: float, params: List[torch.Tensor],
+                 mesh: Optional[Mesh] = None):
+        self.cfg, self.lr, self.params, self.mesh = cfg, lr, list(params), mesh
         self.mult = lr_multiplier(cfg)
-        fused = all(p.device.type == "cuda" for p in self.params)
-        self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        self.views = shard_views(self.params)
+        fused = all(v.device.type == "cuda" for v in self.views)
+        self.adamw = torch.optim.AdamW(self.views, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=cfg.weight_decay, fused=fused or None,
                                        foreach=None if fused else True)
         self.count = 0        # updates applied (optax's inner count)
@@ -117,39 +161,45 @@ class Optimizer:
     def update(self) -> bool:
         grads = [p.grad for p in self.params]
         if self.acc is not None:
-            d = torch._foreach_sub(grads, self.acc)
+            acc = [local(a) for a in self.acc]
+            d = torch._foreach_sub([local(g) for g in grads], acc)
             torch._foreach_div_(d, float(self.mini_step + 1))
-            torch._foreach_add_(self.acc, d)
+            torch._foreach_add_(acc, d)
             self.mini_step += 1
             if self.mini_step < self.cfg.accum_steps:
                 return False
             self.mini_step = 0
-            for p, a in zip(self.params, self.acc):
-                p.grad = a.clone()
-            torch._foreach_zero_(self.acc)
-            grads = [p.grad for p in self.params]
-        clip_by_global_norm_(grads, self.cfg.grad_clip_norm)
+            for g, a in zip(grads, acc):
+                local(g).copy_(a)
+            torch._foreach_zero_(acc)
+        clip_by_global_norm_(grads, self.cfg.grad_clip_norm, self.mesh)
         lr = self.lr if self.mult is None else self.lr * float(self.mult(self.count))
         for group in self.adamw.param_groups:
             group["lr"] = lr
+        bind_grads_(self.views, self.params)
         self.adamw.step()
+        for v in self.views:
+            v.grad = None
         self.count += 1
         return True
 
     def state_dict(self) -> Dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+        """Whole tensors (FSDP shards gathered: a collective)."""
+        return {"adamw": optimizer_state_full(self.adamw, self.params), "count": self.count,
+                "mini_step": self.mini_step, "acc": full_tree(self.acc)}
 
     def load_state_dict(self, sd: Dict) -> None:
-        self.adamw.load_state_dict(sd["adamw"])
+        """From whole tensors (a one-device or a mesh run's `state_dict`)."""
+        self.adamw.load_state_dict(optimizer_state_like(sd["adamw"], self.params))
         self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
         if self.acc is not None:
             for a, b in zip(self.acc, sd["acc"]):
-                a.copy_(b)
+                local(a).copy_(local(shard_like(b, a)))
 
 
-def make_optimizer(cfg: LDMTrainConfig, lr: float, params) -> Optimizer:
-    return Optimizer(cfg, lr, params)
+def make_optimizer(cfg: LDMTrainConfig, lr: float, params,
+                   mesh: Optional[Mesh] = None) -> Optimizer:
+    return Optimizer(cfg, lr, params, mesh)
 
 
 @dataclasses.dataclass
@@ -165,9 +215,10 @@ class LDMTrainState:
 
 
 def init_state(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig, params: nn.Module,
-               lr: float) -> LDMTrainState:
-    """The state over `params` (the module to train, float32 parameters)."""
-    dev = next(params.parameters()).device
+               lr: float, mesh: Optional[Mesh] = None) -> LDMTrainState:
+    """The state over `params` (the module to train, float32 parameters;
+    FSDP-sharded ones give a sharded EMA and optimizer state)."""
+    dev = local(next(params.parameters())).device
     logvar = torch.full((schedule_cfg.num_train_timesteps,), cfg.logvar_init,
                         dtype=torch.float32, device=dev)
     trainable = list(params.parameters())
@@ -177,7 +228,7 @@ def init_state(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig, params: nn.Mod
     ema = None
     if cfg.use_ema:
         ema = {k: p.detach().clone() for k, p in params.named_parameters()}
-    return LDMTrainState(params=params, opt_state=make_optimizer(cfg, lr, trainable),
+    return LDMTrainState(params=params, opt_state=make_optimizer(cfg, lr, trainable, mesh),
                          ema_params=ema, logvar=logvar, step=0)
 
 
@@ -189,15 +240,17 @@ def ema_decay(step: int, decay: float) -> np.float32:
 
 def p_losses(cfg: LDMTrainConfig, schedule: DiffusionSchedule, lvlb_w: torch.Tensor,
              eps_model, logvar: torch.Tensor, x0: torch.Tensor, context,
-             rng: np.ndarray) -> Tuple[torch.Tensor, dict]:
+             rng: np.ndarray, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, dict]:
     """One loss evaluation (reference `ddpm.py:1030-1062` + `:323-326`).
     eps_model(x_noisy, t, context) -> model output; x0: scaled latents
-    [B, H, W, C]; rng: a JAX key."""
-    B, dev = x0.shape[0], x0.device
+    [B, H, W, C] (with `mesh`, this rank's rows of the global batch); rng: a
+    JAX key.  The loss is the mean over x0's rows."""
+    dev = x0.device
+    n, mine = global_rows(mesh, x0.shape[0])
     t_rng, n_rng = prng.split(rng)
-    t_np = prng.randint(t_rng, (B,), 0, schedule.alphas_cumprod.shape[0])
-    t = torch.from_numpy(t_np).to(dev)
-    noise = torch.from_numpy(prng.normal(n_rng, tuple(x0.shape))).to(device=dev, dtype=x0.dtype)
+    t_np = prng.randint(t_rng, (n,), 0, schedule.alphas_cumprod.shape[0])[mine]
+    t = torch.from_numpy(np.ascontiguousarray(t_np)).to(dev)
+    noise = normal_rows(n_rng, x0, mesh)
     x_noisy = q_sample(schedule, x0, t, noise)
     model_out = eps_model(x_noisy, t, context).float()
 
@@ -219,28 +272,52 @@ def p_losses(cfg: LDMTrainConfig, schedule: DiffusionSchedule, lvlb_w: torch.Ten
     return loss, metrics
 
 
-def make_train_step(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig,
-                    schedule: DiffusionSchedule, eps_model):
-    """The step (state, x0, context, rng) -> (state, metrics); eps_model is
-    the state's module, called as eps_model(x, t, context).  The learning
-    rate is the state's optimizer's (`init_state`)."""
+def make_gradients(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig,
+                   schedule: DiffusionSchedule, eps_model, mesh: Optional[Mesh] = None):
+    """(state, x0, context, rng) -> (loss, metrics) with each trainable
+    tensor's `.grad` holding the global batch's gradient: over `mesh`, the
+    mean over the ranks (FSDP's reduce-scatter for sharded parameters, an
+    all-reduce for the others); the metrics are the global batch's."""
     lvlb = torch.from_numpy(lvlb_weights(schedule_cfg, cfg.parameterization))
 
-    def step(state: LDMTrainState, x0, context, rng):
+    def gradients(state: LDMTrainState, x0, context, rng):
         opt = state.opt_state
         for p in opt.params:
             p.grad = None
         loss, metrics = p_losses(cfg, schedule, lvlb.to(x0.device), eps_model, state.logvar,
-                                 x0, context, rng)
+                                 x0, context, rng, mesh)
         loss.backward()
+        if mesh is not None:
+            all_reduce_([p.grad for p in opt.params if p.grad is not None
+                         and not is_sharded(p.grad)], mesh)
+        return loss.detach(), metrics_mean(metrics, mesh)
+
+    return gradients
+
+
+def make_train_step(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig,
+                    schedule: DiffusionSchedule, eps_model, mesh: Optional[Mesh] = None,
+                    gradients=None):
+    """The step (state, x0, context, rng) -> (state, metrics); eps_model is
+    the state's module, called as eps_model(x, t, context).  The learning
+    rate is the state's optimizer's (`init_state`).  With `mesh`, x0 and
+    context are this rank's rows of the global batch.  `gradients`:
+    `make_gradients`' function for these arguments, made here when None."""
+    if gradients is None:
+        gradients = make_gradients(cfg, schedule_cfg, schedule, eps_model, mesh)
+
+    def step(state: LDMTrainState, x0, context, rng):
+        opt = state.opt_state
+        _, metrics = gradients(state, x0, context, rng)
         opt.update()
         if state.ema_params is not None:
             d = ema_decay(state.step, cfg.ema_decay)
             params = dict(state.params.named_parameters())
             names = list(state.ema_params)
             # e·d + (1 − d)·p, the weight 1 − d in float32 as in JAX
-            torch._foreach_lerp_([state.ema_params[k] for k in names],
-                                 [params[k].detach() for k in names], float(np.float32(1) - d))
+            torch._foreach_lerp_([local(state.ema_params[k]) for k in names],
+                                 [local(params[k].detach()) for k in names],
+                                 float(np.float32(1) - d))
         for p in opt.params:
             p.grad = None
         state.step += 1
@@ -252,31 +329,48 @@ def make_train_step(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig,
 @dataclasses.dataclass
 class LDMTrainer:
     """The step plus checkpointing (`main.py`'s Trainer, ModelCheckpoint and
-    resume).  One device: a mesh or fsdp raises (ROADMAP A.13)."""
+    resume).  `mesh`: a `parallel.mesh.Mesh` (its model axis 1) over which
+    the batch is split, each rank passing its rows; `fsdp` (with a mesh)
+    shards the module, the optimizer state and EMA over it.  The module is
+    sharded, or rank 0's weights broadcast, when the trainer is built."""
 
     cfg: LDMTrainConfig
     schedule_cfg: ScheduleConfig
     schedule: DiffusionSchedule
     eps_model: nn.Module                # (x, t, context) -> out; the trained module
-    mesh: Optional[object] = None
+    mesh: Optional[Mesh] = None
     ckpt_dir: Optional[str] = None
     fsdp: bool = False
 
     def __post_init__(self):
-        if self.mesh is not None or self.fsdp:
-            raise NotImplementedError("LDMTrainer: the PyTorch port trains on one device; a "
-                                      "mesh or FSDP is ROADMAP A.13")
-        self.lr = scaled_lr(self.cfg, self.cfg.batch_size, 1)
+        self.mesh = check_mesh(self.mesh, "LDMTrainer")
+        if self.fsdp and self.mesh is None:
+            raise ValueError("LDMTrainer: fsdp requires a mesh")
+        if self.mesh is not None:
+            if self.fsdp:
+                fully_shard_module(self.eps_model, self.mesh)
+            else:
+                replicate(self.mesh, self.eps_model)
+        self.lr = scaled_lr(self.cfg, self.cfg.batch_size,
+                            1 if self.mesh is None else self.mesh.data)
+        self._gradients = make_gradients(self.cfg, self.schedule_cfg, self.schedule,
+                                         self.eps_model, self.mesh)
         self._step = make_train_step(self.cfg, self.schedule_cfg, self.schedule,
-                                     self.eps_model)
+                                     self.eps_model, self.mesh, self._gradients)
 
     def init(self) -> LDMTrainState:
-        return init_state(self.cfg, self.schedule_cfg, self.eps_model, self.lr)
+        return init_state(self.cfg, self.schedule_cfg, self.eps_model, self.lr, self.mesh)
 
     def train_step(self, state: LDMTrainState, x0, context, rng):
         """One call (an optimizer update every `accum_steps` calls); updates
-        the state in place and returns it with the metrics."""
+        the state in place and returns it with the metrics.  With a mesh, x0
+        and context are this rank's rows (`parallel.mesh.shard_batch`)."""
         return self._step(state, x0, context, rng)
+
+    def gradients(self, state: LDMTrainState, x0, context, rng):
+        """The step's loss and metrics, the reduced gradients left in each
+        trainable tensor's `.grad`, nothing updated."""
+        return self._gradients(state, x0, context, rng)
 
     def _path(self, step: int) -> str:
         if not self.ckpt_dir:
@@ -284,20 +378,26 @@ class LDMTrainer:
         return os.path.join(self.ckpt_dir, f"step_{step}.pt")
 
     def save(self, state: LDMTrainState, step: int) -> None:
+        """Whole tensors: with a mesh every rank calls it (FSDP's gather) and
+        rank 0 writes."""
         path = self._path(step)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        torch.save({"params": state.params.state_dict(), "opt": state.opt_state.state_dict(),
-                    "ema": state.ema_params, "logvar": state.logvar.detach(),
-                    "step": state.step}, path)
+        d = {"params": full_tree(state.params.state_dict()),
+             "opt": state.opt_state.state_dict(), "ema": full_tree(state.ema_params),
+             "logvar": state.logvar.detach(), "step": state.step}
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            torch.save(d, path)
+        barrier(self.mesh)
 
     def restore(self, step: int, like: LDMTrainState) -> LDMTrainState:
-        """Load step `step` into `like` (a state from `init`) and return it."""
+        """Load step `step` into `like` (a state from `init`) and return it;
+        a checkpoint of a one-device or a mesh run, sharded or not."""
         d = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        load_full_(like.params, d["params"])
         with torch.no_grad():
-            like.params.load_state_dict(d["params"])
             if like.ema_params is not None:
                 for k, v in like.ema_params.items():
-                    v.copy_(d["ema"][k])
+                    local(v).copy_(local(shard_like(d["ema"][k], v)))
             like.logvar.copy_(d["logvar"])
         like.opt_state.load_state_dict(d["opt"])
         like.step = int(d["step"])

@@ -97,11 +97,15 @@ class FlaxBatchNorm(nn.Module):
     fast variance) normalize, and the running statistics move as
     0.99·running + 0.01·batch (flax's momentum 0.99 is torch's 0.01; torch's
     running variance would take the unbiased batch variance); otherwise the
-    running statistics normalize.  eps 1e-5."""
+    running statistics normalize.  eps 1e-5.  With `mesh` set (a
+    `parallel.mesh.Mesh`, each rank holding an equal share of the batch) the
+    batch mean and E[x²] are the global batch's, averaged over the ranks
+    differentiably, as JAX's one program over the global batch takes them."""
 
     def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -109,8 +113,12 @@ class FlaxBatchNorm(nn.Module):
 
     def forward(self, x, train: bool):
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            if self.mesh is not None:
+                from ..parallel.mesh import mean_over_ranks
+
+                mean, sq = mean_over_ranks(torch.stack([mean, sq]), self.mesh).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)

@@ -17,8 +17,19 @@ disc_factor is 0 before `disc_start` steps (`adopt_weight`).  One step
 updates the autoencoder (the discriminator frozen), then the discriminator,
 each with its own Adam (b1 0.5, b2 0.9, as `VAETrainer.__init__` builds
 them, `vae_trainer.py:86-108` in JAX).  The sample z = mean + std·ε draws ε
-from the step's JAX key, as `AutoencoderKL.encode(x, rng)` does.  One
-device: a mesh or fsdp raises (ROADMAP A.13).
+from the step's JAX key, as `AutoencoderKL.encode(x, rng)` does.
+
+Over a data mesh (`VAETrainer(mesh=...)`, JAX `vae_trainer.py:86-150`)
+each rank takes its rows of the global batch and computes JAX's global
+step: ε is drawn for the global batch and each rank takes its rows; the
+losses are batch means, so the gradients are averaged over the ranks; the
+adaptive weight's two last-layer gradients are averaged before their norms
+are taken; the discriminator's BatchNorm normalizes with, and moves its
+running statistics by, the global batch's mean and E[x²] (averaged over the
+ranks, differentiably).  `fsdp=True` shards the autoencoder and the
+discriminator (`parallel/sharding.py`) and their Adam states with them;
+`decoder.conv_out` stays whole, as the adaptive weight differentiates with
+respect to it, and its gradient is all-reduced with the other whole ones.
 """
 from __future__ import annotations
 
@@ -30,7 +41,9 @@ import torch
 from torch import nn
 
 from ..models.vae import AutoencoderKL
-from ..utils import prng
+from ..parallel.mesh import all_reduce_, check_mesh, metrics_mean, normal_rows, replicate
+from ..parallel.sharding import fsdp as fully_shard_module
+from ..parallel.sharding import is_sharded
 from ..utils.testing import init_flax_like_
 from .perceptual import (
     LPIPS,
@@ -82,15 +95,21 @@ def kl_divergence(mean, logvar):
 
 
 class VAETrainer:
+    """`mesh`: a `parallel.mesh.Mesh` over which the image batch is split
+    (each rank passes its rows); `fsdp` shards the state over it, and is
+    ignored without a mesh, as in JAX."""
+
     def __init__(self, vae: AutoencoderKL, cfg: VAETrainConfig, mesh=None,
                  fsdp: bool = False):
-        if mesh is not None or fsdp:
-            raise NotImplementedError("VAETrainer: the PyTorch port trains on one device; a "
-                                      "mesh or FSDP is ROADMAP A.13")
+        self.mesh = check_mesh(mesh, "VAETrainer")
+        self.fsdp = fsdp and self.mesh is not None
         self.vae, self.cfg = vae, cfg
         self.device = next(vae.parameters()).device
         self.disc = NLayerDiscriminator(ndf=cfg.disc_ndf, n_layers=cfg.disc_layers).to(self.device)
         self.d_loss_fn = hinge_d_loss if cfg.disc_loss == "hinge" else vanilla_d_loss
+        for m in self.disc.modules():
+            if hasattr(m, "mesh"):
+                m.mesh = self.mesh
 
     def init(self, seed: int = 0, lpips: Optional[LPIPS] = None) -> VAETrainState:
         """The state: flax-like seeded initial weights for the autoencoder and
@@ -102,6 +121,14 @@ class VAETrainer:
             lpips = init_flax_like_(LPIPS().to(self.device), seed + 2)
         if lpips is not None:
             lpips.requires_grad_(False)
+        if self.mesh is not None:
+            for m in (self.vae, self.disc, lpips):
+                if m is not None:
+                    replicate(self.mesh, m)
+            if self.fsdp:
+                co = self.vae.decoder.conv_out
+                fully_shard_module(self.vae, self.mesh, ignored=[co.weight, co.bias])
+                fully_shard_module(self.disc, self.mesh)
         logvar = torch.tensor(self.cfg.logvar_init, dtype=torch.float32, device=self.device,
                               requires_grad=True)
         lr = self.cfg.base_lr
@@ -120,16 +147,24 @@ class VAETrainer:
         B = images.shape[0]
         return nll.sum() / B, rec.sum() / B
 
+    def _reduce(self, params) -> None:
+        """Average the whole (not FSDP-sharded) gradients over the ranks;
+        FSDP has reduce-scattered the sharded ones."""
+        if self.mesh is not None:
+            all_reduce_([p.grad for p in params if p.grad is not None
+                         and not is_sharded(p.grad)], self.mesh)
+
     def train_step(self, state: VAETrainState, images: torch.Tensor,
                    rng: np.ndarray) -> Tuple[VAETrainState, dict]:
-        """images [B, H, W, 3] in [-1, 1]; rng: the JAX key of the sample."""
-        cfg = self.cfg
+        """images [B, H, W, 3] in [-1, 1] (with a mesh, this rank's rows of
+        the global batch); rng: the JAX key of the sample."""
+        cfg, mesh = self.cfg, self.mesh
         vae, disc = state.ae_params, state.disc_params
         disc_factor = adopt_weight(cfg.disc_factor, state.step, cfg.disc_start)
 
         # ---- the autoencoder (the discriminator frozen, in eval mode) ----
         mean, lv = vae.encode_moments(images)
-        z = mean + torch.exp(0.5 * lv) * prng.normal_like(rng, mean)
+        z = mean + torch.exp(0.5 * lv) * normal_rows(rng, mean, mesh)
         recon = vae.decode(z)
         nll, rec = self._nll(state, recon, images)
         kl = kl_divergence(mean, lv).sum() / images.shape[0]
@@ -137,12 +172,15 @@ class VAETrainer:
         last = vae.decoder.conv_out.weight
         g_nll = torch.autograd.grad(nll, last, retain_graph=True)[0]
         g_g = torch.autograd.grad(g, last, retain_graph=True)[0]
+        if mesh is not None:      # the global batch's last-layer gradients
+            all_reduce_([g_nll, g_g], mesh)
         d_weight = torch.linalg.vector_norm(g_nll) / (torch.linalg.vector_norm(g_g) + 1e-4)
         d_weight = torch.clamp(d_weight, 0.0, 1e4).detach() * cfg.disc_weight
         loss = nll + cfg.kl_weight * kl + d_weight * disc_factor * g
         trainable = list(vae.parameters()) + [state.logvar]
-        for p, gr in zip(trainable, torch.autograd.grad(loss, trainable)):
-            p.grad = gr
+        loss.backward()
+        disc.zero_grad(set_to_none=True)
+        self._reduce(trainable)
         state.opt_ae.step()
         state.opt_ae.zero_grad(set_to_none=True)
         metrics = dict(nll_loss=nll, rec_loss=rec, kl_loss=kl, g_loss=g, d_weight=d_weight,
@@ -153,11 +191,10 @@ class VAETrainer:
         logits_real = disc(images, train=True)
         logits_fake = disc(recon, train=True)
         d_loss = disc_factor * self.d_loss_fn(logits_real, logits_fake)
-        params = list(disc.parameters())
-        for p, gr in zip(params, torch.autograd.grad(d_loss, params)):
-            p.grad = gr
+        d_loss.backward()
+        self._reduce(list(disc.parameters()))
         state.opt_disc.step()
         state.opt_disc.zero_grad(set_to_none=True)
         metrics["disc_loss"] = d_loss
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics_mean({k: v.detach() for k, v in metrics.items()}, mesh)

@@ -37,6 +37,7 @@ from diffusion_spacetime_attn_tpu.training import losses as jlosses
 from diffusion_spacetime_attn_tpu.utils.tokenizer import make_roberta_tokenizer as jtokenizer
 from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig, LayoutTrainConfig
 from diffusion_spacetime_attn_tpu_torch.models.layout.model import LayoutPredictor
+from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import bench_train, train_layout
 from diffusion_spacetime_attn_tpu_torch.training import datasets as tdata
 from diffusion_spacetime_attn_tpu_torch.training import iou as tiou
@@ -313,8 +314,9 @@ def test_save_restore_gives_equal_bits(start, tmp_path):
     assert torch.equal(loss, loss2)
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                  model2.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ttrainer.LayoutTrainer.create(LayoutConfig(**TINY), LayoutTrainConfig(), fsdp=True)
+    with pytest.raises(NotImplementedError, match="A.13"):     # the model axis (A.13b)
+        ttrainer.LayoutTrainer.create(LayoutConfig(**TINY), LayoutTrainConfig(), fsdp=True,
+                                      mesh=Mesh(data=1, model=2))
 
 
 def test_train_layout_run_dir_loads(tmp_path):
@@ -343,8 +345,12 @@ def test_train_layout_run_dir_loads(tmp_path):
                                "--batch-size", "8", "--epochs", "1", "--ckpt-dir", str(run),
                                "--resume-step", "4"])
     assert again["steps"] == 6
-    with pytest.raises(NotImplementedError, match="A.13"):
-        train_layout.main(["--cpu", "--synthetic", "8", "--fsdp", "--ckpt-dir", str(run)])
+    # --fsdp on one device is ignored, as in JAX (the mesh runs are
+    # tests/test_torch_parallel_training.py's)
+    one = train_layout.main(["--cpu", "--synthetic", "8", "--layers", "1", "--heads", "2",
+                             "--batch-size", "8", "--epochs", "1", "--fsdp",
+                             "--ckpt-dir", str(tmp_path / "fsdp")])
+    assert one["steps"] == 1 and np.isfinite(one["train_losses"]).all()
 
 
 def test_bench_train_layout_keys_match_jax():

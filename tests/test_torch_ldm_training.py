@@ -33,6 +33,7 @@ from diffusion_spacetime_attn_tpu_torch import config as tcfg
 from diffusion_spacetime_attn_tpu_torch.models import encoders as tenc
 from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
 from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
+from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import bench_train, train_ldm
 from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer as tldm
 from diffusion_spacetime_attn_tpu_torch.training import schedules as tsched
@@ -385,11 +386,14 @@ def test_save_restore_resume_equals_uninterrupted(tiny_params, tmp_path):
 
 
 def test_one_device_only():
+    """The data axis is ported (`tests/test_torch_parallel_training.py`): a
+    mesh with a model axis (tensor parallelism, ROADMAP A.13b) raises, and
+    fsdp needs a mesh, as JAX's trainer asserts."""
     with pytest.raises(NotImplementedError, match="A.13"):
         tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(),
                         make_schedule(tcfg.ScheduleConfig(), 50), torch.nn.Linear(1, 1),
-                        mesh=object())
-    with pytest.raises(NotImplementedError, match="A.13"):
+                        mesh=Mesh(data=1, model=2))
+    with pytest.raises(ValueError, match="requires a mesh"):
         tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(),
                         make_schedule(tcfg.ScheduleConfig(), 50), torch.nn.Linear(1, 1),
                         fsdp=True)

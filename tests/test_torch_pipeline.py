@@ -233,7 +233,8 @@ def _forbidden(name: str) -> bool:
 
 def _port_files():
     files = sorted((ROOT / "diffusion_spacetime_attn_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "chip_spacetime_variants.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_spacetime_variants.py",
+                    ROOT / "tests" / "helpers" / "torch_ranks.py"]
 
 
 def test_import_rule_matches_names_exactly():
@@ -245,8 +246,9 @@ def test_import_rule_matches_names_exactly():
 
 
 def test_port_imports_nothing_of_jax():
-    """AST walk over every module of the port and the on-card scripts
-    (chip_smoke.py, chip_spacetime_variants.py): no import
+    """AST walk over every module of the port (`parallel/` included), the
+    on-card scripts (chip_smoke.py, chip_spacetime_variants.py) and the
+    multi-device tests' rank helper (tests/helpers/torch_ranks.py): no import
     of jax, flax, optax, orbax or the JAX package, nor of msgpack, PIL,
     safetensors, transformers, pytorch_lightning or fairseq, which the
     card's machine lacks (relative imports stay inside the port)."""
@@ -269,7 +271,10 @@ def test_port_imports_nothing_of_jax():
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "models" / "encoders.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "testbed" / "data.py",
                 scripts / "train_testbed.py", scripts / "train_ldm.py", scripts / "train_vae.py",
-                scripts / "bench_train.py"):
+                scripts / "bench_train.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "mesh.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "sharding.py",
+                ROOT / "tests" / "helpers" / "torch_ranks.py"):
         assert new in files, new
     bad = []
     for path in files:

@@ -37,6 +37,7 @@ from diffusion_spacetime_attn_tpu_torch.models.clip import CLIP, clip_normalize
 from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
 from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
 from diffusion_spacetime_attn_tpu_torch.pipeline import knn2img as tknn
+from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.pipeline import retrieval as tret
 from diffusion_spacetime_attn_tpu_torch.pipeline import safety as tsafety
 from diffusion_spacetime_attn_tpu_torch.pipeline.runners import save_image
@@ -97,11 +98,14 @@ def test_npz_databases_read_both_ways(tmp_path):
 
 
 def test_one_device_only():
+    """The data axis is ported (`tests/test_torch_parallel.py`); a mesh with
+    a model axis (tensor parallelism, ROADMAP A.13b) raises."""
+    tp = Mesh(data=1, model=2)
     with pytest.raises(NotImplementedError, match="A.13"):
-        tret.sharded_search(None, None, 1, mesh=object())
+        tret.sharded_search(None, None, 1, mesh=tp, rows=2)
     with pytest.raises(NotImplementedError, match="A.13"):
         tret.Retriever(embedding=torch.zeros(2, 4), img_id=np.arange(2),
-                       patch_coords=np.zeros((2, 4)), mesh=object())
+                       patch_coords=np.zeros((2, 4)), mesh=tp)
 
 
 TINY_CLIP = JCLIPConfig(

@@ -26,6 +26,7 @@ from diffusion_spacetime_attn_tpu.utils import convert as jconvert
 from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 from diffusion_spacetime_attn_tpu_torch.utils.png import write_png
 from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
+from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import train_vae
 from diffusion_spacetime_attn_tpu_torch.training import perceptual as tper
 from diffusion_spacetime_attn_tpu_torch.training import vae_trainer as tvt
@@ -210,5 +211,6 @@ def test_train_vae_cli(lpips_sd, tmp_path):
         np.testing.assert_array_equal(nb(i).numpy(), next(it)[0])
     out = train_vae.main(folder + ["--steps", "1", "--ckpt-every", "0"])
     assert all(np.isfinite(v) for v in out["metrics"][0].values())
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tvt.VAETrainer(AutoencoderKL(port_cfg(VAE_CFG)), tvt.VAETrainConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="A.13"):     # the model axis (A.13b)
+        tvt.VAETrainer(AutoencoderKL(port_cfg(VAE_CFG)), tvt.VAETrainConfig(),
+                       mesh=Mesh(data=1, model=2))
