@@ -71,6 +71,12 @@ script exits non-zero without its final line:
              the tile before it.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
+     knobs:  the same UNet at the engine's batch with attn_scores_dtype
+             "bfloat16" and attn_q_chunk 1024 against the defaults: equal
+             bits with the four kernel flags on (the kernels take every
+             self-attention site), within phase unet's limit on the plain
+             path; the peak memory of the plain evaluation and of one level-0
+             self-attention with and without q_chunk.
   5. slice:  the full-width pipeline in float32 (text encoder, controlled
              PLMS with 4 steps, VAE decode), kernels on vs off.
   6. chain:  the optimization's loss and its gradient in the blend weights
@@ -134,6 +140,11 @@ script exits non-zero without its final line:
  10. profile_train: one training UNet evaluation (forward, recompute,
              backward) by kernel family, and the plain MHA backward that is
              left (levels 2 and mid).
+     remat_policy: generation_loss and its dcoef on phase optimize's engine
+             (bf16, PLMS-10, batch 2, four flags) under remat=True, "dots"
+             and "dots_nb": launches chain_launches(k, 11) each, loss and
+             dcoef within 1e-3 relative of True's (bit equality reported),
+             seconds and peak memory per policy.
  11. samplers: DDIM and DPM-Solver++ through the kernels.  `samplers_chain`:
              phase chain's float32 on-vs-off check through a DDIM and a
              DPM-Solver++ chain of SLICE_STEPS steps (S evaluations each, not
@@ -212,8 +223,9 @@ script exits non-zero without its final line:
              CompVis `.ckpt` (with `model_ema.*`, `position_ids` and a
              pickled object of a module that cannot be imported) and the
              same weights as a float16 `.safetensors`, each loaded by
-             `load_stable_diffusion` in a child process from a cold page
-             cache and held parameter-exact against its generating arrays
+             `load_stable_diffusion` in a child process (the two side by
+             side) from a cold page cache and held parameter-exact against
+             its generating arrays
              (sizes, read / convert / upload s, peak RSS, card memory; the
              reader must hand over the file's dtype: float16 stays float16
              to the card and is cast there);
@@ -294,8 +306,10 @@ script exits non-zero without its final line:
              TextToImageEngine(mesh=) and Retriever(mesh=) equal to the same
              without a mesh (bytes, top-10).
      mesh2:  two processes on cuda:0 over gloo (`--mesh2-rank`; NCCL
-             refuses two ranks on one card), one spawn: the float32
-             data-parallel step at a global batch of 4 (2 rows per rank)
+             refuses two ranks on one card), one spawn: the float32 training step of the
+             SD v1-4 UNet at one residual block per level (MESH2_RES_BLOCKS:
+             SD's widths, levels and attention sites, MESH2_SITES launches),
+             data-parallel at a global batch of 4 (2 rows per rank)
              against the one-process step on that batch (the loss, the
              averaged gradients, the updated weights and EMA), the same
              under FSDP over the two ranks but the gradients (state and
@@ -304,6 +318,17 @@ script exits non-zero without its final line:
              TextToImageEngine(mesh=) at batch 2 (one row per rank),
              PLMS-10, float32, within one uint8 level of one process.  A
              rank that fails makes the script fail.
+     trace:  `scripts/profiler.py` in vanilla and spacetime mode (SD v1-4,
+             bf16, PLMS-10, batch 2, one traced call) and
+             `scripts/analyze_trace.py --json`: each kernel's device
+             functions counted in the table equal to its wrapper's launches
+             (MHA and GEGLU in vanilla mode, flash forward and backward in
+             spacetime mode), device events only, the device total.
+     flops:  `scripts/flops_model.py`'s five counts on the meta device (run
+             in the background from the start) equal to FLOPS_SD, then
+             `dpm20_b8_final_fwd` timed on the card as `--time` times it: TF/s
+             and % of the H100's 989 TF/s bf16 peak with the card's name and
+             power limit.
  25. the wall time, then the `kernels` summary line (times per UNet
      evaluation at the engine's
      batch; launches of the optimization run, of the DPM-Solver++ batch, of
@@ -395,6 +420,18 @@ def codec_image(h: int = 480, w: int = 640, seed: int = 14):
     yy, xx = np.mgrid[0:h, 0:w]
     base = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(3)], -1)
     return np.clip(base + r.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+# scripts/flops_model.py's five programs at SD v1-4 width, counted on the meta
+# device: (matmul, conv) FLOPs.  tests/test_torch_flops.py holds them against
+# the JAX package's count_flops with the strided-conv and context-projection gaps
+FLOPS_SD = {
+    "vanilla_plms50_b8": (293485982777344, 382101296775168),
+    "dpm20_b8_epoch": (393909331034112, 465584087105536),
+    "dpm20_b8_final_fwd": (119440611999744, 161904027762688),
+    "plms50_b4_epoch": (502194973966336, 563064542855168),
+    "plms50_b4_final_fwd": (152073749921792, 191050648387584),
+}
 
 
 def chain_launches(kernel: str, evals: int) -> int:
@@ -1453,17 +1490,9 @@ def _add_counts(total: dict, counts: dict):
 
 def _wrappers():
     """{kernel name: its wrapper, which carries the launch count}."""
-    from diffusion_spacetime_attn_tpu_torch.ops import (
-        cuda_flash,
-        cuda_geglu,
-        cuda_mha,
-        cuda_spacetime,
-    )
+    from diffusion_spacetime_attn_tpu_torch.ops.cuda_lib import kernel_wrappers
 
-    return {"spacetime_fwd": cuda_spacetime.fused_spacetime_attention,
-            "spacetime_bwd": cuda_spacetime.spacetime_bwd, "geglu_fwd": cuda_geglu.geglu_ff,
-            "geglu_bwd": cuda_geglu.geglu_dx, "mha_fwd": cuda_mha.mha_attention,
-            "flash_fwd": cuda_flash.flash_attention, "flash_bwd": cuda_flash.flash_bwd}
+    return kernel_wrappers()
 
 
 OBJECT_NAMES = ["cat", "dog", "tree", "car"]
@@ -2580,14 +2609,25 @@ def ingest_load_child(path: str) -> None:
         flush=True)
 
 
-def _ingest_load(path: str, smi: str) -> dict:
-    r = subprocess.run([sys.executable, "-c",
-                        "import sys, chip_smoke; chip_smoke.ingest_load_child(sys.argv[1])", path],
-                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                       text=True, timeout=900)
-    if r.returncode != 0:
-        fail(f"ingest: loading {path} failed:\n{r.stderr[-4000:]}")
-    out = json.loads(r.stdout.strip().splitlines()[-1])
+def _start_ingest_load(path: str):
+    """`ingest_load_child(path)` in a process of its own, started now."""
+    return subprocess.Popen([sys.executable, "-c",
+                             "import sys, chip_smoke; chip_smoke.ingest_load_child(sys.argv[1])",
+                             path], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_ingest_load(proc, path: str, smi: str) -> dict:
+    """Wait for a `_start_ingest_load` process and check its line."""
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        fail(f"ingest: loading {path} failed:\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
     emit({"phase": "ingest_load", **out, "nvidia_smi": smi})
     if not out["exact"]:
         fail(f"ingest: {out['file']} did not load parameter-exact: {out}")
@@ -2616,40 +2656,15 @@ def _toy_bpe(root: str):
     return vp, mp
 
 
-def phase_ingest(root: str, smi: str) -> dict:
-    """The real-weights ingestion path at full SD v1-4 width on synthetic
-    files in the published layouts (`_write_ingest_files`):
-      1. (a) and (b) through `load_stable_diffusion` onto the card, each in
-         a process of its own from a cold page cache: parameter-exact, with
-         sizes, seconds, peak RSS and card memory (`ingest_load_child`;
-         a swap of two same-shape tensors is what the CPU tests catch, bit
-         for bit against JAX's converters);
-      2. `txt2img.main(["--ckpt", (b), ...])` (bf16, PLMS-50, vanilla:
-         MHA and GEGLU 816 launches each), then (b) is deleted;
-      3. `ingest_weights.main` on (a), (c) and (d) (bf16, PLMS at
-         DRILL_STEPS, 3 epochs, one prompt): JAX's report keys, every weight
-         "checkpoint", finite CLIP scores, both PNGs, and per mode exactly
-         the launches of its kernels (vanilla: GEGLU and flash forward
-         16 / 10 per evaluation; method: opt_launches(k, DRILL_STEPS + 1)
-         of the spacetime, GEGLU and flash
-         kernels, forward and backward), with each mode's seconds;
-      4. the native BPE core built with g++ here, against the Python core
-         on small synthetic vocab files.
-    Returns {kernel: launches} over the drill and txt2img."""
+def _ingest_run(root: str, paths: dict, smi: str) -> dict:
+    """Phase ingest's steps 2-3 (txt2img on the .safetensors, the drill on
+    the .ckpt) in this process; returns {kernel: launches} over both."""
     import numpy as np
     import torch
 
     from diffusion_spacetime_attn_tpu_torch.pipeline import runners
     from diffusion_spacetime_attn_tpu_torch.scripts import ingest_weights, txt2img
-    from diffusion_spacetime_attn_tpu_torch.utils import native_bpe, tokenizer
     from diffusion_spacetime_attn_tpu_torch.utils.png import read_png
-
-    paths, gen_s, write_s = _write_ingest_files(root)
-    emit({"phase": "ingest_files", "generate_s": gen_s, "write_s": write_s,
-          "file_system": _fstype(root),
-          "bytes": {k: os.path.getsize(p) for k, p in paths.items()}})
-    for key in ("ckpt", "safetensors"):
-        _ingest_load(paths[key], smi)
 
     wrappers = _wrappers()
     total = {k: 0 for k in wrappers}
@@ -2670,7 +2685,6 @@ def phase_ingest(root: str, smi: str) -> dict:
         fail(f"ingest txt2img: launches {counts} (expected {want}), image std {img.std()}")
     for k, n in counts.items():
         total[k] += n
-    os.remove(paths["safetensors"])
 
     per_mode, real = {}, runners.PromptRunner.run_one
 
@@ -2719,6 +2733,45 @@ def phase_ingest(root: str, smi: str) -> dict:
             total[k] += n
     if problems:
         fail(f"ingest drill: {problems}")
+    return total
+
+
+def phase_ingest(root: str, smi: str) -> dict:
+    """The real-weights ingestion path at full SD v1-4 width on synthetic
+    files in the published layouts (`_write_ingest_files`):
+      1. (a) and (b) through `load_stable_diffusion` onto the card, each in
+         a process of its own from a cold page cache, the two side by side:
+         parameter-exact, with sizes, seconds, peak RSS and card memory
+         (`ingest_load_child`; a swap of two same-shape tensors is what the
+         CPU tests catch, bit for bit against JAX's converters);
+      2. `txt2img.main(["--ckpt", (b), ...])` (bf16, PLMS-50, vanilla:
+         MHA and GEGLU 816 launches each);
+      3. `ingest_weights.main` on (a), (c) and (d) (bf16, PLMS at
+         DRILL_STEPS, 3 epochs, one prompt): JAX's report keys, every weight
+         "checkpoint", finite CLIP scores, both PNGs, and per mode exactly
+         the launches of its kernels (vanilla: GEGLU and flash forward
+         16 / 10 per evaluation; method: opt_launches(k, DRILL_STEPS + 1)
+         of the spacetime, GEGLU and flash
+         kernels, forward and backward), with each mode's seconds;
+      4. the native BPE core built with g++ here, against the Python core
+         on small synthetic vocab files.
+    Returns {kernel: launches} over the drill and txt2img."""
+    from diffusion_spacetime_attn_tpu_torch.utils import native_bpe, tokenizer
+
+    paths, gen_s, write_s = _write_ingest_files(root)
+    emit({"phase": "ingest_files", "generate_s": gen_s, "write_s": write_s,
+          "file_system": _fstype(root),
+          "bytes": {k: os.path.getsize(p) for k, p in paths.items()}})
+    loads = {key: _start_ingest_load(paths[key]) for key in ("ckpt", "safetensors")}
+    try:
+        for key, proc in loads.items():
+            _finish_ingest_load(proc, paths[key], smi)
+    finally:
+        for proc in loads.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    total = _ingest_run(root, paths, smi)
 
     vp, mp = _toy_bpe(root)
     for old in native_bpe.BUILD_DIR.glob("libbpe_*.so"):    # compile it here, now
@@ -3697,18 +3750,6 @@ def phase_legacy_vg(root: str, smi: str):
         fail(f"legacy_vg: centers differ by {err} from the CPU's, files {files}")
 
 
-FAMILIES = [("flash_fwd", ("flash_fwd_",)), ("flash_bwd", ("flash_bwd_",)),
-            ("mha_fwd", ("mha_fwd_",)), ("spacetime_fwd", ("spacetime_fwd_",)),
-            ("spacetime_bwd", ("spacetime_bwd_",)),
-            ("geglu_fwd", ("geglu_gate", "geglu_out", "geglu_partial")),
-            ("geglu_bwd", ("geglu_dgate", "geglu_dx_out", "geglu_dx_partial")),
-            ("geglu_sum_slices", ("sum_slices",)),
-            ("convolution", ("conv", "implicit", "cudnn", "fprop", "dgrad", "wgrad")),
-            ("matmul", ("gemm", "cutlass", "cublas", "nvjet", "xmma")),
-            ("softmax", ("softmax",)), ("norm", ("norm",)),
-            ("optimizer", ("adam", "multi_tensor"))]    # AdamW, EMA's lerp (training)
-
-
 def _no_slices(phase: str, groups: dict):
     """The bf16 GEGLU kernels (wgmma) write no f32 slices: fail if the
     profile holds a slice sum."""
@@ -3723,6 +3764,8 @@ def _families(prof):
     as its own key."""
     import torch
 
+    from diffusion_spacetime_attn_tpu_torch.utils.profiling import kernel_family
+
     groups, kernels = {}, 0
     for e in prof.key_averages():
         if e.key == "mha_bwd_plain":
@@ -3731,8 +3774,7 @@ def _families(prof):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", 0.0)
-        name = e.key.lower()
-        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        fam = kernel_family(e.key)
         groups[fam] = groups.get(fam, 0.0) + us / 1e3
         kernels += e.count
     return groups, kernels
@@ -4294,6 +4336,12 @@ def compare_trees(other: str) -> int:
 MESH2_RANKS = 2                 # phase mesh2: processes on cuda:0 over gloo
 MESH2_ROWS = 2                  # rows per rank of phase mesh2's training steps (global 4)
 MESH2_TIMEOUT_S = 480           # the parent's join of the two ranks
+# mesh2's training steps: SD v1-4's widths, levels and attention at one
+# residual block per level (579 M parameters, 860 M at SD's two): gloo moves
+# every gradient and FSDP gather through the host, so depth is its cost;
+# phase mesh runs the full depth over one NCCL rank
+MESH2_RES_BLOCKS = 1
+MESH2_SITES = {"geglu_fwd": 10, "geglu_bwd": 10, "flash_fwd": 6, "flash_bwd": 6}
 MESH_ENGINE_STEPS = 10          # the engines' PLMS steps in phases mesh and mesh2
 MESH_DB_ROWS = 1_000_000        # phase knn2img's database size, split over mesh2's ranks
 MESH_KNN = 10
@@ -4302,9 +4350,10 @@ MESH_LIMITS = {"loss_rel": 1e-5, "grad_rel_norm": 1e-3,
                "params": "|mesh - one| <= 1e-5 + 1e-5·|one| (ratio <= 1)"}
 
 
-def _mesh_unet(dtype: str = "float32"):
-    """The SD v1-4 UNet with the training kernel flags (use_flash,
-    use_fused_ff), seeded N(0, 0.02²) weights, on the card."""
+def _mesh_unet(dtype: str = "float32", num_res_blocks: int = 2):
+    """The SD v1-4 UNet (`num_res_blocks` per level: 2 is SD's depth) with
+    the training kernel flags (use_flash, use_fused_ff), seeded N(0, 0.02²)
+    weights, on the card."""
     import torch
 
     from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
@@ -4312,7 +4361,8 @@ def _mesh_unet(dtype: str = "float32"):
     from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
 
     with torch.device("cuda"):
-        unet = UNet(UNetConfig(dtype=dtype, use_flash=True, use_fused_ff=True), radius=0.2)
+        unet = UNet(UNetConfig(dtype=dtype, use_flash=True, use_fused_ff=True,
+                               num_res_blocks=num_res_blocks), radius=0.2)
     return randomize_(unet, 1)
 
 
@@ -4330,8 +4380,8 @@ def _mesh_batch(B: int, seed: int):
 def _ldm_mesh_step(unet, mesh, fsdp: bool, x0, ctx, seed: int, grads: bool = True) -> dict:
     """One `LDMTrainer` step (AdamW, EMA) of `unet` from its weights over
     `mesh` (None: one device; x0 and ctx are this rank's rows), with the
-    step's own keys: the loss, the whole gradients (a `gradients` call
-    before the step), the whole updated weights and EMA, the step's launches
+    step's own keys: the loss, the whole gradients (taken inside the step,
+    before its update), the whole updated weights and EMA, the step's launches
     (counted around `train_step` only), seconds, the state's bytes on this
     rank and the card's allocated bytes after `init`."""
     import torch
@@ -4358,17 +4408,26 @@ def _ldm_mesh_step(unet, mesh, fsdp: bool, x0, ctx, seed: int, grads: bool = Tru
     out = {"allocated_after_init": torch.cuda.memory_allocated(), "lr": tr.lr}
     key = prng.PRNGKey(seed)
     wrappers = _wrappers()
-    with deterministic():
-        if grads:
-            tr.gradients(state, x0, ctx, key)
+    if grads:     # the step's own reduced gradients, taken just before its update
+        opt, update = state.opt_state, state.opt_state.update
+
+        def snapshot_then_update():
             out["grads"] = {k: full(p.grad).clone() for k, p in unet.named_parameters()}
-        torch.cuda.synchronize()
-        barrier(mesh)                     # the ranks start the timed step together
-        _reset_counts(wrappers.values())
-        t0 = time.perf_counter()
-        state, m = tr.train_step(state, x0, ctx, key)
-        loss = float(m["loss"])
-        torch.cuda.synchronize()
+            return update()
+
+        opt.update = snapshot_then_update
+    try:
+        with deterministic():
+            torch.cuda.synchronize()
+            barrier(mesh)                 # the ranks start the timed step together
+            _reset_counts(wrappers.values())
+            t0 = time.perf_counter()
+            state, m = tr.train_step(state, x0, ctx, key)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+    finally:
+        if grads:     # no cycle through the wrapper: the state is freed on return
+            del opt.update
     out["step_s"] = time.perf_counter() - t0
     out["launches"] = {k: w.launches for k, w in wrappers.items()}
     opt = state.opt_state
@@ -4383,10 +4442,11 @@ def _ldm_mesh_step(unet, mesh, fsdp: bool, x0, ctx, seed: int, grads: bool = Tru
     return out
 
 
-def _mesh_compare(tag: str, got: dict, ref: dict) -> dict:
+def _mesh_compare(tag: str, got: dict, ref: dict, sites=None) -> dict:
     """train_f32's limits: the loss, every gradient (when both have them),
     every updated weight and EMA copy of a mesh step against the one-device
-    step; launches exactly TRAIN_SITES.  Fails over a limit."""
+    step; launches exactly `sites` (TRAIN_SITES by default).  Fails over a
+    limit."""
     import torch
 
     loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -4402,7 +4462,7 @@ def _mesh_compare(tag: str, got: dict, ref: dict) -> dict:
             "grad_rel_norm_max": grad_rel.get(worst, 0.0), "grad_worst": worst,
             "param_ema_ratio_max": ratio, "launches": got["launches"],
             "limits": MESH_LIMITS}
-    expected = {k: TRAIN_SITES.get(k, 0) for k in got["launches"]}
+    expected = {k: (sites or TRAIN_SITES).get(k, 0) for k in got["launches"]}
     if got["launches"] != expected:
         fail(f"{tag}: launches {got['launches']}, expected {expected}")
     if not (loss_rel <= 1e-5 and line["grad_rel_norm_max"] <= 1e-3 and ratio <= 1.0):
@@ -4561,7 +4621,7 @@ def mesh2_rank(rank: int, d: str) -> None:
     # (a) the data-parallel f32 step against the one-process step on the global batch
     emit({"mesh2_rank": rank, "starts": "dp"})
     out["t_starts"]["dp"] = round(time.perf_counter() - _T0, 1)
-    unet = _mesh_unet()
+    unet = _mesh_unet(num_res_blocks=MESH2_RES_BLOCKS)
     start = {k: v.detach().clone() for k, v in unet.state_dict().items()}
     dp = _ldm_mesh_step(unet, mesh, False, x0[mine], ctx[mine], 42)
     _sum_launches(out["launches"], dp["launches"])
@@ -4578,7 +4638,8 @@ def mesh2_rank(rank: int, d: str) -> None:
         with torch.no_grad():
             unet.load_state_dict(start)
         ref = _ldm_mesh_step(unet, None, False, x0, ctx, 42)
-        out["dp"].update(_mesh_compare("mesh2_dp", dp, ref), s_per_step_one=ref["step_s"])
+        out["dp"].update(_mesh_compare("mesh2_dp", dp, ref, MESH2_SITES),
+                         s_per_step_one=ref["step_s"])
         ref = {k: ref[k] for k in ("loss", "params", "ema")}
     del dp
     torch.cuda.empty_cache()
@@ -4595,7 +4656,7 @@ def mesh2_rank(rank: int, d: str) -> None:
                    "state_bytes": fs["state_bytes"], "replicated_bytes": fs["replicated_bytes"],
                    "allocated_after_init": fs["allocated_after_init"]}
     if rank == 0:
-        out["fsdp"].update(_mesh_compare("mesh2_fsdp", fs, ref))
+        out["fsdp"].update(_mesh_compare("mesh2_fsdp", fs, ref, MESH2_SITES))
     del fs, unet, ref
     torch.cuda.empty_cache()
     # (c) the sharded search over phase knn2img's database size
@@ -4643,8 +4704,9 @@ def mesh2_rank(rank: int, d: str) -> None:
 
 def phase_mesh2(smi: str) -> dict:
     """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
-    card), one spawn for all of it (`mesh2_rank`): the SD v1-4 UNet
-    data-parallel f32 step at a global batch of 4 (2 rows per rank) against
+    card), one spawn for all of it (`mesh2_rank`): the SD v1-4 UNet at MESH2_RES_BLOCKS residual
+    blocks per level, its data-parallel f32 step at a global batch of 4
+    (2 rows per rank) against
     the one-process step on the same batch (train_f32's limits: the loss,
     the gradients averaged over the ranks, the updated weights and EMA), the
     same under FSDP over the two ranks but the gradients (state bytes and
@@ -4694,6 +4756,266 @@ def phase_mesh2(smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------- the measuring tools
+
+KNOB_Q_CHUNK = 1024             # phase knobs: attn_q_chunk (4 chunks at level 0's 4096 tokens)
+POLICY_STEPS = 10               # phase remat_policy's PLMS steps (as phase optimize)
+TRACE_STEPS, TRACE_BATCH = 10, 2
+# phase trace: per wrapper, the device kernels it launches once per call
+# (GEGLU's wgmma design: gate then out; the flash backward's: dq, then dK/dV)
+TRACE_KERNELS = {"vanilla": {"mha_fwd": ("mha_fwd_",),
+                             "geglu_fwd": ("geglu_gate_wgmma_kernel", "geglu_out_wgmma_kernel")},
+                 "spacetime": {"flash_fwd": ("flash_fwd_",),
+                               "flash_bwd": ("flash_bwd_dq_", "flash_bwd_dkv_")}}
+FLOPS_TIMED = "dpm20_b8_final_fwd"
+FLOPS_JOBS = 3                  # the background count's processes (beside the card's phases)
+
+
+def phase_knobs():
+    """UNetConfig's memory knobs at full SD v1-4 width, bf16, the engine's
+    batch (2 prompts = 4 CFG rows, 4 objects): attn_scores_dtype="bfloat16"
+    with attn_q_chunk=KNOB_Q_CHUNK against the defaults, on the same
+    weights.  With the kernels on (flash, MHA, GEGLU, spacetime) every
+    self-attention site is a kernel's, which the knobs leave alone: equal
+    bits.  On the plain path the knobs move eps within phase unet's bf16
+    limit.  Recorded: the peak memory of the plain UNet evaluation and of one
+    level-0 self-attention (4096 tokens, 8 heads) with and without q_chunk."""
+    import dataclasses
+
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.layers import cast_matmul_weights
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.ops.attention import attention
+    from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    dev = torch.device("cuda")
+    knobs = dict(attn_scores_dtype="bfloat16", attn_q_chunk=KNOB_Q_CHUNK)
+    on = UNetConfig(dtype="bfloat16", use_flash=True, use_mha=True, use_fused_ff=True,
+                    use_fused_control=True)
+    off = UNetConfig(dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((2 * SERVE_PROMPTS, 64, 64, 4), generator=gen, device=dev)
+    t = torch.full((2 * SERVE_PROMPTS,), 981, dtype=torch.int32, device=dev)
+    ctx = torch.randn((2 * SERVE_PROMPTS, CONTEXT_LEN, 768), generator=gen, device=dev)
+    ctl = _control(SERVE_PROMPTS, dev, gen)
+    state, eps, peak, secs = None, {}, {}, {}
+    for name, cfg in (("on", on), ("on_knobs", dataclasses.replace(on, **knobs)),
+                      ("off", off), ("off_knobs", dataclasses.replace(off, **knobs))):
+        with torch.device(dev):
+            unet = UNet(cfg)
+        if state is None:
+            randomize_(unet, seed=1)
+            state = {k: v.clone() for k, v in unet.state_dict().items()}
+        else:
+            unet.load_state_dict(state)
+        cast_matmul_weights(unet).eval().requires_grad_(False)
+        with torch.inference_mode(), deterministic():
+            unet(x, t, ctx, ctl)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eps[name] = unet(x, t, ctx, ctl)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            peak[name] = torch.cuda.max_memory_allocated() - base
+        del unet
+        torch.cuda.empty_cache()
+    q = torch.randn((2 * SERVE_PROMPTS, 4096, 320), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    level0 = {}
+    with torch.inference_mode():
+        for chunk in (0, KNOB_Q_CHUNK):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            attention(q, q, q, HEADS, q_chunk=chunk, scores_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            level0[chunk] = torch.cuda.max_memory_allocated() - base
+    equal = bool(torch.equal(eps["on"], eps["on_knobs"]))
+    diff = float((eps["off_knobs"] - eps["off"]).abs().max())
+    scale = float(eps["off"].abs().max())
+    tol = 5e-2 * scale + 1e-3
+    emit({"phase": "knobs", "knobs": knobs, "rows": 2 * SERVE_PROMPTS,
+          "kernels_on_equal_bits": equal, "plain_max_abs_diff": diff, "max_abs_eps": scale,
+          "tol": tol, "eval_s": secs, "eval_peak_bytes": peak,
+          "level0_attention_peak_bytes": {"q_chunk_0": level0[0],
+                                          f"q_chunk_{KNOB_Q_CHUNK}": level0[KNOB_Q_CHUNK]}})
+    if not equal:
+        fail("knobs: the kernels-on UNet changed with attn_scores_dtype / attn_q_chunk")
+    if not (torch.isfinite(eps["off_knobs"]).all() and diff <= tol and scale > 0):
+        fail(f"knobs: plain path with the knobs vs without, max diff {diff} > {tol}")
+    if not level0[KNOB_Q_CHUNK] < level0[0]:
+        fail(f"knobs: q_chunk did not lower the level-0 peak ({level0})")
+
+
+def phase_remat_policy(engine):
+    """`generation_loss` and its gradient in the blend weights at full SD
+    v1-4 width, bf16, PLMS at POLICY_STEPS, batch 2, 4 objects, the four
+    kernel flags (phase optimize's engine), under remat=True, "dots" and
+    "dots_nb": each launches chain_launches(k, POLICY_STEPS + 1) of every
+    kernel (the CUDA kernels are no aten ops: the recompute runs them again
+    under every policy); loss and dcoef within 1e-3 relative of True's (bit
+    equality reported); seconds and peak memory per policy."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.pipeline.spacetime import generation_loss, init_coef
+
+    sd, clip_loss = engine.runner.sd, engine.runner.clip_loss
+    if sd.schedule.num_steps != POLICY_STEPS:
+        fail(f"remat_policy: the engine runs {sd.schedule.num_steps} steps")
+    wrappers = _wrappers()
+    evals = chain_evals("plms", POLICY_STEPS)
+    want = {k: chain_launches(k, evals) for k in wrappers}
+    with torch.no_grad():
+        inputs = engine._inputs(["a cat and a dog near a tree and a car", "a dog left of a car"],
+                                [11, 12])
+    out = {}
+    for policy in (True, "dots", "dots_nb"):
+        coef = init_coef(inputs.active, POLICY_STEPS,
+                         sd.cfg.spacetime.init_coef).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts(wrappers.values())
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = generation_loss(coef, sd, clip_loss, inputs, sd.cfg.spacetime, "plms",
+                                      remat=policy)
+            loss.backward()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: w.launches for k, w in wrappers.items()}
+        out[policy] = (loss.detach().float(), coef.grad.float().clone())
+        line = {"phase": "remat_policy", "remat": policy, "steps": POLICY_STEPS,
+                "batch": SERVE_PROMPTS, "seconds": seconds,
+                "peak_bytes_over_weights": torch.cuda.max_memory_allocated() - base,
+                "loss": float(loss.detach()), "launches": launched}
+        if policy is not True:
+            (l0, g0), (l1, g1) = out[True], out[policy]
+            line.update(loss_rel=float((l1 - l0).abs() / l0.abs()),
+                        dcoef_rel_norm=float(torch.linalg.vector_norm(g1 - g0)
+                                             / torch.linalg.vector_norm(g0)),
+                        equal_bits=bool(torch.equal(l0, l1) and torch.equal(g0, g1)))
+        emit(line)
+        if launched != want:
+            fail(f"remat_policy {policy}: launches {launched}, expected {want}")
+        if not (torch.isfinite(loss) and torch.isfinite(coef.grad).all()):
+            fail(f"remat_policy {policy}: loss or gradient not finite")
+        if policy is not True and not (line["loss_rel"] <= 1e-3
+                                       and line["dcoef_rel_norm"] <= 1e-3):
+            fail(f"remat_policy {policy}: loss rel {line['loss_rel']}, dcoef rel norm "
+                 f"{line['dcoef_rel_norm']} against remat=True (> 1e-3)")
+        del loss, coef
+
+
+def phase_trace(root: str):
+    """`scripts/profiler.main` in vanilla and spacetime mode (SD v1-4, bf16,
+    PLMS at TRACE_STEPS, batch TRACE_BATCH, one traced iteration) and
+    `scripts/analyze_trace.main --json` on each trace: for each kernel of
+    TRACE_KERNELS, the count of each of its device kernels in the table
+    equals its wrapper's launch count over the traced iteration; the table
+    holds device events only (no CPU op, runtime call or range); the device
+    total per mode is recorded."""
+    import contextlib
+    import io
+
+    from diffusion_spacetime_attn_tpu_torch.scripts import analyze_trace, profiler
+
+    for mode, kernels in TRACE_KERNELS.items():
+        d = os.path.join(root, mode)
+        t0 = time.perf_counter()
+        line = profiler.main(["--mode", mode, "--batch", str(TRACE_BATCH), "--steps",
+                              str(TRACE_STEPS), "--iters", "1", "--trace-dir", d])
+        profile_s = time.perf_counter() - t0
+        events = analyze_trace.load_events(line["trace"])
+        buf = io.StringIO()            # the analyzer's --json on the trace loaded once
+        with contextlib.redirect_stdout(buf), \
+                mock.patch.object(analyze_trace, "load_events", lambda path: events):
+            analyze_trace.main(["--trace-dir", d, "--json", "--top", "1000000"])
+        rows = json.loads(buf.getvalue())
+        cpu_names = {e.get("name") for e in events
+                     if e.get("cat") not in analyze_trace.DEVICE_CATEGORIES}
+        counts = {k: {p: sum(r["count"] for r in rows if r["op"].startswith(p)) for p in pre}
+                  for k, pre in kernels.items()}
+        emit({"phase": "trace", "mode": mode, "steps": TRACE_STEPS, "batch": TRACE_BATCH,
+              "seconds": profile_s, "trace_mb": os.path.getsize(line["trace"]) / 2 ** 20,
+              "device_total_ms": sum(r["total_ms"] for r in rows), "rows": len(rows),
+              "launches": line["launches"], "table_counts": counts,
+              "top": [{k: r[k] for k in ("op", "family", "total_ms", "count")}
+                      for r in rows[:8]]})
+        for k, by in counts.items():
+            if line["launches"][k] == 0 or any(n != line["launches"][k] for n in by.values()):
+                fail(f"trace {mode}: {k} launched {line['launches'][k]} times, the table "
+                     f"counts {by}")
+        overlap = cpu_names & {r["op"] for r in rows}
+        if not rows or overlap:
+            fail(f"trace {mode}: {len(rows)} rows, CPU events in the table: {sorted(overlap)[:5]}")
+        os.remove(line["trace"])
+
+
+def start_flops_count(root: str):
+    """`scripts/flops_model.py` counting the five programs on the meta device
+    in the background (FLOPS_JOBS processes at the lowest CPU priority, no
+    card), beside the card's phases; `phase_flops` reads its artifact."""
+    out = os.path.join(root, "mfu_counts.json")
+    log = open(os.path.join(root, "flops_model.log"), "w")
+    proc = subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                             "diffusion_spacetime_attn_tpu_torch.scripts.flops_model",
+                             "--jobs", str(FLOPS_JOBS), "--out", out],
+                            stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out, log
+
+
+def stop_flops_count(count) -> None:
+    """Stop the count and its pool's processes (one process group)."""
+    import signal
+
+    proc = count[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def phase_flops(count, smi: str):
+    """The background count's five programs must equal FLOPS_SD (matmul and
+    conv, exactly); then FLOPS_TIMED runs on the card as `flops_model.py
+    --time` runs it (kernels on, bf16, one call, then the median of 3): its
+    TF/s and % of the H100's 989 TF/s bf16 peak, beside the card's name and
+    power limit."""
+    from diffusion_spacetime_attn_tpu_torch.scripts import flops_model
+
+    proc, path, log = count
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        log.close()
+    waited_s = time.perf_counter() - t0
+    if rc != 0:
+        with open(log.name) as f:
+            print(f.read()[-3000:], flush=True)
+        fail(f"flops: flops_model.py exited with {rc}")
+    with open(path) as f:
+        art = json.load(f)
+    counts = {n: (r["matmul_flops"], r["conv_flops"]) for n, r in art["programs"].items()}
+    if counts != {n: tuple(map(float, v)) for n, v in FLOPS_SD.items()}:
+        fail(f"flops: meta-device counts {counts} differ from FLOPS_SD")
+    s = flops_model.time_program(FLOPS_TIMED, iters=3)
+    mm, conv = counts[FLOPS_TIMED]
+    row = flops_model.mfu_row({"matmul": mm, "conv": conv, "total": mm + conv},
+                              {"s_per_call": s, "nvidia_smi": smi})
+    emit({"phase": "flops", "count_device": art["count_device"], "count_s": art["count_s"],
+          "waited_s": waited_s, "counts": counts,
+          "pflops_per_call": {n: r["pflops_per_call"] for n, r in art["programs"].items()},
+          "timed": FLOPS_TIMED, **row, "peak_tfs": flops_model.H100_PEAK_TFS_BF16})
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--compare":
         return compare_trees(os.path.abspath(sys.argv[2]))
@@ -4716,121 +5038,133 @@ def main() -> int:
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    agg = phase_kernels()
-    agg.update(phase_kernels_bwd())
-    phase_kernels(RDM_SITES, RDM_PROMPTS, RDM_HEAD_WIDTH, "kernel_rdm", RDM_DESIGNS,
-                  ("mha", "geglu"))
-    phase_unet()
-    phase_slice()
-    phase_chain()
-    import torch
+    flops_root = tempfile.mkdtemp()
+    count = start_flops_count(flops_root)
+    try:
+        agg = phase_kernels()
+        agg.update(phase_kernels_bwd())
+        phase_kernels(RDM_SITES, RDM_PROMPTS, RDM_HEAD_WIDTH, "kernel_rdm", RDM_DESIGNS,
+                      ("mha", "geglu"))
+        phase_unet()
+        phase_knobs()
+        phase_slice()
+        phase_chain()
+        import torch
 
-    serve_launches, serve_designs, sd = phase_serve()
-    phase_profile(sd)
-    http_launches = phase_http(sd)
-    loadtest_launches = phase_loadtest(sd, smi)
-    del sd
-    torch.cuda.empty_cache()
-    cli_launches = phase_serve_cli()
-    torch.cuda.empty_cache()
-    launches, opt_designs, engine = phase_optimize()
-    phase_profile_train(engine.runner.sd)
-    dpm_launches = phase_samplers(engine)
-    del engine
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        image_launches = phase_image_in(root, smi)
-    torch.cuda.empty_cache()
-    phase_testbed()
-    phase_layout()
-    phase_slot()
-    with tempfile.TemporaryDirectory() as root:
-        runner_launches, results = phase_runner(root)
-        phase_eval(root, results)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        ingest_launches = phase_ingest(root, smi)
-    torch.cuda.empty_cache()
-    phase_train_check()
-    with tempfile.TemporaryDirectory() as root:
-        train_counts = phase_train_bench(root, smi)
-        phase_train_cli(root)
-    torch.cuda.empty_cache()
-    phase_knn2img_f32()
-    with tempfile.TemporaryDirectory() as root:
-        knn2img_launches, knn2img_images = phase_knn2img(root, smi)
-    phase_safety(knn2img_images, smi)
-    del knn2img_images
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as root:
-        phase_train_layout(root, smi)
-    torch.cuda.empty_cache()
-    phase_image_io(smi)
-    with tempfile.TemporaryDirectory() as root:
-        data_launches = phase_train_data(root, smi)
-    with tempfile.TemporaryDirectory() as root:
-        phase_legacy_vg(root, smi)
-    torch.cuda.empty_cache()
-    mesh_launches = phase_mesh(smi)
-    _sum_launches(mesh_launches, phase_mesh2(smi))
-    missing = [k for k in ("geglu_fwd", "geglu_bwd", "flash_fwd", "flash_bwd", "mha_fwd")
-               if mesh_launches.get(k, 0) == 0]
-    if missing:
-        fail(f"kernels never launched on the mesh path: {missing}")
-    for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
-                         ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
-        missing = [k for k in KERNELS if counts.get(k, 0) == 0]
+        serve_launches, serve_designs, sd = phase_serve()
+        phase_profile(sd)
+        http_launches = phase_http(sd)
+        loadtest_launches = phase_loadtest(sd, smi)
+        del sd
+        torch.cuda.empty_cache()
+        cli_launches = phase_serve_cli()
+        torch.cuda.empty_cache()
+        launches, opt_designs, engine = phase_optimize()
+        phase_profile_train(engine.runner.sd)
+        phase_remat_policy(engine)
+        dpm_launches = phase_samplers(engine)
+        del engine
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            image_launches = phase_image_in(root, smi)
+        torch.cuda.empty_cache()
+        phase_testbed()
+        phase_layout()
+        phase_slot()
+        with tempfile.TemporaryDirectory() as root:
+            runner_launches, results = phase_runner(root)
+            phase_eval(root, results)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            ingest_launches = phase_ingest(root, smi)
+        torch.cuda.empty_cache()
+        phase_train_check()
+        with tempfile.TemporaryDirectory() as root:
+            train_counts = phase_train_bench(root, smi)
+            phase_train_cli(root)
+        torch.cuda.empty_cache()
+        phase_knn2img_f32()
+        with tempfile.TemporaryDirectory() as root:
+            knn2img_launches, knn2img_images = phase_knn2img(root, smi)
+        phase_safety(knn2img_images, smi)
+        del knn2img_images
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root:
+            phase_train_layout(root, smi)
+        torch.cuda.empty_cache()
+        phase_image_io(smi)
+        with tempfile.TemporaryDirectory() as root:
+            data_launches = phase_train_data(root, smi)
+        with tempfile.TemporaryDirectory() as root:
+            phase_legacy_vg(root, smi)
+        torch.cuda.empty_cache()
+        mesh_launches = phase_mesh(smi)
+        _sum_launches(mesh_launches, phase_mesh2(smi))
+        with tempfile.TemporaryDirectory() as root:
+            phase_trace(root)
+        torch.cuda.empty_cache()
+        phase_flops(count, smi)
+        missing = [k for k in ("geglu_fwd", "geglu_bwd", "flash_fwd", "flash_bwd", "mha_fwd")
+                   if mesh_launches.get(k, 0) == 0]
         if missing:
-            fail(f"kernels never launched on the {path} path: {missing}")
-    by_design = {}
-    for counts in (serve_designs, opt_designs):
-        _add_counts(by_design, counts)
+            fail(f"kernels never launched on the mesh path: {missing}")
+        for path, counts in (("optimization", launches), ("DPM-Solver++ optimization", dpm_launches),
+                             ("dataset sweep", runner_launches), ("ingestion", ingest_launches)):
+            missing = [k for k in KERNELS if counts.get(k, 0) == 0]
+            if missing:
+                fail(f"kernels never launched on the {path} path: {missing}")
+        by_design = {}
+        for counts in (serve_designs, opt_designs):
+            _add_counts(by_design, counts)
 
-    rows = []
-    for kname, meta in KERNELS.items():
-        a = agg[kname]
-        row = {"name": kname, **meta, "launches": launches[kname],
-               "serve_launches": serve_launches.get(kname, 0),
-               "dpm_launches": dpm_launches[kname],
-               "runner_launches": runner_launches[kname],
-               "http_launches": http_launches[kname],
-               "loadtest_launches": loadtest_launches[kname],
-               "cli_launches": cli_launches[kname],
-               "ingest_launches": ingest_launches[kname],
-               "image_in_launches": image_launches[kname],
-               "train_launches": train_counts[kname],
-               "knn2img_launches": knn2img_launches[kname],
-               "data_train_launches": data_launches[kname],
-               "mesh_launches": mesh_launches.get(kname, 0),
-               "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
-               "bound_ms": a["bound_ms"],
-               "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
-                            else "bytes"),
-               "library_ms": a["library_ms"]}
-        if kname in by_design:   # the designs the serving and optimization runs took
-            row["design"] = "+".join(d for d, n in sorted(by_design[kname].items()) if n)
-            row["launches_by_design"] = by_design[kname]
-        rows.append(row)
-    # times: per UNet evaluation at the engine's batch of 2 prompts (each
-    # kernel's sites: 16, flash 10 at levels 0 and 1, MHA timed at all 16;
-    # bfloat16; the spacetime backward without dK/dV); launches: the
-    # optimization run (2 batches), serve_launches: the serving run,
-    # dpm_launches: the DPM-Solver++ optimization batch (phase samplers),
-    # runner_launches: the dataset sweep's three modes (phase runner);
-    # http_launches, loadtest_launches, cli_launches: phases http (spatial),
-    # loadtest (vanilla) and serve_cli (spacetime); ingest_launches: phase
-    # ingest's drill (both modes) and txt2img; image_in_launches: phase
-    # image_in's bf16 runs (img2img, inpaint, the unconditional DDIM and DDPM,
-    # each through the library and the entry point but DDPM); train_launches:
-    # phase train_bench's bf16 training steps (bench_train's warm-up and
-    # TRAIN_STEPS timed steps at batch 4; GEGLU and flash only);
-    # knn2img_launches: phase knn2img's entry-point batch (RDM, DDIM-50,
-    # 3 prompts; MHA and GEGLU only); data_train_launches: phase train_data's
-    # train_ldm runs from image folders (text, class, superres; GEGLU and
-    # flash only); mesh_launches: phases mesh and mesh2 (the training
-    # steps over the mesh, counted around train_step, and the engines over
-    # it, both ranks of mesh2 summed); launches_by_design: the serving and
-    # optimization runs
+        rows = []
+        for kname, meta in KERNELS.items():
+            a = agg[kname]
+            row = {"name": kname, **meta, "launches": launches[kname],
+                   "serve_launches": serve_launches.get(kname, 0),
+                   "dpm_launches": dpm_launches[kname],
+                   "runner_launches": runner_launches[kname],
+                   "http_launches": http_launches[kname],
+                   "loadtest_launches": loadtest_launches[kname],
+                   "cli_launches": cli_launches[kname],
+                   "ingest_launches": ingest_launches[kname],
+                   "image_in_launches": image_launches[kname],
+                   "train_launches": train_counts[kname],
+                   "knn2img_launches": knn2img_launches[kname],
+                   "data_train_launches": data_launches[kname],
+                   "mesh_launches": mesh_launches.get(kname, 0),
+                   "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+                   "bound_ms": a["bound_ms"],
+                   "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
+                                else "bytes"),
+                   "library_ms": a["library_ms"]}
+            if kname in by_design:   # the designs the serving and optimization runs took
+                row["design"] = "+".join(d for d, n in sorted(by_design[kname].items()) if n)
+                row["launches_by_design"] = by_design[kname]
+            rows.append(row)
+        # times: per UNet evaluation at the engine's batch of 2 prompts (each
+        # kernel's sites: 16, flash 10 at levels 0 and 1, MHA timed at all 16;
+        # bfloat16; the spacetime backward without dK/dV); launches: the
+        # optimization run (2 batches), serve_launches: the serving run,
+        # dpm_launches: the DPM-Solver++ optimization batch (phase samplers),
+        # runner_launches: the dataset sweep's three modes (phase runner);
+        # http_launches, loadtest_launches, cli_launches: phases http (spatial),
+        # loadtest (vanilla) and serve_cli (spacetime); ingest_launches: phase
+        # ingest's drill (both modes) and txt2img; image_in_launches: phase
+        # image_in's bf16 runs (img2img, inpaint, the unconditional DDIM and DDPM,
+        # each through the library and the entry point but DDPM); train_launches:
+        # phase train_bench's bf16 training steps (bench_train's warm-up and
+        # TRAIN_STEPS timed steps at batch 4; GEGLU and flash only);
+        # knn2img_launches: phase knn2img's entry-point batch (RDM, DDIM-50,
+        # 3 prompts; MHA and GEGLU only); data_train_launches: phase train_data's
+        # train_ldm runs from image folders (text, class, superres; GEGLU and
+        # flash only); mesh_launches: phases mesh and mesh2 (the training
+        # steps over the mesh, counted around train_step, and the engines over
+        # it, both ranks of mesh2 summed); launches_by_design: the serving and
+        # optimization runs
+    finally:
+        stop_flops_count(count)         # a no-op unless a phase failed first
+        shutil.rmtree(flops_root, ignore_errors=True)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

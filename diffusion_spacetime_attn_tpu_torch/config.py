@@ -1,8 +1,6 @@
 """Typed configuration, a copy of the JAX package's `config.py` dataclasses.
 
-Same fields, same defaults.  Fields whose feature the port does not implement
-raise `NotImplementedError` when set away from their default, so no setting is
-silently ignored.
+Same fields, same defaults.
 """
 from __future__ import annotations
 
@@ -40,21 +38,19 @@ class UNetConfig:
     use_fused_control: bool = False
     # GEGLU feed-forward through the CUDA kernel (ops/cuda_geglu.py)
     use_fused_ff: bool = False
-    # the remaining knobs are TPU memory/fusion probes the port lacks
+    # JAX's optimization_barrier between each ResBlock's GroupNorm+SiLU and
+    # its conv.  Eager PyTorch always materializes that output before the
+    # conv, which is what the barrier forces in XLA, so the flag changes
+    # nothing here
     conv_norm_barrier: bool = False
+    # >0: the plain self-attention path in query chunks of this size (the
+    # same numerics, O(q_chunk·Lk) score memory instead of O(Lq·Lk)); a site
+    # a kernel takes is untouched (ops/attention.py)
     attn_q_chunk: int = 0
+    # dtype the plain self-attention's float32 scores are rounded to before
+    # the float32 scale and softmax ("float32" | "bfloat16"); a site a
+    # kernel takes is untouched
     attn_scores_dtype: str = "float32"
-
-    def __post_init__(self):
-        unsupported = {
-            "attn_q_chunk": self.attn_q_chunk != 0,
-            "attn_scores_dtype": self.attn_scores_dtype != "float32",
-            "conv_norm_barrier": self.conv_norm_barrier,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"UNetConfig fields not implemented by the PyTorch port: {bad}")
 
 
 @dataclasses.dataclass(frozen=True)

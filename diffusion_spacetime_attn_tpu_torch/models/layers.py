@@ -121,7 +121,8 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dtype=torch.float32, flash: bool = False,
-                 mha: bool = False, fused_control: bool = False):
+                 mha: bool = False, fused_control: bool = False, q_chunk: int = 0,
+                 scores_dtype=None):
         super().__init__()
         inner = query_dim
         cdim = query_dim if context_dim is None else context_dim
@@ -131,11 +132,13 @@ class CrossAttention(nn.Module):
         self.to_out = Dense(inner, query_dim, dtype=dtype)
         self.heads, self.flash, self.mha = heads, flash, mha
         self.fused_control = fused_control
+        self.q_chunk, self.scores_dtype = q_chunk, scores_dtype
 
     def forward(self, x, context=None):
         context = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
-        return self.to_out(attention(q, k, v, self.heads, flash=self.flash, mha=self.mha))
+        return self.to_out(attention(q, k, v, self.heads, flash=self.flash, mha=self.mha,
+                                     q_chunk=self.q_chunk, scores_dtype=self.scores_dtype))
 
     def controlled(self, x, context, control: Optional[SpatialControl], radius: float):
         """Cross-attention with the spatial blend on the cond rows."""
@@ -154,21 +157,25 @@ class BasicTransformerBlock(nn.Module):
 
     `context_dim=None` builds the unconditional block (the reference's
     unconditional LDM configs): `attn2` is a second self-attention with
-    dim -> dim projections, routed flash ▸ mha ▸ plain by the same flags as
-    `attn1` (JAX `models/layers.py:193-214`).  A block built one way raises
-    when called the other way."""
+    dim -> dim projections, routed flash ▸ mha ▸ q_chunk ▸ plain by the same
+    flags and knobs as `attn1` (JAX `models/layers.py:193-214`); the knobs
+    reach self-attention only.  A block built one way raises when called the
+    other way."""
 
     def __init__(self, dim: int, heads: int, context_dim: Optional[int], radius: float = 0.2,
                  dtype=torch.float32, flash: bool = False, mha: bool = False,
-                 fused_control: bool = False, fused_ff: bool = False):
+                 fused_control: bool = False, fused_ff: bool = False, q_chunk: int = 0,
+                 scores_dtype=None):
         super().__init__()
         self.conditional = context_dim is not None
-        self.attn1 = CrossAttention(dim, heads=heads, dtype=dtype, flash=flash, mha=mha)
+        self_attn = dict(heads=heads, dtype=dtype, flash=flash, mha=mha, q_chunk=q_chunk,
+                         scores_dtype=scores_dtype)
+        self.attn1 = CrossAttention(dim, **self_attn)
         if self.conditional:
             self.attn2 = CrossAttention(dim, context_dim=context_dim, heads=heads,
                                         dtype=dtype, fused_control=fused_control)
         else:
-            self.attn2 = CrossAttention(dim, heads=heads, dtype=dtype, flash=flash, mha=mha)
+            self.attn2 = CrossAttention(dim, **self_attn)
         self.norm1, self.norm2, self.norm3 = (LayerNorm32(dim) for _ in range(3))
         self.ff = GEGLUFeedForward(dim, dtype=dtype, fused=fused_ff)
         self.radius = radius
@@ -192,7 +199,8 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, channels: int, heads: int, context_dim: Optional[int], depth: int = 1,
                  radius: float = 0.2, dtype=torch.float32, flash: bool = False,
-                 mha: bool = False, fused_control: bool = False, fused_ff: bool = False):
+                 mha: bool = False, fused_control: bool = False, fused_ff: bool = False,
+                 q_chunk: int = 0, scores_dtype=None):
         super().__init__()
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Conv(channels, channels, 1, dtype=dtype)
@@ -200,7 +208,8 @@ class SpatialTransformer(nn.Module):
         for d in range(depth):
             self.add_module(f"block_{d}", BasicTransformerBlock(
                 channels, heads, context_dim, radius=radius, dtype=dtype, flash=flash,
-                mha=mha, fused_control=fused_control, fused_ff=fused_ff))
+                mha=mha, fused_control=fused_control, fused_ff=fused_ff, q_chunk=q_chunk,
+                scores_dtype=scores_dtype))
         self.proj_out = Conv(channels, channels, 1, dtype=dtype)
 
     def forward(self, x, context=None, control=None):

@@ -50,12 +50,16 @@ class UNet(nn.Module):
         self.time_embed_0 = Dense(mc, emb_dim, dtype=dt)
         self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dt)
 
+        scores_dtype = (None if cfg.attn_scores_dtype == "float32"
+                        else torch_dtype(cfg.attn_scores_dtype))
+
         def transformer(ch):
             heads = ch // cfg.num_head_channels if cfg.num_head_channels else cfg.num_heads
             return SpatialTransformer(
                 ch, heads, cfg.context_dim if conditional else None,
                 depth=cfg.transformer_depth, radius=radius, dtype=dt, flash=cfg.use_flash,
-                mha=cfg.use_mha, fused_control=cfg.use_fused_control, fused_ff=cfg.use_fused_ff)
+                mha=cfg.use_mha, fused_control=cfg.use_fused_control, fused_ff=cfg.use_fused_ff,
+                q_chunk=cfg.attn_q_chunk, scores_dtype=scores_dtype)
 
         self.in_conv = Conv(cfg.in_channels, mc, 3, padding=1, dtype=dt)
         skips = [mc]

@@ -37,14 +37,21 @@ class SpatialControl(NamedTuple):
 
 
 def attention(q, k, v, num_heads: int, *, out_dtype=None, flash: bool = False,
-              mha: bool = False):
+              mha: bool = False, q_chunk: int = 0, scores_dtype=None):
     """Softmax attention.  q: [B, Lq, H*Dh], k/v: [B, Lk, H*Dh].
 
+    Routed as in the JAX package, flash ▸ mha ▸ q_chunk ▸ plain.
     flash=True routes the shapes that pass `flash_ok` through the CUDA flash
     kernels' wrapper (`ops/cuda_flash.py`, forward and backward).  mha=True
     routes self-attention (Lq == Lk) through the CUDA MHA kernel's wrapper
-    (`ops/cuda_mha.py`); flash wins where both apply, as in the JAX package.
-    Both wrappers take plain PyTorch versions for CPU tensors.
+    (`ops/cuda_mha.py`).  Both wrappers take plain PyTorch versions for CPU
+    tensors.  On the plain path, q_chunk > 0 (dividing Lq, smaller than it)
+    computes the query axis in chunks one after another, as JAX's `lax.map`
+    does: each row's softmax still sees every key, so the numerics are the
+    same, and the float32 scores shrink from [B, H, Lq, Lk] to
+    [B, H, q_chunk, Lk].  scores_dtype (a torch dtype other than float32)
+    rounds the float32 scores to it before the float32 scale and softmax, as
+    JAX stores its narrow score buffer.  A site a kernel takes ignores both.
     """
     B, Lq, inner = q.shape
     Lk = k.shape[-2]
@@ -54,12 +61,18 @@ def attention(q, k, v, num_heads: int, *, out_dtype=None, flash: bool = False,
         from .cuda_mha import mha_attention
 
         return mha_attention(q, k, v, num_heads, out_dtype=out_dtype)
+    if q_chunk and Lq > q_chunk and Lq % q_chunk == 0:
+        return torch.cat([attention(qc, k, v, num_heads, out_dtype=out_dtype,
+                                    scores_dtype=scores_dtype)
+                          for qc in q.split(q_chunk, dim=1)], dim=1)
     dh = inner // num_heads
     scale = dh ** -0.5
     qh = q.reshape(B, Lq, num_heads, dh).float()
     kh = k.reshape(B, Lk, num_heads, dh).float()
     vh = v.reshape(B, Lk, num_heads, dh)
     sim = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+    if scores_dtype is not None and scores_dtype != torch.float32:
+        sim = sim.to(scores_dtype).float()
     attn = torch.softmax(sim * scale, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", attn.to(vh.dtype).float(), vh.float())
     return out.reshape(B, Lq, inner).to(out_dtype or q.dtype)

@@ -154,3 +154,19 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def kernel_wrappers() -> dict:
+    """{kernel name: the wrapper that carries its launch count}: one entry
+    per CUDA kernel of `csrc/` (the names `chip_smoke.py` reports)."""
+    from . import cuda_flash, cuda_geglu, cuda_mha, cuda_spacetime
+
+    return {"spacetime_fwd": cuda_spacetime.fused_spacetime_attention,
+            "spacetime_bwd": cuda_spacetime.spacetime_bwd, "geglu_fwd": cuda_geglu.geglu_ff,
+            "geglu_bwd": cuda_geglu.geglu_dx, "mha_fwd": cuda_mha.mha_attention,
+            "flash_fwd": cuda_flash.flash_attention, "flash_bwd": cuda_flash.flash_bwd}
+
+
+def launch_counts() -> dict:
+    """{kernel name: its wrapper's launch count so far}."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}

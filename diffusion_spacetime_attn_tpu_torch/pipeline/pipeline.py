@@ -39,7 +39,8 @@ class StableDiffusion:
     device: torch.device
 
     @classmethod
-    def _build(cls, cfg: PipelineConfig, device, fill) -> "StableDiffusion":
+    def _build(cls, cfg: PipelineConfig, device, fill,
+               schedule_device=None) -> "StableDiffusion":
         device = torch.device(device)
         with torch.device(device):
             unet = UNet(cfg.unet, radius=cfg.spacetime.radius)
@@ -48,14 +49,22 @@ class StableDiffusion:
         for m in (unet, vae, text):      # compute dtype first: each weight lands once
             cast_matmul_weights(m).eval().requires_grad_(False)
         fill(unet, vae, text)
-        sched = make_schedule(cfg.schedule, cfg.spacetime.num_steps, device=device)
+        sched = make_schedule(cfg.schedule, cfg.spacetime.num_steps,
+                              device=schedule_device or device)
         return cls(cfg, unet, vae, text, sched, device)
 
     @classmethod
     def create(cls, cfg: PipelineConfig, seed: int = 0, device="cuda",
-               scale: float = 0.02) -> "StableDiffusion":
+               scale: float = 0.02, abstract: bool = False) -> "StableDiffusion":
         """Bundle with seeded N(0, scale²) weights generated on `device`
-        (no checkpoint is loaded)."""
+        (no checkpoint is loaded).  abstract=True (JAX's `create(...,
+        abstract=True)`) builds the modules on the meta device, shapes
+        without values, for `utils/flops.count_flops`; its schedule stays on
+        the CPU, since the samplers read its timesteps on the host
+        (`samplers/plms.py:34-35`, `dpm_solver.py:32`)."""
+        if abstract:
+            return cls._build(cfg, "meta", lambda *modules: None, schedule_device="cpu")
+
         def fill(unet, vae, text):
             randomize_(unet, seed + 1, scale)
             randomize_(vae, seed + 2, scale)

@@ -18,9 +18,9 @@ noise is JAX's from `PRNGKey(--seed)` (`pipeline/img2img.py`).  Without
 `--ckpt` the weights are seeded and random (smoke mode).  At full width the
 UNet runs self-attention through the MHA kernel and the feed-forward through
 the GEGLU kernel (`use_mha`, `use_fused_ff`), which the JAX script leaves
-off; `--scores-dtype` defaults to float32 (the port computes attention
-scores in float32; another value raises).  `--tiny` takes the run_dataset
-tiny configs (VAE factor 2).  Runs on the card and raises without one,
+off; `--scores-dtype` defaults to bfloat16, as there (it reaches the plain
+self-attention sites only).  `--tiny` takes the run_dataset tiny configs
+(VAE factor 2).  Runs on the card and raises without one,
 unless `--cpu` is given.
 """
 from __future__ import annotations
@@ -61,7 +61,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default=None, help="CompVis sd-v1-4 checkpoint")
     ap.add_argument("--clip-vocab", default=None)
     ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--scores-dtype", default="float32")
+    ap.add_argument("--scores-dtype", default="bfloat16")
     ap.add_argument("--tiny", action="store_true", help="tiny model configs (smoke mode)")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
     return ap.parse_args(argv)

@@ -17,9 +17,9 @@ in spacetime mode only, `--mha` on outside it, `--fused-ff` on in every
 mode.  At full width the controlled cross-attention of the spatial and
 spacetime modes always runs the spacetime kernel (`use_fused_control`),
 which the JAX script leaves off (the XLA blend), so that the sweep runs
-every kernel of its path.  `--scores-dtype` defaults to float32:
-the port's UNet has no bf16 score buffer and its config raises for any
-other value.  `--params-dtype bfloat16` rounds every floating parameter to
+every kernel of its path.  `--scores-dtype` defaults to bfloat16, as
+there: the plain self-attention sites (levels 2 and mid in spacetime mode)
+round their scores to it.  `--params-dtype bfloat16` rounds every floating parameter to
 bf16, the values JAX's cast gives (storage stays in the compute dtype).
 `--tiny` takes the JAX script's tiny configs.
 
@@ -88,7 +88,7 @@ def parse_args(argv=None):
     ap.add_argument("--fused-ff", default=None, action="store_true",
                     help="GEGLU feed-forward kernels; default on in every mode")
     ap.add_argument("--no-fused-ff", dest="fused_ff", action="store_false")
-    ap.add_argument("--scores-dtype", default="float32")
+    ap.add_argument("--scores-dtype", default="bfloat16")
     ap.add_argument("--params-dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--save-epochs", action="store_true",

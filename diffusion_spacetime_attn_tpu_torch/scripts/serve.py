@@ -18,8 +18,8 @@ cross-attention runs the spacetime kernel, as in `scripts/run_dataset.py`.
 `--params-dtype` defaults to bfloat16 in spacetime mode and float32
 elsewhere; bfloat16 rounds every floating parameter to bf16 values (the
 storage keeps the compute dtype, `run_dataset.round_params_`).
-`--scores-dtype` defaults to float32: the port's UNet has no bf16 score
-buffer.  `--tiny` takes the JAX script's tiny configs (4 PLMS steps,
+`--scores-dtype` defaults to bfloat16, as there (the plain self-attention
+sites round their scores to it).  `--tiny` takes the JAX script's tiny configs (4 PLMS steps,
 whatever `--steps` says); the layout predictor is at `LayoutConfig()` in
 every mode that has one, as there.
 
@@ -81,7 +81,7 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--clip-vocab", default=None)
     ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--scores-dtype", default="float32")
+    ap.add_argument("--scores-dtype", default="bfloat16")
     ap.add_argument("--params-dtype", default=None, choices=["float32", "bfloat16"],
                     help="default: bfloat16 in spacetime mode, float32 elsewhere")
     ap.add_argument("--soak", type=int, default=None, metavar="N",

@@ -13,6 +13,7 @@ forward and back.  The JAX oracle is compiled once, at XLA's lowest backend
 optimization level (the same values; the compile dominates this file).
 """
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -176,11 +177,52 @@ def test_remat_on_and_off_give_the_same_loss_and_grad(pair, jax_loss_and_grad, p
 
 
 def test_remat_policy_names_raise():
-    for name in ("dots", "dots_nb"):
-        with pytest.raises(NotImplementedError):
+    """A name that is no policy raises, naming the two there are (JAX's
+    `jax.checkpoint_policies` names among them); False is the identity."""
+    for name in ("dots_saveable", "everything", "nothing_saveable"):
+        with pytest.raises(ValueError, match="dots.*dots_nb"):
             maybe_remat(lambda x, t, i: x, name)
     f = lambda x, t, i: x  # noqa: E731
     assert maybe_remat(f, False) is f
+
+
+@pytest.fixture(scope="module")
+def jax_policy_loss_and_grad(pair, jax_loss_and_grad):
+    """JAX's generation_loss and dcoef with the chain under each selective
+    policy (its samplers' `maybe_remat` handed the policy where the loss
+    asks for per-step remat), compiled as `jax_vg` is."""
+    from diffusion_spacetime_attn_tpu.samplers import remat as jremat
+
+    p, coef = pair, jax_loss_and_grad[0]
+    out = {}
+    for policy in ("dots", "dots_nb"):
+        vg = jax.value_and_grad(
+            lambda c: jst.generation_loss(c, p["sd"], p["jloss"], p["jin"], p["st"]),
+            has_aux=True)
+        with mock.patch.object(jremat, "maybe_remat",
+                               lambda f, r, policy=policy, real=jremat.maybe_remat:
+                               real(f, policy if r is True else r)):
+            fn = jax.jit(vg).lower(jnp.asarray(coef)).compile(
+                {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+        (loss, _), grad = fn(jnp.asarray(coef))
+        out[policy] = float(loss), np.asarray(grad)
+    return out
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_nb"])
+def test_remat_policies_match_remat_true_and_jax(pair, jax_loss_and_grad, port_remat,
+                                                 jax_policy_loss_and_grad, policy):
+    """The selective policies save matmul outputs instead of recomputing
+    them: the loss and dcoef equal `remat=True`'s bit for bit, and JAX's
+    chain under the same policy within the chain's tolerance."""
+    tl, tg, img = port_remat
+    pl, pg, pimg = _port_loss_and_grad(pair, jax_loss_and_grad[0], remat=policy)
+    assert pl == tl
+    np.testing.assert_array_equal(pg, tg)
+    torch.testing.assert_close(pimg, img, atol=0, rtol=0)
+    jl, jg = jax_policy_loss_and_grad[policy]
+    assert abs(pl - jl) <= RTOL * abs(jl), (pl, jl)
+    assert rel(pg, jg) <= RTOL, rel(pg, jg)
 
 
 def test_remat_recomputes_each_evaluation_in_the_backward():

@@ -400,12 +400,102 @@ def test_spacetime_exp_floor_at_the_sd_sites(Lq, floor_us):
 # ------------------------------------------- config
 
 
+# bf16 scores: the port's UNet eps against JAX's with the knob set (absolute,
+# |eps| <= 2 here).  Each package rounds its own f32 scores, which differ by
+# ~1e-6 relative, so a score next to a bf16 rounding boundary may round the
+# other way; the limit sits between the f32 parity (2.7e-6) and the gap the
+# knob itself opens against f32 scores (1.9e-5), which the test shows
+BF16_SCORES_ATOL = 6e-6
+
+
+@pytest.fixture(scope="module")
+def knob_unets():
+    """The smoke config's UNet: JAX params (randomize_params, scale 0.2),
+    the same weights in the port through the bridge; run(latent, **knobs)
+    gives (JAX eps, port eps) on seeded inputs at that latent size."""
+    import dataclasses
+
+    import jax
+    from flax import traverse_util
+
+    from diffusion_spacetime_attn_tpu.models.unet import UNet as JUNet
+    from diffusion_spacetime_attn_tpu.testbed.configs import smoke_pipeline_cfg
+    from diffusion_spacetime_attn_tpu.utils.testing import randomize_params
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import load_flat
+
+    jc = smoke_pipeline_cfg().unet
+    t = jnp.asarray(np.array([981, 981, 501, 501], np.int32))
+    ctx = np.random.RandomState(1).randn(4, 12, jc.context_dim).astype(np.float32)
+    params = jax.eval_shape(JUNet(jc).init, jax.random.PRNGKey(0), jnp.zeros((4, 8, 8, 4)), t,
+                            _j(ctx))["params"]
+    params = randomize_params(params, jax.random.PRNGKey(1), 0.2)
+    flat = {k: np.asarray(v) for k, v in
+            traverse_util.flatten_dict(jax.device_get(params), sep="/").items()}
+
+    def run(latent, **knobs):
+        c = dataclasses.replace(jc, **knobs)
+        x = np.random.RandomState(0).randn(4, latent, latent, 4).astype(np.float32)
+        fn = jax.jit(JUNet(c).apply).lower({"params": params}, _j(x), t, _j(ctx)).compile(
+            {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+        want = np.asarray(fn({"params": params}, _j(x), t, _j(ctx)))
+        unet = UNet(tcfg.UNetConfig(**{f.name: getattr(c, f.name)
+                                       for f in dataclasses.fields(c)}))
+        load_flat(unet, flat)
+        with torch.inference_mode():
+            got = unet(_t(x), torch.from_numpy(np.asarray(t)), _t(ctx)).numpy()
+        return want, got
+
+    return run
+
+
 @pytest.mark.parametrize("field,value", [
     ("attn_q_chunk", 512), ("attn_scores_dtype", "bfloat16"), ("conv_norm_barrier", True),
 ])
-def test_unimplemented_config_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        tcfg.UNetConfig(**{field: value})
+def test_unimplemented_config_fields_raise(knob_unets, field, value):
+    """Each of UNetConfig's three memory / fusion knobs is set in both
+    packages (no refusal left): the smoke UNet's float32 eps against JAX's
+    with the same knob within 1e-4 (q_chunk 512 on a 32² latent, whose
+    1024-token level-0 self-attention runs in 2 chunks, equal to the
+    unchunked port within 1e-6 relative); bf16 scores (8² latent) within
+    BF16_SCORES_ATOL, which the knob's own gap against f32 scores exceeds;
+    conv_norm_barrier a no-op in eager PyTorch."""
+    latent = 32 if field == "attn_q_chunk" else 8
+    want, got = knob_unets(latent, **{field: value})
+    err = float(np.abs(got - want).max())
+    if field == "attn_scores_dtype":
+        _, f32 = knob_unets(latent)
+        gap = float(np.abs(got - f32).max())
+        assert err <= BF16_SCORES_ATOL < gap / 2, (err, gap)
+        return
+    assert err <= 1e-4 * max(1.0, float(np.abs(want).max())), err
+    _, plain = knob_unets(latent)
+    if field == "attn_q_chunk":
+        assert np.abs(got - plain).max() <= 1e-6 * np.abs(plain).max()
+    else:
+        np.testing.assert_array_equal(got, plain)
+
+
+def test_attention_routes_flash_then_mha_then_q_chunk_then_plain(monkeypatch):
+    """A site a kernel takes ignores q_chunk and scores_dtype; on the plain
+    path q_chunk splits queries only where it divides Lq and is smaller."""
+    calls = []
+    monkeypatch.setattr(tatt, "flash_attention",
+                        lambda q, k, v, h, out_dtype=None: calls.append("flash") or q)
+    import diffusion_spacetime_attn_tpu_torch.ops.cuda_mha as cmha
+
+    monkeypatch.setattr(cmha, "mha_attention",
+                        lambda q, k, v, h, out_dtype=None: calls.append("mha") or q)
+    r = np.random.RandomState(3)
+    q = _t(r.randn(2, 4096, 80))
+    kw = dict(q_chunk=1024, scores_dtype=torch.bfloat16)
+    tatt.attention(q, q, q, 2, flash=True, mha=True, **kw)
+    tatt.attention(q[:, :64], q[:, :64], q[:, :64], 2, flash=True, mha=True, **kw)
+    assert calls == ["flash", "mha"]
+    q, k = _t(r.randn(2, 48, 32)), _t(r.randn(2, 48, 32))
+    for chunk in (16, 48, 20):
+        np.testing.assert_allclose(tatt.attention(q, k, k, 2, q_chunk=chunk).numpy(),
+                                   tatt.attention(q, k, k, 2).numpy(), rtol=1e-6, atol=1e-7)
 
 
 def test_use_flash_unet_routes_level0_attn1_through_flash(monkeypatch):

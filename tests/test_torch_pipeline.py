@@ -271,7 +271,10 @@ def test_port_imports_nothing_of_jax():
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "models" / "encoders.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "testbed" / "data.py",
                 scripts / "train_testbed.py", scripts / "train_ldm.py", scripts / "train_vae.py",
-                scripts / "bench_train.py",
+                scripts / "bench_train.py", scripts / "flops_model.py", scripts / "profiler.py",
+                scripts / "analyze_trace.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / "flops.py",
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / "profiling.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "mesh.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "sharding.py",
                 ROOT / "tests" / "helpers" / "torch_ranks.py"):
