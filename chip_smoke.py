@@ -283,9 +283,21 @@ script exits non-zero without its final line:
              bicubic resize to 512² must have the SHA-256 of PIL's
              (JPEG_SHA256, DECODE_SHA256, RESIZE_SHA256, checked against PIL
              by tests/test_torch_image_io.py); ms per encode, decode, resize.
+     formats: what a JAX user has on disk, read without orbax,
+             tensorstore or PIL (none is on this machine): the zstd and WebP
+             decoders built by g++ (build_s); the committed JAX
+             `LDMTrainer.save` state (`tests/fixtures/port_formats/ldm/`,
+             zstd-compressed OCDBT) restored, every array's SHA-256 equal to
+             orbax's (`digests.json`); its EMA weights loaded through
+             `sample_diffusion.restore_unet` (what `--ckpt-dir` calls) into
+             the UNet at the fixture's config on the card and one DDIM-2
+             sample, finite; each fixture image (progressive, CMYK and
+             RGB-coded JPEG, BMP, WebP lossy, lossless and alpha) decoded to
+             Pillow's pixel and RGB digests; ms per decode (median of 5).
  22. train_data: training from image folders at SD v1-4 width, bf16,
-             batch 2: `train_ldm --data-dir` over 8 port-written 640x480
-             JPEGs with captions.jsonl (3 steps), over a synset tree with
+             batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, three of
+             them replaced by the fixture progressive JPEG, BMP and WebP
+             (FORMAT_SLOTS), with captions.jsonl (3 steps), over a synset tree with
              class conditioning (2 steps) and `--conditioning superres
              --synthetic` (2 steps, BSRGAN-light rows): launches exactly
              GEGLU 16 / 16 and flash 10 / 10 per step (superres, the
@@ -293,7 +305,8 @@ script exits non-zero without its final line:
              and host ms per batch; `train_vae --paths-txt` at 256² (2
              steps, then one with `--lpips-ckpt` on a seeded file in
              taming's `vgg.pth` + torchvision's VGG16 layout, loaded
-             parameter-exact); `train_searcher --image-dir` on the JPEGs.
+             parameter-exact); `train_searcher --image-dir` on the folder
+             (its JPEGs and the WebP: JAX's script lists no .bmp).
  23. legacy_vg: `infer_vg_msdn` at LayoutConfig() width on the card vs
              the same model on the CPU (centers within 1e-4, the same
              files), and 3 steps of each legacy trainer (LegacyConfig(),
@@ -408,6 +421,12 @@ CODEC_QUALITY = 75
 JPEG_SHA256 = "cdd160828b4cabbfc31a2b1cb11ad68f048514f82df11fb01a65513e6aa44a3a"
 DECODE_SHA256 = "e4dc05cb6d7690946a3fd023eb5f20cf2994ee22a411cd15876a655a8fc029f7"
 RESIZE_SHA256 = "752fcb85a65ae4cfb968441617023db3013b4c21aa21c6add79f034d89b91eba"
+# phase formats and train_data: the committed files a JAX user's disk holds
+# (`tests/helpers/port_formats.py` writes them and their digests with JAX,
+# orbax and Pillow); the DATA_IMAGES slots the fixture images take
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "port_formats")
+FORMAT_SLOTS = {1: "progressive.jpg", 3: "rgb24.bmp", 5: "lossy.webp"}
 
 
 def codec_image(h: int = 480, w: int = 640, seed: int = 14):
@@ -3555,22 +3574,137 @@ def phase_image_io(smi: str):
         fail(f"image_io: bytes differ from PIL's: {digests}")
 
 
+def _tree_digests(tree, at=()) -> dict:
+    """{path: SHA-256 of the leaf's bytes} of a restored orbax tree, as
+    `tests/helpers/port_formats.tree_digests` computes them (bfloat16 as its
+    16-bit words, None and empty containers skipped)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_tree_digests(tree[k], at + (str(k),)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_tree_digests(v, at + (str(i),)))
+    elif tree is not None:
+        if isinstance(tree, torch.Tensor):
+            a = (tree.view(torch.int16) if tree.dtype == torch.bfloat16 else tree).numpy()
+        else:
+            a = np.ascontiguousarray(np.asarray(tree))
+        out["/".join(at)] = hashlib.sha256(a.tobytes()).hexdigest()
+    return out
+
+
+def phase_formats(smi: str):
+    """Checkpoints and images a JAX user has on disk, read on the card's
+    machine, which has no orbax, tensorstore or PIL (module docstring)."""
+    import hashlib
+    import shutil as _shutil
+
+    import numpy as np
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        ScheduleConfig,
+        UNetConfig,
+        VAEConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
+    from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion
+    from diffusion_spacetime_attn_tpu_torch.utils import image_io, orbax, prng, webp, zstd
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        want = json.load(f)
+    builds = [threading.Thread(target=lib.load_library) for lib in (zstd, webp)]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    for lib in (zstd, webp):                       # raises here if a build failed
+        lib.load_library()
+    build_s = time.perf_counter() - t_phase
+    ldm = os.path.join(FIXTURES, "ldm")
+    t0 = time.perf_counter()
+    tree = orbax.restore(os.path.join(ldm, "step_2"))
+    restore_s = time.perf_counter() - t0
+    got = _tree_digests(tree)
+    state_equal = got == want["state"]
+    with open(os.path.join(ldm, "config.json")) as f:
+        cfg = json.load(f)
+    ucfg = UNetConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg["unet"].items()})
+    with torch.device("cuda"):
+        unet = UNet(ucfg, radius=0.2, conditional=False).eval().requires_grad_(False)
+        vae = AutoencoderKL(VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1)).eval()
+    randomize_(vae, 2, 0.02)
+    with tempfile.TemporaryDirectory() as d:        # the --ckpt-dir layout: step_<n>/
+        _shutil.copytree(os.path.join(ldm, "step_2"), os.path.join(d, "step_2"))
+        step, kind = sample_diffusion.restore_unet(unet, d)
+    ema_equal = all(torch.equal(p.detach().cpu(), q) for p, q in zip(
+        unet.parameters(), _ema_like(unet, tree["ema_params"])))
+    img = sample_diffusion.sample_batch(unet, vae, prng.PRNGKey(0), 1, cfg["latent"],
+                                        ScheduleConfig(), custom_steps=2, eta=0.0)
+    sample = {"step": step, "kind": kind, "shape": list(img.shape),
+              "finite": bool(torch.isfinite(img).all()), "ema_loaded_exactly": ema_equal}
+    images, ms = {}, {}
+    for name, d in sorted(want["images"].items()):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            data = f.read()
+        pic = image_io.read_image(data, name)
+        rgb = image_io.convert(pic, "RGB")
+        images[name] = (pic.mode == d["mode"] and list(pic.pixels.shape) == d["shape"]
+                        and hashlib.sha256(pic.pixels.tobytes()).hexdigest() == d["pixels"]
+                        and hashlib.sha256(rgb.tobytes()).hexdigest() == d["rgb"])
+        ms[name] = _time_ms(lambda: image_io.read_image(data, name))
+    emit({"phase": "formats", "build_s": build_s, "restore_s": restore_s, "arrays": len(got),
+          "state_digests_equal_orbax": state_equal, "ema_sample": sample,
+          "digests_equal_pil": images, "decode_ms": ms,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    if not (state_equal and step == 2 and kind == "ema" and ema_equal and sample["finite"]
+            and all(images.values())):
+        bad = sorted(k for k in set(got) | set(want["state"]) if got.get(k) != want["state"].get(k))
+        fail(f"formats: state {state_equal} ({bad[:5]}), sample {sample}, images {images}")
+    del unet, vae
+    torch.cuda.empty_cache()
+
+
+def _ema_like(unet, ema_tree):
+    """The fixture's EMA tree as the UNet's parameters (the weight bridge)."""
+    from diffusion_spacetime_attn_tpu_torch.utils import orbax
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import bridge, flatten_tree
+
+    sd = bridge(flatten_tree(orbax.to_float32(ema_tree)), unet)
+    return [sd[n].float() for n, _ in unet.named_parameters()]
+
+
 def _write_jpeg_folder(root: str) -> dict:
-    """DATA_IMAGES port-written 640x480 JPEGs with captions.jsonl, an
-    LSUN-style split of them and a two-synset tree of the same files."""
+    """DATA_IMAGES 640x480 images with captions.jsonl, an LSUN-style split of
+    them and a two-synset tree of the same files: port-written JPEGs, but
+    the FORMAT_SLOTS, which hold the fixture progressive JPEG, BMP and WebP."""
     from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 
     d = os.path.join(root, "jpegs")
     os.makedirs(d)
     rows = []
     for i in range(DATA_IMAGES):
-        name = f"img{i}.jpg"
-        data = encode_jpeg(codec_image(seed=100 + i), CODEC_QUALITY)
+        if i in FORMAT_SLOTS:
+            ext = os.path.splitext(FORMAT_SLOTS[i])[1]
+            with open(os.path.join(FIXTURES, FORMAT_SLOTS[i]), "rb") as f:
+                data = f.read()
+        else:
+            ext, data = ".jpg", encode_jpeg(codec_image(seed=100 + i), CODEC_QUALITY)
+        name = f"img{i}{ext}"
         with open(os.path.join(d, name), "wb") as f:
             f.write(data)
         syn = os.path.join(root, "tree", f"n0{i % 2}")
         os.makedirs(syn, exist_ok=True)
-        with open(os.path.join(syn, f"{i}.JPEG"), "wb") as f:
+        with open(os.path.join(syn, f"{i}{'.JPEG' if ext == '.jpg' else ext}"), "wb") as f:
             f.write(data)
         rows.append({"file": name, "text": OBJECT_NAMES[i % 4] + " " + LAYOUT_CAPTIONS[i % 4]})
     with open(os.path.join(d, "captions.jsonl"), "w") as f:
@@ -3660,9 +3794,12 @@ def phase_train_data(root: str, smi: str) -> dict:
           "host_ms_per_batch": [t * 1e3 for t in vae["host_s"] + vae_lp["host_s"]],
           "metrics": metrics, "lpips_parameter_exact": exact,
           "searcher_rows": searcher["rows"], "searcher_s": searcher["seconds"],
+          "fixture_files": {f"img{i}": name for i, name in FORMAT_SLOTS.items()},
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    listed = sum(1 for f in os.listdir(dirs["jpegs"])
+                 if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
     if not (exact and all(math.isfinite(v) for m in metrics for v in m.values())
-            and searcher["rows"] == DATA_IMAGES and np.isfinite(emb).all()):
+            and searcher["rows"] == listed == DATA_IMAGES - 1 and np.isfinite(emb).all()):
         fail(f"train_data: lpips exact {exact}, vae metrics {metrics}, searcher {searcher}")
     torch.cuda.empty_cache()
     return total
@@ -5093,6 +5230,7 @@ def main() -> int:
             phase_train_layout(root, smi)
         torch.cuda.empty_cache()
         phase_image_io(smi)
+        phase_formats(smi)
         with tempfile.TemporaryDirectory() as root:
             data_launches = phase_train_data(root, smi)
         with tempfile.TemporaryDirectory() as root:

@@ -9,15 +9,23 @@
 //            them, the ISLOW forward DCT (jfdctint.c), rounding division by
 //            the table, the standard Huffman tables (K.3), the JFIF 1.01
 //            APP0 header, byte stuffing and 1-bit padding;
-//   decoder: baseline (and extended 8-bit) sequential Huffman, 1 or 3
-//            components, sampling factors 1-2 per axis, DRI restarts,
-//            several scans, the ISLOW inverse DCT (jidctint.c) with its
-//            range-limit table, the "fancy" triangle upsampling of
-//            jdsample.c (h2v1, h1v2, h2v2) and jdcolor.c's YCbCr -> RGB.
+//   decoder: baseline (and extended 8-bit) sequential and progressive
+//            Huffman (jdphuff.c: spectral selection, successive
+//            approximation, DC and AC first and refinement scans, EOB runs,
+//            coefficients buffered per component), 1, 3 or 4 components,
+//            sampling factors 1-2 per axis, DRI restarts, several scans, the
+//            ISLOW inverse DCT (jidctint.c) with its range-limit table, the
+//            "fancy" triangle upsampling of jdsample.c (h2v1, h1v2, h2v2),
+//            jdapimin.c's colour-space rules (JFIF or ids 1-2-3: YCbCr; an
+//            Adobe transform 0 or ids R-G-B: RGB; 4 components: CMYK, or
+//            YCCK under Adobe transform 2) and jdcolor.c's YCbCr -> RGB and
+//            YCCK -> CMYK.  A 4-component file comes out inverted, as PIL's
+//            "CMYK;I" raw mode reads every CMYK JPEG.
 //
-// Progressive, arithmetic-coded, lossless, hierarchical, 12-bit, CMYK and
-// Adobe-transform (RGB-coded) files are refused with a message that names
-// the marker and its offset.  Corrupt files are refused too, never read or
+// Arithmetic-coded, lossless, hierarchical and 12-bit files are refused with
+// a message that names the marker and its offset, as is a progressive file
+// whose scans leave one of the first ten coefficients incomplete (libjpeg
+// would smooth its blocks).  Corrupt files are refused too, never read or
 // written past their buffers: segments shorter than their contents,
 // over-subscribed Huffman tables (libjpeg's checks), more pixels than PIL's
 // decompression-bomb limit, and scans that run past the end of the file or
@@ -748,6 +756,14 @@ const int64_t kMaxPixels = 2 * int64_t(89478485);
 
 const char* kRoadmap = " (ROADMAP A.12 lists what the port does not decode)";
 
+// jpeg_natural_order with libjpeg's 16 extra entries: a corrupt run past
+// position 63 writes coefficient 63, as libjpeg does.
+int natural(int k) { return k < 64 ? kZigzag[k] : 63; }
+
+// libjpeg-turbo's SAVED_COEFS: block smoothing looks at the first ten
+// coefficients of a progressive file.
+const int kSmoothCoefs = 10;
+
 // libjpeg-turbo jdsample.c: fancy h2v1 on one row of dw samples.
 void up_h2v1(const uint8_t* in, int dw, uint8_t* out) {
   if (dw <= 2) {
@@ -792,8 +808,9 @@ Decoded decode(const uint8_t* d, size_t n) {
   HuffDec dc[4], ac[4];
   std::vector<DecComp> comps;
   int W = 0, H = 0, hmax = 1, vmax = 1, restart = 0, mcux = 0, mcuy = 0;
-  bool frame = false, adobe = false, any_scan = false;
+  bool frame = false, adobe = false, jfif = false, any_scan = false, progressive = false;
   int adobe_transform = -1;
+  std::vector<std::vector<int>> coef_bits;   // per component: the Al still owed, -1 = none yet
   size_t pos = 2;
   auto need = [&](size_t k, size_t at) {
     if (at + k > n) throw Error{"truncated JPEG file at offset " + hexoff(at)};
@@ -823,9 +840,10 @@ Decoded decode(const uint8_t* d, size_t n) {
     auto short_seg = [&]() {
       return Error{"short " + hexmark(m) + " segment at offset " + hexoff(moff)};
     };
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       if (frame) throw Error{"two SOF markers, second at offset " + hexoff(moff)};
       frame = true;
+      progressive = m == 0xC2;
       if (slen < 6) throw short_seg();
       if (seg[0] != 8)
         throw Error{std::to_string(seg[0]) + "-bit JPEG (" + hexmark(m) + " at offset " +
@@ -838,10 +856,9 @@ Decoded decode(const uint8_t* d, size_t n) {
       if (int64_t(W) * H > kMaxPixels)
         throw Error{"JPEG of " + std::to_string(int64_t(W) * H) + " pixels exceeds PIL's "
                     "decompression-bomb limit of " + std::to_string(kMaxPixels)};
-      if (nc != 1 && nc != 3)
-        throw Error{std::to_string(nc) + "-component JPEG (CMYK or other, " + hexmark(m) +
-                    " at offset " + hexoff(moff) + "): only greyscale and YCbCr are decoded" +
-                    kRoadmap};
+      if (nc != 1 && nc != 3 && nc != 4)
+        throw Error{std::to_string(nc) + "-component JPEG (" + hexmark(m) + " at offset " +
+                    hexoff(moff) + "): PIL reads 1, 3 or 4 components"};
       if (slen < 6 + 3 * nc) throw short_seg();
       for (int i = 0; i < nc; i++) {
         DecComp c{};
@@ -870,11 +887,10 @@ Decoded decode(const uint8_t* d, size_t n) {
         if (nc == 1) c.bw = c.wblocks, c.bh = c.hblocks;
         c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
       }
-      if (nc == 3 && comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B')
-        throw Error{"RGB-coded JPEG (component ids R, G, B): not decoded" + std::string(kRoadmap)};
-    } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-      throw Error{"progressive JPEG (" + hexmark(m) + " at offset " + hexoff(moff) +
-                  "): only baseline sequential files are decoded" + kRoadmap};
+      coef_bits.assign(nc, std::vector<int>(64, -1));
+    } else if (m == 0xC6 || m == 0xCA || m == 0xCE) {
+      throw Error{"hierarchical or arithmetic-coded progressive JPEG (" + hexmark(m) +
+                  " at offset " + hexoff(moff) + "): not decoded" + kRoadmap};
     } else if (m == 0xC3 || m == 0xC5 || m == 0xC7 || (m >= 0xC9 && m <= 0xCF) || m == 0xCC) {
       throw Error{"JPEG process " + hexmark(m) + " at offset " + hexoff(moff) +
                   " (lossless, hierarchical or arithmetic-coded) is not decoded" + kRoadmap};
@@ -916,6 +932,8 @@ Decoded decode(const uint8_t* d, size_t n) {
     } else if (m == 0xDD) {
       if (slen < 2) throw short_seg();
       restart = (seg[0] << 8) | seg[1];
+    } else if (m == 0xE0) {
+      if (slen >= 14 && std::memcmp(seg, "JFIF", 5) == 0) jfif = true;
     } else if (m == 0xEE) {
       if (slen >= 12 && std::memcmp(seg, "Adobe", 5) == 0) {
         adobe = true;
@@ -925,15 +943,24 @@ Decoded decode(const uint8_t* d, size_t n) {
       throw Error{"DNL marker at offset " + hexoff(moff) + " is not decoded"};
     } else if (m == 0xDA) {
       if (!frame) throw Error{"SOS before SOF at offset " + hexoff(moff)};
-      if (adobe && adobe_transform != 1 && comps.size() == 3)
-        throw Error{"Adobe APP14 transform " + std::to_string(adobe_transform) +
-                    " (RGB-coded JPEG): not decoded" + kRoadmap};
       if (slen < 1) throw short_seg();
       int ns = seg[0];
       if (ns < 1 || ns > 4 || ns > int(comps.size()))
         throw Error{"bad component count " + std::to_string(ns) + " in SOS at offset " +
                     hexoff(moff)};
       if (slen < 4 + 2 * ns) throw short_seg();
+      int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns], ah = seg[3 + 2 * ns] >> 4,
+          al = seg[3 + 2 * ns] & 15;
+      if (!progressive && (ss != 0 || se != 63 || ah != 0 || al != 0))
+        throw Error{"a scan with spectral selection or successive approximation at offset " +
+                    hexoff(moff) + " in a sequential JPEG"};
+      // jdinput.c / jdphuff.c's checks of a progressive scan's parameters
+      if (progressive && (ss > se || se > 63 || al > 13 || (ah != 0 && ah != al + 1) ||
+                          (ss == 0 && se != 0) || (ss != 0 && ns != 1)))
+        throw Error{"bad progressive scan parameters Ss=" + std::to_string(ss) + " Se=" +
+                    std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
+                    std::to_string(al) + " at offset " + hexoff(moff)};
+      bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss != 0;
       std::vector<int> sc;
       std::vector<int> td, ta;
       for (int i = 0; i < ns; i++) {
@@ -945,18 +972,17 @@ Decoded decode(const uint8_t* d, size_t n) {
         sc.push_back(ci);
         td.push_back(tb >> 4);
         ta.push_back(tb & 15);
-        if (td.back() > 3 || ta.back() > 3 || !dc[td.back()].defined || !ac[ta.back()].defined)
+        if (td.back() > 3 || ta.back() > 3 || (need_dc && !dc[td.back()].defined) ||
+            (need_ac && !ac[ta.back()].defined))
           throw Error{"SOS uses an undefined Huffman table at offset " + hexoff(moff)};
         if (!qdef[comps[ci].tq]) throw Error{"a component's quantization table is undefined"};
-        for (HuffDec* t : {&dc[td.back()], &ac[ta.back()]}) {
-          if (!t->built) build_dec(*t);
-          t->built = true;
+        for (HuffDec* t : {need_dc ? &dc[td.back()] : nullptr, need_ac ? &ac[ta.back()] : nullptr}) {
+          if (t && !t->built) build_dec(*t);
+          if (t) t->built = true;
         }
+        if (progressive)
+          for (int k = ss; k <= se; k++) coef_bits[ci][k] = al;
       }
-      int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns], ahal = seg[3 + 2 * ns];
-      if (ss != 0 || se != 63 || ahal != 0)
-        throw Error{"a scan with spectral selection or successive approximation at offset " +
-                    hexoff(moff) + " (progressive data)" + kRoadmap};
       BitReader br{d, n, seg_end};
       std::vector<int64_t> pred(ns, 0);
       int nmcu_x, nmcu_y;
@@ -969,6 +995,80 @@ Decoded decode(const uint8_t* d, size_t n) {
       }
       long count = 0;
       int next_rst = 0;
+      uint32_t eobrun = 0;
+      const int p1 = 1 << al, m1 = -(1 << al);
+      // jdphuff.c: one block of a progressive scan, in place
+      auto prog_block = [&](int16_t* blk, int k) {
+        if (ss == 0) {
+          if (ah == 0) {                       // DC first
+            int s = decode_sym(br, dc[td[k]]);
+            if (s > 11) throw Error{"corrupt DC coefficient"};
+            int diff = s ? extend(br.get(s), s) : 0;
+            pred[k] += diff;
+            blk[0] = int16_t(uint32_t(pred[k]) << al);
+          } else if (br.get(1)) {              // DC refine
+            blk[0] = int16_t(blk[0] | p1);
+          }
+          return;
+        }
+        const HuffDec& t = ac[ta[k]];
+        if (ah == 0) {                         // AC first
+          if (eobrun > 0) {
+            eobrun--;
+            return;
+          }
+          for (int kk = ss; kk <= se; kk++) {
+            int rs = decode_sym(br, t);
+            int r = rs >> 4, sz = rs & 15;
+            if (sz) {
+              kk += r;
+              blk[natural(kk)] = int16_t(uint32_t(extend(br.get(sz), sz)) << al);
+            } else if (r == 15) {
+              kk += 15;
+            } else {
+              eobrun = 1u << r;
+              if (r) eobrun += br.get(r);
+              eobrun--;
+              break;
+            }
+          }
+          return;
+        }
+        int kk = ss;                           // AC refine
+        auto refine = [&](int16_t& c) {
+          if (br.get(1) && (c & p1) == 0) c = int16_t(c >= 0 ? c + p1 : c + m1);
+        };
+        if (eobrun == 0) {
+          for (; kk <= se; kk++) {
+            int rs = decode_sym(br, t);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              s = br.get(1) ? p1 : m1;         // a size other than 1 is corrupt: libjpeg goes on
+            } else if (r != 15) {
+              eobrun = 1u << r;
+              if (r) eobrun += br.get(r);
+              break;
+            }
+            do {
+              int16_t& c = blk[natural(kk)];
+              if (c != 0) {
+                refine(c);
+              } else if (--r < 0) {
+                break;
+              }
+              kk++;
+            } while (kk <= se);
+            if (s) blk[natural(kk)] = int16_t(s);
+          }
+        }
+        if (eobrun > 0) {
+          for (; kk <= se; kk++) {
+            int16_t& c = blk[natural(kk)];
+            if (c != 0) refine(c);
+          }
+          eobrun--;
+        }
+      };
       for (int my = 0; my < nmcu_y; my++) {
         for (int mx = 0; mx < nmcu_x; mx++) {
           if (restart && count > 0 && count % restart == 0) {
@@ -983,6 +1083,22 @@ Decoded decode(const uint8_t* d, size_t n) {
             }
             next_rst = (next_rst + 1) & 7;
             std::fill(pred.begin(), pred.end(), 0);
+            eobrun = 0;
+          }
+          if (progressive) {
+            for (int k = 0; k < ns; k++) {
+              DecComp& c = comps[sc[k]];
+              int mh = ns == 1 ? 1 : c.h, mv = ns == 1 ? 1 : c.v;
+              for (int yi = 0; yi < mv; yi++)
+                for (int xi = 0; xi < mh; xi++) {
+                  int by = my * mv + yi, bx = mx * mh + xi;
+                  int16_t tmp[64] = {};
+                  prog_block((by < c.bh && bx < c.bw) ? &c.coef[(size_t(by) * c.bw + bx) * 64]
+                                                       : tmp, k);
+                }
+            }
+            count++;
+            continue;
           }
           for (int k = 0; k < ns; k++) {
             DecComp& c = comps[sc[k]];
@@ -1029,6 +1145,27 @@ Decoded decode(const uint8_t* d, size_t n) {
     pos = seg_end;
   }
   if (!frame || !any_scan) throw Error{"JPEG without a frame or a scan"};
+  if (progressive) {
+    // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
+    // file whose first coefficients are known only in part
+    for (size_t ci = 0; ci < comps.size(); ci++) {
+      if (coef_bits[ci][0] < 0) continue;
+      for (int k = 1; k < kSmoothCoefs; k++)
+        if (coef_bits[ci][k] != 0)
+          throw Error{"progressive JPEG whose scans leave coefficient " + std::to_string(k) +
+                      " of component " + std::to_string(ci) + " incomplete: libjpeg's block "
+                      "smoothing is not implemented" + kRoadmap};
+    }
+  }
+  // jdapimin.c default_decompress_parms: the colour space of the components
+  bool rgb = false, ycck = false;
+  if (comps.size() == 3 && !jfif) {
+    if (adobe)
+      rgb = adobe_transform == 0;
+    else
+      rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+  }
+  if (comps.size() == 4) ycck = adobe && adobe_transform != 0;
 
   // inverse DCT into each component's plane
   std::vector<std::vector<uint8_t>> planes(comps.size());
@@ -1052,8 +1189,9 @@ Decoded decode(const uint8_t* d, size_t n) {
     return out;
   }
   // upsample each component to full size [H, W]
-  std::vector<std::vector<uint8_t>> fullp(3);
-  for (int ci = 0; ci < 3; ci++) {
+  int nc = int(comps.size());
+  std::vector<std::vector<uint8_t>> fullp(nc);
+  for (int ci = 0; ci < nc; ci++) {
     DecComp& c = comps[ci];
     int pw = c.bw * 8;
     int rh = hmax / c.h, rv = vmax / c.v;
@@ -1096,7 +1234,18 @@ Decoded decode(const uint8_t* d, size_t n) {
       f.swap(g);
     }
   }
-  // jdcolor.c ycc_rgb_convert
+  size_t npx = size_t(W) * H;
+  if (rgb) {                       // jdcolor.c rgb_rgb_convert
+    for (size_t i = 0; i < npx; i++)
+      for (int c = 0; c < 3; c++) out.px[3 * i + c] = fullp[c][i];
+    return out;
+  }
+  if (nc == 4 && !ycck) {          // CMYK as it is, inverted as PIL's "CMYK;I"
+    for (size_t i = 0; i < npx; i++)
+      for (int c = 0; c < 4; c++) out.px[4 * i + c] = uint8_t(255 - fullp[c][i]);
+    return out;
+  }
+  // jdcolor.c ycc_rgb_convert (and ycck_cmyk_convert: 255 - RGB, K as it is)
   int crr[256], cbb[256];
   int64_t crg[256], cbg[256];
   auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
@@ -1107,11 +1256,19 @@ Decoded decode(const uint8_t* d, size_t n) {
     cbg[i] = -fix(0.34414) * x + (int64_t(1) << 15);
   }
   auto clamp = [](int v) { return uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v)); };
-  for (size_t i = 0; i < size_t(W) * H; i++) {
+  for (size_t i = 0; i < npx; i++) {
     int y = fullp[0][i], cb = fullp[1][i], cr = fullp[2][i];
-    out.px[3 * i] = clamp(y + crr[cr]);
-    out.px[3 * i + 1] = clamp(y + int((cbg[cb] + crg[cr]) >> 16));
-    out.px[3 * i + 2] = clamp(y + cbb[cb]);
+    int r = y + crr[cr], g = y + int((cbg[cb] + crg[cr]) >> 16), b = y + cbb[cb];
+    if (nc == 3) {
+      out.px[3 * i] = clamp(r);
+      out.px[3 * i + 1] = clamp(g);
+      out.px[3 * i + 2] = clamp(b);
+    } else {                       // YCCK -> CMYK, then PIL's inversion
+      out.px[4 * i] = uint8_t(255 - clamp(255 - r));
+      out.px[4 * i + 1] = uint8_t(255 - clamp(255 - g));
+      out.px[4 * i + 2] = uint8_t(255 - clamp(255 - b));
+      out.px[4 * i + 3] = uint8_t(255 - fullp[3][i]);
+    }
   }
   return out;
 }
@@ -1150,7 +1307,8 @@ int jpeg_encode(const uint8_t* pixels, int width, int height, int channels, int 
 }
 
 // Decode a file's bytes; on success *out holds malloc'd [h, w, c] pixels
-// (free with jpeg_free), c is 1 (greyscale) or 3 (RGB), and 0 returns.
+// (free with jpeg_free), c is 1 (greyscale), 3 (RGB) or 4 (CMYK, inverted as
+// PIL reads it), and 0 returns.
 int jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int* height,
                 int* channels, char* err, int errlen) {
   try {

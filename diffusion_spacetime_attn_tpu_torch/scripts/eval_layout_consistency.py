@@ -13,7 +13,7 @@ the randomly initialised predictor's row, `--breakdown` per-relation counts
 and failures, `--decode greedy` the reference's argmax-component mean in
 place of the relation-aware decode.  The predictor runs on the card unless
 `--cpu` is given; `--ckpt random` forces random weights, and a trained run
-dir of the JAX trainer raises (its orbax params: ROADMAP A.15).
+dir of either trainer loads (the JAX one's orbax params included).
 """
 import argparse
 import json

@@ -10,7 +10,7 @@ with its flags and `--tiny` / `--cpu`.
         --steps 4 --init in.png --prompt "a cat"
 
 Writes `{img2img|inpaint}_s{seed}.png` into `--outdir` and prints its path.
-The images (PNG or baseline JPEG, `utils/image_io.py`) are read as JAX's
+The images (PNG, JPEG, BMP or WebP, `utils/image_io.py`) are read as JAX's
 script reads them with PIL: the init image converted to RGB, the mask to
 PIL's luma (white = keep, black = generate), each resized to `--size`
 square with PIL's default bicubic filter (`utils/resample.py`).  The

@@ -16,9 +16,14 @@ x_T = normal(k_init), and k_chain feeds the chain (DDIM only when eta > 0).
 Writes `{idx:06}.png` per sample, with `--npz` `samples.npz` (uint8), and
 `sampling_config.json` (the JAX script's flags) into `--logdir`.
 
-The weights are seeded and random (smoke mode), the VAE's from `--vae-ckpt`
-(a CompVis checkpoint) when given.  `--ckpt-dir` (orbax trainer states of
-`scripts/train_ldm.py`) raises: the port reads no orbax (ROADMAP A.15).  At
+`--ckpt-dir` holds trainer states of `scripts/train_ldm.py`: the JAX
+script's orbax `step_<n>/` directories (`utils/orbax.py`) or the port's
+`step_<n>.pt` files.  As in JAX, `--ckpt-step` picks one, else the newest;
+its EMA weights are taken when it holds them, else its params, and a log
+line says which (`restore_unet`).  The UNet's config comes from the flags.
+Without `--ckpt-dir` the UNet's weights are seeded and random (smoke mode).
+The VAE's are seeded and random, or from `--vae-ckpt` (a CompVis
+checkpoint) when given.  At
 full width the UNet runs self-attention through the MHA kernel and the
 feed-forward through the GEGLU kernel (`use_mha`, `use_fused_ff`), which the
 JAX script leaves off.  Runs on the card and raises without one, unless
@@ -42,7 +47,7 @@ from ..ops.schedule import make_schedule
 from ..pipeline.runners import save_image
 from ..samplers.ddim import ddim_sample
 from ..samplers.ddpm import ddpm_sample
-from ..utils import convert, prng
+from ..utils import convert, orbax, prng
 from ..utils.cudnn import deterministic
 from ..utils.testing import randomize_
 from ..utils.weights import flatten_tree, load_flat
@@ -62,7 +67,8 @@ def parse_args(argv=None):
     ap.add_argument("--clip-denoised", action="store_true",
                     help="clamp predicted x0 to [-1,1] (pixel-space DDPM default)")
     ap.add_argument("-l", "--logdir", default="samples/ldm")
-    ap.add_argument("--ckpt-dir", default=None, help="orbax dir from scripts/train_ldm.py")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="train_ldm states: JAX's orbax step_<n>/ or the port's step_<n>.pt")
     ap.add_argument("--ckpt-step", type=int, default=None)
     ap.add_argument("--vae-ckpt", default=None,
                     help="first-stage weights (CompVis sd ckpt or HF dir)")
@@ -106,6 +112,40 @@ def build_models(unet_cfg: UNetConfig, vae_cfg: VAEConfig, device, vae_ckpt=None
     return unet, vae
 
 
+def restore_unet(unet: UNet, ckpt_dir: str, step=None):
+    """Load a trainer state's UNet weights into `unet` -> (step, "ema" or
+    "raw"): step `step`, else the newest `step_<n>` (an orbax directory of
+    the JAX trainer or the port's `.pt`), its EMA weights where it holds
+    them, else its params (JAX `scripts/sample_diffusion.py:96-115`)."""
+    found = {}
+    for name in os.listdir(ckpt_dir):
+        stem = name[:-3] if name.endswith(".pt") else name
+        if stem.startswith("step_") and stem[5:].isdigit():
+            found[int(stem[5:])] = os.path.join(ckpt_dir, name)
+    if not found:
+        raise FileNotFoundError(f"{ckpt_dir}: no step_<n> checkpoint")
+    step = max(found) if step is None else int(step)
+    if step not in found:
+        raise FileNotFoundError(f"{ckpt_dir}: no step_{step} (have {sorted(found)})")
+    path = found[step]
+    if os.path.isdir(path):
+        st = orbax.restore(path)
+        tree = st.get("ema_params") if st.get("ema_params") is not None else st["params"]
+        kind = "ema" if st.get("ema_params") is not None else "raw"
+        load_flat(unet, flatten_tree(orbax.to_float32(tree)))
+    else:                                  # the port's LDMTrainer.save of an unconditional run
+        st = torch.load(path, map_location="cpu", weights_only=True)
+        kind = "ema" if st.get("ema") is not None else "raw"
+        src = st["ema"] if kind == "ema" else st["params"]
+        pre = "unet." if all(k.startswith("unet.") for k in src) else ""
+        own = unet.state_dict()
+        with torch.no_grad():
+            for k, v in own.items():
+                v.copy_(src[pre + k].to(v.dtype) if pre + k in src else
+                        st["params"][pre + k].to(v.dtype))
+    return step, kind
+
+
 @torch.inference_mode()
 def sample_batch(unet: UNet, vae: AutoencoderKL, key: np.ndarray, batch: int, latent_hw: int,
                  sched_cfg: ScheduleConfig, custom_steps: int = 50, eta: float = 1.0,
@@ -136,17 +176,18 @@ def main(argv=None, models=None) -> dict:
     """Sample and write; returns {"images": [n, H, W, 3] float32 numpy,
     "seconds"}.  `models` = (unet, vae) replaces the seeded weights."""
     args = parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: the PyTorch port reads no orbax trainer "
-                                  "states yet (ROADMAP A.15)")
     device = pick_device(args.cpu)
     unet_cfg, vae_cfg, latent_hw, sched_cfg = configs(args)
     rng = prng.PRNGKey(args.seed)
     _, _, rng = prng.split(rng, 3)          # r1, r2: the JAX script's init keys
     if models is None:
-        print("no --ckpt-dir: sampling with random weights (smoke mode)")
         models = build_models(unet_cfg, vae_cfg, device, args.vae_ckpt)
+        if not args.ckpt_dir:
+            print("no --ckpt-dir: sampling with random weights (smoke mode)")
     unet, vae = models
+    if args.ckpt_dir:
+        step, kind = restore_unet(unet, args.ckpt_dir, args.ckpt_step)
+        print(f"restored {args.ckpt_dir} step {step} ({kind})")
     os.makedirs(args.logdir, exist_ok=True)
     B, imgs = args.batch_size, []
     t0 = time.perf_counter()

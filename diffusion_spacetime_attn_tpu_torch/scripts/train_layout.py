@@ -23,8 +23,9 @@ The run dir (`--ckpt-dir`) gets JAX's layout: `config.json`,
 params, flushed every `--save-best-every` epochs and at the end) and
 resume checkpoints `step_<n>.pt` every `--ckpt-every` epochs and at the
 end; the params are `torch.save` files (JAX writes orbax) that
-`utils/loader.load_layout_predictor` reads.  `--resume-step` reads a
-checkpoint.  Under `torchrun --nproc-per-node N` (`--backend nccl`, or
+`utils/loader.load_layout_predictor` reads, as it reads JAX's orbax
+ones.  `--resume-step` reads a checkpoint: the port's `step_<n>.pt`, or
+the JAX script's orbax `step_<n>/` where no `.pt` is there.  Under `torchrun --nproc-per-node N` (`--backend nccl`, or
 gloo with `--cpu` or ranks sharing a card) with `--fsdp` the step is
 sharded over the N ranks as JAX's is over its devices (`--batch-size` is
 the global batch; every rank makes the same batches and trains on its

@@ -15,7 +15,7 @@ on the UNet's input channels (7 in, the unconditional UNet); its synthetic
 rows are `training/degradation.degradation_bsrgan_light` of RandomState(step)
 images.  `--data-dir` with text conditioning reads `captions.jsonl`
 ({"file", "text"} per line): RandomState(step) picks the rows, the images are
-opened (`utils/image_io.py`: PNG, baseline JPEG) and resized to the VAE's
+opened (`utils/image_io.py`: PNG, JPEG, BMP, WebP) and resized to the VAE's
 input with PIL's default filter (`utils/resample.py`, PIL-exact), encoded
 by the VAE on JAX's key PRNGKey(step) and the captions by the CLIP text
 tower; with class conditioning it reads an ImageNet-style synset tree
@@ -40,7 +40,8 @@ and 1) and `use_fused_ff` (every transformer block), with no control: the
 JAX script leaves every flag off.  Initial weights are flax-like and seeded
 (`utils/testing.init_flax_like_`); the step's keys are JAX's,
 fold_in(PRNGKey(42), step).  Checkpoints are the port's own
-(`LDMTrainer.save`: `<ckpt-dir>/step_<n>.pt`); `--resume-step` reads one.
+(`LDMTrainer.save`: `<ckpt-dir>/step_<n>.pt`); `--resume-step` reads one,
+or the JAX script's orbax `<ckpt-dir>/step_<n>/` where no `.pt` is there.
 Runs on the card and raises without one, unless `--cpu` is given.
 """
 from __future__ import annotations
@@ -296,11 +297,12 @@ def main(argv=None, init=None, encoders=None) -> dict:
     train_cfg = LDMTrainConfig(batch_size=args.batch_size, base_lr=args.base_lr,
                                accum_steps=args.accum, use_ema=not args.no_ema)
     model = build_model(args, unet_cfg, device)
+    root = model.unet if isinstance(model, (SuperRes, Unconditional)) else model
     if init is not None:
-        load_flat(model.unet if isinstance(model, (SuperRes, Unconditional)) else model, init)
+        load_flat(root, init)
     trainer = LDMTrainer(train_cfg, sched_cfg, make_schedule(sched_cfg, 50, device=device),
                          model, mesh=mesh, ckpt_dir=args.ckpt_dir,
-                         fsdp=args.fsdp and mesh is not None)
+                         fsdp=args.fsdp and mesh is not None, params_root=root)
     logger.info("devices=%d lr=%.2e (scaled)", ndev, trainer.lr)
     state = trainer.init()
     start = 0

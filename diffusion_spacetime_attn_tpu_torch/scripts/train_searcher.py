@@ -11,8 +11,8 @@ exact search).  Input: an embeddings npz in the reference format
 (`embedding`, optional `img_id` / `patch_coords`), or images embedded by the
 CLIP vision tower in batches of `--batch`: `--synthetic N` numpy
 `RandomState(0)` images at 224², as the JAX script draws them, or the
-images of `--image-dir` (PNG and baseline JPEG, `utils/image_io.py`; WebP
-raises, ROADMAP A.12) converted to RGB and resized to 224² with PIL's
+images of `--image-dir` (its PNG, JPEG and WebP files, as JAX's script
+lists them; `utils/image_io.py`) converted to RGB and resized to 224² with PIL's
 default filter (`utils/resample.py`, PIL-exact), as the JAX script does.  The tower is the ViT-L/14 joint-space CLIP
 (`config.VIT_L14_JOINT_CLIP`), whose 768-wide space the RDM is conditioned
 on; the JAX script builds ViT-B/32 (512 wide), whose databases cannot feed

@@ -19,7 +19,7 @@ loader's time.
 without it LPIPS is seeded random (smoke mode), and `--tiny` turns the
 perceptual term off, as in JAX.  Checkpoints: `torch.save` of the state's
 tensors at `<ckpt-dir>/step_<n>.pt` every `--ckpt-every` steps (JAX writes
-orbax).  Under `torchrun --nproc-per-node N` (`--backend nccl`, or gloo
+orbax; the port reads JAX's orbax steps in the LDM and layout trainers).  Under `torchrun --nproc-per-node N` (`--backend nccl`, or gloo
 with `--cpu` or ranks sharing a card) the step is data-parallel over the N
 ranks as JAX's is over its devices: `--batch-size` is per device, every
 rank makes the same global batch and trains on its rows, rank 0 alone

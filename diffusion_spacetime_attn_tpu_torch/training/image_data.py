@@ -4,8 +4,8 @@ package's `training/image_data.py` (reference `ldm/data/lsun.py` and
 
 A list of image paths (+ optional class labels), each loaded as RGB,
 center-cropped square, resized, randomly h-flipped and scaled to [-1, 1]
-float32.  Images are opened with `utils/image_io.open_image` (PNG, baseline
-JPEG) and resized with `utils/resample.resize`, which equal PIL's, so the
+float32.  Images are opened with `utils/image_io.open_image` (PNG, JPEG,
+BMP, WebP) and resized with `utils/resample.resize`, which equal PIL's, so the
 arrays, the flips drawn from the same `random.Random` and the order are
 JAX's exactly.  `batches()` yields fixed-shape [B, H, W, 3] (+ [B] int32
 labels) numpy arrays, shuffled per epoch with the tail dropped.

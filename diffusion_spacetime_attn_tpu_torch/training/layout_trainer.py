@@ -20,7 +20,9 @@ they were, the count not advanced) and counted; after more than
 The trainer's `train_step(params, opt_state, batch)` has JAX's signature:
 `params` is the `LayoutPredictor` module, `opt_state` its `Optimizer`;
 both are updated in place and returned.  Checkpoints are `torch.save` files
-read back with `weights_only=True` (JAX's are orbax, ROADMAP A.15).  As in
+read back with `weights_only=True`; `restore_checkpoint` also reads the JAX
+trainer's orbax `step_<n>/` (`training/jax_checkpoints.py`: both groups'
+Adam moments and counts, apply_if_finite's counters).  As in
 JAX, the backward is not wrapped in the reference's bare try/except
 (`Pretrain.py:262-266`).
 
@@ -60,6 +62,7 @@ from ..parallel.sharding import (
     optimizer_state_like,
     shard_views,
 )
+from .jax_checkpoints import is_orbax_dir, layout_checkpoint, read_on_rank0
 from .ldm_trainer import clip_by_global_norm_
 from .losses import LayoutBatch, _take, layout_total_loss
 from .schedules import bert_schedule
@@ -240,9 +243,15 @@ class LayoutTrainer:
 
     def restore_checkpoint(self, ckpt_dir: str, step: int, params: LayoutPredictor,
                            opt_state: Optimizer) -> Tuple[LayoutPredictor, Optimizer]:
-        """Load step `step` into `params` and `opt_state` and return them."""
-        d = torch.load(self.checkpoint_path(ckpt_dir, step), map_location="cpu",
-                       weights_only=True)
+        """Load step `step` into `params` and `opt_state` and return them:
+        the port's `step_<n>.pt`, else JAX's orbax `step_<n>/` (over a mesh
+        rank 0 reads it)."""
+        path = self.checkpoint_path(ckpt_dir, step)
+        jax_dir = os.path.join(ckpt_dir, f"step_{step}")
+        if not os.path.isfile(path) and is_orbax_dir(jax_dir):
+            d = read_on_rank0(self.mesh, lambda: layout_checkpoint(jax_dir, params, opt_state))
+        else:
+            d = torch.load(path, map_location="cpu", weights_only=True)
         load_full_(params, d["params"])
         opt_state.load_state_dict(d["opt_state"])
         return params, opt_state

@@ -34,7 +34,10 @@ EMA copies are shards of the same layout, and the global-norm clip sums the
 shards' squared norms over the ranks.  `save` / `restore` use the port's
 own format, `torch.save` of whole tensors (gathered; rank 0 writes) read
 back with `weights_only=True`, so a mesh run's checkpoint loads on one
-device and back; JAX's orbax steps are ROADMAP A.15.
+device and back.  `restore` also reads the JAX trainer's orbax
+`step_<n>/` directory (`training/jax_checkpoints.py`: params, EMA, logvar,
+step, AdamW's moments and count, MultiSteps' accumulators and mini-step);
+over a mesh rank 0 reads it and the state is sharded as from a port file.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from ..parallel.sharding import (
     shard_views,
 )
 from ..utils import prng
+from .jax_checkpoints import is_orbax_dir, ldm_checkpoint, read_on_rank0
 from .schedules import lambda_linear_schedule, warmup_cosine_schedule2
 
 
@@ -341,6 +345,7 @@ class LDMTrainer:
     mesh: Optional[Mesh] = None
     ckpt_dir: Optional[str] = None
     fsdp: bool = False
+    params_root: Optional[nn.Module] = None   # the submodule JAX's params tree maps to
 
     def __post_init__(self):
         self.mesh = check_mesh(self.mesh, "LDMTrainer")
@@ -391,8 +396,15 @@ class LDMTrainer:
 
     def restore(self, step: int, like: LDMTrainState) -> LDMTrainState:
         """Load step `step` into `like` (a state from `init`) and return it;
-        a checkpoint of a one-device or a mesh run, sharded or not."""
-        d = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        a checkpoint of a one-device or a mesh run, sharded or not: the
+        port's `step_<n>.pt`, else JAX's orbax `step_<n>/`."""
+        path = self._path(step)
+        jax_dir = os.path.join(self.ckpt_dir, f"step_{step}")
+        if not os.path.isfile(path) and is_orbax_dir(jax_dir):
+            d = read_on_rank0(self.mesh, lambda: ldm_checkpoint(
+                jax_dir, self.cfg, self.eps_model, like.opt_state, self.params_root))
+        else:
+            d = torch.load(path, map_location="cpu", weights_only=True)
         load_full_(like.params, d["params"])
         with torch.no_grad():
             if like.ema_params is not None:

@@ -3,13 +3,15 @@
 `encode_jpeg(img, quality)` gives the bytes PIL's `Image.save(buf, "JPEG",
 quality=q)` writes for a uint8 [H, W, 3] (4:2:0) or [H, W] / [H, W, 1]
 image (greyscale), and `decode_jpeg(data)` the pixels PIL's `Image.open`
-gives for a baseline file: [H, W, 3] for a YCbCr file, [H, W] for a
-greyscale one.  The codec follows libjpeg's integer arithmetic at its
-defaults (ISLOW DCTs, fancy upsampling), so both equal PIL byte for byte;
-`tests/test_torch_image_io.py` holds them to it.  Progressive,
-arithmetic-coded, 12-bit, CMYK and RGB-coded (Adobe transform 0) files
-raise `ValueError` naming the marker and its offset; so do corrupt and
-truncated files, where PIL refuses them.
+gives for a baseline, extended or progressive Huffman file: [H, W, 3] for
+a YCbCr or RGB-coded file (mode "RGB"), [H, W, 4] for a CMYK or YCCK one
+(mode "CMYK", inverted as PIL reads Adobe files), [H, W] for a greyscale
+one.  The codec follows libjpeg's integer arithmetic at its defaults (ISLOW
+DCTs, fancy upsampling), so both equal PIL byte for byte;
+`tests/test_torch_image_io.py` and `tests/test_torch_formats.py` hold them
+to it.  Arithmetic-coded, lossless, hierarchical and 12-bit files raise
+`ValueError` naming the marker and its offset; so do corrupt and truncated
+files, where PIL refuses them.
 
 The source is compiled at first use with `g++ -O2 -fPIC -std=c++17
 -shared` into the package's `_build/` (listed in `.gitignore`) under a name
@@ -93,7 +95,7 @@ def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A baseline JPEG's pixels: uint8 [H, W, 3] RGB, or [H, W] greyscale."""
+    """A JPEG's pixels: uint8 [H, W, 3] RGB, [H, W, 4] CMYK or [H, W] greyscale."""
     lib = load_library()
     out = ctypes.POINTER(ctypes.c_uint8)()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -103,7 +105,7 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if rc:
         raise ValueError(f"{name}: {err.value.decode()}")
     try:
-        shape = (h.value, w.value) + ((3,) if c.value == 3 else ())
+        shape = (h.value, w.value) + ((c.value,) if c.value > 1 else ())
         return np.frombuffer(ctypes.string_at(out, h.value * w.value * c.value),
                              np.uint8).reshape(shape).copy()
     finally:

@@ -11,9 +11,9 @@ A trained run dir of `scripts/train_layout.py` holds `best.json`,
 `config.json` and the params `best.json` names; `saved/layout_gpt3/`
 commits the first two, and the params are git-ignored.  The port finds a
 run dir as the JAX package does and rebuilds its config.  The port's
-trainer writes its params as a `torch.save` state dict, which loads; the
-JAX trainer's orbax params dir raises: reading it needs orbax and
-tensorstore (ROADMAP A.15).
+trainer writes its params as a `torch.save` state dict; the JAX trainer's
+are an orbax directory, which `utils/orbax.py` reads without orbax.  Both
+load.
 """
 from __future__ import annotations
 
@@ -28,8 +28,8 @@ from ..config import CLIPConfig, LayoutConfig, PipelineConfig
 from ..models.layout.model import LayoutPredictor, create_layout_predictor
 from ..pipeline.losses import DCLIPLoss
 from ..pipeline.pipeline import StableDiffusion
-from . import convert
-from .weights import flatten_tree, load_flat
+from . import convert, orbax
+from .weights import flatten_tree, layout_state_dict, load_flat
 
 
 def load_stable_diffusion(cfg: PipelineConfig, ckpt_path: Optional[str] = None, seed: int = 0,
@@ -103,9 +103,13 @@ def load_layout_predictor(cfg: LayoutConfig, ckpt_path: Optional[str] = None, se
       * such a file otherwise: HF RoBERTa under `roberta.` for the backbone,
         the object embedding and the GMM head seeded;
       * a run dir (best.json): its config.json rebuilds the trained config,
-        and its params file (the port's `scripts/train_layout.py`: the
-        model's own state dict) loads strictly; a JAX run dir's orbax
-        params dir raises `NotImplementedError`, as a bare params dir does;
+        and its params load strictly: the port's `scripts/train_layout.py`
+        file (the model's own state dict) or the JAX script's orbax dir;
+      * an orbax dir: JAX's `best_params` (the flax params tree) or a
+        `LayoutTrainer.save_checkpoint` step (its "params"), through the
+        strict weight bridge (every parameter filled exactly once); a
+        directory without orbax's `_METADATA` raises `FileNotFoundError`
+        naming it and the config it was to load at;
       * a path that does not exist: `FileNotFoundError`."""
     if ckpt_path and os.path.isfile(os.path.join(ckpt_path, "best.json")):
         with open(os.path.join(ckpt_path, "best.json")) as f:
@@ -116,9 +120,17 @@ def load_layout_predictor(cfg: LayoutConfig, ckpt_path: Optional[str] = None, se
                 cfg = LayoutConfig(**json.load(f)["layout"])
         ckpt_path = os.path.join(ckpt_path, best.get("params_path", "best_params"))
     if ckpt_path and os.path.isdir(ckpt_path):
-        raise NotImplementedError(
-            f"{ckpt_path} (layout {cfg.layers} layers, hidden {cfg.hidden}): the PyTorch "
-            "port reads no orbax layout params (ROADMAP A.15)")
+        if not os.path.isfile(os.path.join(ckpt_path, "_METADATA")):
+            raise FileNotFoundError(
+                f"{ckpt_path} (layout {cfg.layers} layers, hidden {cfg.hidden}): an orbax "
+                "params dir without its _METADATA manifest")
+        tree = orbax.restore(ckpt_path)
+        if "params" in tree and "opt_state" in tree:     # a trainer step
+            tree = tree["params"]
+        model = create_layout_predictor(cfg, seed, device)
+        with torch.no_grad():
+            model.load_state_dict(layout_state_dict(orbax.to_float32(tree), model), strict=True)
+        return model
     state = convert.load_torch_checkpoint(ckpt_path) if ckpt_path else None
     model = create_layout_predictor(cfg, seed, device)
     if state is not None:

@@ -95,30 +95,45 @@ def test_jpeg_decoder_pixels_equal_pil():
 
 
 def test_unsupported_files_raise(tmp_path):
+    """Progressive and CMYK JPEGs, which raised until the port read them,
+    now give PIL's pixels (tests/test_torch_formats.py holds every variant);
+    junk, GIF and a truncated WebP still raise."""
     a = image(32, 32)
-    with pytest.raises(ValueError, match="progressive.*0xFFC2.*A.12"):
-        decode_jpeg(pil_jpeg(a, 75, progressive=True))
+    data = pil_jpeg(a, 75, progressive=True)
+    np.testing.assert_array_equal(decode_jpeg(data), np.asarray(Image.open(io.BytesIO(data))))
     buf = io.BytesIO()
     Image.fromarray(a).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(ValueError, match="4-component"):
-        decode_jpeg(buf.getvalue())
+    np.testing.assert_array_equal(decode_jpeg(buf.getvalue()),
+                                  np.asarray(Image.open(io.BytesIO(buf.getvalue()))))
     with pytest.raises(ValueError, match="not a JPEG"):
         decode_jpeg(b"\x00\x01junk")
-    (tmp_path / "x.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
-    with pytest.raises(ValueError, match="WebP.*A.12"):
+    buf = io.BytesIO()
+    Image.fromarray(a).convert("P").save(buf, "GIF")
+    (tmp_path / "x.gif").write_bytes(buf.getvalue())
+    with pytest.raises(ValueError, match="GIF.*A.12"):
+        open_image(str(tmp_path / "x.gif"))
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "WEBP", quality=80)
+    (tmp_path / "x.webp").write_bytes(buf.getvalue()[:100])
+    with pytest.raises(ValueError, match="truncated"):
         open_image(str(tmp_path / "x.webp"))
+    with pytest.raises(Exception):
+        Image.open(str(tmp_path / "x.webp")).load()
 
 
 def corrupt_jpegs():
     """(label, bytes, pil_raises) for corrupt files (pil_raises None where
     the scan data is garbled and either may happen): seeded truncations and
-    byte flips of valid files, and hand-made segments that lie about their
+    byte flips of valid files (baseline and progressive), and hand-made
+    segments that lie about their
     contents (an over-subscribed Huffman table, short SOF / DQT / DHT / DRI
     / SOS segments, a scan naming 255 components)."""
     r = np.random.RandomState(7)
     valid = [pil_jpeg(image(53, 37, seed=3), 75), pil_jpeg(image(40, 24, seed=5), 70,
                                                              restart_marker_blocks=3),
-             pil_jpeg(image(33, 100, 1, seed=4), 60), encode_jpeg(image(24, 40, seed=6), 50)]
+             pil_jpeg(image(33, 100, 1, seed=4), 60), encode_jpeg(image(24, 40, seed=6), 50),
+             pil_jpeg(image(37, 29, seed=8), 80, progressive=True),
+             pil_jpeg(image(30, 41, seed=9), 65, progressive=True, restart_marker_blocks=2)]
     out = []
     for f in valid:
         for cut in r.choice(np.arange(2, len(f) - 1), 40, replace=False):
@@ -189,6 +204,11 @@ HARNESS = r"""
 #include <vector>
 extern "C" int jpeg_decode(const uint8_t*, size_t, uint8_t**, int*, int*, int*, char*, int);
 extern "C" void jpeg_free(void*);
+extern "C" int webp_decode(const uint8_t*, size_t, uint8_t**, int*, int*, int*, char*, int);
+extern "C" void webp_free(void*);
+extern "C" int zstd_decode_alloc(const uint8_t*, size_t, uint8_t**, size_t*, char*, int);
+extern "C" int zstd_decode_into(const uint8_t*, size_t, uint8_t*, size_t, size_t*, char*, int);
+extern "C" void zstd_free(void*);
 int main(int argc, char** argv) {
   for (int i = 1; i < argc; i++) {
     FILE* f = std::fopen(argv[i], "rb");
@@ -199,8 +219,19 @@ int main(int argc, char** argv) {
     std::memcpy(d, b.data(), b.size());
     uint8_t* out = nullptr;
     int w, h, c;
+    size_t n;
     char err[256];
-    if (jpeg_decode(d, b.size(), &out, &w, &h, &c, err, sizeof(err)) == 0) jpeg_free(out);
+    const char* name = argv[i];
+    size_t len = std::strlen(name);
+    if (len > 4 && std::strcmp(name + len - 4, ".zst") == 0) {
+      if (zstd_decode_alloc(d, b.size(), &out, &n, err, sizeof(err)) == 0) zstd_free(out);
+      std::vector<uint8_t> small(64 * 1024);   // a caller's buffer the frame may not fit
+      zstd_decode_into(d, b.size(), small.data(), small.size(), &n, err, sizeof(err));
+    } else if (len > 5 && std::strcmp(name + len - 5, ".webp") == 0) {
+      if (webp_decode(d, b.size(), &out, &w, &h, &c, err, sizeof(err)) == 0) webp_free(out);
+    } else if (jpeg_decode(d, b.size(), &out, &w, &h, &c, err, sizeof(err)) == 0) {
+      jpeg_free(out);
+    }
     std::free(d);
   }
   std::puts("done");
@@ -208,18 +239,61 @@ int main(int argc, char** argv) {
 """
 
 
+def corrupt_webps_and_frames():
+    """Seeded truncations and byte flips of lossy, lossless and alpha WebPs
+    and of zstd frames (random, text-like and float data at levels 1 and
+    19, one and several blocks, with the checksum): (suffix, bytes)."""
+    import zstandard
+
+    r = np.random.RandomState(11)
+    out = []
+    files = []
+    for kw, c in ((dict(quality=75), 3), (dict(lossless=True), 3), (dict(quality=70), 4),
+                  (dict(lossless=True), 4)):
+        buf = io.BytesIO()
+        a = image(37, 53, seed=c)
+        Image.fromarray(np.dstack([a, a[..., :1]]) if c == 4 else a).save(buf, "WEBP", **kw)
+        files.append((".webp", buf.getvalue()))
+    for lvl in (1, 19):
+        for data in (r.randint(0, 256, 3000).astype(np.uint8).tobytes(),
+                     bytes(r.choice(list(b"abcde  xyz"), 200_000).astype(np.uint8)),
+                     np.round(r.randn(50_000), 2).astype(np.float32).tobytes()):
+            files.append((".zst", zstandard.ZstdCompressor(level=lvl,
+                                                           write_checksum=True).compress(data)))
+    for suffix, f in files:
+        for cut in r.choice(np.arange(1, len(f)), 12, replace=False):
+            out.append((suffix, f[:cut]))
+        for k in range(20):
+            g = bytearray(f)
+            for at in r.randint(0, len(f), 1 + k % 3):
+                g[at] = r.randint(256)
+            out.append((suffix, bytes(g)))
+    return out
+
+
 def test_corrupt_jpegs_stay_in_bounds_under_asan(tmp_path):
-    """The decoder built with AddressSanitizer and UBSan reads and writes
-    only its own memory on every corrupt file above."""
-    from diffusion_spacetime_attn_tpu_torch.utils.jpeg import SOURCE
+    """The JPEG, WebP and zstd decoders built with AddressSanitizer and UBSan
+    read and write only their own memory on every corrupt file above and on
+    seeded truncations and flips of WebPs and zstd frames."""
+    from diffusion_spacetime_attn_tpu_torch.utils import jpeg, webp, zstd
     (tmp_path / "harness.cpp").write_text(HARNESS)
     exe = tmp_path / "harness"
-    subprocess.run(["g++", "-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
-                    "-fno-sanitize-recover=all", "-o", str(exe), str(SOURCE),
-                    str(tmp_path / "harness.cpp")], check=True, capture_output=True, timeout=300)
+    flags = ["-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
+             "-fno-sanitize-recover=all"]
+    sources = [jpeg.SOURCE, webp.SOURCE, zstd.SOURCE, tmp_path / "harness.cpp"]
+    objs = [tmp_path / f"{i}.o" for i in range(len(sources))]
+    builds = [subprocess.Popen(["g++", *flags, "-c", "-o", str(o), str(src)],
+                               stderr=subprocess.PIPE) for o, src in zip(objs, sources)]
+    for b in builds:                      # the four compiles run side by side
+        assert b.wait(timeout=300) == 0, b.stderr.read().decode()[-3000:]
+    subprocess.run(["g++", *flags, "-o", str(exe), *map(str, objs)], check=True,
+                   capture_output=True, timeout=300)
     paths = []
     for i, (_, data, _) in enumerate(corrupt_jpegs()):
         paths.append(tmp_path / f"{i}.jpg")
+        paths[-1].write_bytes(data)
+    for i, (suffix, data) in enumerate(corrupt_webps_and_frames()):
+        paths.append(tmp_path / f"x{i}{suffix}")
         paths[-1].write_bytes(data)
     r = subprocess.run([str(exe), *map(str, paths)], capture_output=True, text=True, timeout=300,
                        env={**os.environ, "ASAN_OPTIONS": "detect_leaks=0"})

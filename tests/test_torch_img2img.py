@@ -426,5 +426,15 @@ def test_sample_diffusion_cli_writes_jax_files(tiny_models, tmp_path):
         rng, k = prng.split(rng)
     second = sample_diffusion.sample_batch(*m["models"], k, 2, m["hw"], m["scfg"], 2, 1.0)
     np.testing.assert_array_equal(arr[2], second[0].numpy())
-    with pytest.raises(NotImplementedError, match="A.15"):
-        sample_diffusion.main(["--tiny", "--cpu", "--ckpt-dir", str(tmp_path)])
+    # --ckpt-dir: a trainer state of these weights (the port's step_<n>.pt; JAX's
+    # orbax steps: tests/test_torch_orbax.py) into freshly seeded models
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    torch.save({"params": {f"unet.{k}": v for k, v in m["models"][0].state_dict().items()},
+                "ema": None}, ck / "step_7.pt")
+    fresh = sample_diffusion.build_models(*sample_diffusion.configs(
+        sample_diffusion.parse_args(["--tiny", "--cpu", "--dtype", "float32"]))[:2], "cpu")[0]
+    again = sample_diffusion.main(["--tiny", "--cpu", "--dtype", "float32", "-n", "3",
+                                   "--batch-size", "2", "-c", "2", "-l", str(tmp_path / "again"),
+                                   "--ckpt-dir", str(ck)], models=(fresh, m["models"][1]))
+    np.testing.assert_array_equal(again["images"], arr)

@@ -223,8 +223,9 @@ def test_hash_tokenizer_matches_jax(text):
 # ---------------------------------------------------------------- imports
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "safetensors", "transformers",
-             "pytorch_lightning", "fairseq", "diffusion_spacetime_attn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "msgpack",
+             "PIL", "safetensors", "transformers", "pytorch_lightning", "fairseq",
+             "diffusion_spacetime_attn_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -243,15 +244,18 @@ def test_import_rule_matches_names_exactly():
     assert not _forbidden("jaxtyping")
     assert _forbidden("safetensors.numpy") and _forbidden("fairseq")
     assert not _forbidden("diffusion_spacetime_attn_tpu_torch.utils.safetensors")
+    assert _forbidden("orbax.checkpoint") and _forbidden("tensorstore") and _forbidden("zstandard")
+    assert not _forbidden("diffusion_spacetime_attn_tpu_torch.utils.orbax")
 
 
 def test_port_imports_nothing_of_jax():
     """AST walk over every module of the port (`parallel/` included), the
     on-card scripts (chip_smoke.py, chip_spacetime_variants.py) and the
     multi-device tests' rank helper (tests/helpers/torch_ranks.py): no import
-    of jax, flax, optax, orbax or the JAX package, nor of msgpack, PIL,
-    safetensors, transformers, pytorch_lightning or fairseq, which the
-    card's machine lacks (relative imports stay inside the port)."""
+    of jax, flax, optax, orbax or the JAX package, nor of tensorstore,
+    zstandard, msgpack, PIL, safetensors, transformers, pytorch_lightning
+    or fairseq, which the card's machine lacks (relative imports stay
+    inside the port)."""
     files = _port_files()
     assert len(files) > 20
     scripts = ROOT / "diffusion_spacetime_attn_tpu_torch" / "scripts"
@@ -277,6 +281,9 @@ def test_port_imports_nothing_of_jax():
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / "profiling.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "mesh.py",
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "sharding.py",
+                *(ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / f"{m}.py"
+                  for m in ("zstd", "ocdbt", "orbax", "bmp", "webp", "image_io")),
+                ROOT / "diffusion_spacetime_attn_tpu_torch" / "training" / "jax_checkpoints.py",
                 ROOT / "tests" / "helpers" / "torch_ranks.py"):
         assert new in files, new
     bad = []

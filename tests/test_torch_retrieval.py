@@ -45,6 +45,7 @@ from diffusion_spacetime_attn_tpu_torch.scripts import knn2img as knn2img_cli
 from diffusion_spacetime_attn_tpu_torch.scripts import train_searcher
 from diffusion_spacetime_attn_tpu_torch.utils import prng
 from diffusion_spacetime_attn_tpu_torch.utils.png import read_png, write_png
+from diffusion_spacetime_attn_tpu_torch.utils.resample import resize
 from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
 from diffusion_spacetime_attn_tpu_torch.utils.weights import load_flat
 from test_torch_pipeline import flat, port_cfg
@@ -376,12 +377,16 @@ def test_train_searcher_reads_png_dirs_and_refuses_jpeg(tmp_path):
     s = train_searcher.main(["--tiny", "--cpu", "--image-dir", str(d), "--out", out])
     assert s["rows"] == 2
     assert np.load(out)["patch_coords"].tolist() == [[0, 0, 224, 224]] * 2
+    # a truncated WebP raises ValueError; the port reads WebP and progressive
+    # JPEG since they were ported, where this refused them naming A.12
     (d / "c.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBP")
-    with pytest.raises(ValueError, match="A.12"):
+    with pytest.raises(ValueError, match="truncated|RIFF"):
         train_searcher.load_image_dir(str(d))
     (d / "c.webp").unlink()
     from PIL import Image
     Image.fromarray(rng.randint(0, 256, (16, 16, 3), dtype=np.uint8)).save(
         d / "c.jpg", "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        train_searcher.load_image_dir(str(d))
+    imgs = train_searcher.load_image_dir(str(d))
+    want = resize(np.asarray(Image.open(d / "c.jpg").convert("RGB")), (224, 224)) / 255.0
+    assert imgs.shape == (3, 224, 224, 3)
+    np.testing.assert_allclose(imgs[2], want, atol=1e-6)
