@@ -107,12 +107,13 @@ script exits non-zero without its final line:
              batch (PLMS at FRONT_STEPS = 25: phase serve runs PLMS-50),
              nothing else.
      loadtest: `serving/loadtest.run_loadtest` on the vanilla-flag engine
-             (phase serve's bundle at PLMS-25, no control), batch 2: capacity from 2
-             warm batches, stages at 0.5, 1.0 and 2.5 of it, 3 requests
-             each, max_queue 4: every accepted request completes, p50 <=
-             p95 <= p99, no reject at 0.5 and its p50 at least one batch,
+             (phase serve's bundle at PLMS-10, LOADTEST_STEPS, no
+             control), batch 2: capacity from 2 warm batches, stages at
+             0.5, 1.0 and 2.5 of it, 3 requests each, max_queue 4:
+             every accepted request completes, p50 <= p95 <= p99, no
+             reject at 0.5 and its p50 at least one batch,
              the JAX artifact's keys; printed on one line with the card's
-             name and power limit; MHA and GEGLU 416 per batch.
+             name and power limit; MHA and GEGLU 176 per batch.
      serve_cli: `scripts/serve.main(["--mode", "spacetime", "--batch",
              "2", "--soak", "2", "--steps", "10"])` in this process (full
              width, bf16 parameters, PLMS-10 (SERVE_CLI_STEPS, as phase
@@ -329,10 +330,19 @@ script exits non-zero without its final line:
              allocated bytes per rank), `sharded_search` over a 1,000,000 x 768 database split
              over the ranks against `exact_search` (the same top-10), and
              TextToImageEngine(mesh=) at batch 2 (one row per rank),
-             PLMS-10, float32, within one uint8 level of one process.  A
-             rank that fails makes the script fail.
+             PLMS-10, float32, within one uint8 level of one process; part
+             tp, the model axis: the same ranks as Mesh(data=1, model=2),
+             the full-depth UNet tensor-parallel (4 heads and half of each
+             GEGLU per rank), one controlled evaluation f32 with its
+             gradient (loss 1e-5, gradients and dcoef 1e-3 relative in norm
+             against one rank) and bf16 (phase unet's limit, GEGLU and
+             spacetime on wgmma), launches per rank exactly MESH2_TP_SITES,
+             the all-reduces counted, and SpaceTimeEngine over it (f32,
+             PLMS-3, one training epoch) within one uint8 level of the
+             engine in this process.  A rank that fails makes the script
+             fail.
      trace:  `scripts/profiler.py` in vanilla and spacetime mode (SD v1-4,
-             bf16, PLMS-10, batch 2, one traced call) and
+             bf16, PLMS-5 (TRACE_STEPS), batch 2, one traced call) and
              `scripts/analyze_trace.py --json`: each kernel's device
              functions counted in the table equal to its wrapper's launches
              (MHA and GEGLU in vanilla mode, flash forward and backward in
@@ -4036,9 +4046,11 @@ def _serve_front(engine, **kw):
 # serving front and the ramp, at fewer steps than phase serve's 50 to keep
 # the whole script inside its 600 s budget; a batch must still outlast
 # phase http's 0.5 s sleeps (its 503 and 504 checks)
-FRONT_STEPS = 25                # phases http and loadtest (cut from 50); http's burst
+FRONT_STEPS = 25                # phase http (cut from 50); http's burst
                                 # and timeout checks need a batch longer than their 0.5 s wait
 FRONT_LAUNCHES = 16 * (FRONT_STEPS + 1)     # per batch of each forward kernel on the path
+LOADTEST_STEPS = 10             # phase loadtest's PLMS steps (a functional check)
+LOADTEST_LAUNCHES = 16 * (LOADTEST_STEPS + 1)
 
 
 def with_steps(sd, steps: int):
@@ -4187,7 +4199,7 @@ LOADTEST_REQUESTS = 3
 
 def phase_loadtest(sd, smi: str):
     """`run_loadtest` on the vanilla-flag engine at full SD v1-4 width (phase
-    serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-FRONT_STEPS, batch
+    serve's bundle, no control: MHA and GEGLU kernels), bf16, PLMS-LOADTEST_STEPS, batch
     2: capacity from 2 warm batches, then stages at 0.5, 1.0 and 2.5 of it,
     LOADTEST_REQUESTS (3) requests each, max_queue 4, max_wait_s 0.2.  A
     functional check, not a measurement (percentiles of 3 samples;
@@ -4198,7 +4210,7 @@ def phase_loadtest(sd, smi: str):
     offered rate × its median batch time / batch size, stay below 1 (else
     the capacity batches ran more than twice as fast as the stage's, and
     "0.5" was not below saturation); the artifact must have the JAX
-    package's keys, and every batch launches MHA and GEGLU FRONT_LAUNCHES times."""
+    package's keys, and every batch launches MHA and GEGLU LOADTEST_LAUNCHES times."""
     from diffusion_spacetime_attn_tpu_torch.scripts.measure_loadtest import (
         TimedEngine,
         ramp_record,
@@ -4207,7 +4219,7 @@ def phase_loadtest(sd, smi: str):
     from diffusion_spacetime_attn_tpu_torch.serving.loadtest import run_loadtest
     from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer
 
-    sd = with_steps(sd, FRONT_STEPS)
+    sd = with_steps(sd, LOADTEST_STEPS)
     L = sd.cfg.text_encoder.max_len
     tok = make_clip_tokenizer(max_len=L)
     engine = TimedEngine(TextToImageEngine(
@@ -4220,8 +4232,8 @@ def phase_loadtest(sd, smi: str):
     seconds = time.perf_counter() - t0
     counts = {k: w.launches for k, w in wrappers.items()}
     batches = len(engine.rows)
-    expect = {k: batches * FRONT_LAUNCHES if k in VANILLA_KERNELS else 0 for k in wrappers}
-    emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": FRONT_STEPS,
+    expect = {k: batches * LOADTEST_LAUNCHES if k in VANILLA_KERNELS else 0 for k in wrappers}
+    emit({"phase": "loadtest", "nvidia_smi": smi, "mode": "vanilla", "steps": LOADTEST_STEPS,
           "functional_check": f"{LOADTEST_REQUESTS} requests per stage: not a measurement",
           "seconds": seconds, "batches": batches, "launches": counts,
           "batch_rows": [n for n, _ in engine.rows], "artifact": art})
@@ -4485,6 +4497,19 @@ MESH_KNN = 10
 # train_f32's limits (`_train_on_off`)
 MESH_LIMITS = {"loss_rel": 1e-5, "grad_rel_norm": 1e-3,
                "params": "|mesh - one| <= 1e-5 + 1e-5·|one| (ratio <= 1)"}
+# mesh2's part tp: the model axis over the two ranks, Mesh(data=1, model=2).
+# One controlled evaluation of the SD v1-4 UNet at full depth (2 residual
+# blocks per level fit: both ranks' f32 UNets and gradients with the one-rank
+# reference are ~25 GB per rank of the 80), 1 prompt x 4 objects, the chain's
+# kernel flags; launches per rank per evaluation with its gradient:
+MESH2_TP_SITES = {"spacetime_fwd": 16, "spacetime_bwd": 16, "geglu_fwd": 16, "geglu_bwd": 16,
+                  "flash_fwd": 10, "flash_bwd": 10}
+MESH2_TP_RES_BLOCKS = 2
+MESH2_TP_STEPS, MESH2_TP_EPOCHS = 3, 2     # the TP engine: PLMS-3, one training epoch
+MESH2_TP_REQUEST = (["a cat and a dog near a tree and a car"], [21])
+MESH2_TP_LIMITS = {"f32": "loss 1e-5 relative, every gradient and dcoef 1e-3 relative in norm",
+                   "bf16": "|tp - one| <= 5e-2·max|eps| + 1e-3 (phase unet's)",
+                   "engine": "within one uint8 level of one process (f32)"}
 
 
 def _mesh_unet(dtype: str = "float32", num_res_blocks: int = 2):
@@ -4832,6 +4857,10 @@ def mesh2_rank(rank: int, d: str) -> None:
         if diff > 1:
             fail(f"mesh2_engine: {diff} uint8 levels from the one-process engine")
         out["engine"]["max_uint8_diff"] = diff
+    # (e) the model axis: tensor parallelism over the same two ranks
+    emit({"mesh2_rank": rank, "starts": "tp"})
+    out["t_starts"]["tp"] = round(time.perf_counter() - _T0, 1)
+    out["tp"] = _mesh2_tp(rank, d)
     out["t_starts"]["end"] = round(time.perf_counter() - _T0, 1)
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4839,7 +4868,187 @@ def mesh2_rank(rank: int, d: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_mesh2(smi: str) -> dict:
+def _tp_eval(unet, x, t, ctx, ctl, grads: bool) -> dict:
+    """One controlled evaluation of `unet` (sharded or not) and, with
+    `grads`, the gradient of Σ eps² for coef and the parameters: eps, loss,
+    dcoef, the launches and designs counted around it, the model
+    all-reduces (`parallel/tensor.STATS`), seconds."""
+    import torch
+
+    from diffusion_spacetime_attn_tpu_torch.parallel import tensor as tp
+
+    wrappers = _wrappers()
+    coef = ctl.coef.clone().requires_grad_(grads)
+    for p in unet.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    tp.reset_stats()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(grads):
+        eps = unet(x, t, ctx, ctl._replace(coef=coef))
+        loss = (eps.float() ** 2).sum()
+        if grads:
+            loss.backward()
+    torch.cuda.synchronize()
+    return {"eps": eps.detach(), "loss": float(loss), "seconds": time.perf_counter() - t0,
+            "dcoef": None if coef.grad is None else coef.grad.clone(),
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "by_design": {k: dict(w.launches_by_design) for k, w in wrappers.items()
+                          if hasattr(w, "launches_by_design")},
+            "allreduce": dict(tp.STATS)}
+
+
+def _tp_engine(tp, dtype: str):
+    """SpaceTimeEngine at SD v1-4 width over `tp` (None: one process),
+    MESH2_TP_STEPS PLMS steps, MESH2_TP_EPOCHS epochs, batch 1 with phase
+    optimize's four objects, the four kernel flags; seeded weights."""
+    import dataclasses
+
+    from diffusion_spacetime_attn_tpu_torch.config import (
+        CLIPConfig,
+        CLIPVisionConfig,
+        PipelineConfig,
+        UNetConfig,
+        VAEConfig,
+    )
+    from diffusion_spacetime_attn_tpu_torch.pipeline.losses import DCLIPLoss
+    from diffusion_spacetime_attn_tpu_torch.pipeline.pipeline import StableDiffusion
+    from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine
+
+    cfg = PipelineConfig(unet=UNetConfig(dtype=dtype, use_flash=True, use_mha=True,
+                                         use_fused_ff=True, use_fused_control=True),
+                         vae=VAEConfig(dtype=dtype))
+    cfg = dataclasses.replace(cfg, spacetime=dataclasses.replace(
+        cfg.spacetime, num_steps=MESH2_TP_STEPS, epochs=MESH2_TP_EPOCHS))
+    clip_cfg = CLIPConfig(vision=CLIPVisionConfig(dtype=dtype),
+                          text=dataclasses.replace(CLIPConfig().text, dtype=dtype))
+    sd = StableDiffusion.create(cfg, seed=0, device="cuda")
+    runner = _spacetime_engine(sd, DCLIPLoss.create(clip_cfg, seed=4, device="cuda"), 1).runner
+    return SpaceTimeEngine(runner=runner, batch_size=1, mesh=tp)
+
+
+def _mesh2_tp(rank: int, d: str) -> dict:
+    """Part tp of phase mesh2: a Mesh(data=1, model=2) over the two gloo
+    ranks on cuda:0.  The SD v1-4 UNet at full width and MESH2_TP_RES_BLOCKS
+    residual blocks per level, sharded (`shard_params`: each rank 4 of the
+    8 heads, half of every GEGLU's features), one controlled evaluation (1
+    prompt, 4 objects) with its gradient for coef and the parameters, float32,
+    against the same evaluation unsharded on this rank (each rank holds its
+    shard of the reference's gradients to MESH2_TP_LIMITS); the bf16 forward
+    likewise at phase unet's limit, every GEGLU and spacetime launch on
+    wgmma; the launches per rank exactly MESH2_TP_SITES; each evaluation's
+    one-rank time taken on rank 0 while rank 1 waits.  Then SpaceTimeEngine
+    over the mesh (f32, PLMS-3, one training epoch, MESH2_TP_REQUEST; its
+    launches per rank exactly one device's per batch), its images written
+    to `<d>/tp_engine<rank>.npy` for phase_mesh2.  Returns
+    the part's figures."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_spacetime_attn_tpu_torch.config import UNetConfig
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.parallel import tensor as tpt
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import model_shard, shard_params
+    from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
+
+    t_part = time.perf_counter()
+    tp = make_mesh(data=1, model=MESH2_RANKS, backend="gloo", device=torch.device("cuda", 0))
+    out = {"mesh": [tp.data, tp.model], "coords": [tp.data_index, tp.model_index],
+           "res_blocks": MESH2_TP_RES_BLOCKS,
+           "depth": "full (SD's two residual blocks per level fit on the card)",
+           "limits": MESH2_TP_LIMITS}
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    x = torch.randn((2, 64, 64, 4), generator=gen, device="cuda")
+    t = torch.full((2,), 981, dtype=torch.int32, device="cuda")
+    ctx = torch.randn((2, CONTEXT_LEN, 768), generator=gen, device="cuda")
+    ctl = _control(1, torch.device("cuda"), gen)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        grads = dtype == "float32"
+        with torch.device("cuda"):
+            cfg = UNetConfig(dtype=dtype, use_flash=True, use_fused_ff=True,
+                             use_fused_control=True, num_res_blocks=MESH2_TP_RES_BLOCKS)
+            ref, unet = UNet(cfg, radius=0.2), UNet(cfg, radius=0.2)
+        randomize_(ref, 1)
+        unet.load_state_dict(ref.state_dict())
+        shard_params(unet, tp)
+        one = _tp_eval(ref, x, t, ctx, ctl, grads)
+        got = _tp_eval(unet, x, t, ctx, ctl, grads)
+        tag = "f32" if grads else "bf16"
+        line = {"s_per_eval": got["seconds"], "allreduce": got["allreduce"],
+                "launches": got["launches"]}
+        if grads:
+            loss_rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+            grad_rel = {}
+            for k, p in unet.named_parameters():
+                w = model_shard(unet, k, dict(ref.named_parameters())[k].grad)
+                grad_rel[k] = float(torch.linalg.vector_norm(p.grad - w)
+                                    / torch.linalg.vector_norm(w).clamp_min(1e-30))
+            dcoef_rel = float(torch.linalg.vector_norm(got["dcoef"] - one["dcoef"])
+                              / torch.linalg.vector_norm(one["dcoef"]).clamp_min(1e-30))
+            worst = max(grad_rel, key=grad_rel.get)
+            line.update(loss=got["loss"], loss_one=one["loss"], loss_rel=loss_rel,
+                        grad_rel_norm_max=grad_rel[worst], grad_worst=worst,
+                        dcoef_rel_norm=dcoef_rel, dcoef=got["dcoef"].tolist())
+            if not (loss_rel <= 1e-5 and grad_rel[worst] <= 1e-3 and dcoef_rel <= 1e-3):
+                fail(f"mesh2_tp f32: against one rank: {line}")
+            expected = {k: MESH2_TP_SITES.get(k, 0) for k in got["launches"]}
+        else:
+            diff = float((got["eps"].float() - one["eps"].float()).abs().max())
+            scale = float(one["eps"].float().abs().max())
+            line.update(max_abs_diff=diff, max_abs_eps=scale, tol=5e-2 * scale + 1e-3,
+                        by_design={k: got["by_design"][k] for k in ("geglu_fwd",
+                                                                     "spacetime_fwd")})
+            if not (torch.isfinite(got["eps"]).all() and diff <= line["tol"] and scale > 0):
+                fail(f"mesh2_tp bf16: against one rank: {line}")
+            off = {k: n for k in ("geglu_fwd", "spacetime_fwd")
+                   for d, n in got["by_design"][k].items() if d != "wgmma" and n}
+            if off:
+                fail(f"mesh2_tp bf16: launches off the wgmma designs: {off}")
+            expected = {k: MESH2_TP_SITES.get(k, 0) if k.endswith("fwd") else 0
+                        for k in got["launches"]}
+        if got["launches"] != expected:
+            fail(f"mesh2_tp {tag}: launches {got['launches']}, expected {expected}")
+        _sum_launches(launches, got["launches"])
+        if rank == 0:       # one rank's evaluation with the card to itself (rank 1 waits)
+            line["s_per_eval_one"] = _tp_eval(ref, x, t, ctx, ctl, grads)["seconds"]
+        dist.barrier()
+        out[tag] = line
+        del ref, unet, one, got
+        torch.cuda.empty_cache()
+    # the engine over the model axis (f32: the sums over the ranks
+    # reassociate, so bf16 would round apart); phase_mesh2 holds its images
+    # against one process's, made meanwhile in the parent
+    eng = _tp_engine(tp, "float32")
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    _reset_counts(wrappers.values())
+    tpt.reset_stats()
+    t0 = time.perf_counter()
+    images, coef, _ = eng.optimize_batch(*MESH2_TP_REQUEST)
+    np.save(os.path.join(d, f"tp_engine{rank}.npy"), eng.to_uint8(images))
+    seconds = time.perf_counter() - t0
+    eng_launches = {k: w.launches for k, w in wrappers.items()}
+    evals = chain_evals("plms", MESH2_TP_STEPS)
+    expected = {k: (MESH2_TP_EPOCHS - 1) * chain_launches(k, evals)
+                + (0 if k.endswith("bwd") else evals * SITES_PER_EVAL[k]) for k in eng_launches}
+    if eng_launches != expected:     # one device's per batch, on each rank
+        fail(f"mesh2_tp engine: launches {eng_launches}, expected {expected}")
+    _sum_launches(launches, eng_launches)
+    out["engine"] = {"seconds": seconds, "steps": MESH2_TP_STEPS, "epochs": MESH2_TP_EPOCHS,
+                     "launches": eng_launches, "allreduce": dict(tpt.STATS),
+                     "coef": coef.tolist()}
+    del eng
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def phase_mesh2(smi: str):
     """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
     card), one spawn for all of it (`mesh2_rank`): the SD v1-4 UNet at MESH2_RES_BLOCKS residual
     blocks per level, its data-parallel f32 step at a global batch of 4
@@ -4848,10 +5057,16 @@ def phase_mesh2(smi: str) -> dict:
     the gradients averaged over the ranks, the updated weights and EMA), the
     same under FSDP over the two ranks but the gradients (state bytes and
     allocated bytes per rank), `sharded_search` over a 1,000,000 x 768 database split over the
-    ranks against `exact_search`, and TextToImageEngine(mesh=) at batch 2
+    ranks against `exact_search`, TextToImageEngine(mesh=) at batch 2
     (one row per rank), PLMS-10, float32, within one uint8 level of the
-    one-process engine.  A rank that fails exits non-zero and so does this
-    phase.  Returns the ranks' summed launches."""
+    one-process engine, and part tp (`_mesh2_tp`: the model axis over the
+    same ranks), whose engine images must be within one uint8 level of the
+    same engine in this process, run while the ranks start (the ranks'
+    dp and fsdp steps share the card with it).  A rank that fails exits
+    non-zero and so does this phase.  Returns the ranks' summed launches
+    and part tp's launches per rank."""
+    import numpy as np
+
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh2-rank",
@@ -4860,6 +5075,15 @@ def phase_mesh2(smi: str) -> dict:
         logs = ["" for _ in procs]
         try:
             deadline = time.monotonic() + MESH2_TIMEOUT_S
+            # part tp's reference: the engine in this process, while the ranks run
+            t_one = time.perf_counter()
+            eng = _tp_engine(None, "float32")
+            one = eng.generate_batch(*MESH2_TP_REQUEST)
+            one_s = time.perf_counter() - t_one
+            del eng
+            import torch
+
+            torch.cuda.empty_cache()
             for r, p in enumerate(procs):
                 logs[r], _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
@@ -4879,25 +5103,35 @@ def phase_mesh2(smi: str) -> dict:
         for r in range(MESH2_RANKS):
             with open(os.path.join(d, f"rank{r}.json")) as f:
                 outs.append(json.load(f))
+            got = np.load(os.path.join(d, f"tp_engine{r}.npy"))
+            diff = int(np.abs(got.astype(int) - one.astype(int)).max())
+            if got.shape != one.shape or diff > 1:
+                fail(f"mesh2_tp engine: rank {r} {diff} uint8 levels from one process")
+            outs[-1]["tp"]["engine"].update(max_uint8_diff=diff, one_process_s=one_s)
     for o in outs:
         emit({"phase": "mesh2_rank", **{k: o[k] for k in ("rank", "device", "backend",
                                                            "t_starts")}})
-    for part in ("dp", "fsdp", "search", "engine"):
+    for part in ("dp", "fsdp", "search", "engine", "tp"):
         emit({"phase": f"mesh2_{part}", "backend": "gloo", "ranks": MESH2_RANKS,
               "per_rank": [o[part] for o in outs]})
+    tp_launches = [o["tp"]["launches"] for o in outs]
+    if any(c != tp_launches[0] for c in tp_launches):
+        fail(f"mesh2_tp: the ranks launched differently: {tp_launches}")
+    if outs[0]["tp"]["engine"]["coef"] != outs[1]["tp"]["engine"]["coef"]:
+        fail("mesh2_tp: the ranks' engines optimized different coefs")
     total = {k: 0 for k in KERNELS}
     for o in outs:
         _sum_launches(total, o["launches"])
     emit({"phase": "mesh2", "seconds": time.perf_counter() - t0, "launches": total,
-          "nvidia_smi": smi})
-    return total
+          "tp_launches_per_rank": tp_launches[0], "nvidia_smi": smi})
+    return total, tp_launches[0]
 
 
 # ---------------------------------------------------------------- the measuring tools
 
 KNOB_Q_CHUNK = 1024             # phase knobs: attn_q_chunk (4 chunks at level 0's 4096 tokens)
 POLICY_STEPS = 10               # phase remat_policy's PLMS steps (as phase optimize)
-TRACE_STEPS, TRACE_BATCH = 10, 2
+TRACE_STEPS, TRACE_BATCH = 5, 2
 # phase trace: per wrapper, the device kernels it launches once per call
 # (GEGLU's wgmma design: gate then out; the flash backward's: dq, then dK/dV)
 TRACE_KERNELS = {"vanilla": {"mha_fwd": ("mha_fwd_",),
@@ -5237,7 +5471,8 @@ def main() -> int:
             phase_legacy_vg(root, smi)
         torch.cuda.empty_cache()
         mesh_launches = phase_mesh(smi)
-        _sum_launches(mesh_launches, phase_mesh2(smi))
+        mesh2_launches, tp_launches = phase_mesh2(smi)
+        _sum_launches(mesh_launches, mesh2_launches)
         with tempfile.TemporaryDirectory() as root:
             phase_trace(root)
         torch.cuda.empty_cache()
@@ -5271,6 +5506,7 @@ def main() -> int:
                    "knn2img_launches": knn2img_launches[kname],
                    "data_train_launches": data_launches[kname],
                    "mesh_launches": mesh_launches.get(kname, 0),
+                   "tp_launches": tp_launches.get(kname, 0),
                    "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
                    "bound_ms": a["bound_ms"],
                    "bound_by": ("operations" if max(a["flops_ms"], a["exps_ms"]) >= a["bytes_ms"]
@@ -5298,7 +5534,9 @@ def main() -> int:
         # train_ldm runs from image folders (text, class, superres; GEGLU and
         # flash only); mesh_launches: phases mesh and mesh2 (the training
         # steps over the mesh, counted around train_step, and the engines over
-        # it, both ranks of mesh2 summed); launches_by_design: the serving and
+        # it, both ranks of mesh2 summed); tp_launches: mesh2's part tp per
+        # rank (the model axis, M = 2: the f32 evaluation with its gradient,
+        # the bf16 forward, the engine); launches_by_design: the serving and
         # optimization runs
     finally:
         stop_flops_count(count)         # a no-op unless a phase failed first

@@ -10,6 +10,13 @@ OpenAI-CLIP numerics: quick-GELU, LayerNorm eps 1e-5 in float32, causal
 mask on the text tower, EOT pooling at the argmax of the token ids,
 bias-free patch embedding and projection heads, float32 outputs.  The
 attention here is plain PyTorch, as in the JAX package (no kernel).
+
+Tensor parallelism (JAX `clip.py:67,74` pins the heads on 'model'):
+`parallel/sharding.shard_params` slices `q/k/v_proj` and `fc1` to this
+rank's heads and hidden features and `out_proj` / `fc2` to the matching
+input columns, and sets `model_split`; the layer then takes its input
+through `copy_to_model` and sums its row-parallel product over the model
+ranks before the bias (`parallel/tensor.py`).
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ import torch
 from torch import nn
 
 from ..config import CLIPConfig, CLIPTextConfig, CLIPVisionConfig
-from .layers import Conv, Dense, LayerNorm32
+from ..parallel.tensor import copy_to_model
+from .layers import Conv, Dense, LayerNorm32, row_parallel
 from .unet import torch_dtype
 
 
@@ -30,9 +38,13 @@ class CLIPMLP(nn.Module):
         super().__init__()
         self.fc1 = Dense(width, width * 4, dtype=dtype)
         self.fc2 = Dense(width * 4, width, dtype=dtype)
+        self.model_split = None
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        split = self.model_split
+        if split is None:
+            return self.fc2(quick_gelu(self.fc1(x)))
+        return row_parallel(self.fc2, quick_gelu(self.fc1(copy_to_model(x, split))), split)
 
 
 class CLIPAttention(nn.Module):
@@ -43,19 +55,25 @@ class CLIPAttention(nn.Module):
         self.v_proj = Dense(width, width, dtype=dtype)
         self.out_proj = Dense(width, width, dtype=dtype)
         self.width, self.heads = width, heads
+        self.model_split = None
 
     def forward(self, x, mask=None):
         B, L, _ = x.shape
         dh = self.width // self.heads
-        q = self.q_proj(x).reshape(B, L, self.heads, dh)
-        k = self.k_proj(x).reshape(B, L, self.heads, dh)
-        v = self.v_proj(x).reshape(B, L, self.heads, dh)
+        split = self.model_split
+        heads = self.heads if split is None else self.heads // split.size
+        if split is not None:
+            x = copy_to_model(x, split)
+        q = self.q_proj(x).reshape(B, L, heads, dh)
+        k = self.k_proj(x).reshape(B, L, heads, dh)
+        v = self.v_proj(x).reshape(B, L, heads, dh)
         sim = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh ** -0.5
         if mask is not None:
             sim = sim + mask
         attn = torch.softmax(sim, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn.float(), v.float())
-        return self.out_proj(out.reshape(B, L, self.width).to(x.dtype))
+        out = out.reshape(B, L, heads * dh).to(x.dtype)
+        return self.out_proj(out) if split is None else row_parallel(self.out_proj, out, split)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -9,6 +9,16 @@ weight bridge (`utils/weights.py`) maps parameter paths one to one.
 
 Convolutions run NCHW inside; the token flatten order of the transformer is
 H·W row-major, as in the JAX package, so the circular masks line up.
+
+Tensor parallelism (the mesh's model axis; JAX's `constrain` pins, which
+keep the heads on 'model'): `parallel/sharding.shard_params` slices the
+attention's q/k/v and output projections to this rank's heads and GEGLU's
+`proj_in` / `proj_out` to its hidden features, and sets the module's
+`model_split`.  `CrossAttention` and `GEGLUFeedForward` then compute their
+share: `copy_to_model` on each input they take whole (the normed
+activations, the text and local contexts, `coef`), the kernels on the
+rank's heads or features, `reduce_from_model` after the row-parallel
+product, and the output bias (GEGLU's b2 and residual too) once, after it.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from torch import nn
 
 from ..ops.attention import SpatialControl, attention, spacetime_cross_attention
 from ..ops.cuda_geglu import geglu_ff
+from ..parallel.tensor import copy_to_model, reduce_from_model
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -60,6 +71,15 @@ class Conv(nn.Conv2d):
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
 
 
+def row_parallel(lin: Dense, x, split):
+    """`lin(x)` where lin holds this rank's input features of the model
+    axis (`split`): the partial products summed over the ranks, then the
+    bias once."""
+    dt = lin.compute_dtype
+    y = reduce_from_model(F.linear(x.to(dt), lin.weight.to(dt)), split)
+    return y + lin.bias.to(dt)
+
+
 def cast_matmul_weights(model: nn.Module) -> nn.Module:
     """Convert every Dense / Conv weight and bias to its compute dtype in
     place (norm parameters and embeddings stay float32)."""
@@ -94,7 +114,11 @@ class LayerNorm32(nn.LayerNorm):
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU MLP: proj to 2×(4·dim), gate with exact-erf gelu, project back.
-    fused=True routes through the CUDA GEGLU kernel's wrapper."""
+    fused=True routes through the CUDA GEGLU kernel's wrapper.  Under
+    `model_split` (`proj_in` holding this rank's [h_m | g_m]) the kernel
+    gets a zero b2 and no residual: one launch per call, its partial output
+    summed over the model ranks, then b2 and the residual added on every
+    rank."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32,
                  fused: bool = False):
@@ -103,11 +127,22 @@ class GEGLUFeedForward(nn.Module):
         self.proj_in = Dense(dim, inner * 2, dtype=dtype)
         self.proj_out = Dense(inner, dim, dtype=dtype)
         self.dtype, self.fused = dtype, fused
+        self.model_split = None
 
     def forward(self, x, residual=None):
         dt = self.dtype
         w1, b1 = self.proj_in.weight.to(dt), self.proj_in.bias.to(dt)
         w2, b2 = self.proj_out.weight.to(dt), self.proj_out.bias.to(dt)
+        split = self.model_split
+        if split is not None:
+            x = copy_to_model(x, split).to(dt)
+            if self.fused:
+                part = geglu_ff(x, w1, b1, w2, torch.zeros_like(b2), None)
+            else:
+                h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+                part = F.linear(h * F.gelu(gate), w2)
+            out = reduce_from_model(part, split) + b2
+            return out if residual is None else out + residual.to(dt)
         if self.fused:
             res = None if residual is None else residual.to(dt)
             return geglu_ff(x.to(dt), w1, b1, w2, b2, res)
@@ -133,23 +168,44 @@ class CrossAttention(nn.Module):
         self.heads, self.flash, self.mha = heads, flash, mha
         self.fused_control = fused_control
         self.q_chunk, self.scores_dtype = q_chunk, scores_dtype
+        self.model_split = None
+
+    def _local_heads(self) -> int:
+        split = self.model_split
+        return self.heads if split is None else self.heads // split.size
+
+    def _whole(self, t):
+        """An input every model rank holds whole: its cotangent is summed
+        over the model ranks."""
+        split = self.model_split
+        return t if split is None or t is None else copy_to_model(t, split)
+
+    def _out(self, o):
+        split = self.model_split
+        return self.to_out(o) if split is None else row_parallel(self.to_out, o, split)
 
     def forward(self, x, context=None):
-        context = x if context is None else context
+        x = self._whole(x)
+        context = x if context is None else self._whole(context)
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
-        return self.to_out(attention(q, k, v, self.heads, flash=self.flash, mha=self.mha,
-                                     q_chunk=self.q_chunk, scores_dtype=self.scores_dtype))
+        return self._out(attention(q, k, v, self._local_heads(), flash=self.flash,
+                                   mha=self.mha, q_chunk=self.q_chunk,
+                                   scores_dtype=self.scores_dtype))
 
     def controlled(self, x, context, control: Optional[SpatialControl], radius: float):
         """Cross-attention with the spatial blend on the cond rows."""
+        x, context = self._whole(x), self._whole(context)
+        if control is not None and self.model_split is not None:
+            control = control._replace(local_contexts=self._whole(control.local_contexts),
+                                       coef=self._whole(control.coef))
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
         local_kv = None
         if control is not None:
             local_kv = (self.to_k(control.local_contexts),
                         self.to_v(control.local_contexts))
-        out = spacetime_cross_attention(q, (k, v), local_kv, control, self.heads,
+        out = spacetime_cross_attention(q, (k, v), local_kv, control, self._local_heads(),
                                         radius, fused=self.fused_control)
-        return self.to_out(out)
+        return self._out(out)
 
 
 class BasicTransformerBlock(nn.Module):

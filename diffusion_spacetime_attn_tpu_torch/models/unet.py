@@ -9,6 +9,12 @@ every cross-attention.  `conditional=False` builds the unconditional UNet of
 the reference's unconditional LDM configs (JAX: `context=None`), whose
 second attention in every block is self-attention; it takes no context, and
 a conditional UNet raises without one.
+
+Tensor parallelism reaches the blocks through their modules:
+`parallel/sharding.shard_params(unet, mesh)` slices every transformer
+block's attention and GEGLU pairs to the rank's share of the mesh's model
+axis and marks them, and the UNet's forward is unchanged (the convolutions,
+norms and time embedding are replicated, as JAX's rules leave them).
 """
 from __future__ import annotations
 

@@ -16,6 +16,15 @@ Numerics follow the JAX package: products of the working dtype accumulate in
 float32 (the operands are widened, which is exact for bf16), the softmax is
 float32, probabilities are rounded to V's dtype before the PV product, and
 outputs are cast to q's dtype.
+
+Under the mesh's model axis (`parallel/sharding.shard_params`) a caller
+passes its rank's heads: q, k, v and the local contexts' k, v carry
+H/M heads of the same width, and `num_heads` is H/M.  Every op here, the
+blend included, is per head (the masks and coef broadcast over channels),
+so both branches and the kernels run unchanged on the rank's share; the
+caller takes coef through `copy_to_model`, which sums its per-head partial
+cotangents over the model ranks (JAX `ops/attention.py:268,279,351-358`
+pins the same heads on 'model').
 """
 from __future__ import annotations
 

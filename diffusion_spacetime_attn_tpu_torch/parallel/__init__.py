@@ -1,2 +1,4 @@
-"""Multi-device: the data mesh over torch.distributed (`mesh.py`) and FSDP
-(`sharding.py`); ports of the JAX package's `parallel/`."""
+"""Multi-device: the ('data', 'model') mesh over torch.distributed
+(`mesh.py`), FSDP over the data axis and Megatron tensor parallelism over
+the model axis (`sharding.py`, `tensor.py`); ports of the JAX package's
+`parallel/`."""

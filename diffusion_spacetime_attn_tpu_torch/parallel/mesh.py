@@ -1,15 +1,30 @@
-"""The data mesh over `torch.distributed`; port of the JAX package's
-`parallel/mesh.py`.
+"""The ('data', 'model') mesh over `torch.distributed`; port of the JAX
+package's `parallel/mesh.py`.
 
 JAX runs one process over a `Mesh(('data', 'model'))` of devices, and GSPMD
 inserts the collectives.  The port runs one process per device (a rank), as
-`torchrun --nproc-per-node N` starts them: each rank holds its rows of a
-batch and the collectives are explicit.
+`torchrun --nproc-per-node N` starts them, and its collectives are explicit.
+The ranks are laid out as JAX lays out its devices (`grid.reshape(data,
+model)`): rank `d·model + m` sits at data coordinate d and model
+coordinate m.
 
-  * `data`: prompts, images or database rows; the parameters are replicated
-    (or FSDP-sharded, `parallel/sharding.py`), the gradients averaged.
-  * `model`: tensor parallelism; not ported yet (ROADMAP A.13b), so a mesh
-    with `model > 1` raises.
+  * `data`: prompts, images or database rows.  A rank holds the rows of its
+    data coordinate; the model ranks of one data group hold the same rows
+    and draw the same noise.  Parameters are replicated over it (or
+    FSDP-sharded, `parallel/sharding.py`), gradients averaged over it.
+  * `model`: Megatron tensor parallelism inside the UNet's transformer
+    blocks and the CLIP towers (`parallel/sharding.py` `shard_params`,
+    `parallel/tensor.py`): each rank computes its share of the attention
+    heads and of the MLP's hidden features, and an all-reduce over the
+    model group after each pair joins them (another in the backward).
+    Everything else is replicated over the model axis and computed on
+    every model rank.
+
+Every rank creates every data group and every model group (`dist.new_group`,
+in the same order); `Mesh.data_group` is this rank's data group (None where
+data is 1: the data axis then needs no collective), `Mesh.model_group` its
+model group (None where model is 1).  With model 1 the data group is the
+whole world.
 
 The backend is the caller's: `nccl` for one CUDA device per rank (the
 default), `gloo` where the caller asks for it (CPU ranks, or several ranks
@@ -19,12 +34,13 @@ environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
 `MASTER_PORT`) or from a store the caller hands in.  Nothing falls back to
 one process: a missing rendezvous raises.
 
-JAX's `data_sharding` / `shard_batch` become `rows` / `shard_batch` (a
-rank's rows of a batch, which must divide by `data`), its `replicate` a
-broadcast from rank 0, and the host's `np.asarray` of a sharded array
-`gather_rows` (every rank's rows in global order).  JAX draws a step's
-noise for the whole batch from one key, so `global_rows` / `normal_rows`
-draw for the global batch and keep this rank's rows.
+JAX's `data_sharding` / `shard_batch` become `rows` / `shard_batch` (the
+rows of a batch at this rank's data coordinate, which must divide by
+`data`), its `replicate` a broadcast from rank 0, and the host's
+`np.asarray` of a sharded array `gather_rows` (every data coordinate's rows
+in global order).  JAX draws a step's noise for the whole batch from one
+key, so `global_rows` / `normal_rows` draw for the global batch and keep
+this rank's rows.
 """
 from __future__ import annotations
 
@@ -39,37 +55,54 @@ import torch.distributed as dist
 
 from ..utils import prng
 
-A13B = ("the model axis (tensor parallelism) is not ported yet: a mesh takes model=1 "
-        "(ROADMAP A.13b)")
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """One rank's view of a ('data', 'model') mesh over the default process
-    group: the axis sizes, this rank and the device it computes on."""
+    group: the axis sizes, this rank (global), its data and model
+    coordinates, its data and model groups and the device it computes on.
+    A Mesh made by hand (no groups) serves where no collective runs."""
 
     data: int
     model: int = 1
     rank: int = 0
     backend: str = ""
     device: torch.device = torch.device("cpu")
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def devices(self) -> int:
+        """data·model: every device of the mesh (JAX's `mesh.devices.size`)."""
+        return self.data * self.model
+
+    @property
+    def writer(self) -> bool:
+        """The one rank that writes files: data and model coordinates 0."""
+        return self.data_index == 0 and self.model_index == 0
 
     def device_mesh(self):
-        """The `torch.distributed` DeviceMesh of the data axis (FSDP's)."""
+        """The `torch.distributed` DeviceMesh of the data axis (FSDP's): this
+        rank's data group."""
         from torch.distributed.device_mesh import DeviceMesh
 
-        return DeviceMesh.from_group(dist.group.WORLD, self.device.type)
+        if self.data_group is None:
+            raise ValueError("FSDP shards over the data axis, and this mesh has data=1")
+        return DeviceMesh.from_group(self.data_group, self.device.type)
+
+    def model_row(self) -> "Mesh":
+        """This rank's data group's row of the mesh as a (1, model) mesh: its
+        model ranks, no data axis."""
+        return dataclasses.replace(self, data=1, data_index=0, data_group=None)
 
 
 def check_mesh(mesh: Optional[Mesh], who: str) -> Optional[Mesh]:
-    """`mesh` as a trainer or engine takes it: None, or a Mesh whose model
-    axis is 1."""
+    """`mesh` as a trainer or engine takes it: None or a Mesh."""
     if mesh is None:
         return None
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{who}: mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
-    if mesh.model != 1:
-        raise NotImplementedError(f"{who}: {A13B}")
     return mesh
 
 
@@ -78,14 +111,13 @@ def make_mesh(data: Optional[int] = None, model: int = 1, backend: str = "nccl",
               world_size: Optional[int] = None, timeout_s: float = 600.0) -> Mesh:
     """The mesh over the process group, made here if there is none yet.
 
-    data=None takes the world size; data·model must equal it (one rank per
-    device).  `backend`: "nccl" (one CUDA device per rank, cuda:LOCAL_RANK
-    unless `device` says otherwise) or "gloo" (`device` "cpu" or a CUDA
-    device; default "cpu").  Without a group the rendezvous is `store` (a
+    data=None takes the world size over model; data·model must equal it
+    (one rank per device, rank d·model + m at coordinates (d, m)).
+    `backend`: "nccl" (one CUDA device per rank, cuda:LOCAL_RANK unless
+    `device` says otherwise) or "gloo" (`device` "cpu" or a CUDA device;
+    default "cpu").  Without a group the rendezvous is `store` (a
     `torch.distributed.Store`, with `rank` and `world_size`) or torchrun's
     environment; collectives time out after `timeout_s`."""
-    if model != 1:
-        raise NotImplementedError(f"make_mesh: {A13B}")
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
     if dist.is_initialized():
@@ -106,7 +138,9 @@ def make_mesh(data: Optional[int] = None, model: int = 1, backend: str = "nccl",
                                    f"torchrun; missing {missing}, or pass store=)")
             dist.init_process_group(backend, init_method="env://", timeout=timeout)
     world, me = dist.get_world_size(), dist.get_rank()
-    data = world if data is None else data
+    if model < 1 or world % model:
+        raise ValueError(f"model={model} over {world} ranks")
+    data = world // model if data is None else data
     if data * model != world:
         raise ValueError(f"mesh {data}x{model} over {world} ranks: one rank per device")
     if device is None:
@@ -119,15 +153,26 @@ def make_mesh(data: Optional[int] = None, model: int = 1, backend: str = "nccl",
         if not torch.cuda.is_available():
             raise RuntimeError(f"rank {me}: device {device} asked for and no CUDA device")
         torch.cuda.set_device(device)
-    return Mesh(data=data, model=model, rank=me, backend=backend, device=device)
+    data_group, model_group = dist.group.WORLD, None
+    if model > 1:       # every rank makes every group, in the same order
+        data_groups = [dist.new_group([d * model + m for d in range(data)])
+                       for m in range(model)]
+        model_groups = [dist.new_group([d * model + m for m in range(model)])
+                        for d in range(data)]
+        data_group = data_groups[me % model] if data > 1 else None
+        model_group = model_groups[me // model]
+    return Mesh(data=data, model=model, rank=me, backend=backend, device=device,
+                data_index=me // model, model_index=me % model, data_group=data_group,
+                model_group=model_group)
 
 
 def rows(mesh: Mesh, n: int) -> slice:
-    """This rank's rows of a batch of n (JAX's `data_sharding` on axis 0)."""
+    """This rank's rows of a batch of n (JAX's `data_sharding` on axis 0):
+    those of its data coordinate."""
     if n % mesh.data:
         raise ValueError(f"batch {n} not divisible by the mesh's data axis ({mesh.data})")
     per = n // mesh.data
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
 def global_rows(mesh: Optional[Mesh], b: int) -> Tuple[int, slice]:
@@ -210,58 +255,68 @@ def _leaves(tree) -> List:
 
 
 def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of x (equal leading sizes), concatenated in rank
-    order on every rank: the global batch."""
+    """Every data coordinate's rows of x (equal leading sizes), concatenated
+    in data order on every rank: the global batch."""
+    if mesh.data_group is None:
+        return x
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.data)]
-    dist.all_gather(parts, x)
+    dist.all_gather(parts, x, group=mesh.data_group)
     return torch.cat(parts)
 
 
 def all_reduce_(tensors: Iterable[torch.Tensor], mesh: Mesh, op: str = "avg") -> None:
-    """Sum (op "sum") or average (op "avg") each tensor over the ranks, in
-    place, through flat buckets (gloo has no AVG: the sum is divided by the
-    rank count)."""
+    """Sum (op "sum") or average (op "avg") each tensor over the data axis,
+    in place, through flat buckets (gloo has no AVG: the sum is divided by
+    the rank count).  The model ranks of a data group hold equal values of
+    a replicated tensor and their own shard of a model-sharded one: each
+    reduces over its data group."""
     if op not in ("sum", "avg"):
         raise ValueError(op)
+    if mesh.data_group is None:
+        return
     for chunk, flat in _flat_buckets(tensors):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=mesh.data_group)
         if op == "avg":
             flat.div_(mesh.data)
         _unflatten_(chunk, flat)
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """all_reduce(SUM) whose backward is the all_reduce(SUM) of the
-    cotangents: the gradient of a statistic that every rank's loss reads."""
+    """all_reduce(SUM) over `group` whose backward is the all_reduce(SUM) of
+    the cotangents: the gradient of a statistic that every rank's loss
+    reads."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def mean_over_ranks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The mean over ranks of x (each rank's statistic over an equal number
-    of rows), differentiable: the global-batch statistic."""
-    return _SumOverRanks.apply(x) / mesh.data
+    """The mean over the data axis of x (each rank's statistic over an
+    equal number of rows), differentiable: the global-batch statistic."""
+    if mesh.data_group is None:
+        return x
+    return _SumOverRanks.apply(x, mesh.data_group) / mesh.data
 
 
 def metrics_mean(metrics: dict, mesh: Optional[Mesh]) -> dict:
-    """Scalar metrics averaged over the ranks (each rank's mean over an
+    """Scalar metrics averaged over the data axis (each rank's mean over an
     equal number of rows: the global batch's)."""
-    if mesh is None or not metrics:
+    if mesh is None or not metrics or mesh.data_group is None:
         return metrics
     keys = sorted(metrics)
     flat = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=mesh.data_group)
     flat = flat / mesh.data
     return {k: flat[i] for i, k in enumerate(keys)}
 

@@ -17,8 +17,10 @@ Over a data mesh (`BatchedRunner(mesh=...)`, JAX `batch_runner.py:44,
 the same batch, computes its rows (the spacetime mode's per-prompt weight
 optimization included: its loss is a sum over rows, so a row's gradient
 does not depend on the others), and the images are gathered in row order;
-rank 0 writes the files a one-device sweep writes.  The batch size must
-divide by the rank count.
+the mesh's writer (rank 0) writes the files a one-device sweep writes.  The
+batch is split over the data axis, whose size must divide it; the model
+axis replicates (each model rank computes its data group's rows whole, JAX
+`batch_runner.py:149-152`).
 """
 from __future__ import annotations
 
@@ -107,7 +109,7 @@ class BatchedRunner:
         after each chunk's images are on disk (run_dataset.py writes its
         resume manifest there; on rank 0 only, with a mesh)."""
         r, mesh = self.runner, self.mesh
-        writer = mesh is None or mesh.rank == 0
+        writer = mesh is None or mesh.writer
         cfg = r.cfg
         indices = indices if indices is not None else list(range(len(prompts)))
         B = self.batch_size

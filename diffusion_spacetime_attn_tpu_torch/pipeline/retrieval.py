@@ -7,14 +7,15 @@ one device (the card by default), and a search is exact: one f32
 [B, D] x [D, M] product, then `torch.topk`.  A 1 M x 768 database is 3.07
 GB; a batch of queries reads it once.
 
-Over a data mesh (`Retriever(mesh=...)`, `sharded_search`; JAX
-`retrieval.py:48-93`) each rank holds its rows of the database
-(`shard_database`: padded to a multiple of the rank count, the pad rows
-scored −inf), scores the queries against them, and keeps its top k with
-global indices; the candidates of every rank are all-gathered and their
-top k is the global one, exact because every winner is its shard's
-winner.  A shard of fewer than k rows takes the exact search over the
-gathered database.  Every rank gets the result.
+Over a mesh (`Retriever(mesh=...)`, `sharded_search`; JAX
+`retrieval.py:48-93`) each rank holds the rows of the database at its data
+coordinate (`shard_database`: padded to a multiple of the data axis, the
+pad rows scored −inf; the model ranks of a data group hold the same rows),
+scores the queries against them, and keeps its top k with global indices;
+the candidates of every data coordinate are all-gathered and their top k
+is the global one, exact because every winner is its shard's winner.  A
+shard of fewer than k rows takes the exact search over the gathered
+database.  Every rank gets the result.
 
 The npz files are the JAX package's format (`embedding` [M, D], stored
 normalized, `img_id` [M], `patch_coords` [M, 4]), so each package reads the
@@ -45,11 +46,12 @@ def exact_search(db: torch.Tensor, queries: torch.Tensor, k: int
 
 
 def shard_database(db: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's rows of db [M, D], padded with zero rows to a multiple of
-    the rank count (`sharded_search` masks them)."""
+    """The rows of db [M, D] at this rank's data coordinate, padded with
+    zero rows to a multiple of the data axis (`sharded_search` masks
+    them)."""
     n = mesh.data
     per = -(-db.shape[0] // n)
-    part = db[mesh.rank * per:(mesh.rank + 1) * per]
+    part = db[mesh.data_index * per:(mesh.data_index + 1) * per]
     if part.shape[0] < per:
         part = torch.cat([part, part.new_zeros(per - part.shape[0], db.shape[1])])
     return part
@@ -66,7 +68,7 @@ def sharded_search(db_shard: torch.Tensor, queries: torch.Tensor, k: int, mesh: 
         # shards too small to hold k candidates each: the exact search
         return exact_search(gather_rows(mesh, db_shard)[:rows], queries, k)
     sim = normalize(queries.float()) @ db_shard.float().T
-    base = mesh.rank * per
+    base = mesh.data_index * per
     glob = base + torch.arange(per, device=sim.device)
     sim = torch.where(glob[None, :] < rows, sim, torch.full_like(sim, -float("inf")))
     s, i = torch.topk(sim, k, dim=-1)
@@ -117,24 +119,25 @@ class Retriever:
     def _rows_of(self, idx: torch.Tensor) -> torch.Tensor:
         """The database rows at global indices idx [B, k] -> [B, k, D]: each
         rank fills the rows it holds, the rest zeros, and the sum over the
-        ranks is exact (one term per row)."""
+        data axis is exact (one term per row)."""
         import torch.distributed as dist
 
         per = self.embedding.shape[0]
-        loc = idx - self.mesh.rank * per
+        loc = idx - self.mesh.data_index * per
         mine = (loc >= 0) & (loc < per)
         out = self.embedding.new_zeros(*idx.shape, self.embedding.shape[1])
         out[mine] = self.embedding[loc[mine]]
-        dist.all_reduce(out)
+        if self.mesh.data_group is not None:
+            dist.all_reduce(out, group=self.mesh.data_group)
         return out
 
     def save_npz(self, path: str) -> None:
         """JAX's npz; with a mesh every rank calls it (the shards are
-        gathered) and rank 0 writes."""
+        gathered) and the mesh's writer writes."""
         emb = self.embedding if self.mesh is None else \
             gather_rows(self.mesh, self.embedding)[:self.rows]
         emb = emb.detach().float().cpu().numpy()
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             np.savez(path, embedding=emb, img_id=self.img_id, patch_coords=self.patch_coords)
 
     def search(self, queries: torch.Tensor, k: int) -> dict:

@@ -251,7 +251,7 @@ def main(argv=None) -> dict:
         device = mesh.device if mesh is not None else pick_device(args.cpu)
         line = (bench_layout(args, device) if args.what == "layout"
                 else bench_ldm(args, device, mesh=mesh)[0])
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.writer:
         print(json.dumps(line))
     return line
 

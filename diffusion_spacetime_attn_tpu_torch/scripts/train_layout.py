@@ -162,7 +162,7 @@ def main(argv=None) -> dict:
     if args.fsdp and mesh is None:
         logger.warning("--fsdp ignored: single device")
     device = mesh.device if mesh is not None else pick_device(args.cpu)
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.writer
     if not writer:                            # rank 0 alone logs
         logger.setLevel(logging.WARNING)
     t_start = time.perf_counter()

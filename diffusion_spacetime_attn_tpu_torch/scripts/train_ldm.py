@@ -289,7 +289,7 @@ def main(argv=None, init=None, encoders=None) -> dict:
                        "training runs fully replicated")
     device = mesh.device if mesh is not None else pick_device(args.cpu)
     ndev = 1 if mesh is None else mesh.data
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.writer
     if not writer:                            # rank 0 alone logs
         logger.setLevel(logging.WARNING)
     unet_cfg, latent_hw, ctx_shape = configs(args)

@@ -92,7 +92,7 @@ def save_state(state: VAETrainState, path: str, mesh=None) -> None:
     d = full_tree({"ae": state.ae_params.state_dict(), "logvar": state.logvar.detach(),
                    "disc": state.disc_params.state_dict(), "opt_ae": state.opt_ae.state_dict(),
                    "opt_disc": state.opt_disc.state_dict(), "step": state.step})
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.writer:
         torch.save(d, path)
     barrier(mesh)
 
@@ -131,7 +131,7 @@ def main(argv=None) -> dict:
         logger.warning("--fsdp ignored: single device — training runs fully replicated")
     device = mesh.device if mesh is not None else pick_device(args.cpu)
     ndev = 1 if mesh is None else mesh.data
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.writer
     if not writer:                            # rank 0 alone logs
         logger.setLevel(logging.WARNING)
     if args.tiny:

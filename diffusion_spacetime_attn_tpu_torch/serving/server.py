@@ -33,10 +33,16 @@ go out as PNG from `utils/png.encode_png`; the JAX front falls back to
 With `mesh` (a `parallel.mesh.Mesh`; JAX `server.py:58,119-138,238-305`)
 an engine splits its batch over the data axis: `generate_batch` is a
 collective, every rank calls it with the same prompts and seeds, builds the
-same padded batch on the host, computes its rows and gets every rank's
-images gathered in row order.  The batch size must divide by the rank
-count.  `BatchingService` and `serve` stay one-process, as in JAX, where
-no entry point serves over a mesh.
+same padded batch on the host, computes the rows of its data coordinate and
+gets every data coordinate's images gathered in row order.  The batch size
+must divide by the data axis.  Over the model axis `TextToImageEngine`
+replicates (every model rank computes its data group's rows whole, JAX
+`server.py:119-128`), and `SpaceTimeEngine` runs the UNet, the text tower
+and the loss CLIP tensor-parallel: it shards them in place
+(`parallel/sharding.shard_params`) when it is built, unless the caller did
+(JAX's engine serves with parameters the caller sharded,
+`server.py:238-240`).  `BatchingService` and `serve` stay one-process, as
+in JAX, where no entry point serves over a mesh.
 """
 from __future__ import annotations
 
@@ -215,6 +221,12 @@ class SpaceTimeEngine:
 
     def __post_init__(self):
         _check_mesh(self)
+        if self.mesh is not None and self.mesh.model > 1:
+            from ..parallel.sharding import shard_params
+
+            sd = self.runner.sd
+            for module in (sd.unet, sd.text_encoder, self.runner.clip_loss.clip):
+                shard_params(module, self.mesh)
 
     def warmup(self) -> float:
         return _warmup(self)
@@ -236,7 +248,7 @@ class SpaceTimeEngine:
         """(images [batch_size, H, W, 3] in [0, 1], coef, losses) of one
         padded batch; `on_epoch(e, images)` as in `optimize_prompt`.  With a
         mesh: images and coef of every row (gathered), the losses summed
-        over the ranks; `on_epoch` sees this rank's rows."""
+        over the data axis; `on_epoch` sees this rank's rows."""
         from ..pipeline.spacetime import optimize_prompt
 
         n = len(prompts)
@@ -253,7 +265,8 @@ class SpaceTimeEngine:
             import torch.distributed as dist
 
             images, coef = gather_rows(self.mesh, images), gather_rows(self.mesh, coef)
-            dist.all_reduce(losses)
+            if self.mesh.data_group is not None:
+                dist.all_reduce(losses, group=self.mesh.data_group)
         return images, coef, losses
 
     @staticmethod

@@ -209,6 +209,6 @@ def read_on_rank0(mesh, read: Callable[[], Dict]) -> Dict:
         return read()
     import torch.distributed as dist
 
-    box = [read() if mesh.rank == 0 else None]
+    box = [read() if mesh.writer else None]
     dist.broadcast_object_list(box, src=0)
     return box[0]

@@ -27,7 +27,8 @@ JAX, the backward is not wrapped in the reference's bare try/except
 (`Pretrain.py:262-266`).
 
 Over a data mesh (`create(mesh=...)`; JAX `layout_trainer.py:74-117`) each
-rank takes its rows of the global batch.  The loss is a sum over the
+rank takes the rows of its data coordinate of the global batch (a model
+axis replicates the step).  The loss is a sum over the
 batch, so the global loss and its gradient are the sums over the ranks
 (each rank's loss is scaled by the rank count before the gradients are
 averaged).  `fsdp=True` shards the predictor and the two groups' Adam
@@ -157,7 +158,8 @@ class LayoutTrainer:
     def create(cls, cfg: LayoutConfig, train_cfg: LayoutTrainConfig, params=None,
                mesh=None, fsdp: bool = False) -> "LayoutTrainer":
         mesh = check_mesh(mesh, "LayoutTrainer")
-        return cls(cfg, train_cfg, mesh, fsdp and mesh is not None)
+        return cls(cfg, train_cfg, mesh,
+                   fsdp and mesh is not None and mesh.data_group is not None)
 
     def init_state(self, params: LayoutPredictor) -> Optimizer:
         """The optimizer over `params`, which become trainable (with a mesh,
@@ -236,7 +238,7 @@ class LayoutTrainer:
         """Whole tensors; with a mesh every rank calls it and rank 0 writes."""
         d = {"params": full_tree(params.state_dict()), "opt_state": opt_state.state_dict(),
              "extra": extra or {}}
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             os.makedirs(ckpt_dir, exist_ok=True)
             torch.save(d, self.checkpoint_path(ckpt_dir, step))
         barrier(self.mesh)

@@ -26,9 +26,10 @@ Over a data mesh (`LDMTrainer(mesh=...)`, `parallel/mesh.py`; JAX's
 rows of the global batch; t and the noise are drawn for the global batch
 from the one key and each rank takes its rows (threefry's bits depend on
 the shape), so a rank's rows see JAX's draws.  The loss is a batch mean, so
-the gradients are averaged over the ranks (all-reduced, or reduce-scattered
-under FSDP), and the learning rate scales by the rank count as
-`scaled_lr` says.  `fsdp=True` shards the module with `fully_shard`
+the gradients are averaged over the data axis (all-reduced, or
+reduce-scattered under FSDP), and the learning rate scales by the device
+count data·model as `scaled_lr` says.  A model axis replicates the step.
+`fsdp=True` shards the module with `fully_shard` over the data group
 (`parallel/sharding.py`): AdamW's moments, the accumulation buffers and the
 EMA copies are shards of the same layout, and the global-norm clip sums the
 shards' squared norms over the ranks.  `save` / `restore` use the port's
@@ -333,10 +334,15 @@ def make_train_step(cfg: LDMTrainConfig, schedule_cfg: ScheduleConfig,
 @dataclasses.dataclass
 class LDMTrainer:
     """The step plus checkpointing (`main.py`'s Trainer, ModelCheckpoint and
-    resume).  `mesh`: a `parallel.mesh.Mesh` (its model axis 1) over which
-    the batch is split, each rank passing its rows; `fsdp` (with a mesh)
-    shards the module, the optimizer state and EMA over it.  The module is
-    sharded, or rank 0's weights broadcast, when the trainer is built."""
+    resume).  `mesh`: a `parallel.mesh.Mesh` over whose data axis the batch
+    is split, each rank passing the rows of its data coordinate; the model
+    axis replicates (its ranks compute their data group's step whole, as
+    JAX's trainer does, `ldm_trainer.py:241-251` there).  `fsdp` (with a
+    mesh) shards the module, the optimizer state and EMA over the data
+    group; a data axis of 1 leaves nothing to shard, and the module stays
+    whole.  The module is sharded, or rank 0's weights broadcast, when the
+    trainer is built.  The learning rate counts data·model devices, as
+    JAX's `scaled_lr` counts `mesh.devices.size`."""
 
     cfg: LDMTrainConfig
     schedule_cfg: ScheduleConfig
@@ -351,13 +357,14 @@ class LDMTrainer:
         self.mesh = check_mesh(self.mesh, "LDMTrainer")
         if self.fsdp and self.mesh is None:
             raise ValueError("LDMTrainer: fsdp requires a mesh")
+        self.fsdp = self.fsdp and self.mesh.data_group is not None
         if self.mesh is not None:
             if self.fsdp:
                 fully_shard_module(self.eps_model, self.mesh)
             else:
                 replicate(self.mesh, self.eps_model)
         self.lr = scaled_lr(self.cfg, self.cfg.batch_size,
-                            1 if self.mesh is None else self.mesh.data)
+                            1 if self.mesh is None else self.mesh.devices)
         self._gradients = make_gradients(self.cfg, self.schedule_cfg, self.schedule,
                                          self.eps_model, self.mesh)
         self._step = make_train_step(self.cfg, self.schedule_cfg, self.schedule,
@@ -389,7 +396,7 @@ class LDMTrainer:
         d = {"params": full_tree(state.params.state_dict()),
              "opt": state.opt_state.state_dict(), "ema": full_tree(state.ema_params),
              "logvar": state.logvar.detach(), "step": state.step}
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             os.makedirs(self.ckpt_dir, exist_ok=True)
             torch.save(d, path)
         barrier(self.mesh)

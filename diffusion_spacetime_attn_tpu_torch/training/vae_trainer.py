@@ -95,14 +95,15 @@ def kl_divergence(mean, logvar):
 
 
 class VAETrainer:
-    """`mesh`: a `parallel.mesh.Mesh` over which the image batch is split
-    (each rank passes its rows); `fsdp` shards the state over it, and is
-    ignored without a mesh, as in JAX."""
+    """`mesh`: a `parallel.mesh.Mesh` over whose data axis the image batch
+    is split (each rank passes the rows of its data coordinate; the model
+    axis replicates); `fsdp` shards the state over the data group, and is
+    ignored without a mesh or with a data axis of 1, as in JAX."""
 
     def __init__(self, vae: AutoencoderKL, cfg: VAETrainConfig, mesh=None,
                  fsdp: bool = False):
         self.mesh = check_mesh(mesh, "VAETrainer")
-        self.fsdp = fsdp and self.mesh is not None
+        self.fsdp = fsdp and self.mesh is not None and self.mesh.data_group is not None
         self.vae, self.cfg = vae, cfg
         self.device = next(vae.parameters()).device
         self.disc = NLayerDiscriminator(ndf=cfg.disc_ndf, n_layers=cfg.disc_layers).to(self.device)

@@ -5,11 +5,12 @@ writes its inputs (numpy arrays, port configs, state dicts) with
 `torch.save` to `<dir>/inputs.pt`, then `Ranks(dir, cases)` starts one
 process per rank and `join()` waits for them:
 
-    python tests/helpers/torch_ranks.py DIR RANK WORLD CASE [CASE ...]
+    python tests/helpers/torch_ranks.py DIR RANK WORLD [--model=M] CASE [CASE ...]
 
 Each rank joins a gloo group through a `FileStore` in DIR (no port to
 clash with under pytest-xdist), runs the named cases in order over one
-`parallel.mesh.Mesh` and writes `{case: result}` to `<dir>/out<RANK>.pt`.
+`parallel.mesh.Mesh` (WORLD/M x M, model 1 by default) and writes
+`{case: result}` to `<dir>/out<RANK>.pt`.
 Torch runs one thread per rank.  A collective times out after
 `COLLECTIVE_S` seconds and the launcher kills both ranks after its own
 timeout, so a hung collective fails its test.
@@ -34,7 +35,8 @@ class Ranks:
     rank's {case: result}, or fails with the ranks' output when a rank exits
     non-zero or the join times out."""
 
-    def __init__(self, d: str, cases, world: int = 2, timeout_s: float = 240.0):
+    def __init__(self, d: str, cases, world: int = 2, timeout_s: float = 240.0,
+                 model: int = 1):
         env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                    PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
         for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
@@ -43,7 +45,8 @@ class Ranks:
         self.deadline = time.monotonic() + timeout_s
         self.logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(world)]
         self.procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), d, str(r),
-                                        str(world), *cases], stdout=self.logs[r],
+                                        str(world), f"--model={model}", *cases],
+                                       stdout=self.logs[r],
                                        stderr=subprocess.STDOUT, env=env, cwd=REPO)
                       for r in range(world)]
         self.outs = None
@@ -118,10 +121,19 @@ class ClassToy(torch.nn.Module):
         return x * self.w + emb.mean(-1)[:, None, None, None]
 
 
+class VecToy(ClassToy):
+    """ClassToy whose scale is a [1] vector (FSDP shards no scalar)."""
+
+    def __init__(self, classes: int, dim: int):
+        super().__init__(classes, dim)
+        self.w = torch.nn.Parameter(torch.ones(1))
+
+
 def _ldm_model(a):
     from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
 
-    model = ClassToy(*a["classes"]) if a.get("classes") else UNet(a["unet_cfg"], radius=0.2)
+    toy = VecToy if a.get("vector") else ClassToy
+    model = toy(*a["classes"]) if a.get("classes") else UNet(a["unet_cfg"], radius=0.2)
     model.load_state_dict(a["state"])
     return model
 
@@ -305,6 +317,16 @@ def mesh_basics(mesh, inputs, d):
         out["odd_batch"] = "no error"
     except ValueError as e:
         out["odd_batch"] = f"ValueError: {e}"
+    # the same ranks as a (1, 2) mesh: the model axis
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh
+    from diffusion_spacetime_attn_tpu_torch.parallel.tensor import ModelSplit, reduce_from_model
+
+    m = make_mesh(data=1, model=2, backend="gloo", device="cpu")
+    y = reduce_from_model(torch.full((2,), float(m.model_index + 1)),
+                          ModelSplit(m.model_group, m.model, m.model_index))
+    out["model_axis"] = {"coords": (m.rank, m.data_index, m.model_index), "writer": m.writer,
+                         "rows": rows(m, 4), "gathered": gather_rows(m, mine["a"]).clone(),
+                         "model_sum": y.clone()}
     return out
 
 
@@ -443,6 +465,191 @@ def scripts(mesh, inputs, d):
     return {"ldm": ldm["metrics"], "vae": vae["metrics"],
             "ldm_first": [t.clone() for t in ldm["first_batch"]]}
 
+# ------------------------------------------------------- the model axis (TP)
+
+
+def _tp_unet(a, mesh):
+    """The TINY UNet from the flat JAX tree a["flat"] through the bridge,
+    then sliced to this rank's share of the model axis."""
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import shard_params
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import load_flat
+
+    unet = load_flat(UNet(a["cfg"], radius=0.2), a["flat"])
+    return shard_params(unet, mesh)
+
+
+def _local_grads(module) -> dict:
+    """This rank's gradients of the parameters the model axis leaves whole."""
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import model_sharded
+
+    sharded = model_sharded(module)
+    return {k: p.grad.clone() for k, p in module.named_parameters()
+            if p.grad is not None and k not in sharded}
+
+
+@case
+def tp_layout(mesh, inputs, d):
+    """The rank layout d·M + m, the rows and noise of the data coordinate,
+    and an LDMTrainer step replicated over 'model' (lr over data·model, the
+    checkpoint written by the writer alone)."""
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import (
+        gather_rows,
+        normal_rows,
+        rows,
+        shard_batch,
+    )
+    from diffusion_spacetime_attn_tpu_torch.utils import prng
+
+    a = inputs["layout"]
+    x = _tensor(a["x"])
+    mine = shard_batch(mesh, {"x": x})["x"]
+    out = {"coords": (mesh.rank, mesh.data_index, mesh.model_index), "writer": mesh.writer,
+           "rows": rows(mesh, x.shape[0]), "mine": mine.clone(),
+           "gathered": gather_rows(mesh, mine).clone(),
+           "noise": normal_rows(np.asarray(prng.PRNGKey(7), np.uint32),
+                                torch.zeros(2, 3), mesh).clone()}
+    res, tr, state = _ldm_step(mesh, a["ldm"], fsdp=True, ckpt_dir=os.path.join(d, "tp_ckpt"))
+    tr.save(state, 1)
+    out.update(ldm_loss=res["loss"], ldm_lr=res["lr"], ldm_fsdp=tr.fsdp,
+               ldm_params=res["params"], ckpt=sorted(os.listdir(os.path.join(d, "tp_ckpt"))))
+    return out
+
+
+@case
+def tp_unet_fwd(mesh, inputs, d):
+    """The TINY UNet forward on sharded weights, this data coordinate's rows,
+    gathered."""
+    from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import gather_rows, shard_batch
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import (
+        model_state_dict,
+        partition_specs,
+    )
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import load_flat
+
+    a = inputs["unet"]
+    unet = _tp_unet(a, mesh)
+    x, t, ctx = shard_batch(mesh, (_tensor(a["x"]), _tensor(a["t"]), _tensor(a["ctx"])))
+    with torch.no_grad():
+        eps = unet(x, t, ctx)
+    whole = load_flat(UNet(a["cfg"], radius=0.2), a["flat"]).state_dict()
+    gathered = model_state_dict(unet)
+    return {"eps": gather_rows(mesh, eps).clone(), "specs": partition_specs(unet),
+            "local_shapes": {k: tuple(p.shape) for k, p in unet.named_parameters()},
+            "gathered_equal": sorted(gathered) == sorted(whole)
+            and all(torch.equal(gathered[k], v) for k, v in whole.items())}
+
+
+@case
+def tp_unet_grad(mesh, inputs, d):
+    """The controlled program (`compile_sharded_unet.py` main_tp): the
+    prompts over 'data', the heads over 'model', loss Σ eps² of this rank's
+    rows; the parameter gradients whole (gathered over 'model', summed over
+    'data'), dcoef gathered, the replicated gradients before the data sum,
+    the all-reduce counts."""
+    from diffusion_spacetime_attn_tpu_torch.ops.attention import SpatialControl
+    from diffusion_spacetime_attn_tpu_torch.parallel import tensor as tp
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import all_reduce_, gather_rows, rows
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import model_grads
+
+    a = inputs["unet"]
+    g = a["grad"]
+    unet = _tp_unet(dict(a, cfg=g["cfg"]), mesh)
+    B = g["coef"].shape[0]
+    r = rows(mesh, B)
+
+    def cfg_rows(v):       # [2B, ...]: this coordinate's uncond rows, then its cond rows
+        v = _tensor(v)
+        return torch.cat([v[:B][r], v[B:][r]])
+
+    coef = _tensor(g["coef"])[r].clone().requires_grad_(True)
+    control = SpatialControl(local_contexts=_tensor(g["local_contexts"])[r],
+                             centers=_tensor(g["centers"])[r], coef=coef,
+                             active=_tensor(g["active"])[r])
+    tp.reset_stats()
+    eps = unet(cfg_rows(g["x"]), cfg_rows(g["t"]), cfg_rows(g["ctx"]), control)
+    loss = (eps ** 2).sum()
+    loss.backward()
+    stats = dict(tp.STATS)
+    whole = model_grads(unet)
+    names = sorted(whole)
+    all_reduce_([whole[k] for k in names], mesh, op="sum")
+    return {"loss": float(loss), "grads": whole, "dcoef": gather_rows(mesh, coef.grad).clone(),
+            "dcoef_local": coef.grad.clone(), "replicated": _local_grads(unet),
+            "stats": stats, "blocks": sum(1 for n, _ in unet.named_modules()
+                                          if n.endswith(".attn2"))}
+
+
+@case
+def tp_clip(mesh, inputs, d):
+    """A CLIP text tower whose 3 heads the model axis does not divide: its
+    attention stays whole, its MLP splits; the forward of this data
+    coordinate's token rows, gathered."""
+    from diffusion_spacetime_attn_tpu_torch.models.clip import CLIPTextTower
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import gather_rows, shard_batch
+    from diffusion_spacetime_attn_tpu_torch.parallel.sharding import (
+        model_sharded,
+        shard_params,
+    )
+    from diffusion_spacetime_attn_tpu_torch.utils.weights import load_flat
+
+    a = inputs["clip"]
+    tower = shard_params(load_flat(CLIPTextTower(a["cfg"]), a["flat"]), mesh)
+    with torch.no_grad():
+        last, pooled = tower(shard_batch(mesh, _tensor(a["ids"])))
+    return {"last": gather_rows(mesh, last).clone(), "pooled": gather_rows(mesh, pooled).clone(),
+            "sharded": sorted(model_sharded(tower))}
+
+
+@case
+def tp_engine(mesh, inputs, d):
+    """SpaceTimeEngine at the smoke config over this data group's (1, M) row
+    of the mesh and over the whole (data, model) mesh (each on runners of
+    its own: the engine shards them); rank 0 also in one process."""
+    from diffusion_spacetime_attn_tpu_torch.serving.server import SpaceTimeEngine
+
+    a = inputs["spacetime"]
+    out = {}
+    for tag, m in (("row", mesh.model_row()), ("mesh", mesh)):
+        eng = SpaceTimeEngine(runner=_spacetime_runner(a), batch_size=2, mesh=m)
+        images, coef, losses = eng.optimize_batch(a["prompts"], a["seeds"])
+        out[tag] = {"images": eng.to_uint8(images), "coef": coef.detach().clone(),
+                    "losses": losses.detach().clone()}
+    if mesh.rank == 0:
+        eng = SpaceTimeEngine(runner=_spacetime_runner(a), batch_size=2)
+        images, coef, _ = eng.optimize_batch(a["prompts"], a["seeds"])
+        out["one"] = {"images": eng.to_uint8(images), "coef": coef.detach().clone()}
+    return out
+
+
+def model_axis_ranks(d: str, payload: dict) -> Ranks:
+    """Two ranks running `model_axis_trainers` on `payload` ({"ldm": ...,
+    "vae": ..., "layout": ...}, the inputs of `_ldm_step`, `_vae_step`,
+    `_layout_step`) over a (1, 2) mesh; `join()` gives each rank's result."""
+    torch.save({"model_axis": payload}, os.path.join(d, "inputs.pt"))
+    return Ranks(d, ["model_axis_trainers"])
+
+
+@case
+def model_axis_trainers(mesh, inputs, d):
+    """The trainers over a (1, world) mesh made on this group: replicated
+    over 'model' (fsdp over a data axis of 1 shards nothing), the lr over
+    data·model; the same step computed whole on every rank."""
+    from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh
+
+    m = make_mesh(data=1, model=mesh.data * mesh.model, backend="gloo", device="cpu")
+    a = inputs["model_axis"]
+    out = {"coords": (m.rank, m.data_index, m.model_index), "devices": m.devices}
+    if "ldm" in a:
+        res, tr, _ = _ldm_step(m, a["ldm"], fsdp=True)
+        out["ldm"] = dict(res, fsdp=tr.fsdp)
+    if "vae" in a:
+        out["vae"] = _vae_step(m, a["vae"], fsdp=True)
+    if "layout" in a:
+        out["layout"] = _layout_step(m, a["layout"], fsdp=True)
+    return out
+
 
 def main(argv) -> None:
     import torch.distributed as dist
@@ -450,10 +657,13 @@ def main(argv) -> None:
     from diffusion_spacetime_attn_tpu_torch.parallel.mesh import make_mesh
 
     d, rank, world, names = argv[0], int(argv[1]), int(argv[2]), argv[3:]
+    model = 1
+    if names and names[0].startswith("--model="):
+        model, names = int(names[0].split("=")[1]), names[1:]
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(d, "store"), world)
-    mesh = make_mesh(backend="gloo", device="cpu", store=store, rank=rank, world_size=world,
-                     timeout_s=COLLECTIVE_S)
+    mesh = make_mesh(data=world // model, model=model, backend="gloo", device="cpu",
+                     store=store, rank=rank, world_size=world, timeout_s=COLLECTIVE_S)
     inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
     out = {}
     for name in names:

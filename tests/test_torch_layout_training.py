@@ -37,7 +37,6 @@ from diffusion_spacetime_attn_tpu.training import losses as jlosses
 from diffusion_spacetime_attn_tpu.utils.tokenizer import make_roberta_tokenizer as jtokenizer
 from diffusion_spacetime_attn_tpu_torch.config import LayoutConfig, LayoutTrainConfig
 from diffusion_spacetime_attn_tpu_torch.models.layout.model import LayoutPredictor
-from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import bench_train, train_layout
 from diffusion_spacetime_attn_tpu_torch.training import datasets as tdata
 from diffusion_spacetime_attn_tpu_torch.training import iou as tiou
@@ -300,7 +299,18 @@ def test_eval_step_metrics_match_jax(start):
 
 
 def test_save_restore_gives_equal_bits(start, tmp_path):
+    """A checkpoint restores equal bits and the next step equals; the
+    trainer takes a mesh with a model axis: over a (1, 2) mesh of two gloo
+    ranks (fsdp asked: a data axis of 1 shards nothing) each rank's step is
+    the one-process step."""
+    from helpers.torch_ranks import model_axis_ranks
+
     _, params, batch_list = start
+    _, model0, _ = _port(params)
+    (tmp_path / "ranks").mkdir()
+    ranks = model_axis_ranks(str(tmp_path / "ranks"), {"layout": dict(
+        cfg=LayoutConfig(**TINY), train_cfg=LayoutTrainConfig(**TRAIN),
+        state=model0.state_dict(), batches=[tuple(batch_list[0])])})
     trainer, model, opt = _port(params)
     model, opt, _, _ = trainer.train_step(model, opt, batch_list[0])
     trainer.save_checkpoint(str(tmp_path), 1, model, opt, extra={"epoch": 0})
@@ -314,9 +324,15 @@ def test_save_restore_gives_equal_bits(start, tmp_path):
     assert torch.equal(loss, loss2)
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                  model2.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="A.13"):     # the model axis (A.13b)
-        ttrainer.LayoutTrainer.create(LayoutConfig(**TINY), LayoutTrainConfig(), fsdp=True,
-                                      mesh=Mesh(data=1, model=2))
+    trainer, model1, opt1 = _port(params)
+    _, _, loss1, _ = trainer.train_step(model1, opt1, batch_list[0])
+    for o in (r["model_axis_trainers"] for r in ranks.join()):
+        got = o["layout"]
+        assert o["devices"] == 2 and got["n_moments"] > 0 and got["sharded_moments"] == 0
+        assert got["losses"][0]["loss"] == pytest.approx(float(loss1), rel=1e-6)
+        for k, v in model1.state_dict().items():
+            np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
 
 
 def test_train_layout_run_dir_loads(tmp_path):

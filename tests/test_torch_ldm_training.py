@@ -33,7 +33,6 @@ from diffusion_spacetime_attn_tpu_torch import config as tcfg
 from diffusion_spacetime_attn_tpu_torch.models import encoders as tenc
 from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
 from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
-from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import bench_train, train_ldm
 from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer as tldm
 from diffusion_spacetime_attn_tpu_torch.training import schedules as tsched
@@ -385,14 +384,37 @@ def test_save_restore_resume_equals_uninterrupted(tiny_params, tmp_path):
     assert torch.equal(state.logvar, restored.logvar) and restored.step == 3
 
 
-def test_one_device_only():
-    """The data axis is ported (`tests/test_torch_parallel_training.py`): a
-    mesh with a model axis (tensor parallelism, ROADMAP A.13b) raises, and
-    fsdp needs a mesh, as JAX's trainer asserts."""
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(),
-                        make_schedule(tcfg.ScheduleConfig(), 50), torch.nn.Linear(1, 1),
-                        mesh=Mesh(data=1, model=2))
+def test_one_device_only(tmp_path):
+    """The data axis is ported (`tests/test_torch_parallel_training.py`) and
+    so is the model axis: over a (1, 2) mesh of two gloo ranks the trainer
+    replicates the step, as JAX's does (`ldm_trainer.py:241-251`): fsdp over
+    a data axis of 1 shards nothing, the lr counts data·model = 2 devices,
+    and each rank's loss and updated weights are the one-process step's at
+    that lr.  fsdp needs a mesh, as JAX's trainer asserts."""
+    from helpers.torch_ranks import ClassToy, model_axis_ranks
+
+    torch.manual_seed(0)
+    toy = ClassToy(10, 8)
+    cfg = dict(batch_size=2, base_lr=1e-3, scale_lr=True, use_ema=False)
+    x0 = np.random.RandomState(3).randn(4, 4, 4, 2).astype(np.float32)
+    ctx = np.array([[3.0], [7.0], [3.0], [1.0]], np.float32)
+    a = dict(state=toy.state_dict(), x0=x0, ctx=ctx, classes=(10, 8), key=prng.PRNGKey(1),
+             cfg=tcfg.LDMTrainConfig(**cfg))
+    ranks = model_axis_ranks(str(tmp_path), {"ldm": a})
+    sched = make_schedule(tcfg.ScheduleConfig(), 50)
+    one = tldm.LDMTrainer(tcfg.LDMTrainConfig(**dict(cfg, base_lr=2e-3)), tcfg.ScheduleConfig(),
+                          sched, toy)
+    st, m = one.train_step(one.init(), torch.from_numpy(x0), torch.from_numpy(ctx),
+                           prng.PRNGKey(1))
+    for o in (r["model_axis_trainers"] for r in ranks.join()):
+        assert o["devices"] == 2 and o["coords"][1] == 0
+        got = o["ldm"]
+        assert not got["fsdp"] and got["rows"] == 4
+        assert got["lr"] == pytest.approx(2 * 2 * 1e-3) == pytest.approx(one.lr)
+        assert got["loss"] == pytest.approx(float(m["loss"]), rel=1e-6)
+        for k, v in toy.state_dict().items():
+            np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)
     with pytest.raises(ValueError, match="requires a mesh"):
         tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(),
                         make_schedule(tcfg.ScheduleConfig(), 50), torch.nn.Linear(1, 1),

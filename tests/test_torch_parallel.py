@@ -122,12 +122,26 @@ def test_shard_batch_gather_rows_and_replicate_match_jax_data_axis(ranks):
         assert torch.equal(o["module_weight"], torch.zeros(2, 2))
 
 
-def test_make_mesh_refuses_the_model_axis_and_a_missing_rendezvous(monkeypatch):
-    """model > 1 raises naming ROADMAP A.13b; with no process group and no
+def test_make_mesh_refuses_the_model_axis_and_a_missing_rendezvous(ranks, monkeypatch):
+    """The model axis, refused until it was ported, is a mesh axis: on the
+    two ranks make_mesh(data=1, model=2) puts rank m at (0, m), rank 0
+    writes, every rank holds the whole batch, and its model group sums;
+    check_mesh takes a mesh with model > 1.  With no process group and no
     torchrun environment make_mesh raises instead of running on one
-    process; the backend is the caller's."""
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        tmesh.make_mesh(model=2)
+    process, model axis or not; the backend is the caller's."""
+    x = ranks[1]["basics"]["x"]
+    for r, o in enumerate(outs(ranks, "mesh_basics")):
+        m = o["model_axis"]
+        assert m["coords"] == (r, 0, r) and m["writer"] == (r == 0)
+        assert m["rows"] == slice(0, 4)
+        np.testing.assert_array_equal(m["gathered"].numpy(), x[2 * r:2 * r + 2])
+        assert torch.equal(m["model_sum"], torch.full((2,), 3.0))
+    tp = tmesh.Mesh(data=1, model=2)
+    assert tmesh.check_mesh(tp, "x") is tp and tp.devices == 2
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="rendezvous"):
+        tmesh.make_mesh(data=1, model=2, backend="gloo")
     with pytest.raises(ValueError, match="backend"):
         tmesh.make_mesh(backend="mpi")
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):

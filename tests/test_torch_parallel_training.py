@@ -60,7 +60,6 @@ from diffusion_spacetime_attn_tpu_torch.models.layout.model import LayoutPredict
 from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
 from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
 from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
-from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import train_ldm, train_vae
 from diffusion_spacetime_attn_tpu_torch.training import ldm_trainer as tldm
 from diffusion_spacetime_attn_tpu_torch.training.perceptual import NLayerDiscriminator
@@ -83,7 +82,7 @@ LAYOUT_TRAIN = dict(batch_size=8, encoder_max_lr=1e-4, head_max_lr=3e-3, warmup_
 MESH_CFG = dict(use_ema=True, scale_lr=True, batch_size=2, base_lr=2.5e-5, grad_clip_norm=0.05)
 CLASS_CFG = dict(batch_size=2, base_lr=1e-3, scale_lr=False, use_ema=False)
 CASES = ["ldm_dp", "ldm_class", "ldm_fsdp", "vae_dp", "vae_fsdp", "layout_fsdp", "layout_dp",
-         "scripts"]
+         "scripts", "model_axis_trainers"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -191,6 +190,8 @@ def setup(tmp_path_factory):
                             train_cfg=tcfg.LayoutTrainConfig(**LAYOUT_TRAIN),
                             state=lmodel.state_dict(), batches=[tuple(b) for b in batches])
     inputs["scripts"] = script_argv(os.path.join(d, "images"))
+    inputs["model_axis"] = {"ldm": inputs["ldm_class"], "vae": inputs["vae"],
+                            "layout": inputs["layout"]}
     torch.save(inputs, os.path.join(d, "inputs.pt"))
     ranks = Ranks(d, CASES)
     return dict(d=d, ranks=ranks, junet=junet, uparams=uparams, jemb=jemb, cparams=cparams,
@@ -413,29 +414,44 @@ def test_layout_step_over_mesh_matches_jax_mesh_fsdp(setup, jax_layout, fsdp):
     params_close(b["params"], a["params"], atol=0)
 
 
-def test_trainers_refuse_the_model_axis_and_fsdp_without_a_mesh():
-    """A mesh with model > 1 raises naming ROADMAP A.13b (tensor parallelism
-    is not ported); LDMTrainer(fsdp=True) without a mesh raises as JAX's
-    asserts; a mesh that is not a parallel.mesh.Mesh raises TypeError."""
-    tp = Mesh(data=1, model=2)
+def test_trainers_refuse_the_model_axis_and_fsdp_without_a_mesh(setup):
+    """The model axis, refused until it was ported, replicates each trainer's
+    step as JAX's trainers do: over a (1, 2) mesh made on the two ranks
+    (rank m at (0, m)) the class-conditional LDM, VAE and layout steps, fsdp
+    asked (a data axis of 1 shards nothing), equal the data-parallel steps
+    on the same global batch (each rank computes all of it), at the same lr
+    (data·model = 2 devices), equal on both ranks; LDMTrainer(fsdp=True) without a mesh
+    raises as JAX's asserts; a mesh that is not a parallel.mesh.Mesh raises
+    TypeError."""
+    a, b = outs(setup, "model_axis_trainers")
+    dp = outs(setup, "ldm_class")[0]
+    for r, o in enumerate((a, b)):
+        assert o["coords"] == (r, 0, r) and o["devices"] == 2
+        assert not o["ldm"]["fsdp"] and o["ldm"]["rows"] == 4 and o["ldm"]["lr"] == dp["lr"]
+        assert rel(o["ldm"]["loss"], dp["loss"]) <= 2e-5
+        grads_close(o["ldm"]["grads"], dp["grads"])
+        params_close(o["ldm"]["params"], dp["params"])
+        assert o["vae"]["sharded"] == 0 and o["layout"]["sharded_moments"] == 0
+    vdp, ldp = outs(setup, "vae_dp")[0], outs(setup, "layout_dp")[0]
+    for got, want in zip(a["vae"]["metrics"], vdp["metrics"]):
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) + 1e-6, k
+    for got, want in zip(a["layout"]["losses"], ldp["losses"]):
+        for k in want:
+            assert rel(got[k], want[k]) <= 2e-5, k
+    params_close(a["layout"]["params"], ldp["params"], skip=("attn.k.bias",))
+    for part in ("ldm", "vae", "layout"):
+        key = "ae" if part == "vae" else "params"
+        assert all(torch.equal(v, b[part][key][k]) for k, v in a[part][key].items()), part
     sched = make_schedule(tcfg.ScheduleConfig(), 50)
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(), sched,
-                        torch.nn.Linear(1, 1), mesh=tp)
     with pytest.raises(ValueError, match="requires a mesh"):
         tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(), sched,
                         torch.nn.Linear(1, 1), fsdp=True)
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tldm.LDMTrainer(tcfg.LDMTrainConfig(), tcfg.ScheduleConfig(), sched,
                         torch.nn.Linear(1, 1), mesh=object())
-    from diffusion_spacetime_attn_tpu_torch.training import layout_trainer, vae_trainer
+    from diffusion_spacetime_attn_tpu_torch.training import layout_trainer
 
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        vae_trainer.VAETrainer(AutoencoderKL(port_cfg(VAE_CFG)), vae_trainer.VAETrainConfig(),
-                               mesh=tp)
-    with pytest.raises(NotImplementedError, match="A.13b"):
-        layout_trainer.LayoutTrainer.create(tcfg.LayoutConfig(**LAYOUT),
-                                            tcfg.LayoutTrainConfig(), mesh=tp, fsdp=True)
     assert not layout_trainer.LayoutTrainer.create(tcfg.LayoutConfig(**LAYOUT),
                                                    tcfg.LayoutTrainConfig(), fsdp=True).fsdp
 

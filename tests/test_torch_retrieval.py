@@ -99,14 +99,26 @@ def test_npz_databases_read_both_ways(tmp_path):
 
 
 def test_one_device_only():
-    """The data axis is ported (`tests/test_torch_parallel.py`); a mesh with
-    a model axis (tensor parallelism, ROADMAP A.13b) raises."""
-    tp = Mesh(data=1, model=2)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tret.sharded_search(None, None, 1, mesh=tp, rows=2)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tret.Retriever(embedding=torch.zeros(2, 4), img_id=np.arange(2),
-                       patch_coords=np.zeros((2, 4)), mesh=tp)
+    """The data axis is ported (`tests/test_torch_parallel.py`) and so is the
+    model axis: the database splits over 'data' only, so on a (1, 2) mesh
+    every model rank holds it whole (no collective runs) and the search and
+    the Retriever equal the one-device exact search, bit for bit."""
+    tp = Mesh(data=1, model=2, rank=1, model_index=1)
+    db = torch.nn.functional.normalize(torch.from_numpy(
+        np.random.RandomState(0).randn(10, 4).astype(np.float32)), dim=-1)
+    q = torch.from_numpy(np.random.RandomState(1).randn(3, 4).astype(np.float32))
+    shard = tret.shard_database(db, tp)
+    assert torch.equal(shard, db)
+    for k in (2, 10):
+        s, i = tret.sharded_search(shard, q, k, mesh=tp, rows=10)
+        s0, i0 = tret.exact_search(db, q, k)
+        assert torch.equal(s, s0) and torch.equal(i, i0)
+    r = tret.Retriever(embedding=shard, img_id=np.arange(10), patch_coords=np.zeros((10, 4)),
+                       mesh=tp)
+    one = tret.Retriever(embedding=db, img_id=np.arange(10), patch_coords=np.zeros((10, 4)))
+    got, want = r.search(q, 3), one.search(q, 3)
+    for key in ("nn_embeddings", "scores", "nns", "q_embeddings"):
+        assert torch.equal(got[key], want[key]), key
 
 
 TINY_CLIP = JCLIPConfig(

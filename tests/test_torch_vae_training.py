@@ -26,7 +26,6 @@ from diffusion_spacetime_attn_tpu.utils import convert as jconvert
 from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 from diffusion_spacetime_attn_tpu_torch.utils.png import write_png
 from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
-from diffusion_spacetime_attn_tpu_torch.parallel.mesh import Mesh
 from diffusion_spacetime_attn_tpu_torch.scripts import train_vae
 from diffusion_spacetime_attn_tpu_torch.training import perceptual as tper
 from diffusion_spacetime_attn_tpu_torch.training import vae_trainer as tvt
@@ -182,7 +181,25 @@ def test_train_vae_cli(lpips_sd, tmp_path):
     0: finite metrics, a checkpoint readable with weights_only; with
     `--lpips-ckpt` the perceptual term runs on the converted weights;
     without --synthetic, --data-dir trains on the folder's sorted images,
-    the batches equal to JAX's `ImagePathsDataset` over the same files."""
+    the batches equal to JAX's `ImagePathsDataset` over the same files.
+    The trainer takes a mesh with a model axis: over a (1, 2) mesh of two
+    gloo ranks it replicates the step (fsdp over a data axis of 1 shards
+    nothing), each rank's metrics the one-process step's."""
+    from helpers.torch_ranks import model_axis_ranks
+
+    vae0 = AutoencoderKL(port_cfg(VAE_CFG))
+    vcfg = tvt.VAETrainConfig(base_lr=1e-4, disc_start=0, disc_ndf=8, disc_layers=2,
+                              perceptual_weight=0.0, kl_weight=1e-3)
+    one = tvt.VAETrainer(vae0, vcfg)
+    ones = one.init(seed=0)
+    images = (np.random.RandomState(10).rand(2, 32, 32, 3) * 2 - 1).astype(np.float32)
+    payload = dict(vae_cfg=port_cfg(VAE_CFG), cfg=vcfg,
+                   ae={k: v.clone() for k, v in vae0.state_dict().items()},
+                   disc={k: v.clone() for k, v in one.disc.state_dict().items()},
+                   images=[images], keys=[prng.PRNGKey(0)])
+    (tmp_path / "ranks").mkdir()
+    ranks = model_axis_ranks(str(tmp_path / "ranks"), {"vae": payload})
+    _, m_one = one.train_step(ones, torch.from_numpy(images), prng.PRNGKey(0))
     argv = ["--tiny", "--cpu", "--synthetic", "--disc-start", "0", "--log-every", "1",
             "--ckpt-dir", str(tmp_path)]
     out = train_vae.main(argv + ["--steps", "3", "--ckpt-every", "2"])
@@ -211,6 +228,8 @@ def test_train_vae_cli(lpips_sd, tmp_path):
         np.testing.assert_array_equal(nb(i).numpy(), next(it)[0])
     out = train_vae.main(folder + ["--steps", "1", "--ckpt-every", "0"])
     assert all(np.isfinite(v) for v in out["metrics"][0].values())
-    with pytest.raises(NotImplementedError, match="A.13"):     # the model axis (A.13b)
-        tvt.VAETrainer(AutoencoderKL(port_cfg(VAE_CFG)), tvt.VAETrainConfig(),
-                       mesh=Mesh(data=1, model=2))
+    for o in (r["model_axis_trainers"] for r in ranks.join()):
+        got = o["vae"]
+        assert got["sharded"] == 0 and o["devices"] == 2
+        for k, v in m_one.items():
+            assert got["metrics"][0][k] == pytest.approx(float(v), rel=1e-6, abs=1e-9), k
