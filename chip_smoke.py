@@ -169,7 +169,10 @@ script exits non-zero without its final line:
              conditional evaluation and 32 MHA and 16 GEGLU per
              unconditional one, and `scripts/img2img.main` /
              `scripts/sample_diffusion.main` giving the library's bytes on
-             the same key (a repeat at the same slot).
+             the same key (a repeat at the same slot); img2img's --init is
+             the committed Adam7-interlaced palette PNG and inpaint's --mask
+             the committed 1-bit TIFF, which the library side reads through
+             the CLI's loader.
  12. testbed: the trained testbed weights (`saved/testbed/*.msgpack`, read
              by the port's own msgpack reader: 583 arrays), float32, every
              kernel flag off, TF32 off, cuDNN deterministic.
@@ -285,20 +288,23 @@ script exits non-zero without its final line:
              (JPEG_SHA256, DECODE_SHA256, RESIZE_SHA256, checked against PIL
              by tests/test_torch_image_io.py); ms per encode, decode, resize.
      formats: what a JAX user has on disk, read without orbax,
-             tensorstore or PIL (none is on this machine): the zstd and WebP
-             decoders built by g++ (build_s); the committed JAX
+             tensorstore or PIL (none is on this machine): the zstd, WebP
+             and LZW decoders built by g++ (build_s); the committed JAX
              `LDMTrainer.save` state (`tests/fixtures/port_formats/ldm/`,
              zstd-compressed OCDBT) restored, every array's SHA-256 equal to
              orbax's (`digests.json`); its EMA weights loaded through
              `sample_diffusion.restore_unet` (what `--ckpt-dir` calls) into
              the UNet at the fixture's config on the card and one DDIM-2
              sample, finite; each fixture image (progressive, CMYK and
-             RGB-coded JPEG, BMP, WebP lossy, lossless and alpha) decoded to
-             Pillow's pixel and RGB digests; ms per decode (median of 5).
+             RGB-coded JPEG and the other JPEG codings, BMP, WebP lossy,
+             lossless and alpha, PNG palettes, 2- and 16-bit and Adam7 PNGs,
+             GIFs, TIFFs in every compression, layout and photometric the
+             port reads) decoded to Pillow's mode, shape, pixel and RGB
+             digests; ms per decode (median of 5).
  22. train_data: training from image folders at SD v1-4 width, bf16,
-             batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, three of
-             them replaced by the fixture progressive JPEG, BMP and WebP
-             (FORMAT_SLOTS), with captions.jsonl (3 steps), over a synset tree with
+             batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, five of
+             them replaced by the fixture progressive JPEG, BMP, WebP, GIF
+             and LZW TIFF (FORMAT_SLOTS), with captions.jsonl (3 steps), over a synset tree with
              class conditioning (2 steps) and `--conditioning superres
              --synthetic` (2 steps, BSRGAN-light rows): launches exactly
              GEGLU 16 / 16 and flash 10 / 10 per step (superres, the
@@ -307,7 +313,8 @@ script exits non-zero without its final line:
              steps, then one with `--lpips-ckpt` on a seeded file in
              taming's `vgg.pth` + torchvision's VGG16 layout, loaded
              parameter-exact); `train_searcher --image-dir` on the folder
-             (its JPEGs and the WebP: JAX's script lists no .bmp).
+             (its JPEGs and the WebP: JAX's script lists no .bmp, .gif or
+             .tif).
  23. legacy_vg: `infer_vg_msdn` at LayoutConfig() width on the card vs
              the same model on the CPU (centers within 1e-4, the same
              files), and 3 steps of each legacy trainer (LegacyConfig(),
@@ -436,7 +443,10 @@ RESIZE_SHA256 = "752fcb85a65ae4cfb968441617023db3013b4c21aa21c6add79f034d89b91eb
 # orbax and Pillow); the DATA_IMAGES slots the fixture images take
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "port_formats")
-FORMAT_SLOTS = {1: "progressive.jpg", 3: "rgb24.bmp", 5: "lossy.webp"}
+FORMAT_SLOTS = {1: "progressive.jpg", 3: "rgb24.bmp", 5: "lossy.webp", 6: "frame.gif",
+                7: "lzw.tif"}
+# phase image_in's bf16 --init (an Adam7 palette PNG) and --mask (a 1-bit TIFF)
+INIT_FIXTURE, MASK_FIXTURE = "adam7_palette.png", "mask.tif"
 
 
 def codec_image(h: int = 480, w: int = 640, seed: int = 14):
@@ -1824,7 +1834,10 @@ def phase_image_in(root: str, smi: str) -> dict:
          GEGLU per conditional evaluation; the unconditional UNet with
          use_flash too: per evaluation 20 flash (attn1 and attn2 at levels 0
          and 1), 12 MHA (level 2 and mid), 16 GEGLU;
-      2. bfloat16 with the entry points' flags (use_mha, use_fused_ff): the
+      2. bfloat16 with the entry points' flags (use_mha, use_fused_ff), the
+         init image the committed Adam7 palette PNG INIT_FIXTURE and the mask
+         the committed 1-bit TIFF MASK_FIXTURE, both read through the CLI's
+         loader (`scripts/img2img.read_square`): the
          encode (s per image, equal bytes on a repeat), img2img and inpaint
          through `pipeline/img2img.py` (s per image, launches 16·37 and
          16·50 of MHA and GEGLU, nothing else), then `scripts/img2img.main`
@@ -1850,7 +1863,7 @@ def phase_image_in(root: str, smi: str) -> dict:
     from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion as sd_cli
     from diffusion_spacetime_attn_tpu_torch.utils import prng
     from diffusion_spacetime_attn_tpu_torch.utils.cudnn import deterministic
-    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png, write_png
+    from diffusion_spacetime_attn_tpu_torch.utils.png import read_png
     from diffusion_spacetime_attn_tpu_torch.utils.tokenizer import make_clip_tokenizer, padded
 
     dev = torch.device("cuda")
@@ -1938,20 +1951,25 @@ def phase_image_in(root: str, smi: str) -> dict:
           "image_std": {k: float(v.std()) for k, v in f32[False].items()}})
     del f32
 
-    # 2. bfloat16 with the entry points' flags
-    init_png, mask_png = os.path.join(root, "init.png"), os.path.join(root, "mask.png")
-    write_png(init_png, ((init[0] + 1.0) * 127.5 + 0.5).astype(np.uint8))
-    write_png(mask_png, np.repeat((mask[0] * 255).astype(np.uint8), 3, axis=-1))
-    init_t = torch.from_numpy(read_png(init_png).astype(np.float32)[None] / 127.5 - 1.0).to(dev)
+    # 2. bfloat16 with the entry points' flags, on the committed init and
+    # mask files, which the library takes through the CLI's own loader
+    init_png = os.path.join(FIXTURES, INIT_FIXTURE)
+    mask_tif = os.path.join(FIXTURES, MASK_FIXTURE)
     base = ["--init", init_png, "--prompt", IMAGE_PROMPT, "--outdir", root]
-    cfg = img2img_cli.pipeline_config(img2img_cli.parse_args(base))
+    args = img2img_cli.parse_args(base)
+    cfg = img2img_cli.pipeline_config(args)
+    init_t = torch.from_numpy(img2img_cli.read_square(init_png, args.size).astype(np.float32)
+                              [None] / 127.5 - 1.0).to(dev)
+    mask_t = torch.from_numpy(img2img_cli.read_square(mask_tif, args.size, grey=True)
+                              .astype(np.float32)[None, :, :, None] / 255.0).to(dev)
     S = cfg.spacetime.num_steps
     run = int(IMAGE_STRENGTH * S)          # img2img evaluations: S - start_step
     sd = StableDiffusion.create(cfg, seed=0, device=dev)
     cond, uncond = texts(sd)
     key = prng.PRNGKey(1)                    # the CLI's default --seed
     line = {"phase": "image_in", "dtype": "bfloat16", "steps": S, "img2img_evals": run,
-            "nvidia_smi": smi}
+            "init": INIT_FIXTURE, "mask": MASK_FIXTURE,
+            "mask_kept": float(mask_t.mean()), "nvidia_smi": smi}
     enc = [counted(lambda: sd.encode_images(init_t, key)) for _ in range(4)]
     z = [e[0] for e in enc]
     check("encode", enc[-1][1], want())
@@ -1966,7 +1984,7 @@ def phase_image_in(root: str, smi: str) -> dict:
         else:
             out, counts, s = counted(lambda: i2i.inpaint(sd, init_t, mask_t, cond, uncond, key),
                                      record=True)
-            evals, argv = S, base + ["--mask", mask_png]
+            evals, argv = S, base + ["--mask", mask_tif]
         check(f"bf16 {mode}", counts, want(16 * evals, 16 * evals))
         img = (out[0].float().cpu().numpy() * 255.0 + 0.5).astype(np.uint8)
         path, cli_counts, cli_s = counted(lambda: img2img_cli.main(argv), record=True)
@@ -3626,18 +3644,18 @@ def phase_formats(smi: str):
     from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
     from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
     from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion
-    from diffusion_spacetime_attn_tpu_torch.utils import image_io, orbax, prng, webp, zstd
+    from diffusion_spacetime_attn_tpu_torch.utils import image_io, lzw, orbax, prng, webp, zstd
     from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
 
     t_phase = time.perf_counter()
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         want = json.load(f)
-    builds = [threading.Thread(target=lib.load_library) for lib in (zstd, webp)]
+    builds = [threading.Thread(target=lib.load_library) for lib in (zstd, webp, lzw)]
     for t in builds:
         t.start()
     for t in builds:
         t.join()
-    for lib in (zstd, webp):                       # raises here if a build failed
+    for lib in (zstd, webp, lzw):                  # raises here if a build failed
         lib.load_library()
     build_s = time.perf_counter() - t_phase
     ldm = os.path.join(FIXTURES, "ldm")
@@ -3696,7 +3714,9 @@ def _ema_like(unet, ema_tree):
 def _write_jpeg_folder(root: str) -> dict:
     """DATA_IMAGES 640x480 images with captions.jsonl, an LSUN-style split of
     them and a two-synset tree of the same files: port-written JPEGs, but
-    the FORMAT_SLOTS, which hold the fixture progressive JPEG, BMP and WebP."""
+    the FORMAT_SLOTS, which hold the fixture progressive JPEG, BMP, WebP,
+    GIF and TIFF (the tree lists what JAX's `imagenet_tree` lists: no GIF or
+    TIFF)."""
     from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 
     d = os.path.join(root, "jpegs")
@@ -3806,10 +3826,12 @@ def phase_train_data(root: str, smi: str) -> dict:
           "searcher_rows": searcher["rows"], "searcher_s": searcher["seconds"],
           "fixture_files": {f"img{i}": name for i, name in FORMAT_SLOTS.items()},
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    # train_searcher lists PNG, JPEG and WebP only (as JAX's script does)
     listed = sum(1 for f in os.listdir(dirs["jpegs"])
                  if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
+    unlisted = sum(1 for f in FORMAT_SLOTS.values() if f.endswith((".bmp", ".gif", ".tif")))
     if not (exact and all(math.isfinite(v) for m in metrics for v in m.values())
-            and searcher["rows"] == listed == DATA_IMAGES - 1 and np.isfinite(emb).all()):
+            and searcher["rows"] == listed == DATA_IMAGES - unlisted and np.isfinite(emb).all()):
         fail(f"train_data: lpips exact {exact}, vae metrics {metrics}, searcher {searcher}")
     torch.cuda.empty_cache()
     return total

@@ -3,7 +3,7 @@ generated images → detections → object recall / relation accuracy / CLIP
 fidelity → one JSON-able dict.
 
 Port of the JAX package's `eval/protocol.py`: the same functions and the
-same artifact keys; images are read by `utils/png.read_png` and the CLIP
+same artifact keys; images are read by `utils/image_io.open_image` and the CLIP
 towers are the port's, with OpenAI CLIP weights (`utils/loader.load_clip_loss`)
 or seeded random ones.
 
@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.png import read_png
+from ..utils.image_io import open_image
 from .metrics import (
     Detection,
     clip_scores,
@@ -137,8 +137,10 @@ def build_clip_loss(
 
 
 def read_image01(path: str) -> np.ndarray:
-    """A result PNG -> [H, W, 3] float32 in [0, 1] (alpha dropped)."""
-    return read_png(path)[..., :3].astype(np.float32) / 255.0
+    """A result image -> [H, W, 3] float32 in [0, 1]: JAX's
+    `Image.open(path).convert("RGB")` (grey repeated, alpha dropped, a
+    palette looked up, 16-bit grey clipped) over 255."""
+    return open_image(path, "RGB").astype(np.float32) / 255.0
 
 
 def detect_folder(

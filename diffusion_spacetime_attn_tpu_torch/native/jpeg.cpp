@@ -12,20 +12,28 @@
 //   decoder: baseline (and extended 8-bit) sequential and progressive
 //            Huffman (jdphuff.c: spectral selection, successive
 //            approximation, DC and AC first and refinement scans, EOB runs,
-//            coefficients buffered per component), 1, 3 or 4 components,
-//            sampling factors 1-2 per axis, DRI restarts, several scans, the
-//            ISLOW inverse DCT (jidctint.c) with its range-limit table, the
-//            "fancy" triangle upsampling of jdsample.c (h2v1, h1v2, h2v2),
-//            jdapimin.c's colour-space rules (JFIF or ids 1-2-3: YCbCr; an
-//            Adobe transform 0 or ids R-G-B: RGB; 4 components: CMYK, or
-//            YCCK under Adobe transform 2) and jdcolor.c's YCbCr -> RGB and
-//            YCCK -> CMYK.  A 4-component file comes out inverted, as PIL's
-//            "CMYK;I" raw mode reads every CMYK JPEG.
+//            coefficients buffered per component), sequential and
+//            progressive arithmetic coding (jdarith.c: T.81 Annexes D, F.2.4
+//            and G.2, DAC conditioning), lossless 8-bit Huffman (jdlossls.c:
+//            predictors 1-7, the point transform), 1, 3 or 4 components,
+//            sampling factors 1-4 per axis, DRI restarts, several scans, the
+//            ISLOW inverse DCT (jidctint.c) with its range-limit table,
+//            libjpeg-turbo's block smoothing of a progressive file whose
+//            first coefficients are incomplete (jdcoefct.c, its 5x5
+//            window), the "fancy" triangle upsampling of jdsample.c (h2v1,
+//            h1v2, h2v2) and its box upsampling of the other integral
+//            ratios, jdapimin.c's colour-space rules (JFIF or ids 1-2-3:
+//            YCbCr, but RGB in a lossless file; an Adobe transform 0 or ids
+//            R-G-B: RGB; 4 components: CMYK, or YCCK under Adobe transform
+//            2) and jdcolor.c's YCbCr -> RGB and YCCK -> CMYK.  A
+//            4-component file comes out inverted, as PIL's "CMYK;I" raw mode
+//            reads every CMYK JPEG.
 //
-// Arithmetic-coded, lossless, hierarchical and 12-bit files are refused with
-// a message that names the marker and its offset, as is a progressive file
-// whose scans leave one of the first ten coefficients incomplete (libjpeg
-// would smooth its blocks).  Corrupt files are refused too, never read or
+// What Pillow's libjpeg-turbo refuses is refused, with a message that names
+// the marker and its offset: 12-bit and other precisions, hierarchical
+// files, arithmetic-coded lossless files, a lossless file whose colours
+// would need converting, fractional sampling ratios, more than 10 blocks in
+// an MCU.  Corrupt files are refused too, never read or
 // written past their buffers: segments shorter than their contents,
 // over-subscribed Huffman tables (libjpeg's checks), more pixels than PIL's
 // decompression-bomb limit, and scans that run past the end of the file or
@@ -42,6 +50,10 @@
 #include <vector>
 
 namespace {
+
+struct Error {
+  std::string msg;
+};
 
 const int kZigzag[64] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -180,24 +192,22 @@ void fdct_islow(int* data) {
   }
 }
 
-// jdmaster.c prepare_range_limit_table, the post-IDCT part: index x & 1023
-// of an IDCT output x (centred on 0) -> sample.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int i = 0; i < 1024; i++) {
-      if (i < 128) t[i] = uint8_t(i + 128);
-      else if (i < 512) t[i] = 255;
-      else if (i < 896) t[i] = 0;
-      else t[i] = uint8_t(i - 896);
-    }
-  }
-};
-const RangeLimit kRange;
+// An inverse DCT's output (centred on 0) as a sample: clamped to 0-255, as
+// libjpeg-turbo's SIMD inverse DCTs (what Pillow runs) clamp it; the C
+// range-limit table of jdmaster.c agrees within +-384 and wraps past it.
+inline uint8_t sample(int64_t x) { return uint8_t(x < -128 ? 0 : (x > 127 ? 255 : x + 128)); }
 
 // jidctint.c jpeg_idct_islow: quantized coefficients (natural order) and
 // their table -> 8x8 samples.
 void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride) {
+  // No block of 8-bit samples has a dequantized coefficient past 4095 (the
+  // DC is at most 1024, the AC terms about 1.3 times that, rounding adds
+  // under a table entry); past it libjpeg-turbo's SIMD inverse DCTs, which
+  // Pillow runs, overflow their 16-bit lanes and part from this C
+  // reference, so the port refuses such a (corrupt) file
+  for (int k = 0; k < 64; k++)
+    if (std::abs(int32_t(coef[k]) * q[k]) > 4095)
+      throw Error{"corrupt JPEG: a dequantized coefficient past what 8-bit samples give"};
   int64_t ws[64];
   for (int c = 0; c < 8; c++) {
     const int16_t* in = coef + c;
@@ -254,7 +264,7 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
     const int64_t* w = ws + r * 8;
     uint8_t* o = out + r * stride;
     if (!w[1] && !w[2] && !w[3] && !w[4] && !w[5] && !w[6] && !w[7]) {
-      uint8_t v = kRange.t[int(descale(w[0], PASS1_BITS + 3)) & 1023];
+      uint8_t v = sample(descale(w[0], PASS1_BITS + 3));
       for (int c = 0; c < 8; c++) o[c] = v;
       continue;
     }
@@ -290,14 +300,14 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
     tmp2 += z2 + z3;
     tmp3 += z1 + z4;
     const int n = CONST_BITS + PASS1_BITS + 3;
-    o[0] = kRange.t[int(descale(tmp10 + tmp3, n)) & 1023];
-    o[7] = kRange.t[int(descale(tmp10 - tmp3, n)) & 1023];
-    o[1] = kRange.t[int(descale(tmp11 + tmp2, n)) & 1023];
-    o[6] = kRange.t[int(descale(tmp11 - tmp2, n)) & 1023];
-    o[2] = kRange.t[int(descale(tmp12 + tmp1, n)) & 1023];
-    o[5] = kRange.t[int(descale(tmp12 - tmp1, n)) & 1023];
-    o[3] = kRange.t[int(descale(tmp13 + tmp0, n)) & 1023];
-    o[4] = kRange.t[int(descale(tmp13 - tmp0, n)) & 1023];
+    o[0] = sample(descale(tmp10 + tmp3, n));
+    o[7] = sample(descale(tmp10 - tmp3, n));
+    o[1] = sample(descale(tmp11 + tmp2, n));
+    o[6] = sample(descale(tmp11 - tmp2, n));
+    o[2] = sample(descale(tmp12 + tmp1, n));
+    o[5] = sample(descale(tmp12 - tmp1, n));
+    o[3] = sample(descale(tmp13 + tmp0, n));
+    o[4] = sample(descale(tmp13 - tmp0, n));
   }
 }
 
@@ -604,10 +614,6 @@ std::vector<uint8_t> encode(const uint8_t* px, int W, int H, int channels, int q
 
 // ------------------------------------------------------------- the decoder
 
-struct Error {
-  std::string msg;
-};
-
 struct HuffDec {
   bool defined = false, built = false;
   uint8_t bits[17];
@@ -618,9 +624,10 @@ struct HuffDec {
 };
 
 // jdhuff.c jpeg_make_d_derived_tbl, with its checks: a table whose codes do
-// not fit their lengths (over-subscribed) is refused.  Built, as libjpeg
+// not fit their lengths (over-subscribed), and a DC table with a symbol past
+// `dc_max` (15; 16 in a lossless file), are refused.  Built, as libjpeg
 // builds it, when a scan first uses it.
-void build_dec(HuffDec& t) {
+void build_dec(HuffDec& t, int dc_max) {
   int huffsize[257], huffcode[257], p = 0;
   for (int l = 1; l <= 16; l++)
     for (int i = 0; i < t.bits[l]; i++) huffsize[p++] = l;
@@ -644,6 +651,9 @@ void build_dec(HuffDec& t) {
     }
   }
   t.maxcode[17] = 0x7FFFFFFF;
+  for (int i = 0; dc_max >= 0 && i < p; i++)
+    if (t.vals[i] > dc_max) throw Error{"bad Huffman table (a DC symbol past " +
+                                        std::to_string(dc_max) + ")"};
   std::memset(t.look, 0, sizeof(t.look));
   p = 0;
   for (int l = 1; l <= 9; l++) {
@@ -665,23 +675,30 @@ struct BitReader {
   uint64_t acc = 0;
   int nbits = 0;
   int eof_bits = 0;                // zero bits fed past the end of the file, still in acc
+  int marker_bits = 0;             // zero bits fed at a marker, still in acc
   bool hit_marker = false;
   void fill() {
     while (nbits <= 56) {
       uint8_t b = 0;
       if (!hit_marker && pos + 1 < n && d[pos] == 0xFF && d[pos + 1] != 0x00) {
         hit_marker = true;           // a marker: feed zeros, as libjpeg does
+        marker_bits += 8;
       } else if (!hit_marker && pos < n && !(d[pos] == 0xFF && pos + 1 >= n)) {
         b = d[pos];
         pos += b == 0xFF ? 2 : 1;
       } else if (!hit_marker) {
         eof_bits += 8;
+      } else {
+        marker_bits += 8;
       }
       acc |= uint64_t(b) << (56 - nbits);
       nbits += 8;
     }
   }
   bool past_eof() const { return nbits < eof_bits; }
+  // jdhuff.c's insufficient_data: a code has taken zero bits fed at a
+  // marker; libjpeg then leaves the rest of the segment's MCUs as they are
+  bool insufficient() const { return nbits < marker_bits; }
   int peek(int k) {
     if (nbits < k) fill();
     return int(acc >> (64 - k));
@@ -699,7 +716,7 @@ struct BitReader {
   void reset() {                   // byte-align at a restart marker
     acc = 0;
     nbits = 0;
-    eof_bits = 0;
+    eof_bits = marker_bits = 0;
     hit_marker = false;
   }
 };
@@ -801,6 +818,228 @@ void up_h2v2_row(const uint8_t* nr, const uint8_t* fr, int dw, uint8_t* out) {
   out[2 * dw - 1] = uint8_t((this_sum * 4 + 7) >> 4);
 }
 
+// T.81 Table D.2 as libjpeg packs it (jaricom.c): Qe << 16 | Next_Index_MPS
+// << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 bin.
+const int32_t kAriTab[114] = {
+#define V(qe, nm, nl, sw) ((qe) << 16 | (nm) << 8 | (sw) << 7 | (nl))
+    V(0x5a1d, 1, 1, 1),    V(0x2586, 2, 14, 0),   V(0x1114, 3, 16, 0),   V(0x080b, 4, 18, 0),
+    V(0x03d8, 5, 20, 0),   V(0x01da, 6, 23, 0),   V(0x00e5, 7, 25, 0),   V(0x006f, 8, 28, 0),
+    V(0x0036, 9, 30, 0),   V(0x001a, 10, 33, 0),  V(0x000d, 11, 35, 0),  V(0x0006, 12, 9, 0),
+    V(0x0003, 13, 10, 0),  V(0x0001, 13, 12, 0),  V(0x5a7f, 15, 15, 1),  V(0x3f25, 16, 36, 0),
+    V(0x2cf2, 17, 38, 0),  V(0x207c, 18, 39, 0),  V(0x17b9, 19, 40, 0),  V(0x1182, 20, 42, 0),
+    V(0x0cef, 21, 43, 0),  V(0x09a1, 22, 45, 0),  V(0x072f, 23, 46, 0),  V(0x055c, 24, 48, 0),
+    V(0x0406, 25, 49, 0),  V(0x0303, 26, 51, 0),  V(0x0240, 27, 52, 0),  V(0x01b1, 28, 54, 0),
+    V(0x0144, 29, 56, 0),  V(0x00f5, 30, 57, 0),  V(0x00b7, 31, 59, 0),  V(0x008a, 32, 60, 0),
+    V(0x0068, 33, 62, 0),  V(0x004e, 34, 63, 0),  V(0x003b, 35, 32, 0),  V(0x002c, 9, 33, 0),
+    V(0x5ae1, 37, 37, 1),  V(0x484c, 38, 64, 0),  V(0x3a0d, 39, 65, 0),  V(0x2ef1, 40, 67, 0),
+    V(0x261f, 41, 68, 0),  V(0x1f33, 42, 69, 0),  V(0x19a8, 43, 70, 0),  V(0x1518, 44, 72, 0),
+    V(0x1177, 45, 73, 0),  V(0x0e74, 46, 74, 0),  V(0x0bfb, 47, 75, 0),  V(0x09f8, 48, 77, 0),
+    V(0x0861, 49, 78, 0),  V(0x0706, 50, 79, 0),  V(0x05cd, 51, 48, 0),  V(0x04de, 52, 50, 0),
+    V(0x040f, 53, 50, 0),  V(0x0363, 54, 51, 0),  V(0x02d4, 55, 52, 0),  V(0x025c, 56, 53, 0),
+    V(0x01f8, 57, 54, 0),  V(0x01a4, 58, 55, 0),  V(0x0160, 59, 56, 0),  V(0x0125, 60, 57, 0),
+    V(0x00f6, 61, 58, 0),  V(0x00cb, 62, 59, 0),  V(0x00ab, 63, 61, 0),  V(0x008f, 32, 61, 0),
+    V(0x5b12, 65, 65, 1),  V(0x4d04, 66, 80, 0),  V(0x412c, 67, 81, 0),  V(0x37d8, 68, 82, 0),
+    V(0x2fe8, 69, 83, 0),  V(0x293c, 70, 84, 0),  V(0x2379, 71, 86, 0),  V(0x1edf, 72, 87, 0),
+    V(0x1aa9, 73, 87, 0),  V(0x174e, 74, 72, 0),  V(0x1424, 75, 72, 0),  V(0x119c, 76, 74, 0),
+    V(0x0f6b, 77, 74, 0),  V(0x0d51, 78, 75, 0),  V(0x0bb6, 79, 77, 0),  V(0x0a40, 48, 77, 0),
+    V(0x5832, 81, 80, 1),  V(0x4d1c, 82, 88, 0),  V(0x438e, 83, 89, 0),  V(0x3bdd, 84, 90, 0),
+    V(0x34ee, 85, 91, 0),  V(0x2eae, 86, 92, 0),  V(0x299a, 87, 93, 0),  V(0x2516, 71, 86, 0),
+    V(0x5570, 89, 88, 1),  V(0x4ca9, 90, 95, 0),  V(0x44d9, 91, 96, 0),  V(0x3e22, 92, 97, 0),
+    V(0x3824, 93, 99, 0),  V(0x32b4, 94, 99, 0),  V(0x2e17, 86, 93, 0),  V(0x56a8, 96, 95, 1),
+    V(0x4f46, 97, 101, 0), V(0x47e5, 98, 102, 0), V(0x41cf, 99, 103, 0), V(0x3c3d, 100, 104, 0),
+    V(0x375e, 93, 99, 0),  V(0x5231, 102, 105, 0), V(0x4c0f, 103, 106, 0), V(0x4639, 104, 107, 0),
+    V(0x415e, 99, 103, 0), V(0x5627, 106, 105, 1), V(0x50e7, 107, 108, 0), V(0x4b85, 103, 109, 0),
+    V(0x5597, 109, 110, 0), V(0x504f, 107, 111, 0), V(0x5a10, 111, 110, 1), V(0x5522, 109, 112, 0),
+    V(0x59eb, 111, 112, 1), V(0x5a1d, 113, 113, 0)
+#undef V
+};
+
+// jdarith.c's decoder (T.81 D.2): the C and A registers, input through the
+// same byte stuffing as Huffman data.  A marker inside the data feeds
+// zeros from then on, as libjpeg does; the file ending before a marker is
+// a truncated file.
+struct ArithDecoder {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;                    // -16: two bytes to read into C first
+  size_t marker_at = 0;            // where the marker that stopped the data starts
+  bool marker = false;
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  int next_byte() {
+    if (marker) return 0;
+    if (pos >= n) throw Error{"truncated JPEG file (arithmetic-coded data ends early)"};
+    int v = d[pos++];
+    if (v != 0xFF) return v;
+    do {
+      if (pos >= n) throw Error{"truncated JPEG file (arithmetic-coded data ends early)"};
+      v = d[pos++];
+    } while (v == 0xFF);
+    if (v == 0) return 0xFF;       // a stuffed zero
+    marker = true;
+    marker_at = pos - 2;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // the two initial bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    int nl = int(qe & 0xFF);
+    qe >>= 8;
+    int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {                // conditional exchange: the MPS after all
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  // T.81 F.2.4.3.1 / libjpeg: a DC difference's or an AC coefficient's
+  // magnitude after its sign, from the magnitude-category bins at `st` and
+  // `x1` (the first X bin); *cat gets the category's power of two (DC
+  // conditioning), and 0x8000 there is a corrupt magnitude
+  int magnitude(uint8_t* st, uint8_t* x1, bool ac, int* cat) {
+    int m = decode(st);
+    if (m && (!ac || decode(st))) {
+      if (ac) m <<= 1;
+      st = x1;
+      while (decode(st)) {
+        if ((m <<= 1) == 0x8000) throw Error{"corrupt arithmetic-coded data (magnitude)"};
+        st++;
+      }
+    }
+    *cat = m;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) v |= m;
+    return v + 1;
+  }
+};
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): before
+// its inverse DCT, each block of a component gets estimates of those of its
+// first nine AC coefficients that are still zero and not known in full,
+// from the DC values of the 5x5 blocks around it (clamped at the edges);
+// where no AC coefficient is known at all (`change_dc`), a Gaussian-like
+// kernel also replaces the DC and estimates four more.  The block rows
+// follow libjpeg's per-iMCU-row bookkeeping, quirks included.
+void smooth_idct(const DecComp& c, const uint16_t* q, const int* cb, int imcu_rows,
+                 uint8_t* plane, int pw) {
+  const int v = c.v;                               // 1 in a one-component file
+  bool change_dc = true;
+  for (int k = 1; k < 10; k++)
+    if (cb[k] != -1) change_dc = false;
+  const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9], Q02 = q[2],
+                Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+  const int last_col = c.wblocks - 1;
+  auto row = [&](int r) { return &c.coef[size_t(r) * c.bw * 64]; };
+  for (int r = 0; r < imcu_rows; r++) {
+    int block_rows = r < imcu_rows - 1 ? v : (c.hblocks % v ? c.hblocks % v : v);
+    int image_block_rows = block_rows * imcu_rows;
+    for (int br = 0; br < block_rows; br++) {
+      int at = r * v + br, ibr = r * block_rows + br;
+      const int16_t* cur = row(at);
+      const int16_t* prev = ibr > 0 ? row(at - 1) : cur;
+      const int16_t* pprev = ibr > 1 ? row(at - 2) : prev;
+      const int16_t* next = ibr < image_block_rows - 1 ? row(at + 1) : cur;
+      const int16_t* nnext = ibr < image_block_rows - 2 ? row(at + 2) : next;
+      const int16_t* rows5[5] = {pprev, prev, cur, next, nnext};
+      int dc[5][5];                                // [row][column - b + 2]
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++) dc[i][j] = rows5[i][0];
+      for (int b = 0; b <= last_col; b++) {
+        int16_t ws[64];
+        std::memcpy(ws, cur + size_t(b) * 64, sizeof(ws));
+        if (b == 0 && b < last_col)
+          for (int i = 0; i < 5; i++) dc[i][3] = dc[i][4] = rows5[i][64];
+        if (b + 1 < last_col)
+          for (int i = 0; i < 5; i++) dc[i][4] = rows5[i][size_t(b + 2) * 64];
+        // DC01 .. DC25 in libjpeg's names: row-major over the 5x5 window
+        auto D = [&](int k) { return int64_t(dc[(k - 1) / 5][(k - 1) % 5]); };
+        auto est = [&](int k, int pos, int64_t qk, int64_t inner) {
+          int al = cb[k];
+          if (al == 0 || ws[pos] != 0) return;
+          int64_t num = Q00 * inner;
+          int pred = int(((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+          if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          ws[pos] = int16_t(num >= 0 ? pred : -pred);
+        };
+        if (cb[1] != 0 && ws[1] == 0)
+          est(1, 1, Q01, change_dc ?
+              -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10) -
+              3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16) + 13 * D(17) -
+              13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25) :
+              -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+        if (cb[2] != 0 && ws[8] == 0)
+          est(2, 8, Q10, change_dc ?
+              -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) + 38 * D(8) +
+              13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) - 13 * D(19) + D(20) +
+              D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25) :
+              -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+        if (cb[3] != 0 && ws[16] == 0)
+          est(3, 16, Q20, change_dc ?
+              D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) - 5 * D(14) +
+              2 * D(17) + 7 * D(18) + 2 * D(19) + D(23) :
+              -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+        if (cb[4] != 0 && ws[9] == 0)
+          est(4, 9, Q11, change_dc ?
+              -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) - D(25) :
+              D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) - D(24) + D(4) -
+              D(6) + 10 * D(7) - 10 * D(9));
+        if (cb[5] != 0 && ws[2] == 0)
+          est(5, 2, Q02, change_dc ?
+              2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) + 7 * D(14) +
+              D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19) :
+              -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+        if (change_dc) {
+          est(6, 3, Q03, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+          est(7, 10, Q12, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+          est(8, 17, Q21, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+          est(9, 24, Q30, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+          int64_t num = Q00 * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) -
+                               6 * D(6) + 6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) -
+                               8 * D(11) + 42 * D(12) + 152 * D(13) + 42 * D(14) - 8 * D(15) -
+                               6 * D(16) + 6 * D(17) + 42 * D(18) + 6 * D(19) - 6 * D(20) -
+                               2 * D(21) - 6 * D(22) - 8 * D(23) - 6 * D(24) - 2 * D(25));
+          int pred = int(((Q00 << 7) + (num >= 0 ? num : -num)) / (Q00 << 8));
+          ws[0] = int16_t(num >= 0 ? pred : -pred);
+        }
+        idct_islow(ws, q, plane + size_t(at) * 8 * pw + size_t(b) * 8, pw);
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 4; j++) dc[i][j] = dc[i][j + 1];
+      }
+    }
+  }
+}
+
 Decoded decode(const uint8_t* d, size_t n) {
   if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) throw Error{"not a JPEG file (no SOI marker)"};
   uint16_t qt[4][64] = {};
@@ -809,7 +1048,15 @@ Decoded decode(const uint8_t* d, size_t n) {
   std::vector<DecComp> comps;
   int W = 0, H = 0, hmax = 1, vmax = 1, restart = 0, mcux = 0, mcuy = 0;
   bool frame = false, adobe = false, jfif = false, any_scan = false, progressive = false;
-  int adobe_transform = -1;
+  bool arith = false, lossless = false, ran_out = false;
+  int adobe_transform = -1, precision = 8;
+  // DAC conditioning (jdmarker.c defaults) and the arithmetic statistics
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
+  std::fill(dac_l, dac_l + 16, 0);
+  std::fill(dac_u, dac_u + 16, 1);
+  std::fill(dac_k, dac_k + 16, 5);
+  std::vector<uint8_t> dc_stats(16 * 64), ac_stats(16 * 256);
+  std::vector<std::vector<int32_t>> lsamples;   // lossless: each component's samples
   std::vector<std::vector<int>> coef_bits;   // per component: the Al still owed, -1 = none yet
   size_t pos = 2;
   auto need = [&](size_t k, size_t at) {
@@ -840,14 +1087,18 @@ Decoded decode(const uint8_t* d, size_t n) {
     auto short_seg = [&]() {
       return Error{"short " + hexmark(m) + " segment at offset " + hexoff(moff)};
     };
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 || m == 0xCA) {
       if (frame) throw Error{"two SOF markers, second at offset " + hexoff(moff)};
       frame = true;
-      progressive = m == 0xC2;
+      progressive = m == 0xC2 || m == 0xCA;
+      arith = m == 0xC9 || m == 0xCA;
+      lossless = m == 0xC3;
       if (slen < 6) throw short_seg();
-      if (seg[0] != 8)
+      precision = seg[0];
+      if (precision != 8)
         throw Error{std::to_string(seg[0]) + "-bit JPEG (" + hexmark(m) + " at offset " +
-                    hexoff(moff) + "): only 8-bit samples are decoded" + kRoadmap};
+                    hexoff(moff) + "): only 8-bit samples are decoded, as Pillow decodes "
+                    "them" + kRoadmap};
       H = (seg[1] << 8) | seg[2];
       W = (seg[3] << 8) | seg[4];
       int nc = seg[5];
@@ -866,15 +1117,18 @@ Decoded decode(const uint8_t* d, size_t n) {
         c.h = seg[7 + 3 * i] >> 4;
         c.v = seg[7 + 3 * i] & 15;
         c.tq = seg[8 + 3 * i] & 3;
-        if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2)
-          throw Error{"sampling factors " + std::to_string(c.h) + "x" + std::to_string(c.v) +
-                      " (" + hexmark(m) + " at offset " + hexoff(moff) +
-                      "): only factors 1-2 are decoded" + kRoadmap};
+        if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)   // libjpeg's MAX_SAMP_FACTOR
+          throw Error{"bad sampling factors " + std::to_string(c.h) + "x" +
+                      std::to_string(c.v) + " (" + hexmark(m) + " at offset " + hexoff(moff) +
+                      ")"};
         comps.push_back(c);
         hmax = std::max(hmax, c.h);
         vmax = std::max(vmax, c.v);
       }
       if (nc == 1) comps[0].h = comps[0].v = hmax = vmax = 1;  // no subsampling alone
+      if (lossless && (hmax > 1 || vmax > 1))
+        throw Error{"subsampled lossless JPEG (" + hexmark(m) + " at offset " + hexoff(moff) +
+                    ") is not decoded" + kRoadmap};
       mcux = ceil_div(W, hmax * 8);
       mcuy = ceil_div(H, vmax * 8);
       for (auto& c : comps) {
@@ -888,12 +1142,28 @@ Decoded decode(const uint8_t* d, size_t n) {
         c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
       }
       coef_bits.assign(nc, std::vector<int>(64, -1));
-    } else if (m == 0xC6 || m == 0xCA || m == 0xCE) {
-      throw Error{"hierarchical or arithmetic-coded progressive JPEG (" + hexmark(m) +
-                  " at offset " + hexoff(moff) + "): not decoded" + kRoadmap};
-    } else if (m == 0xC3 || m == 0xC5 || m == 0xC7 || (m >= 0xC9 && m <= 0xCF) || m == 0xCC) {
+      if (lossless) {
+        lsamples.assign(nc, std::vector<int32_t>());
+        for (int i = 0; i < nc; i++) lsamples[size_t(i)].assign(size_t(W) * H, 0);
+      }
+    } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCB || m == 0xCD || m == 0xCE ||
+               m == 0xCF) {
       throw Error{"JPEG process " + hexmark(m) + " at offset " + hexoff(moff) +
-                  " (lossless, hierarchical or arithmetic-coded) is not decoded" + kRoadmap};
+                  (m == 0xCB ? " (arithmetic-coded lossless)" : " (hierarchical)") +
+                  " is not decoded, as Pillow's libjpeg-turbo does not decode it" + kRoadmap};
+    } else if (m == 0xCC) {                   // DAC: arithmetic conditioning (jdmarker.c get_dac)
+      for (int p = 0; p + 1 < slen; p += 2) {
+        int idx = seg[p], val = seg[p + 1];
+        if (idx >= 32) throw Error{"bad DAC table index at offset " + hexoff(moff)};
+        if (idx >= 16) {
+          dac_k[idx - 16] = uint8_t(val);
+        } else {
+          dac_l[idx] = uint8_t(val & 15);
+          dac_u[idx] = uint8_t(val >> 4);
+          if (dac_l[idx] > dac_u[idx]) throw Error{"bad DAC value at offset " + hexoff(moff)};
+        }
+      }
+      if (slen % 2) throw Error{"bad DAC length at offset " + hexoff(moff)};
     } else if (m == 0xDB) {
       int p = 0;
       while (p < slen) {
@@ -951,7 +1221,10 @@ Decoded decode(const uint8_t* d, size_t n) {
       if (slen < 4 + 2 * ns) throw short_seg();
       int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns], ah = seg[3 + 2 * ns] >> 4,
           al = seg[3 + 2 * ns] & 15;
-      if (!progressive && (ss != 0 || se != 63 || ah != 0 || al != 0))
+      if (lossless && (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision))
+        throw Error{"bad lossless scan parameters (predictor " + std::to_string(ss) +
+                    ", point transform " + std::to_string(al) + ") at offset " + hexoff(moff)};
+      if (!progressive && !lossless && (ss != 0 || se != 63 || ah != 0 || al != 0))
         throw Error{"a scan with spectral selection or successive approximation at offset " +
                     hexoff(moff) + " in a sequential JPEG"};
       // jdinput.c / jdphuff.c's checks of a progressive scan's parameters
@@ -960,7 +1233,8 @@ Decoded decode(const uint8_t* d, size_t n) {
         throw Error{"bad progressive scan parameters Ss=" + std::to_string(ss) + " Se=" +
                     std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" +
                     std::to_string(al) + " at offset " + hexoff(moff)};
-      bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss != 0;
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !lossless && (!progressive || ss != 0);
       std::vector<int> sc;
       std::vector<int> td, ta;
       for (int i = 0; i < ns; i++) {
@@ -972,19 +1246,31 @@ Decoded decode(const uint8_t* d, size_t n) {
         sc.push_back(ci);
         td.push_back(tb >> 4);
         ta.push_back(tb & 15);
-        if (td.back() > 3 || ta.back() > 3 || (need_dc && !dc[td.back()].defined) ||
-            (need_ac && !ac[ta.back()].defined))
-          throw Error{"SOS uses an undefined Huffman table at offset " + hexoff(moff)};
-        if (!qdef[comps[ci].tq]) throw Error{"a component's quantization table is undefined"};
-        for (HuffDec* t : {need_dc ? &dc[td.back()] : nullptr, need_ac ? &ac[ta.back()] : nullptr}) {
-          if (t && !t->built) build_dec(*t);
-          if (t) t->built = true;
+        if (arith) {                           // NUM_ARITH_TBLS conditioning tables
+          if (td.back() > 15 || ta.back() > 15)
+            throw Error{"SOS uses a bad arithmetic table at offset " + hexoff(moff)};
+        } else {
+          if (td.back() > 3 || ta.back() > 3 || (need_dc && !dc[td.back()].defined) ||
+              (need_ac && !ac[ta.back()].defined))
+            throw Error{"SOS uses an undefined Huffman table at offset " + hexoff(moff)};
+          if (need_dc && !dc[td.back()].built) build_dec(dc[td.back()], lossless ? 16 : 15);
+          if (need_ac && !ac[ta.back()].built) build_dec(ac[ta.back()], -1);
+          if (need_dc) dc[td.back()].built = true;
+          if (need_ac) ac[ta.back()].built = true;
         }
+        if (!lossless && !qdef[comps[ci].tq])
+          throw Error{"a component's quantization table is undefined"};
+        if (lossless) coef_bits[ci][0] = al;   // the point transform, for the output
         if (progressive)
           for (int k = ss; k <= se; k++) coef_bits[ci][k] = al;
       }
-      BitReader br{d, n, seg_end};
-      std::vector<int64_t> pred(ns, 0);
+      if (ns > 1) {                            // jdinput.c: D_MAX_BLOCKS_IN_MCU
+        int blocks = 0;
+        for (int k = 0; k < ns; k++) blocks += comps[sc[k]].h * comps[sc[k]].v;
+        if (blocks > 10)
+          throw Error{"a scan of " + std::to_string(blocks) + " blocks per MCU (more than 10) "
+                      "at offset " + hexoff(moff)};
+      }
       int nmcu_x, nmcu_y;
       if (ns == 1) {
         nmcu_x = comps[sc[0]].wblocks;
@@ -993,8 +1279,193 @@ Decoded decode(const uint8_t* d, size_t n) {
         nmcu_x = mcux;
         nmcu_y = mcuy;
       }
-      long count = 0;
+      // the marker that ends a scan's data, from `p`, past a restart marker
+      auto next_marker = [&](size_t p) {
+        while (p + 1 < n &&
+               !(d[p] == 0xFF && d[p + 1] != 0 && !(d[p + 1] >= 0xD0 && d[p + 1] <= 0xD7)))
+          p++;
+        return p;
+      };
+      // a restart: past the expected RSTn from `p` (resync where it is missing)
       int next_rst = 0;
+      auto restart_at = [&](size_t p) {
+        while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF)) p++;
+        if (p + 1 < n && d[p + 1] == 0xD0 + next_rst) p += 2;
+        next_rst = (next_rst + 1) & 7;
+        return p;
+      };
+      if (lossless) {
+        // jdlhuff.c and jdlossls.c: one sample per component and MCU (no
+        // subsampling), each a Huffman-coded difference from predictor Ss
+        // over the row's reconstructed samples; the first row of the image
+        // and of each restart interval predicts from the left only
+        if (restart % W) throw Error{"lossless JPEG with a restart interval of " +
+                                     std::to_string(restart) + " MCUs, not whole rows"};
+        BitReader br{d, n, seg_end};
+        int row0 = 0;
+        for (int y = 0; y < H; y++) {
+          if (restart && y > 0 && (int64_t(y) * W) % restart == 0) {
+            if (br.past_eof()) throw Error{"truncated JPEG file (scan data ends early)"};
+            br.reset();
+            br.pos = restart_at(br.pos);
+            row0 = y;
+          }
+          if (br.insufficient())
+            throw Error{"corrupt lossless JPEG (its data runs into a marker)"};
+          for (int x = 0; x < W; x++) {
+            for (int k = 0; k < ns; k++) {
+              int s = decode_sym(br, dc[td[k]]);
+              if (s > 16) throw Error{"corrupt lossless JPEG difference"};
+              int diff = s == 0 ? 0 : (s == 16 ? 32768 : extend(br.get(s), s));
+              int32_t* row = &lsamples[size_t(sc[k])][size_t(y) * W];
+              const int32_t* up = y > row0 ? row - W : row;
+              int pr;
+              if (y == row0) {
+                pr = x == 0 ? 1 << (precision - al - 1) : row[x - 1];
+              } else if (x == 0) {
+                pr = up[0];
+              } else {
+                int ra = row[x - 1], rb = up[x], rc = up[x - 1];
+                switch (ss) {
+                  case 1: pr = ra; break;
+                  case 2: pr = rb; break;
+                  case 3: pr = rc; break;
+                  case 4: pr = ra + rb - rc; break;
+                  case 5: pr = ra + ((rb - rc) >> 1); break;
+                  case 6: pr = rb + ((ra - rc) >> 1); break;
+                  default: pr = (ra + rb) >> 1; break;
+                }
+              }
+              row[x] = (diff + pr) & 0xFFFF;
+            }
+          }
+        }
+        if (br.past_eof()) throw Error{"truncated JPEG file (scan data ends early)"};
+        any_scan = true;
+        pos = next_marker(br.pos);
+        continue;
+      }
+      if (arith) {
+        // jdarith.c: sequential (F.2.4) and progressive (G.2) decoding, the
+        // statistics of the scan's tables cleared at its start and at every
+        // restart
+        ArithDecoder ar{d, n, seg_end};
+        uint8_t fixed_bin = 113;
+        std::vector<int> last_dc(ns, 0), dc_ctx(ns, 0);
+        auto clear_stats = [&]() {
+          for (int k = 0; k < ns; k++) {
+            if (!progressive || (ss == 0 && ah == 0)) {
+              std::fill_n(&dc_stats[size_t(td[k]) * 64], 64, 0);
+              last_dc[k] = dc_ctx[k] = 0;
+            }
+            if (!progressive || ss != 0) std::fill_n(&ac_stats[size_t(ta[k]) * 256], 256, 0);
+          }
+        };
+        clear_stats();
+        auto dc_diff = [&](int k) {
+          uint8_t* base = &dc_stats[size_t(td[k]) * 64];
+          uint8_t* st = base + dc_ctx[k];
+          if (!ar.decode(st)) {
+            dc_ctx[k] = 0;
+            return 0;
+          }
+          int sign = ar.decode(st + 1), cat;
+          int v = ar.magnitude(st + 2 + sign, base + 20, false, &cat);
+          if (cat < ((1 << dac_l[td[k]]) >> 1))
+            dc_ctx[k] = 0;
+          else if (cat > ((1 << dac_u[td[k]]) >> 1))
+            dc_ctx[k] = 12 + sign * 4;
+          else
+            dc_ctx[k] = 4 + sign * 4;
+          return sign ? -v : v;
+        };
+        auto ac_first = [&](int16_t* blk, int k, int from, int to, int shift) {
+          uint8_t* base = &ac_stats[size_t(ta[k]) * 256];
+          for (int kk = from; kk <= to; kk++) {
+            uint8_t* st = base + 3 * (kk - 1);
+            if (ar.decode(st)) break;                      // end of block
+            while (!ar.decode(st + 1)) {
+              st += 3;
+              if (++kk > to) throw Error{"corrupt arithmetic-coded data (spectral overflow)"};
+            }
+            int sign = ar.decode(&fixed_bin), cat;
+            int v = ar.magnitude(st + 2, base + (kk <= dac_k[ta[k]] ? 189 : 217), true, &cat);
+            blk[kZigzag[kk]] = int16_t(uint32_t(sign ? -v : v) << shift);
+          }
+        };
+        const int p1 = 1 << al, m1 = -(1 << al);
+        auto block = [&](int16_t* blk, int k) {
+          if (!progressive) {
+            std::memset(blk, 0, 64 * sizeof(int16_t));
+            last_dc[k] = (last_dc[k] + dc_diff(k)) & 0xFFFF;
+            blk[0] = int16_t(uint16_t(last_dc[k]));
+            ac_first(blk, k, 1, 63, 0);
+          } else if (ss == 0 && ah == 0) {
+            last_dc[k] += dc_diff(k);
+            blk[0] = int16_t(uint32_t(last_dc[k]) << al);
+          } else if (ss == 0) {
+            if (ar.decode(&fixed_bin)) blk[0] = int16_t(blk[0] | p1);
+          } else if (ah == 0) {
+            ac_first(blk, k, ss, se, al);
+          } else {                                         // AC refinement (G.2.3.3)
+            uint8_t* base = &ac_stats[size_t(ta[k]) * 256];
+            int kex = se;
+            while (kex > 0 && !blk[kZigzag[kex]]) kex--;
+            for (int kk = ss; kk <= se; kk++) {
+              uint8_t* st = base + 3 * (kk - 1);
+              if (kk > kex && ar.decode(st)) break;
+              for (;;) {
+                int16_t& c = blk[kZigzag[kk]];
+                if (c) {
+                  if (ar.decode(st + 2)) c = int16_t(c < 0 ? c + m1 : c + p1);
+                  break;
+                }
+                if (ar.decode(st + 1)) {
+                  c = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+                  break;
+                }
+                st += 3;
+                if (++kk > se) throw Error{"corrupt arithmetic-coded data (spectral overflow)"};
+              }
+            }
+          }
+        };
+        long count = 0;
+        for (int my = 0; my < nmcu_y; my++) {
+          for (int mx = 0; mx < nmcu_x; mx++) {
+            if (restart && count > 0 && count % restart == 0) {
+              // the interval's data ends at its RSTn (libjpeg resyncs where
+              // it does not; the port refuses such a file)
+              size_t p = ar.marker ? ar.marker_at : ar.pos;
+              while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF)) p++;
+              if (p + 1 >= n || d[p + 1] != 0xD0 + next_rst)
+                throw Error{"corrupt arithmetic-coded JPEG (restart marker RST" +
+                            std::to_string(next_rst) + " missing at offset " + hexoff(p) + ")"};
+              next_rst = (next_rst + 1) & 7;
+              ar = ArithDecoder{d, n, p + 2};
+              clear_stats();
+            }
+            for (int k = 0; k < ns; k++) {
+              DecComp& c = comps[sc[k]];
+              int mh = ns == 1 ? 1 : c.h, mv = ns == 1 ? 1 : c.v;
+              for (int yi = 0; yi < mv; yi++)
+                for (int xi = 0; xi < mh; xi++) {
+                  int by = my * mv + yi, bx = mx * mh + xi;
+                  int16_t tmp[64] = {};
+                  block((by < c.bh && bx < c.bw) ? &c.coef[(size_t(by) * c.bw + bx) * 64] : tmp,
+                        k);
+                }
+            }
+            count++;
+          }
+        }
+        any_scan = true;
+        pos = next_marker(ar.marker ? ar.marker_at : ar.pos);
+        continue;
+      }
+      BitReader br{d, n, seg_end};
+      std::vector<int64_t> pred(ns, 0);
+      long count = 0;
       uint32_t eobrun = 0;
       const int p1 = 1 << al, m1 = -(1 << al);
       // jdphuff.c: one block of a progressive scan, in place
@@ -1074,16 +1545,14 @@ Decoded decode(const uint8_t* d, size_t n) {
           if (restart && count > 0 && count % restart == 0) {
             if (br.past_eof()) throw Error{"truncated JPEG file (scan data ends early)"};
             br.reset();
-            size_t p = br.pos;
-            while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] != 0 && d[p + 1] != 0xFF)) p++;
-            if (p + 1 < n && d[p + 1] == 0xD0 + next_rst) {
-              br.pos = p + 2;
-            } else {
-              br.pos = p;              // a missing restart marker: resync where we are
-            }
-            next_rst = (next_rst + 1) & 7;
+            br.pos = restart_at(br.pos);   // a missing restart marker: resync where we are
             std::fill(pred.begin(), pred.end(), 0);
             eobrun = 0;
+          }
+          if (br.insufficient()) {       // the segment's data ran out at a marker
+            ran_out = true;
+            count++;
+            continue;
           }
           if (progressive) {
             for (int k = 0; k < ns; k++) {
@@ -1134,45 +1603,67 @@ Decoded decode(const uint8_t* d, size_t n) {
         }
       }
       if (br.past_eof()) throw Error{"truncated JPEG file (scan data ends early)"};
-      // continue after the entropy-coded segment: find the next marker
-      size_t p = br.pos;
-      while (p + 1 < n && !(d[p] == 0xFF && d[p + 1] != 0 && !(d[p + 1] >= 0xD0 && d[p + 1] <= 0xD7)))
-        p++;
       any_scan = true;
-      pos = p;
+      pos = next_marker(br.pos);   // continue after the entropy-coded segment
       continue;
     }
     pos = seg_end;
   }
   if (!frame || !any_scan) throw Error{"JPEG without a frame or a scan"};
+  // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
+  // file whose first coefficients are known only in part, where every
+  // component's DC is partly known and the tables' first ten entries are
+  // not zero
+  bool smooth = false;
   if (progressive) {
-    // jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a progressive
-    // file whose first coefficients are known only in part
+    smooth = true;
+    bool useful = false;
     for (size_t ci = 0; ci < comps.size(); ci++) {
-      if (coef_bits[ci][0] < 0) continue;
+      for (int k = 0; k < kSmoothCoefs; k++)
+        if (qt[comps[ci].tq][kZigzag[k]] == 0) smooth = false;
+      if (coef_bits[ci][0] < 0) smooth = false;
       for (int k = 1; k < kSmoothCoefs; k++)
-        if (coef_bits[ci][k] != 0)
-          throw Error{"progressive JPEG whose scans leave coefficient " + std::to_string(k) +
-                      " of component " + std::to_string(ci) + " incomplete: libjpeg's block "
-                      "smoothing is not implemented" + kRoadmap};
+        if (coef_bits[ci][k] != 0) useful = true;
     }
+    smooth = smooth && useful;
+    // libjpeg-turbo smooths the iMCU rows past the last complete one with
+    // the coefficient states of the scan before; the port refuses a
+    // progressive file whose scans ran out of data rather than guess them
+    if (smooth && ran_out)
+      throw Error{"corrupt progressive JPEG: a scan's data runs into a marker"};
   }
   // jdapimin.c default_decompress_parms: the colour space of the components
+  // (a lossless file without JFIF or Adobe markers is RGB whatever its ids)
   bool rgb = false, ycck = false;
   if (comps.size() == 3 && !jfif) {
     if (adobe)
       rgb = adobe_transform == 0;
     else
-      rgb = comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+      rgb = lossless || (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
   }
   if (comps.size() == 4) ycck = adobe && adobe_transform != 0;
+  if (lossless && ((comps.size() == 3 && !rgb) || ycck))
+    throw Error{"lossless JPEG with YCbCr or YCCK components: libjpeg-turbo converts no "
+                "colours in a lossless file, so Pillow does not decode it" + std::string(kRoadmap)};
 
-  // inverse DCT into each component's plane
+  // inverse DCT into each component's plane (lossless: the samples shifted
+  // back by the point transform, cut to 8 bits as jdlossls.c's scaler does)
   std::vector<std::vector<uint8_t>> planes(comps.size());
   for (size_t ci = 0; ci < comps.size(); ci++) {
     DecComp& c = comps[ci];
     int pw = c.bw * 8;
     planes[ci].assign(size_t(pw) * c.bh * 8, 0);
+    if (lossless) {
+      int pt = std::max(coef_bits[ci][0], 0);
+      for (int y = 0; y < H; y++)
+        for (int x = 0; x < W; x++)
+          planes[ci][size_t(y) * pw + x] = uint8_t(lsamples[ci][size_t(y) * W + x] << pt);
+      continue;
+    }
+    if (smooth) {
+      smooth_idct(c, qt[c.tq], coef_bits[ci].data(), mcuy, planes[ci].data(), pw);
+      continue;
+    }
     for (int by = 0; by < c.hblocks; by++)
       for (int bx = 0; bx < c.wblocks; bx++)
         idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], qt[c.tq],
@@ -1203,11 +1694,18 @@ Decoded decode(const uint8_t* d, size_t n) {
     auto row = [&](int y) { return pl + size_t(y < 0 ? 0 : (y >= c.dh ? c.dh - 1 : y)) * pw; };
     bool fancy = c.dw > 2;
     for (int y = 0; y < c.dh; y++) {
-      if (rh == 1 && rv == 1) {
+      if ((rh > 2 || rv > 2) || (rh == 2 && rv == 2 && !fancy) || (rh == 2 && rv == 1 && !fancy)) {
+        // jdsample.c int_upsample (h2v1_upsample and h2v2_upsample are its
+        // 2x1 and 2x2 cases): each sample repeated rh times, each row rv times
+        const uint8_t* in = row(y);
+        for (int r = 0; r < rv; r++) {
+          uint8_t* o = &f[size_t(y * rv + r) * ow];
+          for (int x = 0; x < c.dw; x++) std::memset(o + x * rh, in[x], size_t(rh));
+        }
+      } else if (rh == 1 && rv == 1) {
         std::memcpy(&f[size_t(y) * ow], row(y), ow);
       } else if (rh == 2 && rv == 1) {
-        if (fancy) up_h2v1(row(y), c.dw, &f[size_t(y) * ow]);
-        else for (int x = 0; x < c.dw; x++) f[size_t(y) * ow + 2 * x] = f[size_t(y) * ow + 2 * x + 1] = row(y)[x];
+        up_h2v1(row(y), c.dw, &f[size_t(y) * ow]);
       } else if (rh == 1 && rv == 2) {   // h1v2_fancy_upsample (always fancy)
         uint8_t* o0 = &f[size_t(2 * y) * ow];
         uint8_t* o1 = &f[size_t(2 * y + 1) * ow];
@@ -1219,12 +1717,8 @@ Decoded decode(const uint8_t* d, size_t n) {
       } else {
         uint8_t* o0 = &f[size_t(2 * y) * ow];
         uint8_t* o1 = &f[size_t(2 * y + 1) * ow];
-        if (fancy) {
-          up_h2v2_row(row(y), row(y - 1), c.dw, o0);
-          up_h2v2_row(row(y), row(y + 1), c.dw, o1);
-        } else {
-          for (int x = 0; x < c.dw; x++) o0[2 * x] = o0[2 * x + 1] = o1[2 * x] = o1[2 * x + 1] = row(y)[x];
-        }
+        up_h2v2_row(row(y), row(y - 1), c.dw, o0);
+        up_h2v2_row(row(y), row(y + 1), c.dw, o1);
       }
     }
     // rearrange to stride W (output width >= W)

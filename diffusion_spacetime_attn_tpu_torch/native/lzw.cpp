@@ -1,0 +1,261 @@
+// The LZW and PackBits decoders of the port's GIF and TIFF readers, with a
+// plain C interface bound with ctypes by utils/lzw.py:
+//
+//   gif_lzw_decode:  GIF's variable-length LZW (codes LSB first, 3-12 bits,
+//                    clear and end codes, deferred clear) over the image
+//                    descriptor's sub-blocks, written straight into the
+//                    frame's rectangle of a canvas, rows in file order or in
+//                    the four interlaced passes, as Pillow's GifDecode.c
+//                    writes them.  Data that ends, or an end code that comes,
+//                    before every pixel is written is refused (Pillow raises
+//                    "image file is truncated" there); so is a code past the
+//                    table's next free entry.
+//   tiff_unpack:     TIFF's LZW (codes MSB first, 9-12 bits, the early
+//                    change of libtiff's LZWDecode) and PackBits (TIFF
+//                    compression 32773), into a buffer of the strip's or
+//                    tile's expected size.  Old-style (LSB first) LZW data
+//                    and codes past the next free entry are refused.
+//
+// Every decoder reads and writes only inside the buffers it is given.
+//
+// Build: g++ -O2 -fPIC -std=c++17 -shared -o liblzw.so lzw.cpp
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct Error {
+  std::string msg;
+};
+
+void set_error(char* err, int errlen, const std::string& msg) {
+  if (err && errlen > 0) std::snprintf(err, size_t(errlen), "%s", msg.c_str());
+}
+
+// The LZW string table: entry i is prefix[i] followed by suffix[i]; first[i]
+// is its first byte and len[i] its length.
+struct Table {
+  uint16_t prefix[4096];
+  uint8_t suffix[4096], first[4096];
+  uint16_t len[4096];
+  void init(int literals) {
+    for (int i = 0; i < literals; i++) {
+      prefix[i] = 0xFFFF;
+      suffix[i] = first[i] = uint8_t(i);
+      len[i] = 1;
+    }
+  }
+  // write entry `code` into out[0 .. len[code])
+  void emit(int code, uint8_t* out) const {
+    for (int k = len[code] - 1; k >= 0; k--) {
+      out[k] = suffix[code];
+      code = prefix[code];
+    }
+  }
+};
+
+void gif_decode(const uint8_t* d, size_t n, int bits, int fw, int fh, int interlace,
+                uint8_t* canvas, int stride) {
+  if (bits < 1 || bits > 11) throw Error{"bad LZW minimum code size " + std::to_string(bits)};
+  if (fw <= 0 || fh <= 0) throw Error{"GIF frame of no pixels"};
+  Table t;
+  const int clear = 1 << bits, end = clear + 1;
+  t.init(clear);
+  int size = bits + 1, next = clear + 2, last = -1;
+  size_t pos = 0, block_left = 0;
+  uint32_t acc = 0;
+  int nbits = 0;
+  // the rows in the order they are written: file order or the four passes
+  std::vector<int> rows;
+  if (interlace) {
+    const int start[4] = {0, 4, 2, 1}, step[4] = {8, 8, 4, 2};
+    for (int p = 0; p < 4; p++)
+      for (int y = start[p]; y < fh; y += step[p]) rows.push_back(y);
+  } else {
+    for (int y = 0; y < fh; y++) rows.push_back(y);
+  }
+  const int64_t total = int64_t(fw) * fh;
+  int64_t written = 0;
+  std::vector<uint8_t> str(4097);
+  auto put = [&](const uint8_t* s, int k) {
+    for (int i = 0; i < k && written < total; i++, written++) {
+      int y = rows[size_t(written / fw)], x = int(written % fw);
+      canvas[size_t(y) * stride + x] = s[i];
+    }
+  };
+  while (written < total) {
+    while (nbits < size) {
+      if (block_left == 0) {
+        if (pos >= n) throw Error{"truncated GIF file (image data ends early)"};
+        block_left = d[pos++];
+        if (block_left == 0) throw Error{"GIF image data ends before the frame is complete"};
+      }
+      if (pos >= n) throw Error{"truncated GIF file (image data ends early)"};
+      acc |= uint32_t(d[pos++]) << nbits;
+      nbits += 8;
+      block_left--;
+    }
+    int code = int(acc & ((1u << size) - 1));
+    acc >>= size;
+    nbits -= size;
+    if (code == clear) {
+      size = bits + 1;
+      next = clear + 2;
+      last = -1;
+      continue;
+    }
+    if (code == end) throw Error{"GIF end code before the frame is complete"};
+    if (last < 0) {
+      if (code > clear) throw Error{"corrupt GIF data (a string code right after a clear)"};
+      uint8_t c = uint8_t(code);
+      put(&c, 1);
+      last = code;
+      continue;
+    }
+    int k;
+    if (code < next) {
+      t.emit(code, str.data());
+      k = t.len[code];
+    } else if (code == next) {                    // KwKwK: last string + its first byte
+      t.emit(last, str.data());
+      k = t.len[last];
+      str[size_t(k++)] = t.first[last];
+    } else {
+      throw Error{"corrupt GIF data (code " + std::to_string(code) + " past the table)"};
+    }
+    put(str.data(), k);
+    if (next < 4096) {
+      t.prefix[next] = uint16_t(last);
+      t.suffix[next] = str[0];
+      t.first[next] = t.first[last];
+      t.len[next] = uint16_t(t.len[last] + 1);
+      next++;
+      if (next == (1 << size) && size < 12) size++;
+    }
+    last = code;
+  }
+}
+
+size_t tiff_lzw(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
+  if (n >= 2 && d[0] == 0 && (d[1] & 1))
+    throw Error{"old-style (LSB first) TIFF LZW data is not decoded"};
+  Table t;
+  t.init(256);
+  int size = 9, next = 258, last = -1;
+  size_t pos = 0, o = 0;
+  uint32_t acc = 0;
+  int nbits = 0;
+  std::vector<uint8_t> str(4097);
+  for (;;) {
+    while (nbits < size) {
+      if (pos >= n) return o;                     // libtiff: data ends without an end code
+      acc = (acc << 8) | d[pos++];
+      nbits += 8;
+    }
+    int code = int((acc >> (nbits - size)) & ((1u << size) - 1));
+    nbits -= size;
+    if (code == 256) {
+      size = 9;
+      next = 258;
+      last = -1;
+      continue;
+    }
+    if (code == 257) return o;
+    int k;
+    if (last < 0) {
+      if (code > 255) throw Error{"corrupt TIFF LZW data (a string code right after a clear)"};
+      str[0] = uint8_t(code);
+      k = 1;
+    } else if (code < next) {
+      t.emit(code, str.data());
+      k = t.len[code];
+    } else if (code == next) {
+      t.emit(last, str.data());
+      k = t.len[last];
+      str[size_t(k++)] = t.first[last];
+    } else {
+      throw Error{"corrupt TIFF LZW data (code " + std::to_string(code) + " past the table)"};
+    }
+    size_t take = std::min(size_t(k), cap - o);
+    std::memcpy(out + o, str.data(), take);
+    o += take;
+    if (last >= 0) {
+      if (next >= 4096) throw Error{"corrupt TIFF LZW data (the table overflows)"};
+      t.prefix[next] = uint16_t(last);
+      t.suffix[next] = str[0];
+      t.first[next] = t.first[last];
+      t.len[next] = uint16_t(t.len[last] + 1);
+      next++;
+      if (next >= (1 << size) - 1 && size < 12) size++;
+    }
+    last = code;
+    if (o == cap) return o;
+  }
+}
+
+size_t packbits(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
+  size_t pos = 0, o = 0;
+  while (pos < n && o < cap) {
+    int c = int8_t(d[pos++]);
+    if (c >= 0) {
+      size_t k = std::min(size_t(c) + 1, cap - o);
+      if (pos + k > n) throw Error{"truncated PackBits data"};
+      std::memcpy(out + o, d + pos, k);
+      pos += size_t(c) + 1;
+      o += k;
+    } else if (c != -128) {
+      if (pos >= n) throw Error{"truncated PackBits data"};
+      size_t k = std::min(size_t(1 - c), cap - o);
+      std::memset(out + o, d[pos++], k);
+      o += k;
+    }
+  }
+  return o;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode one GIF frame's LZW data d[0 .. n) (the sub-blocks after the
+// minimum code size byte) into the fw x fh rectangle whose top-left pixel is
+// canvas[0] (rows `stride` bytes apart).  0 on success.
+int gif_lzw_decode(const uint8_t* d, size_t n, int bits, int fw, int fh, int interlace,
+                   uint8_t* canvas, int stride, char* err, int errlen) {
+  try {
+    gif_decode(d, n, bits, fw, fh, interlace, canvas, stride);
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+  } catch (...) {
+    set_error(err, errlen, "GIF decoder failed");
+  }
+  return 1;
+}
+
+// Decode TIFF LZW (compression 5) or PackBits (32773) data into out[0 ..
+// cap); *got is the number of bytes written.  0 on success.
+int tiff_unpack(int compression, const uint8_t* d, size_t n, uint8_t* out, size_t cap,
+                size_t* got, char* err, int errlen) {
+  try {
+    if (compression == 5)
+      *got = tiff_lzw(d, n, out, cap);
+    else if (compression == 32773)
+      *got = packbits(d, n, out, cap);
+    else
+      throw Error{"unknown compression " + std::to_string(compression)};
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+  } catch (...) {
+    set_error(err, errlen, "TIFF decoder failed");
+  }
+  return 1;
+}
+
+}  // extern "C"

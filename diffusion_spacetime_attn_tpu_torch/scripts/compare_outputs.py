@@ -1,6 +1,7 @@
 """Compare two result folders image by image (numerics drift A/B); port of
 the JAX package's `scripts/compare_outputs.py`, reading the PNGs with
-`utils/png.py` (as RGB, as the JAX script's PIL `convert("RGB")` does).
+`utils/image_io.open_image` (as RGB, as the JAX script's PIL
+`convert("RGB")` does).
 
     python -m diffusion_spacetime_attn_tpu_torch.scripts.compare_outputs DIR_A DIR_B [--json]
 
@@ -17,11 +18,11 @@ import sys
 
 import numpy as np
 
-from ..utils.png import read_png, to_rgb
+from ..utils.image_io import open_image
 
 
 def load_dir(d: str) -> dict:
-    return {name: to_rgb(read_png(os.path.join(d, name))).astype(np.float32) / 255.0
+    return {name: open_image(os.path.join(d, name), "RGB").astype(np.float32) / 255.0
             for name in sorted(os.listdir(d)) if name.endswith(".png")}
 
 

@@ -10,7 +10,7 @@ Phases:
   1. the port's `run_dataset` over prompts [start, end), in a subprocess so
      its device memory is released before the detector's CLIP loads;
   2. the CLIP grid detector over the generated images (read with
-     `utils/png.read_png`) -> detections JSON;
+     `utils/image_io.open_image`) -> detections JSON;
   3. the protocol math (object recall @0.4, relation accuracy @0.5) and the
      mean CLIP fidelity score;
   4. one artifact JSON with every number and the weights' provenance (the

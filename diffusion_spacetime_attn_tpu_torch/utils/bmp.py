@@ -33,6 +33,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .png import MAX_PIXELS, bilevel
+
 _MASK_MODES = {                      # Pillow's 32-, 24- and 16-bit bitfield layouts
     (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
     (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
@@ -48,7 +50,6 @@ _MASK_MODES = {                      # Pillow's 32-, 24- and 16-bit bitfield lay
 }
 _RAW = {1: "P;1", 4: "P;4", 8: "P", 16: "BGR;15", 24: "BGR", 32: "BGRX"}
 _HEADERS = (12, 40, 52, 56, 64, 108, 124)
-MAX_PIXELS = 2 * 89478485            # Pillow's decompression-bomb error
 
 
 def _fail(name: str, why: str):
@@ -118,7 +119,7 @@ def _unpack(raw: np.ndarray, rawmode: str, w: int) -> np.ndarray:
     """Pillow's unpacker for one of the raw modes, rows [h, stride] -> pixels."""
     if rawmode in ("P;1", "1"):
         bits = np.unpackbits(raw, axis=1)[:, :w]
-        return bits.astype(bool) if rawmode == "1" else bits
+        return bilevel(bits) if rawmode == "1" else bits
     if rawmode == "P;4":
         nib = np.stack([raw >> 4, raw & 15], -1).reshape(raw.shape[0], -1)
         return nib[:, :w]

@@ -1,21 +1,25 @@
 """Open an image file without an imaging library, as Pillow 12.1 opens and
 converts it.
 
-`read_image(data)` routes by magic bytes: PNG through `utils/png.decode_png`,
-JPEG (baseline, extended and progressive; greyscale, YCbCr, RGB-coded, CMYK
-and YCCK) through the port's codec (`utils/jpeg.py`), BMP through
-`utils/bmp.py` and WebP (lossy, lossless, alpha, the first frame of an
-animation) through `utils/webp.py`.  It gives a `Picture`: `pixels` equals
-`np.asarray(Image.open(f))`, `mode` is its mode ("1", "L", "LA", "P",
-"RGB", "RGBA", "CMYK") and `palette` a "P" image's [256, 3] palette.
+`read_image(data)` routes by magic bytes: PNG (every bit depth and colour
+type, Adam7) through `utils/png.decode_picture`, JPEG (baseline, extended,
+progressive, arithmetic-coded and lossless; greyscale, YCbCr, RGB-coded,
+CMYK and YCCK) through the port's codec (`utils/jpeg.py`), BMP through
+`utils/bmp.py`, WebP (lossy, lossless, alpha, the first frame of an
+animation) through `utils/webp.py`, GIF (the first frame) through
+`utils/gif.py` and TIFF (the first page) through `utils/tiff.py`.  It gives
+a `Picture`: `pixels` equals `np.asarray(Image.open(f))`, `mode` is its
+mode ("1", "L", "LA", "P", "I;16", "I;16B", "RGB", "RGBA", "CMYK") and
+`palette` a "P" image's [256, 3] palette.
 
 `convert(picture, mode)` is Pillow's `convert("RGB")` / `convert("L")` in
 its integer arithmetic: alpha dropped, grey repeated, "1" as 0 / 255, a
-palette looked up, CMYK as (255 − K) − (C·(255 − K))/255 with Pillow's
-rounded division, luma (19595·R + 38470·G + 7471·B + 2¹⁵) >> 16 from the
-RGB.  `open_image(path, mode)` reads a file and converts it.  GIF, TIFF and
-other formats raise `ValueError`, naming ROADMAP A.12; so do corrupt files,
-where Pillow refuses them.
+palette looked up, 16-bit grey clipped to 255, CMYK as (255 − K) −
+(C·(255 − K))/255 with Pillow's rounded division, luma (19595·R + 38470·G
++ 7471·B + 2¹⁵) >> 16 from the RGB.  `open_image(path, mode)` reads a file
+and converts it.  Other formats, and the codings of these formats that
+Pillow reads and the port does not, raise `ValueError` naming ROADMAP A.12;
+corrupt files raise `ValueError` too, where Pillow refuses them.
 """
 from __future__ import annotations
 
@@ -24,12 +28,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from .bmp import decode_bmp
+from .gif import decode_gif
 from .jpeg import decode_jpeg
-from .png import decode_png, to_grey, to_rgb
+from .png import decode_picture, to_grey, to_rgb
+from .tiff import decode_tiff
 from .webp import decode_webp
-
-_OTHER = {b"GIF8": "GIF", b"II*\x00": "TIFF", b"MM\x00*": "TIFF"}
-_PNG_MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
 
 
 class Picture(NamedTuple):
@@ -39,10 +42,10 @@ class Picture(NamedTuple):
 
 
 def read_image(data: bytes, name: str = "<bytes>") -> Picture:
-    """The pixels and mode `Image.open` gives for a PNG, JPEG, BMP or WebP file."""
+    """The pixels and mode `Image.open` gives for a PNG, JPEG, BMP, WebP, GIF
+    or TIFF file."""
     if data[:8] == b"\x89PNG\r\n\x1a\n":
-        img = decode_png(data, name)
-        return Picture(img[..., 0] if img.shape[-1] == 1 else img, _PNG_MODES[img.shape[-1]])
+        return Picture(*decode_picture(data, name))
     if data[:2] == b"\xff\xd8":
         img = decode_jpeg(data, name)
         return Picture(img, "L" if img.ndim == 2 else {3: "RGB", 4: "CMYK"}[img.shape[-1]])
@@ -51,9 +54,12 @@ def read_image(data: bytes, name: str = "<bytes>") -> Picture:
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         img = decode_webp(data, name)
         return Picture(img, "RGBA" if img.shape[-1] == 4 else "RGB")
-    kind = next((k for magic, k in _OTHER.items() if data.startswith(magic)), "unknown")
-    raise ValueError(f"{name}: a {kind} file; the port reads PNG, JPEG, BMP and WebP "
-                     "(ROADMAP A.12)")
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return Picture(*decode_gif(data, name))
+    if data[:2] in (b"II", b"MM") and data[2:4] in (b"*\x00", b"\x00*", b"+\x00", b"\x00+"):
+        return Picture(*decode_tiff(data, name))
+    raise ValueError(f"{name}: not an image file the port reads (PNG, JPEG, BMP, WebP, GIF, "
+                     "TIFF; ROADMAP A.12)")
 
 
 def _cmyk_rgb(px: np.ndarray) -> np.ndarray:
@@ -68,10 +74,15 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
     if mode not in ("RGB", "L"):
         raise ValueError(f"mode {mode!r}: 'RGB' or 'L'")
     px = pic.pixels
+    if pic.mode == mode:                              # Pillow copies the image as it is
+        return px.copy()
     if pic.mode == "1":
         px = px.astype(np.uint8) * 255
         return np.repeat(px[..., None], 3, -1) if mode == "RGB" else px
-    if pic.mode == "P":
+    if pic.mode in ("I;16", "I;16B"):                 # Pillow's I16_L: clipped at 255
+        grey = np.minimum(px, 255).astype(np.uint8)
+        return np.repeat(grey[..., None], 3, -1) if mode == "RGB" else grey
+    if pic.mode == "P" or pic.palette is not None:
         rgb = pic.palette[px]
     elif pic.mode == "CMYK":
         rgb = _cmyk_rgb(px)
@@ -82,11 +93,11 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A PNG's or JPEG's pixels as the file holds them: [H, W, 1-4] for a
-    PNG, [H, W, 1], [H, W, 3] or [H, W, 4] (CMYK) for a JPEG; a BMP or WebP
-    file's [H, W, C] after `read_image` (a palette looked up, "1" as 0 / 255)."""
+    """An image's pixels as `read_image` gives them, as [H, W, C]: 8-bit
+    grey, grey + alpha, RGB, RGBA and CMYK as they are; "1", "P" and 16-bit
+    grey converted to RGB (a palette looked up, "1" as 0 / 255)."""
     pic = read_image(data, name)
-    if pic.mode in ("1", "P"):
+    if pic.mode in ("1", "P", "I;16", "I;16B"):
         return convert(pic, "RGB")
     return pic.pixels[..., None] if pic.pixels.ndim == 2 else pic.pixels
 

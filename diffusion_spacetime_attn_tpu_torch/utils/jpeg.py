@@ -3,15 +3,17 @@
 `encode_jpeg(img, quality)` gives the bytes PIL's `Image.save(buf, "JPEG",
 quality=q)` writes for a uint8 [H, W, 3] (4:2:0) or [H, W] / [H, W, 1]
 image (greyscale), and `decode_jpeg(data)` the pixels PIL's `Image.open`
-gives for a baseline, extended or progressive Huffman file: [H, W, 3] for
-a YCbCr or RGB-coded file (mode "RGB"), [H, W, 4] for a CMYK or YCCK one
-(mode "CMYK", inverted as PIL reads Adobe files), [H, W] for a greyscale
-one.  The codec follows libjpeg's integer arithmetic at its defaults (ISLOW
-DCTs, fancy upsampling), so both equal PIL byte for byte;
-`tests/test_torch_image_io.py` and `tests/test_torch_formats.py` hold them
-to it.  Arithmetic-coded, lossless, hierarchical and 12-bit files raise
-`ValueError` naming the marker and its offset; so do corrupt and truncated
-files, where PIL refuses them.
+gives for a baseline, extended or progressive file, Huffman- or
+arithmetic-coded, or a lossless 8-bit one, at sampling factors 1-4:
+[H, W, 3] for a YCbCr or RGB-coded file (mode "RGB"), [H, W, 4] for a CMYK
+or YCCK one (mode "CMYK", inverted as PIL reads Adobe files), [H, W] for a
+greyscale one.  The codec follows libjpeg-turbo's integer arithmetic at
+its defaults (ISLOW DCTs, fancy upsampling, block smoothing), so both equal
+PIL byte for byte; `tests/test_torch_image_io.py`,
+`tests/test_torch_formats.py` and `tests/test_torch_image_formats.py` hold
+them to it.  Hierarchical and 12-bit files raise `ValueError` naming the
+marker, its offset and ROADMAP A.12, as PIL refuses them; so do corrupt and
+truncated files, where PIL refuses them.
 
 The source is compiled at first use with `g++ -O2 -fPIC -std=c++17
 -shared` into the package's `_build/` (listed in `.gitignore`) under a name

@@ -1,0 +1,83 @@
+"""ctypes binding of the port's LZW and PackBits decoders (`native/lzw.cpp`),
+which `utils/gif.py` and `utils/tiff.py` use.
+
+`gif_frame` decodes one GIF frame's LZW data into its rectangle of a canvas
+(interlaced or not), as Pillow's GIF decoder writes it; `tiff_unpack` gives
+the bytes of one TIFF strip or tile compressed with LZW (libtiff's early
+change) or PackBits.  Data that ends before the frame is complete, and codes
+no encoder writes, raise `ValueError`.
+
+The source is compiled at first use with g++ into the package's `_build/`
+(`utils/native_bpe.compile_shared`), as the JPEG codec is; a failed build
+raises `NativeBuildError`, and there is no Python fallback.  Nothing is built
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from .native_bpe import NativeBuildError, compile_shared
+
+SOURCE = Path(__file__).resolve().parents[1] / "native" / "lzw.cpp"
+
+_lock = threading.Lock()
+_state: dict = {}
+_ERR = 256
+
+
+def load_library() -> ctypes.CDLL:
+    """The loaded decoders, built on first use; a failed build is raised
+    again on every later call without compiling again."""
+    with _lock:
+        if "error" in _state:
+            raise NativeBuildError("the LZW decoders failed to build") from _state["error"]
+        if "lib" not in _state:
+            try:
+                lib = ctypes.CDLL(str(compile_shared(SOURCE, "lzw_decoder")))
+            except (NativeBuildError, OSError) as e:
+                _state["error"] = e
+                raise NativeBuildError(str(e)) from e
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.gif_lzw_decode.restype = ctypes.c_int
+            lib.gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
+                                           ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
+            lib.tiff_unpack.restype = ctypes.c_int
+            lib.tiff_unpack.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, u8p,
+                                        ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
+                                        ctypes.c_char_p, ctypes.c_int]
+            _state["lib"] = lib
+        return _state["lib"]
+
+
+def gif_frame(data: bytes, bits: int, canvas: np.ndarray, x0: int, y0: int, w: int, h: int,
+              interlace: bool, name: str = "<bytes>") -> None:
+    """Decode a frame's LZW sub-blocks (`data`, from the byte after the
+    minimum code size `bits`) into canvas[y0:y0 + h, x0:x0 + w] in place."""
+    if not (canvas.dtype == np.uint8 and canvas.flags.c_contiguous and canvas.ndim == 2
+            and 0 <= x0 and x0 + w <= canvas.shape[1] and 0 <= y0 and y0 + h <= canvas.shape[0]):
+        raise ValueError(f"{name}: the frame does not lie on the canvas")
+    lib = load_library()
+    err = ctypes.create_string_buffer(_ERR)
+    at = canvas.ctypes.data + y0 * canvas.shape[1] + x0
+    if lib.gif_lzw_decode(bytes(data), len(data), bits, w, h, int(interlace),
+                          ctypes.cast(at, ctypes.POINTER(ctypes.c_uint8)), canvas.shape[1],
+                          err, _ERR):
+        raise ValueError(f"{name}: {err.value.decode()}")
+
+
+def tiff_unpack(compression: int, data: bytes, size: int, name: str = "<bytes>") -> bytes:
+    """Up to `size` bytes of one LZW (5) or PackBits (32773) strip or tile."""
+    lib = load_library()
+    out = np.zeros(size, np.uint8)
+    got = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(_ERR)
+    if lib.tiff_unpack(compression, bytes(data), len(data),
+                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), size,
+                       ctypes.byref(got), err, _ERR):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out[:got.value].tobytes()

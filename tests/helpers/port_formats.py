@@ -11,10 +11,18 @@ holds the port's readers to on a machine that has none of the three.
   four copies), so the values are seeded normal draws rounded to halves
   (about 1.3 bytes each after orbax's zstd) and each moment leaf repeats one
   seeded run of values: the state takes about half a megabyte;
-* one file of each image format the port reads besides PNG and baseline
-  JPEG, written by Pillow: a progressive, a CMYK and an RGB-coded JPEG;
-  8-bit palette and 24-bit BMPs; lossy, lossless and alpha WebPs.  The
-  three `TRAIN` files stand in for port-written JPEGs in phase train_data.
+* one file of each image format and coding the port reads besides 8-bit
+  PNG and baseline JPEG: written by Pillow, a progressive, a CMYK and an
+  RGB-coded JPEG, 8-bit palette and 24-bit BMPs, lossy, lossless and alpha
+  WebPs, a GIF, LZW, PackBits 1-bit and CMYK TIFFs, a 4-bit palette PNG;
+  written by `helpers/raw_images.py` (what Pillow does not write) an Adam7
+  palette PNG, 2- and 16-bit grey and 16-bit grey + alpha PNGs, a GIF frame
+  with a local table off the screen's corner, planar tiled Deflate,
+  16-bit LZW, 4-bit PackBits palette and white-is-zero TIFFs; and by
+  `helpers/jpeg_codings.py` arithmetic-coded sequential and progressive,
+  lossless, 4:1:1 and block-smoothed JPEGs.  The `TRAIN` files stand in
+  for port-written JPEGs in phase train_data; `INIT` and `MASK` are phase
+  image_in's --init and --mask.
 
 `digests.json` holds {"state": {path: sha256 of the restored array's
 bytes}, "images": {file: {"file", "mode", "pixels", "rgb", "shape"}}}:
@@ -41,7 +49,10 @@ STATE = "ldm/step_2"
 UNET = dict(model_channels=32, channel_mult=(1,), num_res_blocks=1, attention_resolutions=(),
             num_heads=1, dtype="float32")
 LATENT = 8
-TRAIN = ("progressive.jpg", "rgb24.bmp", "lossy.webp")
+TRAIN = ("progressive.jpg", "rgb24.bmp", "lossy.webp", "frame.gif", "lzw.tif")
+IMAGE_SUFFIXES = (".jpg", ".bmp", ".webp", ".png", ".gif", ".tif")
+# phase image_in's --init and --mask (img2img and inpaint)
+INIT, MASK = "adam7_palette.png", "mask.tif"
 
 
 def _image(h, w, seed, c=3):
@@ -52,12 +63,77 @@ def _image(h, w, seed, c=3):
     return np.clip(base + r.randint(-12, 13, (h, w, c)), 0, 255).astype(np.uint8)
 
 
+def _mask(h: int, w: int) -> np.ndarray:
+    """A 1-bit inpainting mask: white (kept) left of a wavy edge."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return xx < w // 2 + (yy * 7 // h) % 3 * 2
+
+
+def raw_images() -> dict:
+    """{name: bytes} of the PNG, GIF and TIFF variants Pillow does not write
+    (`helpers/raw_images.py`; Pillow reads each)."""
+    from PIL import Image
+
+    from helpers import raw_images as raw
+
+    quant = Image.fromarray(_image(120, 160, 4)).quantize(128)
+    pal = np.asarray(quant.getpalette()[:3 * 128], np.uint8).reshape(128, 3)
+    r = np.random.RandomState(19)
+    grey = _image(60, 80, 5, c=2)
+    lidx = np.asarray(Image.fromarray(_image(60, 80, 6)).quantize(32))
+    lpal = np.asarray(Image.fromarray(_image(60, 80, 6)).quantize(32).getpalette()[:96]).reshape(32, 3)
+    return {
+        "adam7_palette.png": raw.png_file(np.asarray(quant)[..., None], 8, 3, interlace=True,
+                                          palette=pal, trns=bytes([0, 128]), seed=1),
+        "grey16.png": raw.png_file((grey[..., :1].astype(np.uint16) * 257
+                                    + r.randint(0, 256, (60, 80, 1))), 16, 0, seed=2),
+        "grey2_adam7.png": raw.png_file(grey[..., :1] >> 6, 2, 0, interlace=True, seed=3),
+        "la16.png": raw.png_file(grey.astype(np.uint16) * 257, 16, 4, seed=4),
+        "local_interlaced.gif": raw.gif_file(
+            (96, 72), [dict(indices=lidx, at=(7, 5), palette=lpal, interlace=True,
+                            transparency=3)], global_palette=pal[:64]),
+        "tiles_planar.tif": raw.tiff_file(_image(48, 64, 7, c=4), 8, 2, big_endian=True,
+                                          compression=8, predictor=2, planar=2, tile=(32, 16),
+                                          extra=(2,)),
+        "grey16_lzw.tif": raw.tiff_file(grey[..., :1].astype(np.uint16) * 251, 16, 1,
+                                        big_endian=True, compression=5, predictor=2,
+                                        rows_per_strip=16),
+        "palette4_packbits.tif": raw.tiff_file(
+            (grey[..., :1] >> 4), 4, 3, compression=32773, rows_per_strip=7,
+            tags={320: (3, [int(v) for v in r.randint(0, 65536, 48)])}),
+        "white0_4bit.tif": raw.tiff_file(grey[..., :1] >> 4, 4, 0, tile=(16, 16)),
+    }
+
+
+def jpeg_images() -> dict:
+    """{name: bytes} of the JPEG codings no library here writes
+    (`helpers/jpeg_codings.py`; Pillow decodes each)."""
+    from PIL import Image
+
+    from helpers import jpeg_codings as jc
+
+    buf = io.BytesIO()
+    Image.fromarray(_image(60, 80, 10)).save(buf, "JPEG", quality=85)
+    frame = jc.read_baseline(buf.getvalue())
+    buf = io.BytesIO()
+    Image.fromarray(_image(64, 80, 11)).save(buf, "JPEG", quality=85, progressive=True)
+    return {
+        "arithmetic.jpg": jc.arithmetic_file(frame, restart=4, dac={0: (1, 3), 16: 2}),
+        "arithmetic_progressive.jpg": jc.arithmetic_file(frame, progressive=True),
+        "lossless.jpg": jc.lossless_file(_image(48, 64, 12), predictor=6, pt=1),
+        "sampling_411.jpg": jc.huffman_file(jc.coefficients(_image(60, 80, 13),
+                                                            [(4, 1), (1, 1), (1, 1)])),
+        "smoothed.jpg": jc.cut_scans(buf.getvalue(), 3),
+    }
+
+
 def write_images(out: Path) -> None:
     from PIL import Image
 
     big = Image.fromarray(_image(192, 256, 1))
     small = Image.fromarray(_image(47, 63, 2))
     alpha = Image.fromarray(_image(47, 63, 3, c=4))
+    mid = Image.fromarray(_image(120, 160, 8))
     saves = {
         "progressive.jpg": (big, dict(format="JPEG", quality=85, progressive=True)),
         "rgb24.bmp": (big, dict(format="BMP")),
@@ -67,11 +143,20 @@ def write_images(out: Path) -> None:
         "palette.bmp": (small.quantize(64), dict(format="BMP")),
         "lossless.webp": (small, dict(format="WEBP", lossless=True)),
         "alpha.webp": (alpha, dict(format="WEBP", quality=70)),
+        "frame.gif": (mid.quantize(256), dict(format="GIF")),
+        "lzw.tif": (Image.fromarray(_image(72, 96, 9)), dict(format="TIFF",
+                                                              compression="tiff_lzw")),
+        "mask.tif": (Image.fromarray(_mask(120, 160)), dict(format="TIFF",
+                                                            compression="packbits")),
+        "cmyk.tif": (small.convert("CMYK"), dict(format="TIFF")),
+        "palette4.png": (small.quantize(16), dict(format="PNG", bits=4)),
     }
     for name, (img, kw) in saves.items():
         buf = io.BytesIO()
         img.save(buf, **kw)
         (out / name).write_bytes(buf.getvalue())
+    for name, data in {**raw_images(), **jpeg_images()}.items():
+        (out / name).write_bytes(data)
 
 
 def image_digests(out: Path) -> dict:
@@ -79,7 +164,7 @@ def image_digests(out: Path) -> dict:
 
     d = {}
     for name in sorted(os.listdir(out)):
-        if name.endswith((".jpg", ".bmp", ".webp")):
+        if name.endswith(IMAGE_SUFFIXES):
             im = Image.open(out / name)
             px = np.asarray(im)
             d[name] = {"file": hashlib.sha256((out / name).read_bytes()).hexdigest(),
@@ -169,6 +254,7 @@ def build(out: Path) -> dict:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))    # `helpers` as the tests see it
     import jax
 
     jax.config.update("jax_platforms", "cpu")

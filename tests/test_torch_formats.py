@@ -15,8 +15,11 @@ Pillow 12.1 (libjpeg-turbo 3.1, libwebp 1.6) on the CPU, bit for bit:
   `convert`;
 * corrupt files: seeded truncations and byte flips of WebPs raise
   `ValueError` exactly where Pillow refuses them and decode to Pillow's
-  pixels where it reads them; GIF and TIFF raise, naming ROADMAP A.12, as
-  do the JPEG codings the port leaves out;
+  pixels where it reads them; the JPEG codings Pillow refuses
+  (hierarchical, arithmetic lossless, 12-bit) raise, naming ROADMAP A.12,
+  and the arithmetic and lossless ones it decodes give its pixels (every
+  variant of those, and GIF and TIFF, is in
+  `tests/test_torch_image_formats.py`);
 * the committed `tests/fixtures/port_formats/` images against their Pillow
   digests (what `chip_smoke.py` holds the card's machine to).
 
@@ -116,19 +119,27 @@ def test_cmyk_ycck_and_rgb_coded_jpegs_equal_pil():
 
 
 def test_jpeg_codings_left_out_raise_naming_a12():
-    """Arithmetic-coded (SOF9-11, SOF13-15), lossless (SOF3) and hierarchical
-    (SOF5-7) files: Pillow's libjpeg-turbo decodes the arithmetic and
-    lossless 8-bit ones; the port refuses them, naming ROADMAP A.12, and
-    refuses 12-bit samples as Pillow does."""
+    """Hierarchical (SOF5-7, SOF13-15) and arithmetic-coded lossless (SOF11)
+    files and 12-bit samples: Pillow's libjpeg-turbo refuses them and so
+    does the port, naming ROADMAP A.12.  The arithmetic-coded (SOF9, SOF10)
+    and lossless (SOF3) files it decodes give its pixels."""
+    from helpers import jpeg_codings
+
     base = save(Image.fromarray(image(16, 16)), "JPEG", quality=75)
     sof = base.index(b"\xff\xc0")
-    for marker in (0xC3, 0xC5, 0xC9, 0xCA, 0xCB, 0xCD):
+    for marker in (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF):
         data = base[:sof + 1] + bytes([marker]) + base[sof + 2:]
         with pytest.raises(ValueError, match="A.12"):
             decode_jpeg(data)
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(data)).load()
+    frame = jpeg_codings.read_baseline(base)
+    for data in (jpeg_codings.arithmetic_file(frame), jpeg_codings.arithmetic_file(frame, True),
+                 jpeg_codings.lossless_file(image(16, 16), 4)):
+        assert_like_pil(data, "arithmetic or lossless")
     twelve = bytearray(base)
     twelve[sof + 4] = 12
-    with pytest.raises(ValueError, match="12-bit"):
+    with pytest.raises(ValueError, match="12-bit.*A.12"):
         decode_jpeg(bytes(twelve))
     with pytest.raises(OSError):               # "cannot handle 12-bit layers"
         Image.open(io.BytesIO(bytes(twelve)))
@@ -322,9 +333,18 @@ def test_corrupt_webps_raise_where_pil_refuses():
 
 
 def test_other_formats_raise_naming_a12():
+    """GIF and TIFF, which raised until the port read them, give Pillow's
+    pixels (`tests/test_torch_image_formats.py` holds every variant); junk
+    and a JPEG-compressed TIFF still raise, naming ROADMAP A.12."""
     gif = save(Image.fromarray(image(8, 8)).convert("P"), "GIF")
     tif = save(Image.fromarray(image(8, 8)), "TIFF")
-    for data, kind in ((gif, "GIF"), (tif, "TIFF"), (b"\x00\x01junk", "unknown")):
+    for data in (gif, tif):
+        pic = image_io.read_image(data)
+        want = Image.open(io.BytesIO(data))
+        assert pic.mode == want.mode
+        np.testing.assert_array_equal(pic.pixels, np.asarray(want))
+    jpeg_tif = save(Image.fromarray(image(16, 16)), "TIFF", compression="jpeg")
+    for data, kind in ((jpeg_tif, "compression 7"), (b"\x00\x01junk", "not an image")):
         with pytest.raises(ValueError, match=f"{kind}.*A.12"):
             image_io.read_image(data)
 

@@ -8,7 +8,7 @@ oracle) and the JAX package on the CPU:
     at q in {30, 50, 75, 95} (RGB and greyscale, odd sizes), the decoder's
     pixels equal to PIL's on PIL's files (4:2:0, 4:2:2, 4:4:4, greyscale,
     restart intervals) and on the port's own;
-    progressive, CMYK and WebP files raise; corrupt files (truncations,
+    GIFs read, a JPEG-in-TIFF and a 12-bit JPEG raise; corrupt files (truncations,
     byte flips, lying segments) raise `ValueError` where PIL refuses them
     and stay in bounds under AddressSanitizer; the digests `chip_smoke.py`
     holds the card's codec and resize to are PIL's;
@@ -95,9 +95,11 @@ def test_jpeg_decoder_pixels_equal_pil():
 
 
 def test_unsupported_files_raise(tmp_path):
-    """Progressive and CMYK JPEGs, which raised until the port read them,
-    now give PIL's pixels (tests/test_torch_formats.py holds every variant);
-    junk, GIF and a truncated WebP still raise."""
+    """Progressive and CMYK JPEGs and GIFs, which raised until the port read
+    them, now give PIL's pixels (tests/test_torch_formats.py and
+    tests/test_torch_image_formats.py hold every variant); junk, a
+    JPEG-compressed TIFF, a 12-bit JPEG and a truncated WebP still raise,
+    the first three naming ROADMAP A.12."""
     a = image(32, 32)
     data = pil_jpeg(a, 75, progressive=True)
     np.testing.assert_array_equal(decode_jpeg(data), np.asarray(Image.open(io.BytesIO(data))))
@@ -110,8 +112,19 @@ def test_unsupported_files_raise(tmp_path):
     buf = io.BytesIO()
     Image.fromarray(a).convert("P").save(buf, "GIF")
     (tmp_path / "x.gif").write_bytes(buf.getvalue())
-    with pytest.raises(ValueError, match="GIF.*A.12"):
-        open_image(str(tmp_path / "x.gif"))
+    np.testing.assert_array_equal(open_image(str(tmp_path / "x.gif")),
+                                  np.asarray(Image.open(tmp_path / "x.gif").convert("RGB")))
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "TIFF", compression="jpeg")
+    (tmp_path / "x.tif").write_bytes(buf.getvalue())
+    with pytest.raises(ValueError, match="compression 7.*A.12"):
+        open_image(str(tmp_path / "x.tif"))
+    twelve = bytearray(pil_jpeg(a, 75))
+    sof = twelve.index(b"\xff\xc0")
+    twelve[sof + 4] = 12
+    (tmp_path / "x.jpg").write_bytes(bytes(twelve))
+    with pytest.raises(ValueError, match="12-bit.*A.12"):
+        open_image(str(tmp_path / "x.jpg"))
     buf = io.BytesIO()
     Image.fromarray(a).save(buf, "WEBP", quality=80)
     (tmp_path / "x.webp").write_bytes(buf.getvalue()[:100])
