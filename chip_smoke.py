@@ -35,17 +35,21 @@ script exits non-zero without its final line:
              stage and the last k-step of the second product skipped; for
              spacetime, object 2's K/V served from object 1's ring stage)
              at every shape; each spacetime kernel must give the same bits
-             20 times.  Each row names its kernel design; every flash,
-             GEGLU and bf16 spacetime site and MHA's level-0/1 sites must
-             run the wgmma design.  In bf16 each row also carries
+             20 times, and so must the wgmma MHA forward.  Each row names
+             its kernel design; every bf16 site of every kernel must run the
+             wgmma design (MHA at dh 160 too).  In bf16 each row also carries
              `device_ms`: the kernels' own time through the C entry (CUDA
              events, no wrapper work) for each design the shape can take
              (attention: the wgmma kernels and the mma_sync kernels, same
-             inputs; GEGLU and spacetime: wgmma, their only bf16 design);
+             inputs, and at MHA's dh 32 and 160 the wgmma kernel in 64-
+             and in 128-query blocks, `wgmma_bq64`, `wgmma_bq128`; GEGLU
+             and spacetime: wgmma, their only bf16 design); MHA rows also
+             `profiled_ms`, the same designs' and SDPA's kernel durations
+             from CUPTI, since CUDA events time the host on short calls;
              GEGLU rows carry `composite_ms`, the same function as PyTorch
              calls (cuBLAS products and elementwise kernels), a yardstick.
-             Spacetime bounds take the largest of the FLOP, byte and exp
-             floors (`floors_us`; 16 exps a clock per SM).
+             Spacetime and MHA bounds take the largest of the FLOP, byte
+             and exp floors (`floors_us`; 16 exps a clock per SM).
      kernels_bwd: each backward kernel the same way at every chain shape, in
              bf16 and float32 at 1 and 2 prompts (flash: bf16 at 1 and 2, f32
              at 1), every cotangent (dK/dV included); planted faults: one
@@ -64,11 +68,13 @@ script exits non-zero without its final line:
              768² RDM UNet (`pipeline/knn2img.py`, RDM_SITES: dims 448,
              896, 1344, 1792, L = 2304, 576, 144, 36, head width 32, so
              14-56 heads) in bf16 at 1 and RDM_PROMPTS = 3 prompts and in
-             float32 at 1: every bf16 MHA site must run the mma_sync loop
-             (dh 32 is no wgmma head width) and every bf16 GEGLU width
-             wgmma; the GEGLU faults include the last output column tile
-             (the N tail: no RDM width is a multiple of 160) served from
-             the tile before it.
+             float32 at 1: every bf16 MHA site and every bf16 GEGLU width
+             must run the wgmma design (MHA rows time the 64- and
+             128-query blocks too, and the mma_sync loop they replace);
+             the MHA faults include a stale 64-key ring stage where L
+             holds two, the GEGLU faults the last output column tile (the
+             N tail: no RDM width is a multiple of 160) served from the
+             tile before it.
   4. unet:   one full-width SD v1-4 UNet evaluation (bfloat16, 4 active
              objects, seeded weights) with the three kernel flags on and off.
      knobs:  the same UNet at the engine's batch with attn_scores_dtype
@@ -88,8 +94,7 @@ script exits non-zero without its final line:
              two batches, the second padded; it repeats the first request
              (prompt, seed) beside a pad row, which must give the same bytes.
              Every forward kernel must be launched 816 times per batch (16
-             sites x 51 UNet evaluations), GEGLU's and spacetime's all on
-             the wgmma design.
+             sites x 51 UNet evaluations), all on the wgmma design.
   8. profile: where a serving batch's time goes (host clock per part, and
              device time by kernel family under torch.profiler); no GEGLU
              slice sum may appear.
@@ -135,9 +140,9 @@ script exits non-zero without its final line:
              2 x 26 x n: n = 16 for spacetime and GEGLU (2080 / 832), 10 for
              flash (1300 / 518: the first self-attention of each chain sees
              only x_T and gets no backward), 6 for MHA (780); losses finite;
-             coef moved on active slots, 0 on padded ones; flash, GEGLU and
-             spacetime launches (forward and dq pass) all on the wgmma
-             design.
+             coef moved on active slots, 0 on padded ones; flash, MHA,
+             GEGLU and spacetime launches (forward and dq pass) all on the
+             wgmma design.
  10. profile_train: one training UNet evaluation (forward, recompute,
              backward) by kernel family, and the plain MHA backward that is
              left (levels 2 and mid).
@@ -421,9 +426,10 @@ RDM_SITES = [("level0", 2304, 448, 5), ("level1", 576, 896, 5),
              ("level2", 144, 1344, 5), ("mid", 36, 1792, 1)]
 RDM_HEAD_WIDTH = 32
 RDM_PROMPTS = 3                 # knn2img's --n-samples
-# dh 32 is not a wgmma head width (`ops/cuda_mha.py` WGMMA_DH): every bf16
-# RDM attention site runs the mma_sync loop; GEGLU runs wgmma at every width
-RDM_DESIGNS = {("mha", "bfloat16"): "mma_sync", ("geglu", "bfloat16"): "wgmma",
+# dh 32 is a wgmma head width of the MHA forward (`ops/cuda_mha.py`
+# WGMMA_DH): every bf16 RDM attention site runs it; GEGLU runs wgmma at
+# every width
+RDM_DESIGNS = {("mha", "bfloat16"): "wgmma", ("geglu", "bfloat16"): "wgmma",
                ("mha", "float32"): "simt", ("geglu", "float32"): "simt"}
 # backward sites per chain that get no gradient: the first self-attention of
 # the first evaluation sees only x_T and the timestep, so autograd records no
@@ -495,11 +501,9 @@ def opt_launches(kernel: str, evals: int) -> int:
                                                 else evals * SITES_PER_EVAL[kernel])
 
 
-# rows the planted "stale ring stage" faults replace: one ring stage of the
-# wgmma forward at dh > 48 (128 keys, `csrc/attn_fwd.cuh` FwdWgmma::BK; two
-# 64-key stages at dh <= 48) and of the backward passes (`csrc/flash_bwd.cu`
-# DQ_TILE, DKV_TILE)
-WGMMA_FWD_TILE, WGMMA_BWD_TILE = 128, 64
+# rows the planted "stale ring stage" faults of the backward passes replace
+# (`csrc/flash_bwd.cu` DQ_TILE, DKV_TILE); the forward's: `fwd_stage_keys`
+WGMMA_BWD_TILE = 64
 # the wgmma kernel functions of the built library (`cuobjdump -sass`)
 WGMMA_FUNCTIONS = ("flash_fwd_wgmma_kernel", "mha_fwd_wgmma_kernel",
                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
@@ -507,11 +511,24 @@ WGMMA_FUNCTIONS = ("flash_fwd_wgmma_kernel", "mha_fwd_wgmma_kernel",
                    "geglu_dgate_wgmma_kernel", "geglu_dx_out_wgmma_kernel",
                    "spacetime_fwd_wgmma_kernel", "spacetime_bwd_dq_wgmma_kernel")
 # of those, the kernels fed by tensor-map copies only (UTMALDG, not UBLKCP)
-TMA_TILE_FUNCTIONS = ("spacetime_fwd_wgmma_kernel", "spacetime_bwd_dq_wgmma_kernel")
-# repeats of each spacetime kernel per site that must give the same bits
-SPACETIME_REPEATS = 20
+TMA_TILE_FUNCTIONS = ("spacetime_fwd_wgmma_kernel", "spacetime_bwd_dq_wgmma_kernel",
+                      "mha_fwd_wgmma_kernel")
+# the MHA forward's wgmma instantiations (head width, queries per block),
+# each of which the build must hold (`csrc/mha_fwd.cu`)
+MHA_WGMMA_INSTANCES = ((32, 64), (32, 128), (40, 128), (64, 128), (80, 128), (128, 128),
+                       (160, 64), (160, 128))
+# repeats per site of each spacetime kernel and of the wgmma MHA forward
+# that must give the same bits
+REPEATS = 20
 # ptxas warnings that undo a wgmma design: wgmma serialized, registers spilled
 PTXAS_FAULTS = ("C7513", "C7512")
+
+
+def fwd_stage_keys(dh: int) -> int:
+    """Keys per ring stage of the wgmma attention forward at head width dh
+    (`csrc/attn_fwd.cuh` FwdWgmma::BK)."""
+    return 64 if dh <= 48 or dh > 128 else 128
+
 
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
 SPLASH = "jax/experimental/pallas/ops/tpu/splash_attention/splash_attention_kernel.py"
@@ -573,12 +590,18 @@ def cuda_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _design_device_ms(kind: str, args, heads: int = HEADS) -> dict:
+def _design_device_ms(kind: str, args, heads: int = HEADS, cupti: bool = False) -> dict:
     """{design: ms per call} of a bf16 attention call straight through the C
     entry (CUDA events over 20 back-to-back calls, the host ahead of the
     card: the kernels' own time, without the wrapper's host work or PyTorch
     ops), for each design this shape can take: the wgmma kernels and the
-    synchronous mma_sync loop they replace, on the same inputs."""
+    synchronous mma_sync loop they replace, on the same inputs; where the
+    MHA forward has two block heights (dh 32 and 160), each of them too
+    (`wgmma_bq64`, `wgmma_bq128`; "wgmma" is the one `mha_wide` picks).
+    With `cupti` (the MHA forward): each design's kernel durations from one
+    torch.profiler session instead, which the events cannot give where the
+    host issues a call slower than the card runs it (the short sequences);
+    the designs' kernels are told apart by name."""
     import torch
 
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_flash, cuda_lib, cuda_mha
@@ -587,8 +610,12 @@ def _design_device_ms(kind: str, args, heads: int = HEADS) -> dict:
     q, k, v = args[:3]
     B, L, inner = q.shape
     dh = inner // heads
-    designs = ["mma_sync"] + (["wgmma"] if cuda_mha.attention_design(q.dtype, dh) == "wgmma"
-                              else [])
+    designs = ["mma_sync"]
+    if cuda_mha.attention_design("mha" if kind == "mha" else "flash", q.dtype, dh) == "wgmma":
+        designs.append("wgmma")
+    if kind == "mha" and dh in (32, 160):
+        designs += ["wgmma_bq64", "wgmma_bq128"]
+    code = {**code, "wgmma_bq64": 2, "wgmma_bq128": 3}
     qs = cuda_flash.scaled_query(q, k, heads)
     out = torch.empty_like(q)
     if kind == "mha":
@@ -610,7 +637,14 @@ def _design_device_ms(kind: str, args, heads: int = HEADS) -> dict:
                   cuda_lib.stream_ptr(q))
         return lambda: cuda_lib.check(fn(*c_args), entry)
 
-    return {d: cuda_ms(launch(d), 20) for d in designs}
+    if not cupti:
+        return {d: cuda_ms(launch(d), 20) for d in designs}
+    names = {"mma_sync": "mha_fwd_mma_kernel", "wgmma": "mha_fwd_wgmma_kernel",
+             "wgmma_bq64": f"mha_fwd_wgmma_kernel<{dh}, 64>",
+             "wgmma_bq128": f"mha_fwd_wgmma_kernel<{dh}, 128>"}
+    if "wgmma_bq64" in designs:      # "wgmma" runs one of the two
+        designs.remove("wgmma")
+    return profiled_ms({d: (launch(d), names[d]) for d in designs}, n=10)
 
 
 def _geglu_device_ms(args, dx: bool) -> dict:
@@ -666,23 +700,26 @@ def _spacetime_device_ms(args, bwd: bool) -> dict:
     return {"wgmma": cuda_ms(lambda: cuda_lib.check(fn(*c_args), name), 20)}
 
 
-def profiled_ms(fn, match: str, n: int = 20) -> float:
-    """Device ms per call of the kernels whose names contain `match`, from
-    torch.profiler (CUPTI) over n calls: the kernels' own durations, which
-    the card's clock gives even where the host issues slower than the
-    kernels run (there CUDA events over back-to-back calls time the host)."""
+def profiled_ms(runs: dict, n: int = 20) -> dict:
+    """{name: device ms per call} from one torch.profiler (CUPTI) session
+    that runs each of `runs` ({name: (fn, a part of the names of its kernels
+    and of no other's)}) n times: the kernels' own durations, which the
+    card's clock gives even where the host issues slower than the kernels
+    run (there CUDA events over back-to-back calls time the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn, _ in runs.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+        for fn, _ in runs.values():
+            for _ in range(n):
+                fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
-    return us / 1e3 / n
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {name: sum(getattr(e, "self_device_time_total", 0.0) for e in events if part in e.key)
+            / 1e3 / n for name, (_, part) in runs.items()}
 
 
 def _geglu_composite(args, dx: bool):
@@ -711,9 +748,12 @@ def bound_ms(flops: float, nbytes: float, dtype: str, exps: float = 0.0):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _exps(kind: str, args) -> int:
+def _exps(kind: str, args, heads: int = HEADS) -> int:
     """Exponentials a call needs where they can bound it: the spacetime
-    forward and dq pass (one per score), else 0."""
+    forward and dq pass and the MHA forward (one per score), else 0."""
+    if kind == "mha":
+        B, Lq, _ = args[0].shape
+        return B * heads * Lq * args[1].shape[1]
     if kind != "spacetime":
         return 0
     from diffusion_spacetime_attn_tpu_torch.ops import cuda_spacetime
@@ -752,11 +792,16 @@ def phase_build():
             if ln.startswith("==") or "registers" in ln or "spill" in ln
             or "Compiling entry" in ln or "arning" in ln]
     sass = sass_counts(info["path"])
+    mha = {f"{dh}x{bq}": _ptxas_function(info["ptxas"], dh, bq) for dh, bq in MHA_WGMMA_INSTANCES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "path": info["path"],
-          "ptxas": keep, "sass": sass})
+          "ptxas": keep, "sass": sass, "mha_wgmma_ptxas": mha})
     bad = [ln for ln in keep if any(code in ln for code in PTXAS_FAULTS)]
     if bad:
         fail(f"build: ptxas serialized wgmma or spilled: {bad}")
+    for dh, bq in MHA_WGMMA_INSTANCES:
+        found = {k: c for k, c in sass.items() if _is_mha_instance(k, dh, bq)}
+        if len(found) != 1 or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in found.values()):
+            fail(f"build: the MHA wgmma kernel at dh {dh}, {bq} queries per block: {found}")
     for fn in WGMMA_FUNCTIONS:
         found = {k: v for k, v in sass.items() if fn in k}
         if not found:
@@ -766,6 +811,24 @@ def phase_build():
                 fail(f"build: {name} has {c}: no wgmma or no TMA copy")
             if fn in TMA_TILE_FUNCTIONS and c["UTMALDG"] == 0:
                 fail(f"build: {name} has {c}: no tensor-map copy")
+
+
+def _is_mha_instance(name: str, dh: int, bq: int) -> bool:
+    """Whether a kernel function's name, mangled or not, is
+    `mha_fwd_wgmma_kernel<dh, bq>`."""
+    return (f"mha_fwd_wgmma_kernelILi{dh}ELi{bq}E" in name
+            or f"mha_fwd_wgmma_kernel<{dh}, {bq}>" in name)
+
+
+def _ptxas_function(report: str, dh: int, bq: int) -> list:
+    """ptxas's register and spill lines of `mha_fwd_wgmma_kernel<dh, bq>`."""
+    lines, mine = [], False
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            mine = _is_mha_instance(ln, dh, bq)
+        elif mine and ("registers" in ln or "spill" in ln):
+            lines.append(ln.strip())
+    return lines
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -814,8 +877,9 @@ def _planted_faults(kind: str, args, kern, heads: int = HEADS):
     """Outputs of the kernel with a planted fault, which the comparison with
     the plain version must reject: a skipped key tile (the last 64 keys; 32
     at L = 64) or a 5 % wrong softmax scale for attention, the log-sum-exp
-    off by log 2 on the first query tile for flash, the second 128-key tile
-    replaced by the first (a stale ring stage) where the wgmma loop runs; for
+    off by log 2 on the first query tile for flash, the second ring stage's
+    keys (`fwd_stage_keys`: 64 or 128) replaced by the first's (a stale ring
+    stage) where the wgmma loop runs and L holds two stages; for
     GEGLU a skipped 64-wide inner tile, the second 64-deep k-step of h and g
     replaced by the first (a stale ring stage) and the last k-step of the
     second product skipped, and the last output column tile (the N tail where
@@ -836,9 +900,11 @@ def _planted_faults(kind: str, args, kern, heads: int = HEADS):
             lse = lse.clone()
             lse[:, :64] += math.log(2.0)
             faults["lse_off_by_log2_on_one_query_tile"] = (o, lse)
-        if cuda_mha.attention_design(q.dtype, q.shape[2] // heads) == "wgmma":
+        dh = q.shape[2] // heads
+        tile = fwd_stage_keys(dh)
+        if cuda_mha.attention_design(kind, q.dtype, dh) == "wgmma" and L >= 2 * tile:
             faults["stale_ring_stage_for_one_key_tile"] = kern(
-                (q, _stale_tile(k, WGMMA_FWD_TILE), _stale_tile(v, WGMMA_FWD_TILE)))
+                (q, _stale_tile(k, tile), _stale_tile(v, tile)))
         return faults
     if kind == "geglu":
         x, w1, b1, w2 = args[:4]
@@ -1001,12 +1067,10 @@ def phase_kernels(sites=None, prompts: int = SERVE_PROMPTS, head_width=None,
                 must = (designs or {}).get((kind, dtype_name))
                 if must is not None and design != must:
                     fail(f"{name} {level} {dtype_name}: ran the {design} design, not {must}")
-                if sites is None and design == "mma_sync" and (kind in ("flash", "geglu")
-                                                               or level in FLASH_LEVELS):
-                    fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync loop")
-                if kind == "spacetime" and dtype_name == "bfloat16" and design != "wgmma":
+                if sites is None and dtype_name == "bfloat16" and design != "wgmma":
                     fail(f"{name} {level}: a bf16 main-path site ran the {design} kernel")
-                repeats = SPACETIME_REPEATS if kind == "spacetime" else 1
+                repeats = REPEATS if kind == "spacetime" or (kind, design) == ("mha", "wgmma") \
+                    else 1
                 agains = [_outs(kern(args)) for _ in range(repeats)]
                 want = _outs(plain(args))
                 torch.cuda.synchronize()
@@ -1027,7 +1091,7 @@ def phase_kernels(sites=None, prompts: int = SERVE_PROMPTS, head_width=None,
                 ms = cuda_ms(lambda: kern(args), 20)
                 plain_ms = cuda_ms(lambda: plain(args), 5)
                 flops, nbytes = cost(args, args[0].element_size())
-                exps = _exps(kind, args)
+                exps = _exps(kind, args, nh(args))
                 b_ms, b_by = bound_ms(flops, nbytes, dtype_name, exps)
                 lib_ms = None
                 if kind in ("mha", "flash"):
@@ -1051,13 +1115,18 @@ def phase_kernels(sites=None, prompts: int = SERVE_PROMPTS, head_width=None,
                     row["lse_max_abs_err"] = cmps[1]["max_abs_err"]
                 if kind in ("mha", "flash") and dtype_name == "bfloat16":
                     row["device_ms"] = _design_device_ms(kind, args, nh(args))
+                    if kind == "mha":     # CUPTI: SDPA's kernels, whatever their names
+                        row["profiled_ms"] = {
+                            **_design_device_ms(kind, args, nh(args), cupti=True),
+                            **profiled_ms({"sdpa": (
+                                lambda: F.scaled_dot_product_attention(qh, kh, vh), "")}, n=10)}
                 if kind == "geglu" and dtype_name == "bfloat16":
                     row["device_ms"] = _geglu_device_ms(args, dx=False)
                     row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=False), 20)
                 if kind == "spacetime" and dtype_name == "bfloat16":
                     row["device_ms"] = _spacetime_device_ms(args, bwd=False)
-                    row["profiled_ms"] = {"wgmma": profiled_ms(lambda: kern(args),
-                                                               "spacetime_fwd_wgmma")}
+                    row["profiled_ms"] = profiled_ms(
+                        {"wgmma": (lambda: kern(args), "spacetime_fwd_wgmma")})
                 emit(row)
                 a_["max_abs_err"] = max(a_["max_abs_err"], max_err)
                 if (dtype_name, n_prompts) == ("bfloat16", prompts):  # the serving shapes
@@ -1099,7 +1168,7 @@ def _bwd_planted_faults(kind: str, args, heads: int = HEADS):
         o0[:, :64] = 0
         faults = {"last_key_tile_dropped_from_dk": (dq, cut, dv),
                   "o_zeroed_on_one_query_tile": cuda_flash.flash_bwd(q, k, v, o0, lse, g, heads)}
-        if cuda_mha.attention_design(q.dtype, q.shape[2] // heads) == "wgmma":
+        if cuda_mha.attention_design("flash", q.dtype, q.shape[2] // heads) == "wgmma":
             T = WGMMA_BWD_TILE
             faults["stale_ring_stage_for_one_key_tile_dq_pass"] = cuda_flash.flash_bwd(
                 q, _stale_tile(k, T), _stale_tile(v, T), o, lse, g, heads)
@@ -1221,7 +1290,7 @@ def phase_kernels_bwd():
                     fail(f"{name} {level} {dtype_name}: a main-path site ran the mma_sync kernels")
                 if kind == "spacetime" and dtype_name == "bfloat16" and design != "wgmma":
                     fail(f"{name} {level}: a bf16 main-path site ran the {design} dq pass")
-                repeats = SPACETIME_REPEATS if kind == "spacetime" else 1
+                repeats = REPEATS if kind == "spacetime" else 1
                 agains, want = [kern(args) for _ in range(repeats)], plain(args)
                 torch.cuda.synchronize()
                 names = names_of[kind]
@@ -1276,8 +1345,8 @@ def phase_kernels_bwd():
                     row["composite_ms"] = cuda_ms(lambda: _geglu_composite(args, dx=True), 10)
                 if kind == "spacetime" and dtype_name == "bfloat16":
                     row["device_ms"] = _spacetime_device_ms(args, bwd=True)
-                    row["profiled_ms"] = {"wgmma": profiled_ms(
-                        lambda: kern(args, need_kv=False), "spacetime_bwd_dq_wgmma")}
+                    row["profiled_ms"] = profiled_ms(
+                        {"wgmma": (lambda: kern(args, need_kv=False), "spacetime_bwd_dq_wgmma")})
                     # the chain's self-attention backward at this level: plain
                     # PyTorch (`_mha_bh_bwd` numerics), timed as the yardstick
                     # of what a hand-written flash backward would replace
@@ -1471,9 +1540,10 @@ def phase_serve():
             launches[k] += n
             if n != LAUNCHES_PER_BATCH:
                 fail(f"{k}: {n} launches in a batch, expected {LAUNCHES_PER_BATCH}")
-        # MHA: levels 0 and 1 (10 sites) on the wgmma loop, dh 160 (6) on mma_sync
+        # MHA: every site on the wgmma loop (dh 40 and 80 at levels 0 and 1,
+        # 160 at level 2 and mid)
         mha = dict(cuda_mha.mha_attention.launches_by_design)
-        if mha != {"wgmma": 10 * 51, "mma_sync": 6 * 51, "simt": 0}:
+        if mha != {"wgmma": LAUNCHES_PER_BATCH, "mma_sync": 0, "simt": 0}:
             fail(f"serve: MHA launches by design {mha}")
         geglu = dict(cuda_geglu.geglu_ff.launches_by_design)
         if geglu != {"wgmma": LAUNCHES_PER_BATCH, "simt": 0}:
@@ -1636,8 +1706,8 @@ def phase_chain(samplers=("plms",), phase="chain"):
 
 def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
     """One SpaceTimeEngine batch (bf16, four flags) with its checks: every
-    kernel launched `opt_launches(k, evals)` times, flash, GEGLU and
-    spacetime on the wgmma design (MHA, dh 160, on mma_sync), losses and
+    kernel launched `opt_launches(k, evals)` times, all on the wgmma design
+    (MHA at dh 160: levels 2 and mid), losses and
     images finite, every active object's weights moved and no padded one.
     Returns (the batch's line, its uint8 images)."""
     import numpy as np
@@ -1663,7 +1733,7 @@ def _optimize_batch(engine, wrappers, prompts, sds, evals: int):
         want = opt_launches(k, evals)
         if n != want:
             fail(f"optimize ({sampler}) {k}: {n} launches in a batch, expected {want}")
-    checks = (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "mma_sync"),
+    checks = (("flash_fwd", "wgmma"), ("flash_bwd", "wgmma"), ("mha_fwd", "wgmma"),
               ("geglu_fwd", "wgmma"), ("geglu_bwd", "wgmma"), ("spacetime_fwd", "wgmma"),
               ("spacetime_bwd", "wgmma"))
     designs = {k: dict(wrappers[k].launches_by_design) for k, _ in checks}
@@ -3365,6 +3435,7 @@ def phase_knn2img(root: str, smi: str):
                                 "--outdir", out], models=(rdm, clip))
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in wrappers.items()}
+    mha_designs = dict(wrappers["mha_fwd"].launches_by_design)
     peak = torch.cuda.max_memory_allocated()
     shapes = [list(read_png(p).shape) for p in summary["paths"]]
 
@@ -3398,7 +3469,8 @@ def phase_knn2img(root: str, smi: str):
             "library_chain_s": t1 - t0, "library_decode_s": t2 - t1,
             "decode_share": (t2 - t1) / (t2 - t0),
             "max_memory_allocated_bytes": peak, "launches": counts,
-            "launches_per_batch": summary["launches"], "png_bytes_equal_library": same,
+            "launches_per_batch": summary["launches"], "mha_launches_by_design": mha_designs,
+            "png_bytes_equal_library": same,
             "finite": bool(torch.isfinite(images).all()),
             "image_std": float(images.float().std()), "nvidia_smi": smi}
     emit(line)
@@ -3409,6 +3481,8 @@ def phase_knn2img(root: str, smi: str):
         problems.append("images not finite or constant")
     if counts != want or summary["launches"] != [{k: want[k] for k in RDM_KERNELS}]:
         problems.append(f"launches {counts} / {summary['launches']}, expected {want}")
+    if mha_designs != {"wgmma": counts["mha_fwd"], "mma_sync": 0, "simt": 0}:
+        problems.append(f"MHA launches by design {mha_designs}, all expected on wgmma")
     if summary["context_len"] != 1 + RDM_KNN:
         problems.append(f"context length {summary['context_len']}")
     if not all(same):

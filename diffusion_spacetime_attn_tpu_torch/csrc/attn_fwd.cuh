@@ -8,24 +8,28 @@
 // max and sum are kept in log2 units (2^x on the exp unit).  Three designs,
 // chosen by the Python wrappers from the shape before launch:
 //
-// wgmma (bf16; head widths 40, 64, 80, 128; 16-byte aligned tensors):
-//   `attn_fwd_wgmma`.  A block owns 128 queries: two consumer warpgroups of
-//   64 rows and one producer warpgroup.  The producer loads the Q tile once
-//   and keeps K and V tiles (64 keys at dh <= 48, 128 above) in flight
-//   through a ring of 2 stages in shared memory (TMA, full/empty mbarriers;
-//   layout in `hopper.cuh`).  Each
+// wgmma (bf16; head widths 40, 64, 80, 128, and for the MHA forward also 32
+//   and 160; 16-byte aligned tensors): `attn_fwd_wgmma`.  A block owns 128
+//   queries: two consumer warpgroups of 64 rows and one producer warpgroup.
+//   The producer loads the Q tile once and keeps K and V tiles (64 keys at
+//   dh <= 48 and at dh 160, 128 at dh 64-128) in flight through a ring of 2
+//   stages in shared memory (TMA, full/empty mbarriers; layout in
+//   `hopper.cuh`: a row of up to 64 columns per box, columns past dh zero,
+//   so dh 32 reads half of one box and dh 160 half of its third).  Each
 //   consumer computes S = Q·Kᵀ with wgmma from shared memory, the online
 //   softmax in registers, and O += P·V with P as bf16 in registers (the
 //   register A operand) and V as an MN-major B operand, each product a
 //   wgmma stage of its own (fence, issue, wait), which ptxas keeps
 //   asynchronous.  The two consumers take turns issuing S (named barriers 1
 //   and 2), so that one's exponentials run while the other's products do:
-//   at dh = 40 the softmax needs more time on the exp units than the
+//   at dh <= 40 the softmax needs more time on the exp units than the
 //   products need on the tensor cores.  setmaxnreg gives the producer's
 //   registers to the consumers; at dh <= 48 two blocks share an SM
-//   (`FwdWgmma`).  dh = 160 (MHA at SD level 2 and mid) is not built: its Q
-//   tile and two 128-key K/V stages (48 + 2 x 96 KB) exceed a block's 227 KB
-//   of shared memory.
+//   (`FwdWgmma`).  A consumer whose 64 rows all lie past Lq only releases
+//   the ring stages.  The MHA forward at dh 32 and 160 also has 64-query
+//   blocks of one consumer warpgroup (`mha_wide` picks them where they fit
+//   the card in one wave: SD level 2 and mid, the RDM's short levels at
+//   one prompt).
 //
 // mma_sync (bf16, every other shape): `attn_fwd_mma`: mma.sync m16n8k16
 //   with f32 accumulation, 4 warps of 16 queries, synchronous 64-key tiles.
@@ -320,60 +324,69 @@ constexpr int WG_BQ = 128;       // queries per block: two consumer warpgroups o
 constexpr int WG_THREADS = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int WG_STAGES = 2;     // ring stages (4 measured no faster on the H100)
 
-// Per head width.  dh <= 48 (SD level 0) streams 64-key stages and runs two
-// blocks on an SM, so four consumer warpgroups interleave their products
-// and exponentials; setmaxnreg moves registers only within a block's launch
-// quota (384 x 80 at two blocks), so a consumer gets 104 (256 x 104 + 128 x
-// 24 <= 384 x 80).  At dh = 64 those 104 spill; wider heads stream 128-key
-// stages, one block per SM, 240 registers a consumer (384 x 168).
-template <int DH> struct FwdWgmma {
+// Per head width DH and query-block height BQ (128: two consumer
+// warpgroups; 64: one, and the producer warpgroup 1).  dh <= 48 streams
+// 64-key stages and runs two blocks on an SM, so four consumer warpgroups
+// interleave their products and exponentials; setmaxnreg moves registers
+// only within a block's launch quota (384 x 80 at two blocks), so a
+// consumer gets 104 (256 x 104 + 128 x 24 <= 384 x 80).  At dh = 64 those
+// 104 spill; dh 64-128 streams 128-key stages, one block per SM, 240
+// registers a consumer (384 x 168).  dh = 160 streams 64-key stages: its Q
+// tile and two 128-key stages (48 + 2 x 96 KB) would pass the 227 KB of an
+// SM, 64-key ones take 48 + 96 KB.  A 64-query block (256 threads) needs no
+// setmaxnreg: at one block per SM every thread may hold 255 registers, at
+// two (dh <= 48) 128.
+template <int DH, int BQ = WG_BQ> struct FwdWgmma {
+  static constexpr int CONSUMERS = BQ / 64;         // warpgroups of 64 query rows
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
   static constexpr int NB = (DH + 63) / 64;         // 64-column boxes per row
   static constexpr int KS = (DH + 15) / 16;         // k-steps of S = Q·Kᵀ
   static constexpr bool PAIR = DH <= 48;            // two blocks per SM
-  static constexpr int BK = PAIR ? 64 : 128;        // keys per ring stage
+  static constexpr int BK = (PAIR || DH > 128) ? 64 : 128;  // keys per ring stage
   static constexpr int BLOCKS = PAIR ? 2 : 1;
-  static constexpr int CONSUMER_REGS = PAIR ? 104 : 240;
-  static constexpr int Q_BYTES = WG_BQ * 128 * NB;
+  static constexpr int CONSUMER_REGS = PAIR ? 104 : 240;    // two consumers only
+  static constexpr int Q_BYTES = BQ * 128 * NB;
   static constexpr int KV_BYTES = BK * 128 * NB;    // one K or V tile
   static constexpr int BAR_OFF = Q_BYTES + WG_STAGES * 2 * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + 64 + 1024;  // barriers, alignment slack
 };
 
-template <int DH>
+template <int DH, int BQ = WG_BQ>
 __device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                                                const CUtensorMap& tv, bf16* __restrict__ out,
                                                float* __restrict__ lse, int Lq, int Lk, int H,
                                                float scale_log2) {
-  using C = FwdWgmma<DH>;
+  using C = FwdWgmma<DH, BQ>;
   constexpr int NB = C::NB, BK = C::BK, KT = BK / 16, NS = BK / 2, ND = DH / 2;
+  constexpr bool TURNS = C::CONSUMERS == 2;  // the consumers take turns issuing S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* const base = hop::align1024(smem_raw);
-  unsigned char* const qs = base;                 // [NB][WG_BQ rows][128 B]
+  unsigned char* const qs = base;                 // [NB][BQ rows][128 B]
   unsigned char* const ring = base + C::Q_BYTES;  // stage s: K at s·2·KV, V after it
   uint64_t* const full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
   uint64_t* const empty = full + WG_STAGES;
   uint64_t* const qfull = empty + WG_STAGES;
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WG_BQ;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int nk = (Lk + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < WG_STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
-      hop::mbar_init(&empty[s], 256);  // every consumer thread releases the stage
+      hop::mbar_init(&empty[s], 128 * C::CONSUMERS);  // every consumer thread releases the stage
     }
     hop::mbar_init(qfull, 1);
     hop::fence_barrier_init();
   }
   __syncthreads();
 
-  if (wg == 2) {  // producer: one thread issues every copy
-    hop::reg_dealloc<24>();
-    if (threadIdx.x == 256) {
+  if (wg == C::CONSUMERS) {  // producer: one thread issues every copy
+    if constexpr (TURNS) hop::reg_dealloc<24>();
+    if (threadIdx.x == 128 * C::CONSUMERS) {
       hop::mbar_expect_tx(qfull, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) hop::tma_load_4d(qs + c * WG_BQ * 128, &tq, qfull, 64 * c, h, q0, b);
+      for (int c = 0; c < NB; ++c) hop::tma_load_4d(qs + c * BQ * 128, &tq, qfull, 64 * c, h, q0, b);
       for (int j = 0; j < nk; ++j) {
         const int s = j % WG_STAGES;
         if (j >= WG_STAGES) hop::mbar_wait(&empty[s], (j / WG_STAGES - 1) & 1);
@@ -388,9 +401,12 @@ __device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUte
       }
     }
   } else {  // consumers: warpgroup wg owns queries q0 + 64 wg + [0, 64)
-    hop::reg_alloc<C::CONSUMER_REGS>();
+    if constexpr (TURNS) hop::reg_alloc<C::CONSUMER_REGS>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, t = lane % 4;
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+    // a warpgroup past the last query (the second of a block over L <= 64,
+    // or of the last block over a ragged L) only releases the stages
+    const bool rows = q0 + wg * 64 < Lq;
     const unsigned char* const qw = qs + wg * 64 * 128;
     const int me = 1 + wg, other = 2 - wg;  // named barriers: "warpgroup wg may issue"
     float s[NS], o[ND];
@@ -400,7 +416,7 @@ __device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUte
 #pragma unroll
     for (int i = 0; i < ND; ++i) o[i] = 0.f;
     float m_i[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_i[2] = {0.f, 0.f};
-    if (wg == 1) hop::named_arrive(1, 256);  // warpgroup 0 issues first
+    if (TURNS && wg == 1) hop::named_arrive(1, 256);  // warpgroup 0 issues first
     hop::mbar_wait(qfull, 0);
 
     for (int j = 0; j < nk; ++j) {
@@ -409,66 +425,70 @@ __device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUte
       hop::mbar_wait(&full[st], (j / WG_STAGES) & 1);
       // S = Q·Kᵀ, issued in this warpgroup's turn; the other warpgroup's
       // turn starts as soon as it is issued
-      hop::named_sync(me, 256);
-      hop::fence_regs(s);
-      hop::wgmma_fence();
+      if constexpr (TURNS) hop::named_sync(me, 256);
+      if (rows) {
+        hop::fence_regs(s);
+        hop::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < C::KS; ++ks)
-        hop::Wgmma<BK>::ss(s, hop::desc_kmajor(qw, WG_BQ, ks), hop::desc_kmajor(kt, BK, ks),
-                              ks > 0);
-      hop::wgmma_commit();
-      if (!(wg == 1 && j == nk - 1)) hop::named_arrive(other, 256);
-      hop::wgmma_wait<0>();
-      hop::fence_regs(s);
+        for (int ks = 0; ks < C::KS; ++ks)
+          hop::Wgmma<BK>::ss(s, hop::desc_kmajor(qw, BQ, ks), hop::desc_kmajor(kt, BK, ks),
+                                ks > 0);
+        hop::wgmma_commit();
+      }
+      if (TURNS && !(wg == 1 && j == nk - 1)) hop::named_arrive(other, 256);
+      if (rows) {
+        hop::wgmma_wait<0>();
+        hop::fence_regs(s);
 
-      // online softmax of tile j; element i: row row0 + 8·((i >> 1) & 1),
-      // key 8·(i / 4) + 2t + (i & 1) of the tile.  The row max is taken on
-      // the unscaled scores (scale > 0).
-      const int k0 = j * BK;
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-      if (k0 + BK > Lk) {
+        // online softmax of tile j; element i: row row0 + 8·((i >> 1) & 1),
+        // key 8·(i / 4) + 2t + (i & 1) of the tile.  The row max is taken on
+        // the unscaled scores (scale > 0).
+        const int k0 = j * BK;
+        float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+        if (k0 + BK > Lk) {
 #pragma unroll
-        for (int i = 0; i < NS; ++i)
-          if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= Lk) s[i] = -CUDART_INF_F;
-      }
+          for (int i = 0; i < NS; ++i)
+            if (k0 + 8 * (i / 4) + 2 * t + (i & 1) >= Lk) s[i] = -CUDART_INF_F;
+        }
 #pragma unroll
-      for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-      float alpha[2], ms[2], rs[2] = {0.f, 0.f};
+        for (int i = 0; i < NS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        float alpha[2], ms[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);  // finite: every tile holds a key
-        alpha[r] = hop::exp2_ftz(m_i[r] - m_new);
-        m_i[r] = m_new;
-        ms[r] = -m_new;
-      }
+        for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);  // finite: every tile holds a key
+          alpha[r] = hop::exp2_ftz(m_i[r] - m_new);
+          m_i[r] = m_new;
+          ms[r] = -m_new;
+        }
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = hop::exp2_ftz(fmaf(s[i], scale_log2, ms[(i >> 1) & 1]));
-        rs[(i >> 1) & 1] += s[i];
-      }
+        for (int i = 0; i < NS; ++i) {
+          s[i] = hop::exp2_ftz(fmaf(s[i], scale_log2, ms[(i >> 1) & 1]));
+          rs[(i >> 1) & 1] += s[i];
+        }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-        l_i[r] = l_i[r] * alpha[r] + rs[r];
-      }
+        for (int r = 0; r < 2; ++r) {
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+          l_i[r] = l_i[r] * alpha[r] + rs[r];
+        }
 #pragma unroll
-      for (int i = 0; i < ND; ++i) o[i] *= alpha[(i >> 1) & 1];
-      hop::acc_to_a(p, s);
+        for (int i = 0; i < ND; ++i) o[i] *= alpha[(i >> 1) & 1];
+        hop::acc_to_a(p, s);
 
-      // O += P·V; then the stage goes back to the producer
-      const unsigned char* const vt = kt + C::KV_BYTES;
-      hop::fence_regs(o);
-      hop::fence_regs(p);
-      hop::wgmma_fence();
+        // O += P·V; then the stage goes back to the producer
+        const unsigned char* const vt = kt + C::KV_BYTES;
+        hop::fence_regs(o);
+        hop::fence_regs(p);
+        hop::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(o, p[kk], hop::desc_mnmajor(vt, BK, kk));
-      hop::wgmma_commit();
-      hop::wgmma_wait<0>();
-      hop::fence_regs(o);
-      hop::fence_regs(p);
+        for (int kk = 0; kk < KT; ++kk) hop::Wgmma<DH>::rs(o, p[kk], hop::desc_mnmajor(vt, BK, kk));
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(o);
+        hop::fence_regs(p);
+      }
       hop::mbar_arrive(&empty[st]);
     }
 
@@ -490,14 +510,27 @@ __device__ __forceinline__ void attn_fwd_wgmma(const CUtensorMap& tq, const CUte
   }
 }
 
-// The q, k and v maps of one launch of `attn_fwd_wgmma<DH>`.
-template <int DH>
+// The q, k and v maps of one launch of `attn_fwd_wgmma<DH, BQ>`.
+template <int DH, int BQ = WG_BQ>
 inline cudaError_t attn_fwd_maps(CUtensorMap (&m)[3], const void* q, const void* k, const void* v,
                                  int B, int Lq, int Lk, int H) {
-  cudaError_t err = hop::head_map(&m[0], q, B, Lq, H, DH, WG_BQ);
-  if (err == cudaSuccess) err = hop::head_map(&m[1], k, B, Lk, H, DH, FwdWgmma<DH>::BK);
-  if (err == cudaSuccess) err = hop::head_map(&m[2], v, B, Lk, H, DH, FwdWgmma<DH>::BK);
+  cudaError_t err = hop::head_map(&m[0], q, B, Lq, H, DH, BQ);
+  if (err == cudaSuccess) err = hop::head_map(&m[1], k, B, Lk, H, DH, FwdWgmma<DH, BQ>::BK);
+  if (err == cudaSuccess) err = hop::head_map(&m[2], v, B, Lk, H, DH, FwdWgmma<DH, BQ>::BK);
   return err;
+}
+
+// Whether the MHA forward at dh 32 and 160 takes 128-query blocks rather
+// than 64-query ones (one consumer warpgroup): where 64-query blocks would
+// take more than one wave of the card's `slots` (SMs x 64-query blocks per
+// SM: 1 at dh 160, 2 at dh 32).  Kernel µs (CUPTI), 64 / 128 queries, H100
+// 80GB HBM3 at 700 W (`chip_smoke.py` `profiled_ms`): SD level 2 at 2
+// prompts 8.4 / 12.1 and mid 4.6 / 5.4 (dh 160, 128 and 32 blocks of 64);
+// the RDM at 3 prompts (dh 32; 3024, 1512, 756 and 336 blocks of 64) level
+// 0 272 / 237, level 1 44.4 / 38.9, level 2 13.1 / 11.9, mid 5.4 / 5.7; at
+// 1 prompt level 2 (252) 4.9 / 6.4 and mid (112) 2.9 / 3.2.
+inline bool mha_wide(int Lq, int H, int B, int slots) {
+  return (long)((Lq + 63) / 64) * H * B > (long)slots;
 }
 
 }  // namespace dsta

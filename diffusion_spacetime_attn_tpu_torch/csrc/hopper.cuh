@@ -11,8 +11,10 @@
 // dh is described to TMA as the 4-D tensor (dh, H, L, B) with dh innermost
 // (`head_map`), so a box of 64 columns never reads the next head's columns:
 // columns dh..63 of the last box, and rows past L, arrive as zeros.  dh = 80
-// and 128 take two boxes, stored one after the other.  The q·kᵀ-like
-// products issue only the ceil(dh / 16) k-steps that dh needs (dh = 40: 3).
+// and 128 take two boxes, 160 three, stored one after the other; dh = 32
+// fills half of one (the output-like products at N = 32 or 40 read only
+// their columns of the 64).  The q·kᵀ-like products issue only the
+// ceil(dh / 16) k-steps that dh needs (dh = 40: 3).
 // A matrix [rows, cols] (activations, weights) is the 2-D map (cols, rows)
 // (`matrix_map`): columns past cols and rows past rows arrive as zeros too.
 #pragma once
@@ -190,8 +192,20 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const unsigned char* tile, int 
 //       against W2 or W1 columns (64, 160).
 //   rs: A in registers (the accumulator layout of a previous product, as
 //       bf16 pairs), B MN-major in shared memory; accumulates.  The
-//       output-like products: N is the head width (40, 64, 80, 128, 160).
+//       output-like products: N is the head width (32, 40, 64, 80, 128, 160).
 template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+  __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 template <> struct Wgmma<40> {
   __device__ __forceinline__ static void rs(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {

@@ -176,7 +176,7 @@ def flash_fwd(q, k, v, num_heads: int):
     qs = scaled_query(q, k, num_heads)
     out = torch.empty_like(qs)
     lse = torch.empty((B * num_heads, Lq), dtype=torch.float32, device=q.device)
-    design = attention_design(qs.dtype, dh, aligned16(qs, k, v, out))
+    design = attention_design("flash", qs.dtype, dh, aligned16(qs, k, v, out))
     rc = cuda_lib.library().dsta_flash_fwd(
         cuda_lib.dtype_code(qs), DESIGN_CODES[design], qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Lq, Lk, num_heads, dh,
@@ -199,7 +199,7 @@ def flash_bwd_raw(qs, k, v, g, o, lse, num_heads: int, scale: float):
     dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
     rows = -(-Lq // SCRATCH_ROWS) * SCRATCH_ROWS
     scratch = torch.empty(2 * B * num_heads * rows, dtype=torch.float32, device=qs.device)
-    design = attention_design(qs.dtype, dh, aligned16(qs, k, v, g, o, dq, dk, dv))
+    design = attention_design("flash", qs.dtype, dh, aligned16(qs, k, v, g, o, dq, dk, dv))
     rc = cuda_lib.library().dsta_flash_bwd(
         cuda_lib.dtype_code(qs), DESIGN_CODES[design], qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), o.data_ptr(), lse.data_ptr(), scratch.data_ptr(),

@@ -9,8 +9,8 @@ tiles and keeps every score on chip.  The JAX envelope `mha_ok` was
 measured on a TPU and is not carried over: every call on a CUDA tensor goes
 through the kernel, in the design `attention_design` picks from the shape
 before launch (no fallback after a failed launch): "wgmma" (bf16 at the
-head widths in `WGMMA_DH`, 16-byte aligned tensors: wgmma fed by a TMA
-ring), "mma_sync" (other bf16 shapes) or "simt" (float32, CUDA cores).
+head widths in `WGMMA_DH["mha"]`, 16-byte aligned tensors: wgmma fed by a
+TMA ring), "mma_sync" (other bf16 shapes) or "simt" (float32, CUDA cores).
 `mha_attention.launches_by_design` counts launches per design.
 
 `mha_attention` is a `torch.autograd.Function`.  Its forward takes the plain
@@ -28,21 +28,22 @@ import torch
 from . import cuda_lib
 
 DH_MAX = 160
-# head widths the wgmma loop of `csrc/attn_fwd.cuh` is built for (SD v1-4:
-# 40 at level 0, 80 at level 1); shared with the flash kernels
-WGMMA_DH = (40, 64, 80, 128)
+# head widths the wgmma loop of `csrc/attn_fwd.cuh` is built for, per
+# kernel: flash at SD v1-4's levels 0 and 1 (40, 80) and 64 and 128; the MHA
+# forward also at 32 (the 768² RDM) and 160 (SD level 2 and mid)
+WGMMA_DH = {"flash": (40, 64, 80, 128), "mha": (32, 40, 64, 80, 128, 160)}
 DESIGNS = ("wgmma", "mma_sync", "simt")
 DESIGN_CODES = {"wgmma": 1, "mma_sync": 0, "simt": 0}
 
 
-def attention_design(dtype, dh: int, aligned: bool = True) -> str:
+def attention_design(kernel: str, dtype, dh: int, aligned: bool = True) -> str:
     """The kernel design that takes a bf16 or f32 attention of head width
-    dh: "wgmma" needs bf16, dh in `WGMMA_DH` and 16-byte aligned tensors
-    (what TMA can describe); other bf16 shapes take "mma_sync", float32
-    "simt"."""
+    dh in `kernel` ("mha" or "flash"): "wgmma" needs bf16, dh in
+    `WGMMA_DH[kernel]` and 16-byte aligned tensors (what TMA can describe);
+    other bf16 shapes take "mma_sync", float32 "simt"."""
     if dtype != torch.bfloat16:
         return "simt"
-    return "wgmma" if dh in WGMMA_DH and aligned else "mma_sync"
+    return "wgmma" if dh in WGMMA_DH[kernel] and aligned else "mma_sync"
 
 
 def aligned16(*tensors) -> bool:
@@ -116,7 +117,7 @@ def _forward(q, k, v, num_heads):
     if dh > DH_MAX:
         raise ValueError(f"mha_attention: head width {dh} > {DH_MAX}")
     out = torch.empty_like(q)
-    design = attention_design(q.dtype, dh, aligned16(q, k, v, out))
+    design = attention_design("mha", q.dtype, dh, aligned16(q, k, v, out))
     rc = cuda_lib.library().dsta_mha_fwd(
         cuda_lib.dtype_code(q), DESIGN_CODES[design], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, Lq, k.shape[1], num_heads, dh, dh ** -0.5,

@@ -68,16 +68,27 @@ def _check(got, want, kind):
     (2, 1088, 1088, 8, 80),
     (1, 200, 330, 2, 64),        # the wgmma loop at dh 64 and 128, Lq != Lk
     (1, 330, 200, 2, 128),
-    (2, 256, 256, 8, 160),       # SD level 2: the mma_sync loop
-    # the 768² RDM (head width 32: the mma_sync loop) at 3 prompts: levels 0
-    # and 2 and the mid block, whose 144 and 36 tokens leave row tails
+    # dh 160 (SD level 2 and mid): 64-query blocks where they fit the card
+    # in one wave, else 128; 64-key ring stages
+    (2, 256, 256, 8, 160), (4, 256, 256, 8, 160), (4, 64, 64, 8, 160),
+    (2, 200, 200, 8, 160),       # ragged query and key tiles
+    (2, 36, 36, 8, 160),         # one short key tile
+    (1, 144, 144, 8, 160),       # 64-query blocks, a ragged third
+    (4, 1060, 1060, 8, 160),     # 128-query blocks, the last one's second warpgroup rowless
+    (1, 70, 130, 2, 160),        # Lq != Lk
+    # the 768² RDM (head width 32) at 3 prompts: levels 0 and 2 and the mid
+    # block, whose 144 and 36 tokens leave row tails; at 1 prompt the mid
+    # block's grid takes 64-query blocks
     (6, 2304, 2304, 14, 32), (6, 144, 144, 42, 32), (6, 36, 36, 56, 32),
+    (2, 36, 36, 56, 32), (2, 64, 64, 4, 32), (1, 100, 300, 2, 32),
 ])
 def test_mha_kernel_matches_plain(cuda, dtype, B, Lq, Lk, H, dh):
     g = torch.Generator(device=cuda).manual_seed(dh + Lq)
     q = _randn(g, cuda, dtype, B, Lq, H * dh)
     k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
-    design = cuda_mha.attention_design(dtype, dh)
+    design = cuda_mha.attention_design("mha", dtype, dh)
+    if dtype == torch.bfloat16 and dh in (32, 160):    # the RDM's and SD level 2's widths
+        assert design == "wgmma"
     before = cuda_mha.mha_attention.launches_by_design[design]
     _check(cuda_mha.mha_attention(q, k, v, H), cuda_mha.mha_attention_plain(q, k, v, H), "mha")
     assert cuda_mha.mha_attention.launches_by_design[design] == before + 1
@@ -186,7 +197,7 @@ def test_flash_kernels_match_plain(cuda, dtype, B, Lq, Lk, H, dh):
     q, gbar = (_randn(g, cuda, dtype, B, Lq, H * dh) for _ in range(2))
     k, v = (_randn(g, cuda, dtype, B, Lk, H * dh) for _ in range(2))
     v = (v.float() + 1.0).to(dtype)      # mean 1: o and di = rowsum(o ⊙ ḡ) are not ~0
-    design = cuda_mha.attention_design(dtype, dh)
+    design = cuda_mha.attention_design("flash", dtype, dh)
     fwd, bwd = cuda_flash.flash_attention.launches, cuda_flash.flash_bwd.launches
     fwd_d = cuda_flash.flash_attention.launches_by_design[design]
     bwd_d = cuda_flash.flash_bwd.launches_by_design[design]
@@ -208,23 +219,32 @@ def test_flash_kernels_match_plain(cuda, dtype, B, Lq, Lk, H, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,dh", [(4096, 40), (1024, 80)])
-def test_wgmma_kernels_repeat_bit_for_bit(cuda, L, dh):
+@pytest.mark.parametrize("B,L,dh,H", [
+    (2, 4096, 40, 8), (2, 1024, 80, 8),
+    (4, 256, 160, 8),            # SD level 2, MHA only (64-query blocks)
+    (6, 2304, 32, 14),           # RDM level 0, MHA only (128-query blocks, two per SM)
+])
+def test_wgmma_kernels_repeat_bit_for_bit(cuda, B, L, dh, H):
     """20 launches of each wgmma kernel on the same inputs give the same
     bits: a ring stage read before its copy landed, or released before its
-    last product, shows up as bits that differ between launches."""
+    last product, shows up as bits that differ between launches.  Flash
+    runs the wgmma kernels at dh 40 and 80 only."""
     g = torch.Generator(device=cuda).manual_seed(L + dh + 5)
-    q, k, gbar = (_randn(g, cuda, torch.bfloat16, 2, L, 8 * dh) for _ in range(3))
-    v = _randn(g, cuda, torch.bfloat16, 2, L, 8 * dh) + 1
-    assert cuda_mha.attention_design(q.dtype, dh) == "wgmma"
-    o, lse = cuda_flash.flash_fwd(q, k, v, 8)
-    mha = cuda_mha.mha_attention(q, k, v, 8)
-    grads = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, 8)
+    q, k, gbar = (_randn(g, cuda, torch.bfloat16, B, L, H * dh) for _ in range(3))
+    v = _randn(g, cuda, torch.bfloat16, B, L, H * dh) + 1
+    assert cuda_mha.attention_design("mha", q.dtype, dh) == "wgmma"
+    mha = cuda_mha.mha_attention(q, k, v, H)
+    flash = cuda_mha.attention_design("flash", q.dtype, dh) == "wgmma"
+    if flash:
+        o, lse = cuda_flash.flash_fwd(q, k, v, H)
+        grads = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, H)
     for _ in range(20):
-        assert all(torch.equal(a, b) for a, b in zip((o, lse), cuda_flash.flash_fwd(q, k, v, 8)))
-        assert torch.equal(mha, cuda_mha.mha_attention(q, k, v, 8))
-        again = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, 8)
-        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        assert torch.equal(mha, cuda_mha.mha_attention(q, k, v, H))
+        if flash:
+            assert all(torch.equal(a, b)
+                       for a, b in zip((o, lse), cuda_flash.flash_fwd(q, k, v, H)))
+            again = cuda_flash.flash_bwd(q, k, v, o, lse, gbar, H)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 BWD_NAMES = ("dq_c", "dg_u", "dkc", "dvc", "dlk", "dlv", "dmasks", "dcoef")
@@ -693,25 +713,33 @@ def test_bf16_comparison_passes_one_rounding_and_rejects_planted_faults(kind):
         assert not compare(out, want, cmp_kind)["ok"], name
 
 
-@pytest.mark.parametrize("case,dtype,H,inner,want", [
-    ("SD level 0", torch.bfloat16, 8, 320, "wgmma"),     # dh 40: flash, and MHA when serving
-    ("SD level 1", torch.bfloat16, 8, 640, "wgmma"),     # dh 80
-    ("dh 64", torch.bfloat16, 2, 128, "wgmma"),
-    ("dh 128", torch.bfloat16, 2, 256, "wgmma"),
-    ("SD level 2 and mid", torch.bfloat16, 8, 1280, "mma_sync"),   # dh 160, MHA only
-    ("stride not a multiple of 16 bytes", torch.bfloat16, 3, 60, "mma_sync"),  # dh 20
-    ("dh 48", torch.bfloat16, 2, 96, "mma_sync"),
-    ("float32", torch.float32, 8, 320, "simt"),
+@pytest.mark.parametrize("case,kernel,dtype,H,inner,want", [
+    ("SD level 0", "flash", torch.bfloat16, 8, 320, "wgmma"),     # dh 40
+    ("SD level 0, serving", "mha", torch.bfloat16, 8, 320, "wgmma"),
+    ("SD level 1", "flash", torch.bfloat16, 8, 640, "wgmma"),     # dh 80
+    ("SD level 1, serving", "mha", torch.bfloat16, 8, 640, "wgmma"),
+    ("dh 64", "flash", torch.bfloat16, 2, 128, "wgmma"),
+    ("dh 128", "mha", torch.bfloat16, 2, 256, "wgmma"),
+    ("SD level 2 and mid", "mha", torch.bfloat16, 8, 1280, "wgmma"),    # dh 160
+    ("RDM, every level", "mha", torch.bfloat16, 14, 448, "wgmma"),      # dh 32
+    ("dh 160, flash", "flash", torch.bfloat16, 8, 1280, "mma_sync"),   # flash_ok never takes it
+    ("dh 32, flash", "flash", torch.bfloat16, 14, 448, "mma_sync"),
+    ("stride not a multiple of 16 bytes", "mha", torch.bfloat16, 3, 60, "mma_sync"),  # dh 20
+    ("dh 48", "mha", torch.bfloat16, 2, 96, "mma_sync"),
+    ("dh 16", "mha", torch.bfloat16, 2, 32, "mma_sync"),
+    ("float32", "mha", torch.float32, 8, 320, "simt"),
+    ("float32, dh 32", "mha", torch.float32, 14, 448, "simt"),
+    ("float32, flash", "flash", torch.float32, 8, 640, "simt"),
 ])
-def test_attention_design_by_shape(case, dtype, H, inner, want):
+def test_attention_design_by_shape(case, kernel, dtype, H, inner, want):
     """The wrappers pick the kernel design from the shape before launch:
-    every SD v1-4 main-path site of flash (levels 0 and 1) and of the
-    serving MHA (levels 0 and 1) takes the wgmma kernels in bf16; float32,
-    head widths TMA cannot describe and widths the wgmma kernels are not
-    built for take the synchronous ones."""
-    assert cuda_mha.attention_design(dtype, inner // H) == want, case
+    every SD v1-4 main-path site of flash (levels 0 and 1) and of the MHA
+    forward (every level) and every RDM site of the MHA forward takes the
+    wgmma kernels in bf16; float32, head widths TMA cannot describe and
+    widths the wgmma kernels are not built for take the synchronous ones."""
+    assert cuda_mha.attention_design(kernel, dtype, inner // H) == want, case
     if want == "wgmma":   # an unaligned base pointer cannot be a TMA tensor
-        assert cuda_mha.attention_design(dtype, inner // H, aligned=False) == "mma_sync"
+        assert cuda_mha.attention_design(kernel, dtype, inner // H, aligned=False) == "mma_sync"
 
 
 @pytest.mark.parametrize("counter", ["flash_attention", "flash_bwd", "mha_attention"])

@@ -215,7 +215,7 @@ def test_geglu_plain_matches_pallas_interpret(M, dim, residual):
     _close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dh,L", [(40, 256), (80, 128), (160, 64)])
+@pytest.mark.parametrize("dh,L", [(40, 256), (80, 128), (160, 64), (32, 144), (32, 48)])
 def test_mha_plain_matches_pallas_interpret(dh, L):
     B, H = 2, 2
     q, k, v = _qkv(B, L, L, H * dh, seed=dh)
