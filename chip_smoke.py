@@ -293,8 +293,10 @@ script exits non-zero without its final line:
              (JPEG_SHA256, DECODE_SHA256, RESIZE_SHA256, checked against PIL
              by tests/test_torch_image_io.py); ms per encode, decode, resize.
      formats: what a JAX user has on disk, read without orbax,
-             tensorstore or PIL (none is on this machine): the zstd, WebP
-             and LZW decoders built by g++ (build_s); the committed JAX
+             tensorstore or PIL (none is on this machine): the zstd, WebP,
+             LZW and CCITT decoders built by g++ side by side (build_s, and
+             each library's seconds, library_build_s), ccitt_decode_ms per
+             fax-coded fixture; the committed JAX
              `LDMTrainer.save` state (`tests/fixtures/port_formats/ldm/`,
              zstd-compressed OCDBT) restored, every array's SHA-256 equal to
              orbax's (`digests.json`); its EMA weights loaded through
@@ -304,8 +306,11 @@ script exits non-zero without its final line:
              RGB-coded JPEG and the other JPEG codings, BMP, WebP lossy,
              lossless and alpha, PNG palettes, 2- and 16-bit and Adam7 PNGs,
              GIFs, TIFFs in every compression, layout and photometric the
-             port reads) decoded to Pillow's mode, shape, pixel and RGB
-             digests; ms per decode (median of 5).
+             port reads: JPEG, CCITT, LZMA, Zstandard, ThunderScan, BigTIFF,
+             fill order 2, orientation 2-8, 16-bit RGB(A), signed, 32-bit
+             and float samples, palette + alpha; a subsampled lossless
+             JPEG) decoded to Pillow's mode, shape, pixel and RGB digests;
+             ms per decode (median of 5).
  22. train_data: training from image folders at SD v1-4 width, bf16,
              batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, five of
              them replaced by the fixture progressive JPEG, BMP, WebP, GIF
@@ -3718,18 +3723,34 @@ def phase_formats(smi: str):
     from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
     from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
     from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion
-    from diffusion_spacetime_attn_tpu_torch.utils import image_io, lzw, orbax, prng, webp, zstd
+    from diffusion_spacetime_attn_tpu_torch.utils import (
+        ccitt,
+        image_io,
+        lzw,
+        orbax,
+        prng,
+        webp,
+        zstd,
+    )
     from diffusion_spacetime_attn_tpu_torch.utils.testing import randomize_
 
     t_phase = time.perf_counter()
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         want = json.load(f)
-    builds = [threading.Thread(target=lib.load_library) for lib in (zstd, webp, lzw)]
+    libs = {"zstd": zstd, "webp": webp, "lzw": lzw, "ccitt": ccitt}
+    built_s = {}
+
+    def build(name):
+        t0 = time.perf_counter()
+        libs[name].load_library()
+        built_s[name] = time.perf_counter() - t0
+
+    builds = [threading.Thread(target=build, args=(name,)) for name in libs]
     for t in builds:
         t.start()
     for t in builds:
         t.join()
-    for lib in (zstd, webp, lzw):                  # raises here if a build failed
+    for lib in libs.values():                      # raises here if a build failed
         lib.load_library()
     build_s = time.perf_counter() - t_phase
     ldm = os.path.join(FIXTURES, "ldm")
@@ -3764,7 +3785,10 @@ def phase_formats(smi: str):
                         and hashlib.sha256(pic.pixels.tobytes()).hexdigest() == d["pixels"]
                         and hashlib.sha256(rgb.tobytes()).hexdigest() == d["rgb"])
         ms[name] = _time_ms(lambda: image_io.read_image(data, name))
-    emit({"phase": "formats", "build_s": build_s, "restore_s": restore_s, "arrays": len(got),
+    fax = {k: v for k, v in ms.items() if k.startswith("fax_")}
+    emit({"phase": "formats", "build_s": build_s, "library_build_s": built_s,
+          "ccitt_decode_ms": fax,
+          "restore_s": restore_s, "arrays": len(got),
           "state_digests_equal_orbax": state_equal, "ema_sample": sample,
           "digests_equal_pil": images, "decode_ms": ms,
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})

@@ -1040,7 +1040,13 @@ void smooth_idct(const DecComp& c, const uint16_t* q, const int* cb, int imcu_ro
   }
 }
 
-Decoded decode(const uint8_t* d, size_t n) {
+// `colour`: -1 decides the components' colour space from the markers, as
+// jdapimin.c does; 0 leaves them as they are (libtiff's JCS_UNKNOWN for a
+// TIFF whose photometric interpretation is not YCbCr); 1 takes three as
+// YCbCr and converts them to RGB (libtiff's JPEGCOLORMODE_RGB); 2 leaves
+// them as they are and repeats subsampled samples over their block
+// (libtiff's old-style JPEG, whose YCbCr its RGBA interface converts)
+Decoded decode(const uint8_t* d, size_t n, int colour = -1) {
   if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) throw Error{"not a JPEG file (no SOI marker)"};
   uint16_t qt[4][64] = {};
   bool qdef[4] = {false, false, false, false};
@@ -1126,9 +1132,6 @@ Decoded decode(const uint8_t* d, size_t n) {
         vmax = std::max(vmax, c.v);
       }
       if (nc == 1) comps[0].h = comps[0].v = hmax = vmax = 1;  // no subsampling alone
-      if (lossless && (hmax > 1 || vmax > 1))
-        throw Error{"subsampled lossless JPEG (" + hexmark(m) + " at offset " + hexoff(moff) +
-                    ") is not decoded" + kRoadmap};
       mcux = ceil_div(W, hmax * 8);
       mcuy = ceil_div(H, vmax * 8);
       for (auto& c : comps) {
@@ -1144,7 +1147,8 @@ Decoded decode(const uint8_t* d, size_t n) {
       coef_bits.assign(nc, std::vector<int>(64, -1));
       if (lossless) {
         lsamples.assign(nc, std::vector<int32_t>());
-        for (int i = 0; i < nc; i++) lsamples[size_t(i)].assign(size_t(W) * H, 0);
+        for (int i = 0; i < nc; i++)
+          lsamples[size_t(i)].assign(size_t(comps[size_t(i)].dw) * comps[size_t(i)].dh, 0);
       }
     } else if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCB || m == 0xCD || m == 0xCE ||
                m == 0xCF) {
@@ -1295,48 +1299,64 @@ Decoded decode(const uint8_t* d, size_t n) {
         return p;
       };
       if (lossless) {
-        // jdlhuff.c and jdlossls.c: one sample per component and MCU (no
-        // subsampling), each a Huffman-coded difference from predictor Ss
-        // over the row's reconstructed samples; the first row of the image
-        // and of each restart interval predicts from the left only
-        if (restart % W) throw Error{"lossless JPEG with a restart interval of " +
-                                     std::to_string(restart) + " MCUs, not whole rows"};
+        // jdlhuff.c, jddiffct.c and jdlossls.c: one difference per sample,
+        // Huffman-coded, in MCU order (an interleaved scan's MCU holds h x v
+        // samples of each component; a non-interleaved scan's one sample),
+        // each from predictor Ss over the component's reconstructed rows; the
+        // samples an MCU holds past the component's width or height are
+        // decoded and dropped; the first row of the scan and of each restart
+        // interval predicts from the left only
+        const bool inter = ns > 1;
+        const DecComp& c0 = comps[size_t(sc[0])];
+        const int mpr = inter ? ceil_div(W, hmax) : c0.dw;
+        const int mrows = inter ? ceil_div(H, vmax) : c0.dh;
+        if (restart % mpr) throw Error{"lossless JPEG with a restart interval of " +
+                                       std::to_string(restart) + " MCUs, not whole MCU rows"};
         BitReader br{d, n, seg_end};
-        int row0 = 0;
-        for (int y = 0; y < H; y++) {
-          if (restart && y > 0 && (int64_t(y) * W) % restart == 0) {
+        std::vector<int> row0(size_t(ns), 0);
+        for (int my = 0; my < mrows; my++) {
+          if (restart && my > 0 && (int64_t(my) * mpr) % restart == 0) {
             if (br.past_eof()) throw Error{"truncated JPEG file (scan data ends early)"};
             br.reset();
             br.pos = restart_at(br.pos);
-            row0 = y;
+            for (int k = 0; k < ns; k++) row0[size_t(k)] = my * (inter ? comps[sc[k]].v : 1);
           }
           if (br.insufficient())
             throw Error{"corrupt lossless JPEG (its data runs into a marker)"};
-          for (int x = 0; x < W; x++) {
+          for (int mx = 0; mx < mpr; mx++) {
             for (int k = 0; k < ns; k++) {
-              int s = decode_sym(br, dc[td[k]]);
-              if (s > 16) throw Error{"corrupt lossless JPEG difference"};
-              int diff = s == 0 ? 0 : (s == 16 ? 32768 : extend(br.get(s), s));
-              int32_t* row = &lsamples[size_t(sc[k])][size_t(y) * W];
-              const int32_t* up = y > row0 ? row - W : row;
-              int pr;
-              if (y == row0) {
-                pr = x == 0 ? 1 << (precision - al - 1) : row[x - 1];
-              } else if (x == 0) {
-                pr = up[0];
-              } else {
-                int ra = row[x - 1], rb = up[x], rc = up[x - 1];
-                switch (ss) {
-                  case 1: pr = ra; break;
-                  case 2: pr = rb; break;
-                  case 3: pr = rc; break;
-                  case 4: pr = ra + rb - rc; break;
-                  case 5: pr = ra + ((rb - rc) >> 1); break;
-                  case 6: pr = rb + ((ra - rc) >> 1); break;
-                  default: pr = (ra + rb) >> 1; break;
+              const DecComp& c = comps[size_t(sc[k])];
+              const int hh = inter ? c.h : 1, vv = inter ? c.v : 1;
+              for (int r = 0; r < vv; r++) {
+                for (int q = 0; q < hh; q++) {
+                  int s = decode_sym(br, dc[td[k]]);
+                  if (s > 16) throw Error{"corrupt lossless JPEG difference"};
+                  int diff = s == 0 ? 0 : (s == 16 ? 32768 : extend(br.get(s), s));
+                  const int y = my * vv + r, x = mx * hh + q;
+                  if (x >= c.dw || y >= c.dh) continue;
+                  const int cw = c.dw;
+                  int32_t* row = &lsamples[size_t(sc[k])][size_t(y) * cw];
+                  const int32_t* up = y > row0[size_t(k)] ? row - cw : row;
+                  int pr;
+                  if (y == row0[size_t(k)]) {
+                    pr = x == 0 ? 1 << (precision - al - 1) : row[x - 1];
+                  } else if (x == 0) {
+                    pr = up[0];
+                  } else {
+                    int ra = row[x - 1], rb = up[x], rc = up[x - 1];
+                    switch (ss) {
+                      case 1: pr = ra; break;
+                      case 2: pr = rb; break;
+                      case 3: pr = rc; break;
+                      case 4: pr = ra + rb - rc; break;
+                      case 5: pr = ra + ((rb - rc) >> 1); break;
+                      case 6: pr = rb + ((ra - rc) >> 1); break;
+                      default: pr = (ra + rb) >> 1; break;
+                    }
+                  }
+                  row[x] = (diff + pr) & 0xFFFF;
                 }
               }
-              row[x] = (diff + pr) & 0xFFFF;
             }
           }
         }
@@ -1642,6 +1662,10 @@ Decoded decode(const uint8_t* d, size_t n) {
       rgb = lossless || (comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B');
   }
   if (comps.size() == 4) ycck = adobe && adobe_transform != 0;
+  if (colour >= 0) {
+    rgb = colour != 1 && comps.size() == 3;
+    ycck = false;
+  }
   if (lossless && ((comps.size() == 3 && !rgb) || ycck))
     throw Error{"lossless JPEG with YCbCr or YCCK components: libjpeg-turbo converts no "
                 "colours in a lossless file, so Pillow does not decode it" + std::string(kRoadmap)};
@@ -1655,9 +1679,9 @@ Decoded decode(const uint8_t* d, size_t n) {
     planes[ci].assign(size_t(pw) * c.bh * 8, 0);
     if (lossless) {
       int pt = std::max(coef_bits[ci][0], 0);
-      for (int y = 0; y < H; y++)
-        for (int x = 0; x < W; x++)
-          planes[ci][size_t(y) * pw + x] = uint8_t(lsamples[ci][size_t(y) * W + x] << pt);
+      for (int y = 0; y < c.dh; y++)
+        for (int x = 0; x < c.dw; x++)
+          planes[ci][size_t(y) * pw + x] = uint8_t(lsamples[ci][size_t(y) * c.dw + x] << pt);
       continue;
     }
     if (smooth) {
@@ -1692,9 +1716,12 @@ Decoded decode(const uint8_t* d, size_t n) {
     f.assign(size_t(ow) * (c.dh * rv), 0);
     const uint8_t* pl = planes[ci].data();
     auto row = [&](int y) { return pl + size_t(y < 0 ? 0 : (y >= c.dh ? c.dh - 1 : y)) * pw; };
-    bool fancy = c.dw > 2;
+    // jdsample.c: fancy upsampling needs more than 2 samples a row, and none
+    // in a lossless file (its min_DCT_scaled_size is 1)
+    const bool box = lossless || colour == 2;
+    bool fancy = c.dw > 2 && !box;
     for (int y = 0; y < c.dh; y++) {
-      if ((rh > 2 || rv > 2) || (rh == 2 && rv == 2 && !fancy) || (rh == 2 && rv == 1 && !fancy)) {
+      if (rh > 2 || rv > 2 || (rh == 2 && !fancy) || (rv == 2 && box)) {
         // jdsample.c int_upsample (h2v1_upsample and h2v2_upsample are its
         // 2x1 and 2x2 cases): each sample repeated rh times, each row rv times
         const uint8_t* in = row(y);
@@ -1735,8 +1762,9 @@ Decoded decode(const uint8_t* d, size_t n) {
     return out;
   }
   if (nc == 4 && !ycck) {          // CMYK as it is, inverted as PIL's "CMYK;I"
+    const int flip = colour == 0 ? 0 : 255;
     for (size_t i = 0; i < npx; i++)
-      for (int c = 0; c < 4; c++) out.px[4 * i + c] = uint8_t(255 - fullp[c][i]);
+      for (int c = 0; c < 4; c++) out.px[4 * i + c] = uint8_t(flip ^ fullp[c][i]);
     return out;
   }
   // jdcolor.c ycc_rgb_convert (and ycck_cmyk_convert: 255 - RGB, K as it is)
@@ -1800,13 +1828,12 @@ int jpeg_encode(const uint8_t* pixels, int width, int height, int channels, int 
   return 1;
 }
 
-// Decode a file's bytes; on success *out holds malloc'd [h, w, c] pixels
-// (free with jpeg_free), c is 1 (greyscale), 3 (RGB) or 4 (CMYK, inverted as
-// PIL reads it), and 0 returns.
-int jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int* height,
-                int* channels, char* err, int errlen) {
+// As jpeg_decode, with the colour space of the components given (`colour`
+// as decode's): the strips and tiles of a JPEG-compressed TIFF.
+int jpeg_decode_as(const uint8_t* data, size_t len, int colour, uint8_t** out, int* width,
+                   int* height, int* channels, char* err, int errlen) {
   try {
-    Decoded dd = decode(data, len);
+    Decoded dd = decode(data, len, colour);
     *out = static_cast<uint8_t*>(std::malloc(dd.px.size()));
     if (!*out) throw Error{"out of memory"};
     std::memcpy(*out, dd.px.data(), dd.px.size());
@@ -1820,6 +1847,14 @@ int jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int*
     set_error(err, errlen, "JPEG decoder failed");
   }
   return 1;
+}
+
+// Decode a file's bytes; on success *out holds malloc'd [h, w, c] pixels
+// (free with jpeg_free), c is 1 (greyscale), 3 (RGB) or 4 (CMYK, inverted as
+// PIL reads it), and 0 returns.
+int jpeg_decode(const uint8_t* data, size_t len, uint8_t** out, int* width, int* height,
+                int* channels, char* err, int errlen) {
+  return jpeg_decode_as(data, len, -1, out, width, height, channels, err, errlen);
 }
 
 void jpeg_free(void* p) { std::free(p); }

@@ -15,6 +15,12 @@
 //                    compression 32773), into a buffer of the strip's or
 //                    tile's expected size.  Old-style (LSB first) LZW data
 //                    and codes past the next free entry are refused.
+//   thunder_decode:  ThunderScan 4-bit (TIFF compression 32809) as libtiff's
+//                    tif_thunder.c decodes it row by row: runs of the last
+//                    pixel, 2- and 3-bit deltas, raw pixels.  A row that ends
+//                    with too few or too many pixels is refused, as libtiff
+//                    refuses it, and so is a run that ends exactly at the
+//                    row's end (libtiff leaves that run's pixels unwritten).
 //
 // Every decoder reads and writes only inside the buffers it is given.
 //
@@ -218,6 +224,57 @@ size_t packbits(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
   return o;
 }
 
+// libtiff's ThunderDecode over `rows` rows of `width` 4-bit pixels, each
+// row (width + 1) / 2 bytes of out[0 .. cap)
+void thunder(const uint8_t* d, size_t n, int width, int rows, uint8_t* out, size_t cap) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const size_t stride = size_t(width + 1) / 2;
+  if (width <= 0 || rows <= 0 || stride * size_t(rows) > cap)
+    throw Error{"ThunderScan strip larger than its buffer"};
+  size_t at = 0;
+  for (int y = 0; y < rows; y++) {
+    uint8_t* op = out + size_t(y) * stride;
+    std::memset(op, 0, stride);
+    int last = 0;
+    long np = 0;
+    auto set = [&](int v) {
+      last = v & 0xf;
+      if (np < width) {
+        if (np++ & 1)
+          op[(np - 1) >> 1] |= uint8_t(last);
+        else
+          op[np >> 1] = uint8_t(last << 4);
+      }
+    };
+    while (at < n && np < width) {
+      int c = d[at++];
+      switch (c & 0xc0) {
+        case 0x00: {                      // a run of the last pixel, c & 63 long
+          long k = c & 0x3f;
+          if (np + k >= width) {
+            if (np + k > width) throw Error{"too much ThunderScan data in a row"};
+            throw Error{"ThunderScan run to the row's end (libtiff leaves it unwritten)"};
+          }
+          for (long i = 0; i < k; i++) set(last);
+          break;
+        }
+        case 0x40:                        // three 2-bit deltas (2 skips)
+          for (int sh = 4; sh >= 0; sh -= 2)
+            if (((c >> sh) & 3) != 2) set(last + two[(c >> sh) & 3]);
+          break;
+        case 0x80:                        // two 3-bit deltas (4 skips)
+          for (int sh = 3; sh >= 0; sh -= 3)
+            if (((c >> sh) & 7) != 4) set(last + three[(c >> sh) & 7]);
+          break;
+        default:                          // a raw pixel
+          set(c);
+      }
+    }
+    if (np != width) throw Error{"not enough ThunderScan data in a row"};
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -254,6 +311,21 @@ int tiff_unpack(int compression, const uint8_t* d, size_t n, uint8_t* out, size_
     set_error(err, errlen, e.msg);
   } catch (...) {
     set_error(err, errlen, "TIFF decoder failed");
+  }
+  return 1;
+}
+
+// Decode ThunderScan (compression 32809) data into `rows` rows of `width`
+// 4-bit pixels in out[0 .. cap).  0 on success.
+int thunder_decode(const uint8_t* d, size_t n, int width, int rows, uint8_t* out, size_t cap,
+                   char* err, int errlen) {
+  try {
+    thunder(d, n, width, rows, out, cap);
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+  } catch (...) {
+    set_error(err, errlen, "ThunderScan decoder failed");
   }
   return 1;
 }

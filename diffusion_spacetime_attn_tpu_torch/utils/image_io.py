@@ -7,19 +7,26 @@ progressive, arithmetic-coded and lossless; greyscale, YCbCr, RGB-coded,
 CMYK and YCCK) through the port's codec (`utils/jpeg.py`), BMP through
 `utils/bmp.py`, WebP (lossy, lossless, alpha, the first frame of an
 animation) through `utils/webp.py`, GIF (the first frame) through
-`utils/gif.py` and TIFF (the first page) through `utils/tiff.py`.  It gives
-a `Picture`: `pixels` equals `np.asarray(Image.open(f))`, `mode` is its
-mode ("1", "L", "LA", "P", "I;16", "I;16B", "RGB", "RGBA", "CMYK") and
-`palette` a "P" image's [256, 3] palette.
+`utils/gif.py` and TIFF (the first page; every coding, depth and sample
+format Pillow reads, orientation applied) through `utils/tiff.py`.  It
+gives a `Picture`: `pixels` equals `np.asarray(Image.open(f))`, `mode` is
+its mode ("1", "L", "LA", "P", "PA", "I;16", "I;16B", "I", "F", "RGB",
+"RGBA", "CMYK", "LAB") and `palette` a "P" or "PA" image's [256, 3]
+palette.
 
 `convert(picture, mode)` is Pillow's `convert("RGB")` / `convert("L")` in
 its integer arithmetic: alpha dropped, grey repeated, "1" as 0 / 255, a
-palette looked up, 16-bit grey clipped to 255, CMYK as (255 − K) −
+palette looked up ("P" and "PA"), 16-bit grey clipped to 255, 32-bit
+integers ("I") clipped to 0-255, floats ("F") clipped and truncated
+(−5.5, 127.6 and 300.2 give 0, 127 and 255; NaN 0), CMYK as (255 − K) −
 (C·(255 − K))/255 with Pillow's rounded division, luma (19595·R + 38470·G
-+ 7471·B + 2¹⁵) >> 16 from the RGB.  `open_image(path, mode)` reads a file
-and converts it.  Other formats, and the codings of these formats that
-Pillow reads and the port does not, raise `ValueError` naming ROADMAP A.12;
-corrupt files raise `ValueError` too, where Pillow refuses them.
++ 7471·B + 2¹⁵) >> 16 from the RGB.  "LAB" raises `ValueError`: Pillow
+converts it to RGB through LittleCMS (ImageCms, Lab D50 to sRGB), which
+the port does not reproduce (ROADMAP A.12), and refuses it to "L".
+`open_image(path, mode)` reads a file and converts it.  Other formats, and
+the codings of these formats that Pillow reads and the port does not,
+raise `ValueError` naming ROADMAP A.12; corrupt files raise `ValueError`
+too, where Pillow refuses them.
 """
 from __future__ import annotations
 
@@ -79,11 +86,16 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
     if pic.mode == "1":
         px = px.astype(np.uint8) * 255
         return np.repeat(px[..., None], 3, -1) if mode == "RGB" else px
-    if pic.mode in ("I;16", "I;16B"):                 # Pillow's I16_L: clipped at 255
-        grey = np.minimum(px, 255).astype(np.uint8)
+    if pic.mode in ("I;16", "I;16B", "I", "F"):      # Convert.c I16_L, i2l, f2l: clipped
+        v = np.nan_to_num(px, nan=0.0) if pic.mode == "F" else px
+        grey = np.clip(v, 0, 255).astype(np.uint8)
         return np.repeat(grey[..., None], 3, -1) if mode == "RGB" else grey
-    if pic.mode == "P" or pic.palette is not None:
-        rgb = pic.palette[px]
+    if pic.mode == "LAB":
+        raise ValueError(f"conversion of an L*a*b* image to {mode!r}: Pillow converts it to "
+                         "RGB through LittleCMS, which the port does not reproduce, and refuses "
+                         "it to 'L' (ROADMAP A.12)")
+    if pic.mode in ("P", "PA") or pic.palette is not None:
+        rgb = pic.palette[px[..., 0] if pic.mode == "PA" else px]
     elif pic.mode == "CMYK":
         rgb = _cmyk_rgb(px)
     else:
@@ -94,10 +106,11 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """An image's pixels as `read_image` gives them, as [H, W, C]: 8-bit
-    grey, grey + alpha, RGB, RGBA and CMYK as they are; "1", "P" and 16-bit
-    grey converted to RGB (a palette looked up, "1" as 0 / 255)."""
+    grey, grey + alpha, RGB, RGBA, CMYK and L*a*b* as they are; "1", "P",
+    "PA", 16-bit grey and 32-bit integer and float grey converted to RGB (a
+    palette looked up, "1" as 0 / 255, the rest clipped to 0-255)."""
     pic = read_image(data, name)
-    if pic.mode in ("1", "P", "I;16", "I;16B"):
+    if pic.mode in ("1", "P", "PA", "I;16", "I;16B", "I", "F"):
         return convert(pic, "RGB")
     return pic.pixels[..., None] if pic.pixels.ndim == 2 else pic.pixels
 

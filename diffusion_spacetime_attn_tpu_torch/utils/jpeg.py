@@ -62,6 +62,12 @@ def load_library() -> ctypes.CDLL:
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
                                         ctypes.c_int]
+            lib.jpeg_decode_as.restype = ctypes.c_int
+            lib.jpeg_decode_as.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                           ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_int),
+                                           ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
+                                           ctypes.c_int]
             lib.jpeg_free.restype = None
             lib.jpeg_free.argtypes = [ctypes.c_void_p]
             _state["lib"] = lib
@@ -96,14 +102,17 @@ def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
         lib.jpeg_free(out)
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A JPEG's pixels: uint8 [H, W, 3] RGB, [H, W, 4] CMYK or [H, W] greyscale."""
+def decode_jpeg(data: bytes, name: str = "<bytes>", colour: int = -1) -> np.ndarray:
+    """A JPEG's pixels: uint8 [H, W, 3] RGB, [H, W, 4] CMYK or [H, W] greyscale.
+    `colour` -1 takes the components' colour space from the markers, as
+    libjpeg does; 0 leaves the components as they are and 1 converts three
+    from YCbCr to RGB, as libtiff asks of a JPEG-compressed TIFF's strips."""
     lib = load_library()
     out = ctypes.POINTER(ctypes.c_uint8)()
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERR)
-    rc = lib.jpeg_decode(data, len(data), ctypes.byref(out), ctypes.byref(w), ctypes.byref(h),
-                         ctypes.byref(c), err, _ERR)
+    rc = lib.jpeg_decode_as(data, len(data), colour, ctypes.byref(out), ctypes.byref(w),
+                            ctypes.byref(h), ctypes.byref(c), err, _ERR)
     if rc:
         raise ValueError(f"{name}: {err.value.decode()}")
     try:

@@ -4,7 +4,7 @@ which `utils/gif.py` and `utils/tiff.py` use.
 `gif_frame` decodes one GIF frame's LZW data into its rectangle of a canvas
 (interlaced or not), as Pillow's GIF decoder writes it; `tiff_unpack` gives
 the bytes of one TIFF strip or tile compressed with LZW (libtiff's early
-change) or PackBits.  Data that ends before the frame is complete, and codes
+change) or PackBits, and `thunder_unpack` of one ThunderScan strip.  Data that ends before the frame is complete, and codes
 no encoder writes, raise `ValueError`.
 
 The source is compiled at first use with g++ into the package's `_build/`
@@ -50,6 +50,10 @@ def load_library() -> ctypes.CDLL:
             lib.tiff_unpack.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, u8p,
                                         ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
                                         ctypes.c_char_p, ctypes.c_int]
+            lib.thunder_decode.restype = ctypes.c_int
+            lib.thunder_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                           ctypes.c_int, u8p, ctypes.c_size_t, ctypes.c_char_p,
+                                           ctypes.c_int]
             _state["lib"] = lib
         return _state["lib"]
 
@@ -81,3 +85,14 @@ def tiff_unpack(compression: int, data: bytes, size: int, name: str = "<bytes>")
                        ctypes.byref(got), err, _ERR):
         raise ValueError(f"{name}: {err.value.decode()}")
     return out[:got.value].tobytes()
+
+
+def thunder_unpack(data: bytes, width: int, rows: int, name: str = "<bytes>") -> bytes:
+    """`rows` rows of `width` 4-bit pixels of one ThunderScan (32809) strip."""
+    lib = load_library()
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if lib.thunder_decode(bytes(data), len(data), width, rows,
+                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size, err, _ERR):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out.tobytes()

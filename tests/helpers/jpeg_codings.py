@@ -634,39 +634,56 @@ def _arith_scan(frame, comps, ss, se, ah, al, progressive, restart, L, U, K) -> 
 
 
 def lossless_file(img: np.ndarray, predictor: int, pt: int = 0, precision: int = 8,
-                  restart_rows: int = 0, ids=b"\x01\x02\x03", jfif: bool = False) -> bytes:
+                  restart_rows: int = 0, ids=b"\x01\x02\x03", jfif: bool = False,
+                  sampling=None) -> bytes:
     """SOF3 of uint8 [H, W] or [H, W, C] samples below 2**precision, one
-    interleaved scan, the standard luminance DC table for the differences."""
+    interleaved scan, the standard luminance DC table for the differences.
+    `sampling` [(h, v)] per component subsamples each by keeping the first
+    sample of every (hmax / h) x (vmax / v) box; an MCU's samples past a
+    component's edge are coded as zero differences.  `restart_rows` counts
+    MCU rows."""
     x = img.reshape(img.shape[0], img.shape[1], -1).astype(np.int64) >> pt
     h, w, nc = x.shape
-    frame = dict(w=w, h=h, comps=[(ids[i], 1, 1, 0) for i in range(nc)], app=JFIF if jfif else b"")
+    sampling = sampling or [(1, 1)] * nc
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    planes = [x[::vmax // sv, ::hmax // sh, c] for c, (sh, sv) in enumerate(sampling)]
+    mpr, mrows = -(-w // hmax), -(-h // vmax)
+    frame = dict(w=w, h=h, comps=[(ids[i], *sampling[i], 0) for i in range(nc)],
+                 app=JFIF if jfif else b"")
     tables = _seg(0xC4, bytes([0] + DC_BITS + DC_VALS))
     if restart_rows:
-        tables += _seg(0xDD, struct.pack(">H", restart_rows * w))
+        tables += _seg(0xDD, struct.pack(">H", restart_rows * mpr))
     dc = _huff_codes(DC_BITS, DC_VALS)
     out = _header(frame, 0xC3, precision, tables) + _seg(
         0xDA, bytes([nc]) + b"".join(bytes([ids[i], 0]) for i in range(nc))
         + bytes([predictor, 0, pt]))
     bits, rst, row0 = _Bits(), 0, 0
-    for y in range(h):
-        if restart_rows and y and y % restart_rows == 0:
+    for my in range(mrows):
+        if restart_rows and my and my % restart_rows == 0:
             out += bits.flush() + bytes([0xFF, 0xD0 + rst])
             rst = (rst + 1) & 7
-            bits, row0 = _Bits(), y
-        for xx in range(w):
-            for c in range(nc):
-                if y == row0:
-                    p = 1 << (precision - pt - 1) if xx == 0 else x[y, xx - 1, c]
-                elif xx == 0:
-                    p = x[y - 1, 0, c]
-                else:
-                    ra, rb, rc = x[y, xx - 1, c], x[y - 1, xx, c], x[y - 1, xx - 1, c]
-                    p = [None, ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
-                         rb + ((ra - rc) >> 1), (ra + rb) >> 1][predictor]
-                diff = int(x[y, xx, c] - p)
-                s = _category(diff)
-                bits.put(*dc[s])
-                bits.value(diff, s)
+            bits, row0 = _Bits(), my
+        for mx in range(mpr):
+            for c, (sh, sv) in enumerate(sampling):
+                p_ = planes[c]
+                for r in range(sv):
+                    for q in range(sh):
+                        y, xx = my * sv + r, mx * sh + q
+                        if y >= p_.shape[0] or xx >= p_.shape[1]:
+                            bits.put(*dc[0])
+                            continue
+                        if y == row0 * sv:
+                            p = 1 << (precision - pt - 1) if xx == 0 else p_[y, xx - 1]
+                        elif xx == 0:
+                            p = p_[y - 1, 0]
+                        else:
+                            ra, rb, rc = p_[y, xx - 1], p_[y - 1, xx], p_[y - 1, xx - 1]
+                            p = [None, ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                                 rb + ((ra - rc) >> 1), (ra + rb) >> 1][predictor]
+                        diff = int(p_[y, xx] - p)
+                        s = _category(diff)
+                        bits.put(*dc[s])
+                        bits.value(diff, s)
     return out + bits.flush() + b"\xff\xd9"
 
 

@@ -20,7 +20,10 @@ holds the port's readers to on a machine that has none of the three.
   with a local table off the screen's corner, planar tiled Deflate,
   16-bit LZW, 4-bit PackBits palette and white-is-zero TIFFs; and by
   `helpers/jpeg_codings.py` arithmetic-coded sequential and progressive,
-  lossless, 4:1:1 and block-smoothed JPEGs.  The `TRAIN` files stand in
+  lossless, 4:1:1 and block-smoothed JPEGs; and the TIFF kinds of
+  `tiff_images` (orientation 2-8, fax-coded masks, JPEG-in-TIFF, LZMA,
+  Zstandard, BigTIFF, fill order 2, 16-bit RGB(A), signed, 32-bit and float
+  samples, palette + alpha, ThunderScan) and a subsampled lossless JPEG.  The `TRAIN` files stand in
   for port-written JPEGs in phase train_data; `INIT` and `MASK` are phase
   image_in's --init and --mask.
 
@@ -40,6 +43,7 @@ import json
 import os
 import shutil
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -127,6 +131,90 @@ def jpeg_images() -> dict:
     }
 
 
+def tiff_images() -> dict:
+    """{name: bytes} of the TIFF kinds Pillow reads beyond those above
+    (Pillow writes the JPEG, CCITT, LZMA and BigTIFF ones; the rest by
+    `helpers/raw_images.py`, the 4:2:0 strips and the subsampled lossless
+    JPEG by `helpers/jpeg_codings.py`): orientation 2-8, fax-coded masks,
+    JPEG-in-TIFF, Zstandard, fill order 2, 16-bit RGB(A), signed, 32-bit and
+    float samples, palette + alpha, ThunderScan, YCbCr data units and
+    old-style JPEG (libtiff's RGBA interface)."""
+    from PIL import Image
+
+    from helpers import jpeg_codings as jc
+    from helpers import raw_images as raw
+
+    def save(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    r = np.random.RandomState(23)
+    small = _image(20, 30, 14)
+    mask = Image.fromarray(_mask(120, 160))
+    rgb = Image.fromarray(_image(36, 48, 15))
+    grey = _image(24, 40, 16, c=1)
+    a16 = _image(24, 32, 17, c=4).astype(np.uint16) * 257 + _image(24, 32, 18, c=4)
+    assoc = np.concatenate([a16[..., :3].astype(np.int64) * a16[..., 3:] // 65535, a16[..., 3:]],
+                           -1).astype(np.uint16)
+    floats = (r.randn(24, 40, 1) * 300).astype(np.float32)
+    levels = (grey[..., 0] >> 4).astype(np.uint8)
+    thunder = bytearray()
+    for row in levels:                                  # raw codes and 3-bit deltas
+        last = 0
+        for v in row:
+            d = (int(v) - last) % 16
+            thunder.append(0x80 | ({1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}[d] << 3) | 4
+                           if d in (1, 2, 3, 13, 14, 15) else 0xC0 | int(v))
+            last = int(v)
+    units = np.random.RandomState(24).randint(0, 256, 12 * 16 * 6).astype(np.uint8)  # 4:2:0 units
+    buf = io.BytesIO()
+    rgb.save(buf, "JPEG", quality=85)
+    jpeg = buf.getvalue()
+    strips = [jc.huffman_file(jc.coefficients(_image(40, 48, 19)[y:y + 16],
+                                              [(2, 2), (1, 1), (1, 1)], 85))
+              for y in range(0, 40, 16)]
+    out = {f"orient{o}.tif": raw.tiff_file(small, 8, 2, compression=8, rows_per_strip=8,
+                                            tags={274: (3, [o])}) for o in range(2, 9)}
+    out.update({
+        "fax_g4.tif": save(mask, compression="group4"),
+        "fax_g3_2d_fill2.tif": save(mask, compression="group3",
+                                    tiffinfo={292: 5, 266: 2, 262: 0}),
+        "fax_mh.tif": save(mask, compression="tiff_ccitt"),
+        "jpeg_ycbcr.tif": save(rgb.convert("YCbCr"), compression="jpeg", quality=85),
+        "jpeg_420_strips.tif": raw.tiff_file(_image(40, 48, 19), 8, 6, chunks=strips,
+                                             rows_per_strip=16,
+                                             tags={259: (3, [7]), 530: (3, [2, 2])}),
+        "lzma.tif": save(rgb, compression="lzma"),
+        "zstd_predictor.tif": raw.tiff_file(_image(36, 48, 20), 8, 2, compression=50000,
+                                            predictor=2),
+        "bigtiff.tif": save(rgb, big_tiff=True),
+        "fill2_lzw.tif": raw.tiff_file(grey, 8, 1, compression=5, fill_order=2),
+        "rgb16.tif": raw.tiff_file(a16[..., :3], 16, 2, compression=8, predictor=2),
+        "rgba16_planar.tif": raw.tiff_file(assoc, 16, 2, big_endian=True, compression=5,
+                                           planar=2, extra=(1,)),
+        "int16.tif": raw.tiff_file((grey.astype(np.int16) - 100) * 200, 16, 1,
+                                   sample_format=(2,)),
+        "int32.tif": save(Image.fromarray((grey[..., 0].astype(np.int32) - 90) * 9999)),
+        "float_pred3.tif": raw.tiff_file(floats, 32, 1, compression=8, predictor=3,
+                                         sample_format=(3,)),
+        "signed8.tif": raw.tiff_file(grey.astype(np.int8) - 100, 8, 1, sample_format=(2,)),
+        "pa.tif": raw.tiff_file(np.concatenate([grey, grey[::-1]], -1), 8, 3, extra=(2,),
+                                compression=32773,
+                                tags={320: (3, [int(v) for v in r.randint(0, 65536, 768)])}),
+        "thunderscan.tif": raw.tiff_file(levels[..., None], 4, 1, chunks=[bytes(thunder)],
+                                         tags={259: (3, [32809])}),
+        "lossless_420.jpg": jc.lossless_file(_image(30, 40, 21), 4, 0,
+                                             sampling=[(2, 2), (1, 1), (1, 1)]),
+        "ycbcr_420_deflate.tif": raw.tiff_file(
+            np.zeros((24, 32, 3), np.uint8), 8, 6, chunks=[zlib.compress(units.tobytes())],
+            tags={259: (3, [8]), 530: (3, [2, 2])}),
+        "old_jpeg.tif": raw.tiff_file(np.zeros((36, 48, 3), np.uint8), 8, 6, chunks=[jpeg],
+                                      tags={259: (3, [6]), 512: (3, [1])}),
+    })
+    return out
+
+
 def write_images(out: Path) -> None:
     from PIL import Image
 
@@ -155,7 +243,7 @@ def write_images(out: Path) -> None:
         buf = io.BytesIO()
         img.save(buf, **kw)
         (out / name).write_bytes(buf.getvalue())
-    for name, data in {**raw_images(), **jpeg_images()}.items():
+    for name, data in {**raw_images(), **jpeg_images(), **tiff_images()}.items():
         (out / name).write_bytes(data)
 
 

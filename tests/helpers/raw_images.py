@@ -36,6 +36,9 @@ def _pack_rows(samples: np.ndarray, depth: int) -> np.ndarray:
         return flat.astype(">u2").view(np.uint8).reshape(h, -1)
     if depth == 8:
         return flat.astype(np.uint8)
+    if 8 % depth:                              # 12 bits and the like: any bit packing
+        bits = (flat[..., None] >> np.arange(depth - 1, -1, -1, dtype=np.uint32)) & 1
+        return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
     per = 8 // depth
     n = flat.shape[1]
     pad = np.zeros((h, (-n) % per), np.uint32)
@@ -242,102 +245,167 @@ def lzw_tiff(data: bytes) -> bytes:
 
 def _predict(block: np.ndarray, bits: int) -> np.ndarray:
     """Horizontal differencing (predictor 2) of [rows, cols, spp] samples."""
-    d = block.astype(np.int64)
+    u = block.view(f"u{block.dtype.itemsize}") if block.dtype.kind != "u" else block
+    d = u.astype(np.uint64)
     d[:, 1:] = d[:, 1:] - d[:, :-1]
-    return (d & ((1 << bits) - 1)).astype(block.dtype)
+    return (d & np.uint64((1 << bits) - 1)).astype(u.dtype)
+
+
+def _predict_float(block: np.ndarray) -> bytes:
+    """libtiff's floating-point predictor (3): each row's bytes split into
+    planes, most significant first, then differenced bytewise by samples."""
+    rows, cols, spp = block.shape
+    size = block.dtype.itemsize
+    out = bytearray()
+    for row in block:
+        b = row.astype("<" + block.dtype.str[1:]).view(np.uint8).reshape(cols * spp, size)
+        planes = b[:, ::-1].T.reshape(-1).astype(np.int64)
+        planes[spp:] = planes[spp:] - planes[:-spp]
+        out += (planes & 0xFF).astype(np.uint8).tobytes()
+    return bytes(out)
 
 
 def _sample_bytes(block: np.ndarray, bits: int, bo: str) -> bytes:
     """[rows, cols, spp] samples -> bytes, each row padded to a byte."""
-    if bits == 16:
-        return block.astype(bo + "u2").tobytes()
+    if bits in (16, 32, 64):
+        kind = block.dtype.kind if block.dtype.kind in "if" else "u"
+        return block.astype(f"{bo}{kind}{bits // 8}").tobytes()
     if bits == 8:
-        return block.astype(np.uint8).tobytes()
+        return block.astype(np.uint8 if block.dtype.kind != "i" else np.int8).tobytes()
     return _pack_rows(block, bits).tobytes()
 
 
+REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _coder(compression):
+    import lzma
+
+    if callable(compression):
+        return compression
+    if compression == 34925:      # libtiff's LZMA: an xz stream without a check
+        return lambda b: lzma.compress(b, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    if compression == 50000:
+        import zstandard
+
+        return lambda b: zstandard.ZstdCompressor(level=3).compress(b)
+    return {1: lambda b: b, 32773: packbits, 5: lzw_tiff, 8: zlib.compress,
+            32946: zlib.compress}[compression]
+
+
 def tiff_file(samples: np.ndarray, bits: int, photometric: int, big_endian: bool = False,
-              compression: int = 1, predictor: int = 1, planar: int = 1, tile=None,
-              rows_per_strip: int = None, extra=None, tags=None) -> bytes:
-    """A one-IFD TIFF of `samples` [h, w, spp].  `tile` (tw, th) writes
+              compression=1, predictor: int = 1, planar: int = 1, tile=None,
+              rows_per_strip: int = None, extra=None, tags=None, fill_order: int = 1,
+              big_tiff: bool = False, sample_format=None, chunks=None) -> bytes:
+    """A one-IFD TIFF of `samples` [h, w, spp] (unsigned, signed or float at
+    8, 16, 32 or 64 bits, or fewer bits packed).  `tile` (tw, th) writes
     tiles; `extra` the ExtraSamples values; `tags` {tag: (type, values)}
-    more entries (a ColorMap, an InkSet ...)."""
+    more entries (a ColorMap, an InkSet ...).  `compression` is a TIFF code
+    (none, PackBits, LZW, Deflate, LZMA, Zstandard) or a callable coding
+    one strip's bytes, written under tag 259 = `tags`' value; `chunks` gives
+    the coded strips or tiles outright (JPEG).  `fill_order` 2 reverses the
+    bits of every coded byte; `big_tiff` writes BigTIFF (version 43, 8-byte
+    offsets); predictor 3 is libtiff's floating-point predictor."""
     bo = ">" if big_endian else "<"
     h, w, spp = samples.shape
-    comp = {1: lambda b: b, 32773: packbits, 5: lzw_tiff, 8: zlib.compress,
-            32946: zlib.compress}[compression]
+    comp = _coder(compression) if chunks is None else None
     planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 else [samples]
-    chunks = []
-    if tile:
-        tw, th = tile
-        for p in planes:
-            for ty in range(0, h, th):
-                for tx in range(0, w, tw):
-                    t = np.zeros((th, tw, p.shape[2]), samples.dtype)
-                    blk = p[ty:ty + th, tx:tx + tw]
-                    t[:blk.shape[0], :blk.shape[1]] = blk
-                    if predictor == 2:
-                        t = _predict(t, bits)
-                    chunks.append(comp(_sample_bytes(t, bits, bo)))
-    else:
-        rps = rows_per_strip or h
-        for p in planes:
-            for y in range(0, h, rps):
-                blk = p[y:y + rps]
-                if predictor == 2:
-                    blk = _predict(blk, bits)
-                chunks.append(comp(_sample_bytes(blk, bits, bo)))
-    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+
+    def code(blk):
+        if predictor == 3:
+            return comp(_predict_float(blk))
+        if predictor == 2:
+            blk = _predict(blk, bits)
+        return comp(_sample_bytes(blk, bits, bo))
+
+    if chunks is None:
+        chunks = []
+        if tile:
+            tw, th = tile
+            for p in planes:
+                for ty in range(0, h, th):
+                    for tx in range(0, w, tw):
+                        t = np.zeros((th, tw, p.shape[2]), samples.dtype)
+                        blk = p[ty:ty + th, tx:tx + tw]
+                        t[:blk.shape[0], :blk.shape[1]] = blk
+                        chunks.append(code(t))
+        else:
+            rps = rows_per_strip or h
+            for p in planes:
+                for y in range(0, h, rps):
+                    chunks.append(code(p[y:y + rps]))
+    if fill_order == 2:
+        chunks = [REVERSED[np.frombuffer(c, np.uint8)].tobytes() for c in chunks]
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+               259: (3, [compression if isinstance(compression, int) else 1]),
                262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
         entries[317] = (3, [predictor])
     if extra is not None:
         entries[338] = (3, list(extra))
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if sample_format is not None:
+        entries[339] = (3, list(sample_format))
     if tile:
         entries[322] = (4, [tile[0]])
         entries[323] = (4, [tile[1]])
     else:
         entries[278] = (4, [rows_per_strip or h])
     entries.update(tags or {})
-    header = (b"MM" if big_endian else b"II") + struct.pack(bo + "HI", 42, 8)
-    n = len(entries) + 2
-    data_at = 8 + 2 + 12 * n + 4
-    fmt = {3: "H", 4: "I"}
-    overflow, chunk_at = bytearray(), []
-    ifd = bytearray(struct.pack(bo + "H", n))
-
-    def entry(tag, typ, vals):
-        raw = b"".join(struct.pack(bo + fmt[typ], v) for v in vals)
-        if len(raw) <= 4:
-            return struct.pack(bo + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\x00")
-        at = data_at + len(overflow)
-        overflow.extend(raw + (b"\x00" if len(raw) % 2 else b""))
-        return struct.pack(bo + "HHI", tag, typ, len(vals)) + struct.pack(bo + "I", at)
-
     offsets_tag, counts_tag = (324, 325) if tile else (273, 279)
-    body = []
-    for tag in sorted(list(entries) + [offsets_tag, counts_tag]):
-        if tag == offsets_tag:
-            body.append((tag, None))
-        elif tag == counts_tag:
-            body.append((tag, (4, [len(c) for c in chunks])))
-        else:
-            body.append((tag, entries[tag]))
-    # the strip offsets come after the IFD's overflow; size the overflow first
-    for tag, v in body:
-        if v is not None:
-            entry(tag, *v)
-    k = len(chunks)
-    offsets_len = 4 * k if k > 1 else 0
-    start = data_at + len(overflow) + offsets_len
-    starts, pos = [], start
+    wide = 16 if big_tiff else 4
+    entries[counts_tag] = (wide, [len(c) for c in chunks])
+    entries[offsets_tag] = (wide, [0] * len(chunks))
+    return _tiff_layout(entries, chunks, offsets_tag, bo, big_tiff)
+
+
+_FMT = {1: "B", 2: "s", 3: "H", 4: "I", 5: "I", 6: "b", 7: "B", 8: "h", 9: "i", 10: "i", 11: "f",
+        12: "d", 16: "Q", 17: "q"}
+
+
+def _tiff_layout(entries: dict, chunks, offsets_tag: int, bo: str, big: bool) -> bytes:
+    """Header, one IFD (tags sorted, values that do not fit in the entry
+    after it), then the chunks; `offsets_tag`'s values are the chunks'."""
+    slot, head = (8, 16) if big else (4, 8)
+    n = len(entries)
+    ifd_len = (8 + 20 * n + 8) if big else (2 + 12 * n + 4)
+    data_at = head + ifd_len
+
+    def raw(typ, vals):
+        if typ == 2:
+            return bytes(vals)
+        return b"".join(struct.pack(bo + _FMT[typ], v) for v in vals)
+
+    over_len = 0
+    for tag in sorted(entries):
+        r = raw(*entries[tag])
+        if len(r) > slot:
+            over_len += len(r) + len(r) % 2
+    pos, starts = data_at + over_len, []
     for c in chunks:
         starts.append(pos)
-        pos += len(c) + (len(c) % 2)
-    overflow.clear()
-    for tag, v in body:
-        ifd += entry(tag, *(v if v is not None else (4, starts)))
-    ifd += struct.pack(bo + "I", 0)
-    assert len(header) + len(ifd) == data_at and data_at + len(overflow) == start
+        pos += len(c) + len(c) % 2
+    typ = entries[offsets_tag][0]
+    entries = dict(entries)
+    entries[offsets_tag] = (typ, starts)
+    ifd = bytearray(struct.pack(bo + ("Q" if big else "H"), n))
+    overflow = bytearray()
+    for tag in sorted(entries):
+        typ, vals = entries[tag]
+        r = raw(typ, vals)
+        count = len(vals) // 2 if typ in (5, 10) else len(vals)     # rationals: pairs
+        if len(r) <= slot:
+            value = r.ljust(slot, b"\x00")
+        else:
+            value = struct.pack(bo + ("Q" if big else "I"), data_at + len(overflow))
+            overflow += r + (b"\x00" if len(r) % 2 else b"")
+        ifd += struct.pack(bo + ("HHQ" if big else "HHI"), tag, typ, count) + value
+    ifd += struct.pack(bo + ("Q" if big else "I"), 0)
+    if big:
+        header = (b"MM" if bo == ">" else b"II") + struct.pack(bo + "HHHQ", 43, 8, 0, head)
+    else:
+        header = (b"MM" if bo == ">" else b"II") + struct.pack(bo + "HI", 42, head)
+    assert len(header) + len(ifd) == data_at and len(overflow) == over_len
     return header + bytes(ifd) + bytes(overflow) + b"".join(
         c + (b"\x00" if len(c) % 2 else b"") for c in chunks)

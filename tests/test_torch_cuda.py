@@ -544,7 +544,19 @@ def test_flash_gradients_inside_a_training_step(cuda):
     the same step with the flags off: the loss, every parameter's gradient
     (the attention projections carry flash's dq, dK and dV) within 1e-4
     relative in norm, the updated weights within 1e-4 + 1e-4·|plain|, and
-    one flash backward and one GEGLU dx launch per site."""
+    one flash backward and one GEGLU dx launch per site.
+
+    The weights are held where the step is well conditioned, as the CPU
+    training tests hold them.  AdamW's first step moves an element by
+    lr·g/(|g| + 1e-8): below |g| ~ 1e-6 that is linear in g with gain
+    lr/1e-8, so gradients that agree to 1e-4 in norm give steps 1e-4 apart
+    (one element of time_embed_2's weight, |g| ~ 1e-9 against its
+    gradient's norm of 0.3, moved 2.7e-4 apart on the card).  Neither
+    path's gradients repeat bit for bit from run to run on the card, so
+    which element crosses the bound changes from run to run.  An element
+    whose plain gradient exceeds 1e-6 and twice the gradients' whole
+    difference keeps its sign on both paths, and its steps differ by at most
+    2·lr·1e-8/|g| ≤ 2e-5."""
     from diffusion_spacetime_attn_tpu_torch.config import LDMTrainConfig, ScheduleConfig, UNetConfig
     from diffusion_spacetime_attn_tpu_torch.models.unet import UNet
     from diffusion_spacetime_attn_tpu_torch.ops.schedule import make_schedule
@@ -579,10 +591,16 @@ def test_flash_gradients_inside_a_training_step(cuda):
     (l_on, g_on, p_on, n_on), (l_off, g_off, p_off, n_off) = out["on"], out["off"]
     assert n_on == (3, 7) and n_off == (0, 0)   # 3 blocks at level 0 of 7
     assert abs(float(l_on - l_off)) <= 1e-5 * abs(float(l_off))
+    held = 0
     for k in g_off:
         err = torch.linalg.vector_norm(g_on[k] - g_off[k])
         assert float(err) <= 1e-4 * float(torch.linalg.vector_norm(g_off[k])) + 1e-12, k
-        _check(p_on[k], p_off[k], "geglu")
+        sure = g_off[k].abs() > torch.clamp(2 * err, min=1e-6)
+        if sure.any():
+            _check(p_on[k][sure], p_off[k][sure], "geglu")
+        held += int(sure.sum())
+    total = sum(g.numel() for g in g_off.values())
+    assert held >= 0.75 * total, (held, total)
 
 
 # ------------------------------------------------------------ no card needed

@@ -39,7 +39,7 @@ from diffusion_spacetime_attn_tpu_torch.utils import image_io
 from diffusion_spacetime_attn_tpu_torch.utils.bmp import decode_bmp
 from diffusion_spacetime_attn_tpu_torch.utils.jpeg import decode_jpeg
 from diffusion_spacetime_attn_tpu_torch.utils.webp import decode_webp
-from helpers import port_formats
+from helpers import port_formats, raw_images
 
 SIZES = [(1, 1), (2, 3), (17, 9), (33, 100), (53, 37), (64, 64), (121, 162)]
 
@@ -334,8 +334,9 @@ def test_corrupt_webps_raise_where_pil_refuses():
 
 def test_other_formats_raise_naming_a12():
     """GIF and TIFF, which raised until the port read them, give Pillow's
-    pixels (`tests/test_torch_image_formats.py` holds every variant); junk
-    and a JPEG-compressed TIFF still raise, naming ROADMAP A.12."""
+    pixels (`tests/test_torch_image_formats.py` and
+    `tests/test_torch_tiff_codings.py` hold every variant); junk and an
+    old-style JPEG TIFF (compression 6) still raise, naming ROADMAP A.12."""
     gif = save(Image.fromarray(image(8, 8)).convert("P"), "GIF")
     tif = save(Image.fromarray(image(8, 8)), "TIFF")
     for data in (gif, tif):
@@ -343,8 +344,8 @@ def test_other_formats_raise_naming_a12():
         want = Image.open(io.BytesIO(data))
         assert pic.mode == want.mode
         np.testing.assert_array_equal(pic.pixels, np.asarray(want))
-    jpeg_tif = save(Image.fromarray(image(16, 16)), "TIFF", compression="jpeg")
-    for data, kind in ((jpeg_tif, "compression 7"), (b"\x00\x01junk", "not an image")):
+    old_jpeg_tif = raw_images.tiff_file(image(16, 16), 8, 2, tags={259: (3, [6])})
+    for data, kind in ((old_jpeg_tif, "compression 6"), (b"\x00\x01junk", "not an image")):
         with pytest.raises(ValueError, match=f"{kind}.*A.12"):
             image_io.read_image(data)
 

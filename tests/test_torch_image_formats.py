@@ -265,22 +265,46 @@ def _tiff_with(tags, **kw):
     return raw.tiff_file(image(8, 8, 1)[..., :1], 8, 1, tags=tags, **kw)
 
 
-@pytest.mark.parametrize("label,data,match", [
-    ("jpeg", lambda: _save_tiff(compression="jpeg"), "compression 7"),
-    ("ccitt g4", lambda: _save_tiff(mode="1", compression="group4"), "compression 4"),
-    ("ccitt g3", lambda: _save_tiff(mode="1", compression="group3"), "compression 3"),
-    ("old jpeg", lambda: _tiff_with({259: (3, [6])}), "compression 6"),
-    ("float", lambda: _save_tiff(mode="F"), "sample format"),
-    ("ycbcr", lambda: _save_tiff(mode="YCbCr"), "photometric interpretation 6"),
-    ("lab", lambda: _save_tiff(mode="LAB"), "photometric interpretation 8"),
-    ("fill order 2", lambda: _tiff_with({266: (3, [2])}), "fill order 2"),
-    ("bigtiff", lambda: _save_tiff(big_tiff=True), "BigTIFF")])
-def test_tiff_codings_left_out_raise_naming_a12(label, data, match):
-    """What Pillow reads and the port does not: each raises `ValueError`
-    naming ROADMAP A.12 and the tag's value."""
+def _raw_tiff(samples, bits, photo, **kw):
+    return lambda: raw.tiff_file(samples, bits, photo, **kw)
+
+
+@pytest.mark.parametrize("label,data,match,pil_reads", [
+    ("jpeg", _raw_tiff(image(8, 8, 1).astype(np.uint16), 16, 1, tags={259: (3, [7])}),
+     "JPEG-compressed TIFF of 16-bit", False),
+    ("ccitt g4", _raw_tiff(image(8, 8, 1), 8, 1, tags={259: (3, [4])}), "CCITT-coded", False),
+    ("ccitt g3", _raw_tiff(image(8, 8, 1) >> 4, 4, 1, tags={259: (3, [3])}), "CCITT-coded",
+     False),
+    ("old jpeg", lambda: _tiff_with({259: (3, [6])}), "compression 6", True),
+    ("float", _raw_tiff(image(8, 8, 1).astype(np.float64), 64, 1, sample_format=(3,)),
+     "sample format \\[3\\]", False),
+    ("ycbcr", lambda: _save_tiff(mode="YCbCr"), "uncompressed TIFF YCbCr", False),
+    ("lab", _raw_tiff(image(8, 8).astype(np.uint16), 16, 8), "photometric interpretation 8",
+     False),
+    ("fill order 2", _raw_tiff(image(8, 8, 1) >> 4, 4, 3, fill_order=2,
+                               tags={320: (3, list(range(48)))}), "fill order 2", False),
+    ("bigtiff", _raw_tiff(image(8, 8), 8, 2, big_tiff=True), "BigTIFF", False)],
+    ids=[f"{label}-<lambda>-{tag}" for label, tag in (   # the ids the cases had before
+        ("jpeg", "compression 7"), ("ccitt g4", "compression 4"), ("ccitt g3", "compression 3"),
+        ("old jpeg", "compression 6"), ("float", "sample format"),
+        ("ycbcr", "photometric interpretation 6"), ("lab", "photometric interpretation 8"),
+        ("fill order 2", "fill order 2"), ("bigtiff", "BigTIFF"))])
+def test_tiff_codings_left_out_raise_naming_a12(label, data, match, pil_reads):
+    """What the port does not read raises `ValueError` naming ROADMAP A.12
+    and the tag's value: of each family this test once refused, a variant
+    Pillow 12.1 refuses too (JPEG at 16 bits, CCITT at 8 and 4 bits, 64-bit
+    floats, uncompressed YCbCr, 16-bit L*a*b*, an uncompressed 4-bit palette
+    of fill order 2) and an old-style JPEG of grey samples (the port reads
+    old-style JPEG as YCbCr only).  The families' other variants are read
+    (`tests/test_torch_tiff_codings.py`)."""
     data = data()
+    if label == "bigtiff":                       # big-endian BigTIFF: Pillow cannot open it
+        data = b"MM\x00+" + data[4:]
     with pytest.raises(ValueError, match=f"{match}.*A.12"):
         image_io.read_image(data, label)
+    if not pil_reads:
+        with pytest.raises(Exception):
+            pil(data).load()
 
 
 def _save_tiff(mode="RGB", **kw):

@@ -38,6 +38,7 @@ from diffusion_spacetime_attn_tpu_torch.utils.image_io import open_image
 from diffusion_spacetime_attn_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 from diffusion_spacetime_attn_tpu_torch.utils.png import write_png
 from diffusion_spacetime_attn_tpu_torch.utils.resample import resize
+from helpers import raw_images
 
 PIL_FILTERS = {"nearest": Image.NEAREST, "bilinear": Image.BILINEAR, "bicubic": Image.BICUBIC,
                "lanczos": Image.LANCZOS}
@@ -97,9 +98,10 @@ def test_jpeg_decoder_pixels_equal_pil():
 def test_unsupported_files_raise(tmp_path):
     """Progressive and CMYK JPEGs and GIFs, which raised until the port read
     them, now give PIL's pixels (tests/test_torch_formats.py and
-    tests/test_torch_image_formats.py hold every variant); junk, a
-    JPEG-compressed TIFF, a 12-bit JPEG and a truncated WebP still raise,
-    the first three naming ROADMAP A.12."""
+    tests/test_torch_image_formats.py hold every variant); junk, an
+    old-style JPEG TIFF (compression 6; JPEG-compressed TIFFs are read
+    since, `tests/test_torch_tiff_codings.py`), a 12-bit JPEG and a
+    truncated WebP still raise, the first three naming ROADMAP A.12."""
     a = image(32, 32)
     data = pil_jpeg(a, 75, progressive=True)
     np.testing.assert_array_equal(decode_jpeg(data), np.asarray(Image.open(io.BytesIO(data))))
@@ -114,10 +116,8 @@ def test_unsupported_files_raise(tmp_path):
     (tmp_path / "x.gif").write_bytes(buf.getvalue())
     np.testing.assert_array_equal(open_image(str(tmp_path / "x.gif")),
                                   np.asarray(Image.open(tmp_path / "x.gif").convert("RGB")))
-    buf = io.BytesIO()
-    Image.fromarray(a).save(buf, "TIFF", compression="jpeg")
-    (tmp_path / "x.tif").write_bytes(buf.getvalue())
-    with pytest.raises(ValueError, match="compression 7.*A.12"):
+    (tmp_path / "x.tif").write_bytes(raw_images.tiff_file(a, 8, 2, tags={259: (3, [6])}))
+    with pytest.raises(ValueError, match="compression 6.*A.12"):
         open_image(str(tmp_path / "x.tif"))
     twelve = bytearray(pil_jpeg(a, 75))
     sof = twelve.index(b"\xff\xc0")
