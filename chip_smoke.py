@@ -295,7 +295,9 @@ script exits non-zero without its final line:
      formats: what a JAX user has on disk, read without orbax,
              tensorstore or PIL (none is on this machine): the zstd, WebP,
              LZW and CCITT decoders built by g++ side by side (build_s, and
-             each library's seconds, library_build_s), ccitt_decode_ms per
+             each library's seconds, library_build_s; lzw_source: g++ on
+             native/lzw.cpp alone, as phase image_in has loaded the LZW
+             decoders already), ccitt_decode_ms per
              fax-coded fixture; the committed JAX
              `LDMTrainer.save` state (`tests/fixtures/port_formats/ldm/`,
              zstd-compressed OCDBT) restored, every array's SHA-256 equal to
@@ -309,12 +311,18 @@ script exits non-zero without its final line:
              port reads: JPEG, CCITT, LZMA, Zstandard, ThunderScan, BigTIFF,
              fill order 2, orientation 2-8, 16-bit RGB(A), signed, 32-bit
              and float samples, palette + alpha; a subsampled lossless
-             JPEG) decoded to Pillow's mode, shape, pixel and RGB digests;
-             ms per decode (median of 5).
+             JPEG; the raster formats Pillow decodes itself: Netpbm, Targa,
+             QOI, ICO, CUR, DIB, PCX, DCX, SGI, Sun raster, PSD, XBM, XPM,
+             FITS) decoded to Pillow's mode, shape, pixel and RGB digests;
+             ms per decode (median of 5), raster_decode_ms for the 512x512
+             RLE Targa, QOI and PackBits PSD.
  22. train_data: training from image folders at SD v1-4 width, bf16,
-             batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, five of
-             them replaced by the fixture progressive JPEG, BMP, WebP, GIF
-             and LZW TIFF (FORMAT_SLOTS), with captions.jsonl (3 steps), over a synset tree with
+             batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, all of
+             them replaced by fixtures (FORMAT_SLOTS): a 16-bit PPM, the
+             progressive JPEG, a QOI, the BMP, an RLE Targa named .jpg (in
+             the synset tree .JPEG, so the extension-filtered loader reads
+             it), the WebP, GIF and LZW TIFF, with captions.jsonl (3
+             steps), over a synset tree with
              class conditioning (2 steps) and `--conditioning superres
              --synthetic` (2 steps, BSRGAN-light rows): launches exactly
              GEGLU 16 / 16 and flash 10 / 10 per step (superres, the
@@ -323,8 +331,8 @@ script exits non-zero without its final line:
              steps, then one with `--lpips-ckpt` on a seeded file in
              taming's `vgg.pth` + torchvision's VGG16 layout, loaded
              parameter-exact); `train_searcher --image-dir` on the folder
-             (its JPEGs and the WebP: JAX's script lists no .bmp, .gif or
-             .tif).
+             (its .jpg files, the Targa among them, and the WebP: JAX's
+             script lists no .ppm, .qoi, .bmp, .gif or .tif).
  23. legacy_vg: `infer_vg_msdn` at LayoutConfig() width on the card vs
              the same model on the CPU (centers within 1e-4, the same
              files), and 3 steps of each legacy trainer (LegacyConfig(),
@@ -454,8 +462,10 @@ RESIZE_SHA256 = "752fcb85a65ae4cfb968441617023db3013b4c21aa21c6add79f034d89b91eb
 # orbax and Pillow); the DATA_IMAGES slots the fixture images take
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "port_formats")
-FORMAT_SLOTS = {1: "progressive.jpg", 3: "rgb24.bmp", 5: "lossy.webp", 6: "frame.gif",
-                7: "lzw.tif"}
+FORMAT_SLOTS = {0: "rgb16.ppm", 1: "progressive.jpg", 2: "blocks.qoi", 3: "rgb24.bmp",
+                4: "tga_rle.jpg", 5: "lossy.webp", 6: "frame.gif", 7: "lzw.tif"}
+# phase formats: the 512x512 fixtures whose decode times it reports apart
+RASTER_FIXTURES = ("tga_rle.jpg", "blocks.qoi", "blocks.psd")
 # phase image_in's bf16 --init (an Adam7 palette PNG) and --mask (a 1-bit TIFF)
 INIT_FIXTURE, MASK_FIXTURE = "adam7_palette.png", "mask.tif"
 
@@ -3727,6 +3737,7 @@ def phase_formats(smi: str):
         ccitt,
         image_io,
         lzw,
+        native_bpe,
         orbax,
         prng,
         webp,
@@ -3745,13 +3756,25 @@ def phase_formats(smi: str):
         libs[name].load_library()
         built_s[name] = time.perf_counter() - t0
 
+    def build_lzw_source():
+        # phase image_in's mask TIFF has loaded the LZW decoders by now: time
+        # g++ on their source (the raster formats' loops too) into a scratch dir
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            subprocess.run(["g++", *native_bpe.FLAGS, "-o", os.path.join(d, "liblzw.so"),
+                            str(lzw.SOURCE)], check=True, capture_output=True, timeout=300)
+            built_s["lzw_source"] = time.perf_counter() - t0
+
     builds = [threading.Thread(target=build, args=(name,)) for name in libs]
+    builds.append(threading.Thread(target=build_lzw_source))
     for t in builds:
         t.start()
     for t in builds:
         t.join()
     for lib in libs.values():                      # raises here if a build failed
         lib.load_library()
+    if "lzw_source" not in built_s:
+        fail("formats: g++ failed on native/lzw.cpp")
     build_s = time.perf_counter() - t_phase
     ldm = os.path.join(FIXTURES, "ldm")
     t0 = time.perf_counter()
@@ -3787,7 +3810,7 @@ def phase_formats(smi: str):
         ms[name] = _time_ms(lambda: image_io.read_image(data, name))
     fax = {k: v for k, v in ms.items() if k.startswith("fax_")}
     emit({"phase": "formats", "build_s": build_s, "library_build_s": built_s,
-          "ccitt_decode_ms": fax,
+          "ccitt_decode_ms": fax, "raster_decode_ms": {k: ms[k] for k in RASTER_FIXTURES},
           "restore_s": restore_s, "arrays": len(got),
           "state_digests_equal_orbax": state_equal, "ema_sample": sample,
           "digests_equal_pil": images, "decode_ms": ms,
@@ -3812,9 +3835,9 @@ def _ema_like(unet, ema_tree):
 def _write_jpeg_folder(root: str) -> dict:
     """DATA_IMAGES 640x480 images with captions.jsonl, an LSUN-style split of
     them and a two-synset tree of the same files: port-written JPEGs, but
-    the FORMAT_SLOTS, which hold the fixture progressive JPEG, BMP, WebP,
-    GIF and TIFF (the tree lists what JAX's `imagenet_tree` lists: no GIF or
-    TIFF)."""
+    the FORMAT_SLOTS, which hold fixture files (the tree lists what JAX's
+    `imagenet_tree` lists: no PPM, QOI, GIF or TIFF; the Targa named .jpg
+    goes in as .JPEG)."""
     from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 
     d = os.path.join(root, "jpegs")
@@ -3925,9 +3948,9 @@ def phase_train_data(root: str, smi: str) -> dict:
           "fixture_files": {f"img{i}": name for i, name in FORMAT_SLOTS.items()},
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
     # train_searcher lists PNG, JPEG and WebP only (as JAX's script does)
-    listed = sum(1 for f in os.listdir(dirs["jpegs"])
-                 if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
-    unlisted = sum(1 for f in FORMAT_SLOTS.values() if f.endswith((".bmp", ".gif", ".tif")))
+    searched = (".png", ".jpg", ".jpeg", ".webp")
+    listed = sum(1 for f in os.listdir(dirs["jpegs"]) if f.lower().endswith(searched))
+    unlisted = sum(1 for f in FORMAT_SLOTS.values() if not f.endswith(searched))
     if not (exact and all(math.isfinite(v) for m in metrics for v in m.values())
             and searcher["rows"] == listed == DATA_IMAGES - unlisted and np.isfinite(emb).all()):
         fail(f"train_data: lpips exact {exact}, vae metrics {metrics}, searcher {searcher}")

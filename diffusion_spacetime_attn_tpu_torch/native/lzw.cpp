@@ -21,6 +21,28 @@
 //                    with too few or too many pixels is refused, as libtiff
 //                    refuses it, and so is a run that ends exactly at the
 //                    row's end (libtiff leaves that run's pixels unwritten).
+//   packbits_rows:   PackBits as Pillow's PackDecode.c decodes a PSD
+//                    channel: rows of a fixed size filled in turn, a packet
+//                    that crosses a row's end cut there, a packet read only
+//                    when all of its bytes are there.
+//
+// and the byte-run loops of the raster formats Pillow decodes itself, each
+// writing rows in file order (the caller flips them):
+//
+//   tga_rle:         Targa RLE (TgaRleDecode.c): runs and literal packets of
+//                    1-4 byte pixels; a run may not cross a row's end, a
+//                    literal packet may.
+//   pcx_rle:         PCX RLE (PcxDecode.c): 0xC0 | n runs and literal bytes,
+//                    rows of the header's stride; a run past the row's end
+//                    is an error.
+//   sgi_rle:         SGI RLE (SgiRleDecode.c): each row of each channel from
+//                    the start and length tables, 8- or 16-bit packets, one
+//                    row buffer kept from row to row as Pillow keeps it.
+//   sun_rle:         Sun raster RLE (SunRleDecode.c): 0x80 n v runs of n + 1
+//                    bytes (a run may cross rows), 0x80 0x00 for a literal
+//                    0x80.
+//   qoi_decode:      QOI's op stream (QoiImagePlugin.QoiDecoder) into RGB or
+//                    RGBA pixels.
 //
 // Every decoder reads and writes only inside the buffers it is given.
 //
@@ -204,13 +226,17 @@ size_t tiff_lzw(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
   }
 }
 
-size_t packbits(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
+// PackBits into out[0 .. cap).  libtiff's rule (strict = false): a literal
+// needs only the bytes that still fit.  Pillow's PackDecode.c (strict): a
+// packet is taken only when all of it is there.  *used is the input read.
+size_t packbits(const uint8_t* d, size_t n, uint8_t* out, size_t cap, size_t* used = nullptr,
+                bool strict = false) {
   size_t pos = 0, o = 0;
   while (pos < n && o < cap) {
     int c = int8_t(d[pos++]);
     if (c >= 0) {
       size_t k = std::min(size_t(c) + 1, cap - o);
-      if (pos + k > n) throw Error{"truncated PackBits data"};
+      if (pos + (strict ? size_t(c) + 1 : k) > n) throw Error{"truncated PackBits data"};
       std::memcpy(out + o, d + pos, k);
       pos += size_t(c) + 1;
       o += k;
@@ -221,7 +247,216 @@ size_t packbits(const uint8_t* d, size_t n, uint8_t* out, size_t cap) {
       o += k;
     }
   }
+  if (used) *used = pos;
   return o;
+}
+
+// `rows` rows of `row` bytes, each row filled by packets until it is full
+void packbits_rows(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out) {
+  size_t pos = 0;
+  for (size_t y = 0; y < rows; y++) {
+    size_t used = 0;
+    if (packbits(d + pos, n - pos, out + y * row, row, &used, true) < row)
+      throw Error{"image file is truncated (PackBits data ends early)"};
+    pos += used;
+  }
+}
+
+// Targa RLE: `rows` rows of `row` bytes of `depth`-byte pixels
+void tga_rle(const uint8_t* d, size_t n, int depth, size_t row, size_t rows, uint8_t* out) {
+  if (depth <= 0) throw Error{"image file is truncated (Targa RLE of 0-byte pixels)"};
+  size_t pos = 0, x = 0, y = 0;
+  std::vector<uint8_t> buf(row);
+  size_t extra = 0;                         // literal bytes past the row's end
+  while (y < rows) {
+    if (pos >= n) throw Error{"image file is truncated (Targa RLE data ends early)"};
+    size_t k = size_t(depth) * ((d[pos] & 0x7f) + 1);
+    if (d[pos] & 0x80) {
+      if (pos + 1 + size_t(depth) > n) throw Error{"image file is truncated (Targa RLE)"};
+      if (x + k > row) throw Error{"Targa RLE run past the row's end"};
+      for (size_t i = 0; i < k; i += size_t(depth)) std::memcpy(&buf[x + i], d + pos + 1, size_t(depth));
+      pos += 1 + size_t(depth);
+    } else {
+      if (pos + 1 + k > n) throw Error{"image file is truncated (Targa RLE)"};
+      if (x + k > row) {
+        extra = k - (row - x);
+        k = row - x;
+      }
+      std::memcpy(&buf[x], d + pos + 1, k);
+      pos += 1 + k + extra;
+    }
+    for (;;) {
+      x += k;
+      if (x >= row) {
+        std::memcpy(out + y * row, buf.data(), row);
+        x = 0;
+        if (++y >= rows) return;
+      }
+      if (extra == 0 || x > 0) break;
+      k = std::min(extra, row);
+      std::memcpy(buf.data(), d + pos - extra, k);
+      extra -= k;
+    }
+  }
+}
+
+// PCX RLE: `rows` rows of `row` bytes
+void pcx_rle(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out) {
+  size_t pos = 0, x = 0, y = 0;
+  std::vector<uint8_t> buf(row);
+  while (y < rows) {
+    if (pos >= n) throw Error{"image file is truncated (PCX data ends early)"};
+    if ((d[pos] & 0xC0) == 0xC0) {
+      if (pos + 2 > n) throw Error{"image file is truncated (PCX data ends early)"};
+      for (int k = d[pos] & 0x3F; k > 0; k--) {
+        if (x >= row) throw Error{"PCX run past the row's end"};
+        buf[x++] = d[pos + 1];
+      }
+      pos += 2;
+    } else {
+      buf[x++] = d[pos++];
+    }
+    if (x >= row) {
+      std::memcpy(out + y * row, buf.data(), row);
+      x = 0;
+      y++;
+    }
+  }
+}
+
+// SgiRleDecode.c's expandrow / expandrow2 over one channel of one row: 0 at
+// the end code, 1 where Pillow stops decoding the image without an error;
+// `end` is the last byte of the data (Pillow never reads past it)
+int sgi_row(uint8_t* dest, const uint8_t* src, long n, int z, int xsize, const uint8_t* end,
+            int bpc) {
+  int x = 0;
+  for (; n > 0; n--) {
+    if (src + (bpc - 1) > end) return -1;
+    uint8_t pixel = src[bpc - 1];
+    src += bpc;
+    if (n == 1 && pixel != 0) return 1;
+    int count = pixel & 0x7F;
+    if (!count) return 0;
+    if (x + count > xsize) return -1;
+    x += count;
+    if (pixel & 0x80) {
+      if (src + bpc * count > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, size_t(bpc));
+        src += bpc;
+        dest += z * bpc;
+      }
+    } else {
+      if (src + (bpc - 1) > end) return -1;
+      while (count--) {
+        std::memcpy(dest, src, size_t(bpc));
+        dest += z * bpc;
+      }
+      src += bpc;
+    }
+  }
+  return 0;
+}
+
+// SGI RLE over the data after the 512-byte header (d[0 .. n)): `rows` rows of
+// `xsize` pixels of `bands` samples of `bpc` bytes, in file order; rows
+// Pillow leaves unwritten stay as they are in out
+void sgi_rle(const uint8_t* d, size_t n, int xsize, int rows, int bands, int bpc, uint8_t* out) {
+  const size_t tablen = size_t(bands) * size_t(rows);
+  if (n < 8 * tablen) throw Error{"SGI RLE tables past the end of the file"};
+  auto be32 = [&](size_t at) {
+    return uint32_t(d[at]) << 24 | uint32_t(d[at + 1]) << 16 | uint32_t(d[at + 2]) << 8 | d[at + 3];
+  };
+  const size_t rowbytes = size_t(xsize) * size_t(bands) * size_t(bpc);
+  std::vector<uint8_t> buf(rowbytes);
+  for (int y = 0; y < rows; y++) {
+    for (int c = 0; c < bands; c++) {
+      uint32_t off = be32(4 * (size_t(y) + size_t(c) * rows));
+      uint32_t len = be32(4 * (tablen + size_t(y) + size_t(c) * rows));
+      if (off < 512) throw Error{"SGI RLE row before the end of the header"};
+      off -= 512;
+      if (off >= n) throw Error{"SGI RLE row past the end of the file"};
+      // Pillow passes the length as an int: past 2^31 it is negative, no packet is read
+      int status = sgi_row(&buf[size_t(c) * size_t(bpc)], d + off, long(int32_t(len)), bands,
+                           xsize, d + n - 1, bpc);
+      if (status == -1) throw Error{"corrupt SGI RLE row"};
+      if (status == 1) return;
+    }
+    std::memcpy(out + size_t(y) * rowbytes, buf.data(), rowbytes);
+  }
+}
+
+// Sun raster RLE: `rows` rows of `row` bytes, one stream (a run may cross
+// rows; the last one is cut at the image's end)
+void sun_rle(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out) {
+  const size_t total = row * rows;
+  size_t pos = 0, o = 0;
+  while (o < total) {
+    if (pos >= n) throw Error{"image file is truncated (Sun RLE data ends early)"};
+    if (d[pos] == 0x80) {
+      if (pos + 2 > n) throw Error{"image file is truncated (Sun RLE data ends early)"};
+      if (d[pos + 1] == 0) {
+        out[o++] = 0x80;
+        pos += 2;
+      } else {
+        if (pos + 3 > n) throw Error{"image file is truncated (Sun RLE data ends early)"};
+        size_t k = std::min(size_t(d[pos + 1]) + 1, total - o);
+        std::memset(out + o, d[pos + 2], k);
+        o += k;
+        pos += 3;
+      }
+    } else {
+      out[o++] = d[pos++];
+    }
+  }
+}
+
+// QOI's op stream into w * h pixels of `bands` (3 or 4) bytes
+void qoi(const uint8_t* d, size_t n, size_t pixels, int bands, uint8_t* out) {
+  uint8_t seen[64][4] = {}, prev[4] = {0, 0, 0, 255}, v[4];
+  const size_t total = pixels * size_t(bands);
+  size_t pos = 0, o = 0;
+  auto need = [&](size_t k) {
+    if (pos + k > n) throw Error{"image file is truncated (QOI data ends early)"};
+  };
+  auto put = [&](const uint8_t* px) {
+    size_t k = std::min(size_t(bands), total - o);
+    std::memcpy(out + o, px, k);
+    o += k;
+  };
+  while (o < total) {
+    need(1);
+    const uint8_t b = d[pos++];
+    if (b == 0xFE) {                               // QOI_OP_RGB
+      need(3);
+      v[0] = d[pos], v[1] = d[pos + 1], v[2] = d[pos + 2], v[3] = prev[3];
+      pos += 3;
+    } else if (b == 0xFF) {                        // QOI_OP_RGBA
+      need(4);
+      std::memcpy(v, d + pos, 4);
+      pos += 4;
+    } else if ((b >> 6) == 0) {                    // QOI_OP_INDEX
+      std::memcpy(v, seen[b & 63], 4);
+    } else if ((b >> 6) == 1) {                    // QOI_OP_DIFF
+      v[0] = uint8_t(prev[0] + ((b >> 4) & 3) - 2);
+      v[1] = uint8_t(prev[1] + ((b >> 2) & 3) - 2);
+      v[2] = uint8_t(prev[2] + (b & 3) - 2);
+      v[3] = prev[3];
+    } else if ((b >> 6) == 2) {                    // QOI_OP_LUMA
+      need(1);
+      const int dg = (b & 63) - 32, c = d[pos++];
+      v[0] = uint8_t(prev[0] + dg + (c >> 4) - 8);
+      v[1] = uint8_t(prev[1] + dg);
+      v[2] = uint8_t(prev[2] + dg + (c & 15) - 8);
+      v[3] = prev[3];
+    } else {                                       // QOI_OP_RUN: the index is not updated
+      for (int k = (b & 63) + 1; k > 0 && o < total; k--) put(prev);
+      continue;
+    }
+    std::memcpy(prev, v, 4);
+    std::memcpy(seen[(v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64], v, 4);
+    put(v);
+  }
 }
 
 // libtiff's ThunderDecode over `rows` rows of `width` 4-bit pixels, each
@@ -293,6 +528,70 @@ int gif_lzw_decode(const uint8_t* d, size_t n, int bits, int fw, int fh, int int
     set_error(err, errlen, "GIF decoder failed");
   }
   return 1;
+}
+
+#define CATCH(what)                     \
+  catch (const Error& e) {              \
+    set_error(err, errlen, e.msg);      \
+  }                                     \
+  catch (...) {                         \
+    set_error(err, errlen, what " failed"); \
+  }                                     \
+  return 1;
+
+// The raster loops: 0 on success; the message in err otherwise.
+int packbits_rows_decode(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out,
+                         char* err, int errlen) {
+  try {
+    packbits_rows(d, n, row, rows, out);
+    return 0;
+  }
+  CATCH("PackBits decoder")
+}
+
+int tga_rle_decode(const uint8_t* d, size_t n, int depth, size_t row, size_t rows,
+                   uint8_t* out, char* err, int errlen) {
+  try {
+    tga_rle(d, n, depth, row, rows, out);
+    return 0;
+  }
+  CATCH("Targa RLE decoder")
+}
+
+int pcx_rle_decode(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out,
+                   char* err, int errlen) {
+  try {
+    pcx_rle(d, n, row, rows, out);
+    return 0;
+  }
+  CATCH("PCX decoder")
+}
+
+int sgi_rle_decode(const uint8_t* d, size_t n, int xsize, int rows, int bands, int bpc,
+                   uint8_t* out, char* err, int errlen) {
+  try {
+    sgi_rle(d, n, xsize, rows, bands, bpc, out);
+    return 0;
+  }
+  CATCH("SGI RLE decoder")
+}
+
+int sun_rle_decode(const uint8_t* d, size_t n, size_t row, size_t rows, uint8_t* out,
+                   char* err, int errlen) {
+  try {
+    sun_rle(d, n, row, rows, out);
+    return 0;
+  }
+  CATCH("Sun RLE decoder")
+}
+
+int qoi_decode(const uint8_t* d, size_t n, size_t pixels, int bands, uint8_t* out, char* err,
+               int errlen) {
+  try {
+    qoi(d, n, pixels, bands, out);
+    return 0;
+  }
+  CATCH("QOI decoder")
 }
 
 // Decode TIFF LZW (compression 5) or PackBits (32773) data into out[0 ..

@@ -15,7 +15,7 @@ on the UNet's input channels (7 in, the unconditional UNet); its synthetic
 rows are `training/degradation.degradation_bsrgan_light` of RandomState(step)
 images.  `--data-dir` with text conditioning reads `captions.jsonl`
 ({"file", "text"} per line): RandomState(step) picks the rows, the images are
-opened (`utils/image_io.py`: PNG, JPEG, BMP, WebP) and resized to the VAE's
+opened (`utils/image_io.py`, by content, any format it reads) and resized to the VAE's
 input with PIL's default filter (`utils/resample.py`, PIL-exact), encoded
 by the VAE on JAX's key PRNGKey(step) and the captions by the CLIP text
 tower; with class conditioning it reads an ImageNet-style synset tree

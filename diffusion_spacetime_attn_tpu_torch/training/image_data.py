@@ -4,11 +4,13 @@ package's `training/image_data.py` (reference `ldm/data/lsun.py` and
 
 A list of image paths (+ optional class labels), each loaded as RGB,
 center-cropped square, resized, randomly h-flipped and scaled to [-1, 1]
-float32.  Images are opened with `utils/image_io.open_image` (PNG, JPEG,
-BMP, WebP) and resized with `utils/resample.resize`, which equal PIL's, so the
-arrays, the flips drawn from the same `random.Random` and the order are
-JAX's exactly.  `batches()` yields fixed-shape [B, H, W, 3] (+ [B] int32
-labels) numpy arrays, shuffled per epoch with the tail dropped.
+float32.  Images are opened with `utils/image_io.open_image` (every format
+it reads, found by content as Pillow finds it: a folder's extension filter
+passes a Targa named `.jpg` on to it) and resized with
+`utils/resample.resize`, which equal PIL's, so the arrays, the flips drawn
+from the same `random.Random` and the order are JAX's exactly.  `batches()`
+yields fixed-shape [B, H, W, 3] (+ [B] int32 labels) numpy arrays, shuffled
+per epoch with the tail dropped.
 """
 from __future__ import annotations
 

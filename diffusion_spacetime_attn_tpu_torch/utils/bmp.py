@@ -23,8 +23,8 @@
 
 Where Pillow refuses a file (an unknown header, depth, compression or
 bitfield layout, a palette of more than 65,536 colours, missing pixel data)
-this raises `ValueError`.  A palette shorter than 256 entries is padded
-with Pillow's greyscale ramp.
+this raises `ValueError`.  Indices past a palette shorter than 256 entries
+convert to black, as in Pillow.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .png import MAX_PIXELS, bilevel
+from .raster import NotThisFormat, sized, unpack
 
 _MASK_MODES = {                      # Pillow's 32-, 24- and 16-bit bitfield layouts
     (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
@@ -115,45 +115,39 @@ def _rle(data: bytes, pos: int, w: int, h: int, rle4: bool, name: str) -> np.nda
     return np.frombuffer(bytes(out[:need]), np.uint8).reshape(h, w)
 
 
-def _unpack(raw: np.ndarray, rawmode: str, w: int) -> np.ndarray:
-    """Pillow's unpacker for one of the raw modes, rows [h, stride] -> pixels."""
-    if rawmode in ("P;1", "1"):
-        bits = np.unpackbits(raw, axis=1)[:, :w]
-        return bilevel(bits) if rawmode == "1" else bits
-    if rawmode == "P;4":
-        nib = np.stack([raw >> 4, raw & 15], -1).reshape(raw.shape[0], -1)
-        return nib[:, :w]
-    if rawmode in ("P", "L"):
-        return raw[:, :w]
-    if rawmode in ("BGR;15", "BGR;16"):
-        px = raw[:, :2 * w].astype(np.uint32)
-        v = px[:, 0::2] | (px[:, 1::2] << 8)
-        if rawmode == "BGR;15":
-            chans = ((v >> 10) & 31, (v >> 5) & 31, v & 31)
-            scale = (31, 31, 31)
-        else:
-            chans = ((v >> 11) & 31, (v >> 5) & 63, v & 31)
-            scale = (31, 63, 31)
-        return np.stack([c * 255 // s for c, s in zip(chans, scale)], -1).astype(np.uint8)
-    n = len(rawmode)                        # byte-per-channel layouts: BGR, BGRX, ABGR, ...
-    px = raw[:, :n * w].reshape(raw.shape[0], w, n)
-    want = "RGBA" if "A" in rawmode else "RGB"
-    return np.ascontiguousarray(np.stack([px[..., rawmode.index(c)] for c in want], -1))
-
-
 def decode_bmp(data: bytes, name: str = "<bytes>") -> Tuple[np.ndarray, str,
                                                             Optional[np.ndarray]]:
     """(pixels, mode, palette) of a BMP file, as Pillow opens it."""
-    n = len(data)
-    if n < 18 or data[:2] != b"BM":
+    if len(data) < 18 or data[:2] != b"BM":
         _fail(name, "not a BMP file")
-    offset, hsize = _u32(data, 10), _u32(data, 14)
+    return decode_dib(data, name, 14, _u32(data, 10))
+
+
+def accept_dib(prefix: bytes) -> bool:
+    """Pillow's "DIB" format: a bitmap without the file header."""
+    return len(prefix) >= 4 and _u32(prefix, 0) in _HEADERS
+
+
+def decode_dib(data: bytes, name: str = "<bytes>", at: int = 0, offset: int = 0,
+               cursor: bool = False, half: str = "", with_offset: bool = False) -> Tuple:
+    """`BmpImageFile._bitmap`: the bitmap whose header starts at `at`, its
+    pixels at `offset` (0: right after the header, masks and palette, as a
+    header-less DIB and an icon's entries store them).  `cursor`: Pillow's
+    32-bit cursor case (the header at byte 22), read with alpha; `half`
+    ("cur" or "ico") reads the lower half of the stored height, the colour
+    bitmap of a cursor or an icon (its mask stored above it), with the size
+    checks of `CurImageFile` or of `IcoFile.frame`.  `with_offset` adds
+    the pixel data's offset to the result."""
+    n = len(data)
+    if at + 4 > n:
+        raise NotThisFormat("truncated bitmap header size")
+    hsize = _u32(data, at)
+    if at + hsize > n:
+        _fail(name, "truncated BMP header")
     if hsize not in _HEADERS:
         _fail(name, f"unsupported BMP header type ({hsize})")
-    if 14 + hsize > n:
-        _fail(name, "truncated BMP header")
-    h = data[18:14 + hsize]
-    pos = 14 + hsize
+    h = data[at + 4:at + hsize]
+    pos = at + hsize
     direction = -1
     if hsize == 12:
         w, ht, bits = _u16(h, 0), _u16(h, 2), _u16(h, 6)
@@ -171,11 +165,9 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Tuple[np.ndarray, str,
                     masks.append(0)
             else:
                 if pos + 12 > n:
-                    _fail(name, "truncated BMP bitfields")
+                    raise NotThisFormat("truncated BMP bitfields")
                 masks = [_u32(data, pos + 4 * i) for i in range(3)] + [0]
                 pos += 12
-    if w <= 0 or ht <= 0 or w * ht > MAX_PIXELS:
-        _fail(name, f"BMP of size {w}x{ht}")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -191,26 +183,38 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Tuple[np.ndarray, str,
         rawmode = _MASK_MODES[key]
         if bits == 32 and "A" in rawmode:
             mode = "RGBA"
+    elif comp == 0:
+        if bits == 32 and cursor:
+            rawmode, mode = "BGRA", "RGBA"
     elif comp in (1, 2):
         rle = True
-    elif comp != 0:
+    else:
         _fail(name, f"unsupported BMP compression ({comp})")
     palette = None
     if mode == "P":
         if not 0 < colors <= 65536:
             _fail(name, f"unsupported BMP palette size ({colors})")
         raw_pal = data[pos:pos + pad * colors]
+        pos += len(raw_pal)
         ents = [raw_pal[i * pad:i * pad + 3] for i in range(len(raw_pal) // pad)]
         greys = (0, 255) if colors == 2 else range(colors)
         if all(i < len(ents) and ents[i] == bytes([v]) * 3 for i, v in enumerate(greys)):
             mode = "1" if colors == 2 else "L"
             rawmode = mode
         else:
-            palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)  # Pillow's ramp
+            palette = np.zeros((256, 3), np.uint8)   # indices past the palette: black
             m = min(len(ents), 256)
             if m:
                 bgr = np.frombuffer(b"".join(ents[:m]), np.uint8).reshape(m, 3)
                 palette[:m] = bgr[:, ::-1]
+    if half == "cur":
+        ht //= 2
+    sized(w, ht)
+    if half == "ico":
+        ht //= 2
+        if ht == 0:
+            _fail(name, "an icon bitmap of one row (no colour rows)")
+    offset = offset or pos
     if rle:
         if mode == "1" or (mode == "L" and bits != 8):
             _fail(name, "RLE data in a two-colour or short grey BMP is not read")
@@ -222,7 +226,9 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Tuple[np.ndarray, str,
         if offset + stride * ht > n:
             _fail(name, "image file is truncated (BMP pixel data ends early)")
         raw = np.frombuffer(data, np.uint8, stride * ht, offset).reshape(ht, stride)
-        px = _unpack(raw, rawmode, w)
+        px = unpack(raw, rawmode, w)
     if direction == -1:
         px = px[::-1]
+    if with_offset:
+        return np.ascontiguousarray(px), mode, palette, offset
     return np.ascontiguousarray(px), mode, palette

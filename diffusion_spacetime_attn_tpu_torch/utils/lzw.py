@@ -1,11 +1,16 @@
-"""ctypes binding of the port's LZW and PackBits decoders (`native/lzw.cpp`),
-which `utils/gif.py` and `utils/tiff.py` use.
+"""ctypes binding of the port's LZW and PackBits decoders and the raster
+formats' byte-run loops (`native/lzw.cpp`), which `utils/gif.py`,
+`utils/tiff.py` and the readers of `utils/image_io.py` use.
 
 `gif_frame` decodes one GIF frame's LZW data into its rectangle of a canvas
 (interlaced or not), as Pillow's GIF decoder writes it; `tiff_unpack` gives
 the bytes of one TIFF strip or tile compressed with LZW (libtiff's early
-change) or PackBits, and `thunder_unpack` of one ThunderScan strip.  Data that ends before the frame is complete, and codes
-no encoder writes, raise `ValueError`.
+change) or PackBits, and `thunder_unpack` of one ThunderScan strip.
+`rle_rows` runs one of the raster loops (`LOOPS`: PSD's PackBits, Targa,
+PCX, SGI and Sun raster RLE, QOI) and gives its rows in file order as
+Pillow's decoder fills them.  Data that
+ends before the frame is complete, and codes no encoder writes, raise
+`ValueError`.
 
 The source is compiled at first use with g++ into the package's `_build/`
 (`utils/native_bpe.compile_shared`), as the JPEG codec is; a failed build
@@ -24,6 +29,14 @@ from .native_bpe import NativeBuildError, compile_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "lzw.cpp"
 
+# the raster loops: C entry -> its arguments between (data, size) and (out, err)
+LOOPS = {"packbits_rows_decode": ("size", "size"),          # row bytes, rows
+         "tga_rle_decode": ("int", "size", "size"),          # pixel bytes, row bytes, rows
+         "pcx_rle_decode": ("size", "size"),
+         "sgi_rle_decode": ("int", "int", "int", "int"),     # xsize, rows, bands, bytes
+         "sun_rle_decode": ("size", "size"),
+         "qoi_decode": ("size", "int")}                      # pixels, bands
+_CTYPE = {"int": ctypes.c_int, "size": ctypes.c_size_t}
 _lock = threading.Lock()
 _state: dict = {}
 _ERR = 256
@@ -54,6 +67,12 @@ def load_library() -> ctypes.CDLL:
             lib.thunder_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
                                            ctypes.c_int, u8p, ctypes.c_size_t, ctypes.c_char_p,
                                            ctypes.c_int]
+            size = ctypes.c_size_t
+            for fn, args in LOOPS.items():
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = ([ctypes.c_char_p, size]
+                                             + [_CTYPE[a] for a in args]
+                                             + [u8p, ctypes.c_char_p, ctypes.c_int])
             _state["lib"] = lib
         return _state["lib"]
 
@@ -96,3 +115,15 @@ def thunder_unpack(data: bytes, width: int, rows: int, name: str = "<bytes>") ->
                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size, err, _ERR):
         raise ValueError(f"{name}: {err.value.decode()}")
     return out.tobytes()
+
+
+def rle_rows(loop: str, data: bytes, size: int, *args: int, name: str = "<bytes>") -> np.ndarray:
+    """The `size` output bytes of one raster loop (`LOOPS`, without the
+    `_decode`) over `data`; bytes the loop leaves unwritten are zero."""
+    fn = getattr(load_library(), loop + "_decode")
+    out = np.zeros(size, np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if fn(bytes(data), len(data), *args, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+          err, _ERR):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out

@@ -23,9 +23,12 @@ holds the port's readers to on a machine that has none of the three.
   lossless, 4:1:1 and block-smoothed JPEGs; and the TIFF kinds of
   `tiff_images` (orientation 2-8, fax-coded masks, JPEG-in-TIFF, LZMA,
   Zstandard, BigTIFF, fill order 2, 16-bit RGB(A), signed, 32-bit and float
-  samples, palette + alpha, ThunderScan) and a subsampled lossless JPEG.  The `TRAIN` files stand in
-  for port-written JPEGs in phase train_data; `INIT` and `MASK` are phase
-  image_in's --init and --mask.
+  samples, palette + alpha, ThunderScan) and a subsampled lossless JPEG;
+  and the kinds of `raster_images` (Netpbm, Targa, QOI, ICO, CUR, DIB,
+  PCX, DCX, SGI, Sun raster, PSD, XBM, XPM, FITS; Pillow writes some, the
+  rest `helpers/raw_images.py`), among them an RLE Targa named `.jpg`.
+  The `TRAIN` files stand in for port-written JPEGs in phase train_data;
+  `INIT` and `MASK` are phase image_in's --init and --mask.
 
 `digests.json` holds {"state": {path: sha256 of the restored array's
 bytes}, "images": {file: {"file", "mode", "pixels", "rgb", "shape"}}}:
@@ -53,8 +56,13 @@ STATE = "ldm/step_2"
 UNET = dict(model_channels=32, channel_mult=(1,), num_res_blocks=1, attention_resolutions=(),
             num_heads=1, dtype="float32")
 LATENT = 8
-TRAIN = ("progressive.jpg", "rgb24.bmp", "lossy.webp", "frame.gif", "lzw.tif")
-IMAGE_SUFFIXES = (".jpg", ".bmp", ".webp", ".png", ".gif", ".tif")
+TRAIN = ("progressive.jpg", "rgb24.bmp", "lossy.webp", "frame.gif", "lzw.tif", "rgb16.ppm",
+         "blocks.qoi", "tga_rle.jpg")
+IMAGE_SUFFIXES = (".jpg", ".bmp", ".webp", ".png", ".gif", ".tif", ".pbm", ".pgm", ".ppm",
+                  ".pfm", ".tga", ".qoi", ".ico", ".cur", ".dib", ".pcx", ".dcx", ".sgi", ".ras",
+                  ".psd", ".xbm", ".xpm", ".fits")
+# the 512x512 files of phase formats' decode times (Targa RLE, QOI, PSD PackBits)
+BLOCKS = ("tga_rle.jpg", "blocks.qoi", "blocks.psd")
 # phase image_in's --init and --mask (img2img and inpaint)
 INIT, MASK = "adam7_palette.png", "mask.tif"
 
@@ -215,6 +223,83 @@ def tiff_images() -> dict:
     return out
 
 
+def _blocks(h: int, w: int, seed: int, c: int = 3, bw: int = 32, bh: int = 8) -> np.ndarray:
+    """Seeded colours constant over bw x bh blocks: runs that RLE, QOI and
+    PackBits shorten, so a 512x512 file stays small."""
+    r = np.random.RandomState(seed)
+    cols = r.randint(0, 256, (-(-h // bh), -(-w // bw), c)).astype(np.uint8)
+    return np.ascontiguousarray(np.repeat(np.repeat(cols, bh, 0), bw, 1)[:h, :w])
+
+
+def raster_images() -> dict:
+    """{name: bytes} of the raster formats Pillow decodes by itself: Pillow
+    writes the P4 / P5 / P6 Netpbm, Targa, QOI, ICO, DIB, PCX, SGI and XBM
+    files, `helpers/raw_images.py` the plain Netpbm, `Pf`, colour-mapped and
+    RLE Targa, CUR, DCX, RLE SGI, Sun, PSD, XPM and FITS ones."""
+    from PIL import Image
+
+    from helpers import raw_images as raw
+
+    def save(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    r = np.random.RandomState(29)
+    grey = _image(40, 56, 30, c=1)[..., 0]
+    rgb = _image(40, 56, 31)
+    rgba = _image(32, 32, 32, c=4)
+    bits = grey > 128
+    quant = Image.fromarray(_image(40, 56, 33)).quantize(96)
+    qpal = np.asarray(quant.getpalette()[:3 * 96], np.uint8).reshape(96, 3)
+    big = _blocks(512, 512, 34)
+    pal16 = r.randint(0, 256, (16, 3)).astype(np.uint8)
+    idx4 = _image(16, 16, 35, c=1)[..., 0] >> 4
+    cmap = r.randint(0, 256, (64, 3)).astype(np.uint8)
+    return {
+        "bitmap.pbm": save(Image.fromarray(bits), "PPM"),
+        "plain_bitmap.pbm": raw.netpbm_plain(bits[:20, :30]),
+        "plain_grey1000.pgm": raw.netpbm_plain(grey[:20, :30].astype(np.int32) * 1000 // 255,
+                                               1000, b"maxval 1000: mode I"),
+        "grey16.pgm": save(Image.fromarray(grey.astype(np.int32) * 251 + 7), "PPM"),
+        "plain_rgb.ppm": raw.netpbm_plain(rgb[:16, :24], 255, b"plain"),
+        "rgb16.ppm": b"P6\n96 72\n65535\n" + (_image(72, 96, 36).astype(">u2") * 257
+                                             + r.randint(0, 256, (72, 96, 3))).astype(">u2")
+        .tobytes(),
+        "float.pfm": raw.pfm_grey((r.randn(24, 40) * 50).astype(np.float32), -1.0),
+        "tga_rle.jpg": raw.tga_file(big[..., ::-1], rle=True, depth=24, origin=0x20,
+                                    image_id=b"512x512 RLE"),
+        "map16_topdown.tga": raw.tga_file((grey >> 2) + 16, cmap, map_depth=16, map_start=16,
+                                          origin=0x20, rle=True),
+        "la.tga": save(Image.fromarray(_image(40, 56, 37, c=2), "LA"), "TGA"),
+        "rgba_flipped.tga": raw.tga_file(rgba[..., [2, 1, 0, 3]], depth=32, origin=0x10),
+        "blocks.qoi": save(Image.fromarray(np.concatenate(
+            [big, _blocks(512, 512, 38, 1, 64, 16)], -1)), "QOI"),
+        "icon.ico": raw.icon_file([
+            (16, 16, 4, 16, raw.dib_bitmap(idx4, 4, pal16, idx4 > 12)),
+            (32, 32, 32, 0, save(Image.fromarray(rgba), "PNG"))]),
+        "icon_bmp.ico": raw.icon_file([(56, 40, 8, 0, raw.dib_bitmap(
+            np.asarray(quant), 8, qpal, bits))]),
+        "cursor.cur": raw.icon_file([(32, 32, 32, 0, raw.dib_bitmap(rgba, 32))], cursor=True),
+        "rgb.dib": save(Image.fromarray(rgb), "DIB"),
+        "palette.pcx": save(quant, "PCX"),
+        "rgb_odd.pcx": save(Image.fromarray(_image(31, 47, 39)), "PCX"),
+        "mask.pcx": save(Image.fromarray(bits), "PCX"),
+        "pages.dcx": raw.dcx_file([save(quant, "PCX"), save(Image.fromarray(bits), "PCX")]),
+        "rle.sgi": raw.sgi_rle_file(_blocks(40, 56, 40, 3, 4, 2)),
+        "grey16.sgi": save(Image.fromarray(grey), "SGI", bpc=2),
+        "rle_map.ras": raw.sun_file(np.asarray(quant)[:, :56], 8, ftype=2, colormap=qpal),
+        "rgb.ras": raw.sun_file(rgb[..., ::-1], 24),
+        "blocks.psd": raw.psd_file(np.moveaxis(big, -1, 0), 3, 1,
+                                   resources=raw.psd_resource(1005, b"\0" * 16, b"res")),
+        "cmyk.psd": raw.psd_file(np.moveaxis(_image(20, 30, 41, c=4), -1, 0), 4),
+        "mask.xbm": save(Image.fromarray(bits), "XBM"),
+        "icon.xpm": raw.xpm_file(np.asarray(quant)[:24, :40] % 40,
+                                 ["#%02x%02x%02x" % tuple(c) for c in qpal[:40]], cpp=2),
+        "grey8.fits": raw.fits_file(grey, 8),
+    }
+
+
 def write_images(out: Path) -> None:
     from PIL import Image
 
@@ -243,7 +328,8 @@ def write_images(out: Path) -> None:
         buf = io.BytesIO()
         img.save(buf, **kw)
         (out / name).write_bytes(buf.getvalue())
-    for name, data in {**raw_images(), **jpeg_images(), **tiff_images()}.items():
+    for name, data in {**raw_images(), **jpeg_images(), **tiff_images(),
+                       **raster_images()}.items():
         (out / name).write_bytes(data)
 
 

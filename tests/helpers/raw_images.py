@@ -409,3 +409,280 @@ def _tiff_layout(entries: dict, chunks, offsets_tag: int, bo: str, big: bool) ->
     assert len(header) + len(ifd) == data_at and len(overflow) == over_len
     return header + bytes(ifd) + bytes(overflow) + b"".join(
         c + (b"\x00" if len(c) % 2 else b"") for c in chunks)
+
+
+# ----------------------------------------------------- the raster formats
+# Writers of what Pillow 12.1 reads but does not write: plain Netpbm and
+# `Pf`, Sun raster, PSD, XPM, FITS, DCX, CUR, RLE SGI and colour-mapped (or
+# RLE) Targa.
+
+
+def netpbm_plain(samples: np.ndarray, maxval: int = 255, comment: bytes = b"") -> bytes:
+    """P1 (bool [h, w]), P2 ([h, w]) or P3 ([h, w, 3]), a comment in the
+    header, rows on lines of their own."""
+    h, w = samples.shape[:2]
+    if samples.dtype == np.bool_:
+        head, body = b"P1", [b"".join(b"1" if v else b"0" for v in row) for row in samples]
+    else:
+        head = b"P3" if samples.ndim == 3 else b"P2"
+        body = [b" ".join(str(int(v)).encode() for v in row.reshape(-1)) for row in samples]
+    maxline = b"" if head == b"P1" else b" %d" % maxval
+    return (head + b"\n# " + comment + b"\n%d %d" % (w, h) + maxline + b"\n"
+            + b"\n".join(body) + b"\n")
+
+
+def pfm_grey(values: np.ndarray, scale: float = -1.0) -> bytes:
+    """`Pf`: grey float32 rows bottom-up, little-endian for a negative scale."""
+    h, w = values.shape
+    order = "<f4" if scale < 0 else ">f4"
+    return b"Pf\n%d %d\n%s\n" % (w, h, repr(scale).encode()) + \
+        values[::-1].astype(order).tobytes()
+
+
+def sun_rle_bytes(data: bytes) -> bytes:
+    """Sun RLE: 0x80 n v for n + 1 copies (n >= 2), 0x80 0x00 for 0x80."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j + 1 < len(data) and data[j + 1] == data[i] and j - i < 255:
+            j += 1
+        run = j - i + 1
+        if run >= 3:
+            out += bytes([0x80, run - 1, data[i]])
+        else:
+            for _ in range(run):
+                out += b"\x80\x00" if data[i] == 0x80 else bytes([data[i]])
+        i = j + 1
+    return bytes(out)
+
+
+def sun_file(pixels: np.ndarray, depth: int, ftype: int = 1, colormap=None) -> bytes:
+    """A Sun raster: `pixels` as stored values ([h, w] indices, bits or
+    grey; [h, w, 3] in the file's byte order; [h, w, 4] for 32 bits), rows
+    padded to 16 bits, RLE for type 2, an RGB colour map ([n, 3])."""
+    h, w = pixels.shape[:2]
+    if depth == 1:
+        rows = np.packbits(pixels.astype(np.uint8), axis=1)
+    elif depth == 4:
+        rows = _pack_rows(pixels[..., None], 4)
+    else:
+        rows = pixels.reshape(h, -1).astype(np.uint8)
+    stride = ((w * depth + 15) // 16) * 2
+    rows = np.concatenate([rows, np.zeros((h, stride - rows.shape[1]), np.uint8)], 1)
+    data = rows.tobytes()
+    if ftype == 2:
+        data = sun_rle_bytes(data)
+    cmap = b"" if colormap is None else np.ascontiguousarray(
+        np.asarray(colormap, np.uint8).T).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), ftype,
+                       1 if len(cmap) else 0, len(cmap)) + cmap + data
+
+
+def psd_file(channels: np.ndarray, mode: int, compression: int = 0, palette=None,
+             depth: int = 8, resources: bytes = b"", layers: bytes = b"") -> bytes:
+    """A PSD of `channels` [c, h, w] (bit rows packed for depth 1) in colour
+    mode `mode`, raw or PackBits, with a 768-byte planar palette for
+    indexed colour."""
+    c, h = channels.shape[:2]
+    w = channels.shape[2] * (8 if depth == 1 else 1)
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, w, depth, mode)
+    cmode = b"" if palette is None else np.ascontiguousarray(
+        np.asarray(palette, np.uint8).T).tobytes()
+    out = head + struct.pack(">I", len(cmode)) + cmode
+    out += struct.pack(">I", len(resources)) + resources
+    out += struct.pack(">I", len(layers)) + layers
+    if compression == 0:
+        return out + b"\0\0" + channels.astype(np.uint8).tobytes()
+    rows = [packbits(row.tobytes()) for plane in channels.astype(np.uint8) for row in plane]
+    return (out + b"\0\1" + b"".join(struct.pack(">H", len(r)) for r in rows)
+            + b"".join(rows))
+
+
+def psd_resource(rid: int, data: bytes, name: bytes = b"") -> bytes:
+    """One image resource block (signature, id, Pascal name padded, data)."""
+    pascal = bytes([len(name)]) + name
+    pascal += b"\0" * (len(pascal) % 2)
+    return b"8BIM" + struct.pack(">H", rid) + pascal + struct.pack(">I", len(data)) + data + \
+        b"\0" * (len(data) % 2)
+
+
+def xpm_file(indices: np.ndarray, colours, cpp: int = 1, pixels_comment: bool = True) -> bytes:
+    """An XPM of `indices` [h, w] into `colours` (["#rrggbb" or "None"]), the
+    keys `cpp` characters of printable ASCII."""
+    h, w = indices.shape
+    alphabet = [chr(c) for c in range(35, 127) if chr(c) not in '\\"']
+    keys = []
+    for i in range(len(colours)):
+        k, j = "", i
+        for _ in range(cpp):
+            k += alphabet[j % len(alphabet)]
+            j //= len(alphabet)
+        keys.append(k)
+    lines = ["/* XPM */", "static char *image[] = {", "/* columns rows colors chars */",
+             f'"{w} {h} {len(colours)} {cpp}",']
+    lines += [f'"{k} c {c}",' for k, c in zip(keys, colours)]
+    if pixels_comment:
+        lines.append("/* pixels */")
+    lines += ['"' + "".join(keys[v] for v in row) + '",' for row in indices]
+    lines[-1] = lines[-1].rstrip(",")
+    return ("\n".join(lines) + "\n};\n").encode()
+
+
+def fits_file(values: np.ndarray, bitpix: int, extra_cards=()) -> bytes:
+    """A FITS primary HDU: `values` [h, w] big-endian, rows bottom-up,
+    header and data padded to 2880 bytes."""
+    h, w = values.shape
+    cards = ["SIMPLE  =                    T", f"BITPIX  = {bitpix:20d}",
+             "NAXIS   =                    2", f"NAXIS1  = {w:20d}", f"NAXIS2  = {h:20d}",
+             *extra_cards, "END"]
+    head = b"".join(c.ljust(80).encode() for c in cards)
+    head += b" " * (-len(head) % 2880)
+    dt = {8: "u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    data = values[::-1].astype(dt).tobytes()
+    return head + data + b"\0" * (-len(data) % 2880)
+
+
+def dcx_file(pages) -> bytes:
+    """A DCX of PCX files (bytes each)."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return (struct.pack("<I", 0x3ADE68B1) + b"".join(struct.pack("<I", o) for o in offsets)
+            + b"\0\0\0\0" + b"".join(pages))
+
+
+def dib_bitmap(pixels: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """A BITMAPINFOHEADER bitmap with no file header, stored height doubled
+    and an AND mask ([h, w] bool, True transparent) after the colour rows,
+    as icons and cursors hold it.  `pixels`: [h, w] indices or [h, w, 3|4]
+    RGB(A)."""
+    h, w = pixels.shape[:2]
+    pal = b""
+    if bits <= 8:
+        pal = b"".join(bytes([b, g, r, 0]) for r, g, b in np.asarray(palette, np.uint8))
+        rows = _pack_rows(pixels[..., None], bits) if bits < 8 else pixels.astype(np.uint8)
+    else:
+        order = [2, 1, 0, 3][:bits // 8]
+        rows = pixels[..., order].reshape(h, -1).astype(np.uint8)
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.concatenate([rows, np.zeros((h, stride - rows.shape[1]), np.uint8)], 1)
+    mask = np.zeros((h, w), bool) if mask is None else mask
+    mrows = np.packbits(mask.astype(np.uint8), axis=1)
+    mstride = ((w + 31) // 32) * 4
+    mrows = np.concatenate([mrows, np.zeros((h, mstride - mrows.shape[1]), np.uint8)], 1)
+    header = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, 0, 0, 0,
+                         len(pal) // 4, 0)
+    return header + pal + rows[::-1].tobytes() + mrows[::-1].tobytes()
+
+
+def icon_file(entries, cursor: bool = False, hotspots=None) -> bytes:
+    """An ICO (or CUR) of entries: (width, height, bpp, colours, bytes);
+    a width or height of 256 is written as 0."""
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(entries))
+    at = 6 + 16 * len(entries)
+    body = b""
+    for i, (w, h, bpp, ncol, data) in enumerate(entries):
+        planes, bits = (1, bpp) if not cursor else (hotspots or [(0, 0)] * len(entries))[i]
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, ncol, 0, planes, bits, len(data), at)
+        at += len(data)
+        body += data
+    return out + body
+
+
+def sgi_rle_file(samples: np.ndarray, bpc: int = 1, dimension: int = 3) -> bytes:
+    """An RLE SGI image of `samples` [h, w, z] (high byte first at 2 bytes),
+    rows bottom-up, runs of up to 127 (repeats of 3 or more, literals
+    otherwise), the tables after the 512-byte header."""
+    h, w, z = samples.shape
+    rows, starts, lengths = [], [], []
+    at = 512 + 8 * h * z
+    for c in range(z):
+        for y in range(h):
+            row = samples[h - 1 - y, :, c].astype(">u2" if bpc == 2 else np.uint8)
+            vals = [row[i:i + 1].tobytes() for i in range(w)]
+            out, i = bytearray(), 0
+            while i < w:
+                j = i
+                while j + 1 < w and vals[j + 1] == vals[i] and j - i < 126:
+                    j += 1
+                if j - i + 1 >= 3:
+                    out += (j - i + 1).to_bytes(bpc, "big") + vals[i]
+                    i = j + 1
+                    continue
+                j = i
+                while j < w and j - i < 127 and not (j + 2 < w and vals[j] == vals[j + 1]
+                                                      == vals[j + 2]):
+                    j += 1
+                out += (0x80 | (j - i)).to_bytes(bpc, "big") + b"".join(vals[i:j])
+                i = j
+            out += bytes(bpc)
+            starts.append(at)
+            lengths.append(len(out))
+            at += len(out)
+            rows.append(bytes(out))
+    head = struct.pack(">HBBHHHH", 474, 1, bpc, dimension, w, h, z).ljust(512, b"\0")
+    return (head + b"".join(struct.pack(">I", v) for v in starts)
+            + b"".join(struct.pack(">I", v) for v in lengths) + b"".join(rows))
+
+
+def tga_rle_bytes(rows: np.ndarray, depth: int) -> bytes:
+    """Targa RLE of rows [h, w * depth] of `depth`-byte pixels: runs of 2 or
+    more equal pixels, literal packets otherwise, packets within a row."""
+    out = bytearray()
+    for row in rows:
+        px = [row[i:i + depth].tobytes() for i in range(0, len(row), depth)]
+        i = 0
+        while i < len(px):
+            j = i
+            while j + 1 < len(px) and px[j + 1] == px[i] and j - i < 127:
+                j += 1
+            if j > i:
+                out += bytes([0x80 | (j - i)]) + px[i]
+                i = j + 1
+                continue
+            j = i
+            while j < len(px) and j - i < 128 and not (j + 1 < len(px) and px[j + 1] == px[j]):
+                j += 1
+            j = max(j, i + 1)
+            out += bytes([j - i - 1]) + b"".join(px[i:j])
+            i = j
+    return bytes(out)
+
+
+def tga_file(indices: np.ndarray, colormap=None, map_depth: int = 24, map_start: int = 0,
+             rle: bool = False, origin: int = 0x00, image_id: bytes = b"",
+             depth: int = 8, imagetype: int = None) -> bytes:
+    """A Targa file: colour-mapped ([h, w] indices over `colormap` [n, 3|4]
+    RGB(A), stored from index `map_start` at 16, 24 or 32 bits), or, without
+    a map, `indices` as stored pixels ([h, w] grey, [h, w, k] bytes in file
+    order); rows bottom-up unless `origin` has bit 5, RLE at will."""
+    h, w = indices.shape[:2]
+    cmap = b""
+    if colormap is not None:
+        cm = np.asarray(colormap, np.uint8)
+        if map_depth == 16:
+            v = ((cm[:, 0].astype(np.uint16) >> 3) << 10) | ((cm[:, 1].astype(np.uint16) >> 3)
+                                                            << 5) | (cm[:, 2] >> 3)
+            cmap = v.astype("<u2").tobytes()
+        else:
+            order = [2, 1, 0, 3] if map_depth == 32 else [2, 1, 0]
+            if cm.shape[1] == 3 and map_depth == 32:
+                cm = np.concatenate([cm, np.full((len(cm), 1), 255, np.uint8)], 1)
+            cmap = cm[:, order].tobytes()
+        imagetype = imagetype or 1
+        depth = 8
+    else:
+        imagetype = imagetype or (3 if indices.ndim == 2 else 2)
+    nbytes = max(depth // 8, 1)
+    rows = indices.reshape(h, -1).astype(np.uint8)
+    rows = rows if origin & 0x20 else rows[::-1]
+    if rle:
+        imagetype |= 8
+    data = tga_rle_bytes(rows, nbytes) if rle else rows.tobytes()
+    ncol = len(colormap) if colormap is not None else 0
+    head = struct.pack("<BBBHHBHHHHBB", len(image_id), 1 if ncol else 0, imagetype,
+                       map_start if ncol else 0, ncol, map_depth if ncol else 0, 0, 0, w, h,
+                       depth, origin)
+    return head + image_id + cmap + data

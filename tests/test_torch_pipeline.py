@@ -283,7 +283,8 @@ def test_port_imports_nothing_of_jax():
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "parallel" / "sharding.py",
                 *(ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / f"{m}.py"
                   for m in ("zstd", "ocdbt", "orbax", "bmp", "webp", "image_io", "png", "gif",
-                            "tiff", "lzw", "ccitt")),
+                            "tiff", "lzw", "ccitt", "raster", "netpbm", "tga", "qoi", "ico",
+                            "pcx", "sgi", "sun", "psd", "xbm", "xpm", "fits")),
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "training" / "jax_checkpoints.py",
                 ROOT / "tests" / "helpers" / "torch_ranks.py"):
         assert new in files, new
