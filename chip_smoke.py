@@ -294,7 +294,7 @@ script exits non-zero without its final line:
              by tests/test_torch_image_io.py); ms per encode, decode, resize.
      formats: what a JAX user has on disk, read without orbax,
              tensorstore or PIL (none is on this machine): the zstd, WebP,
-             LZW and CCITT decoders built by g++ side by side (build_s, and
+             LZW, CCITT and BCn decoders built by g++ side by side (build_s, and
              each library's seconds, library_build_s; lzw_source: g++ on
              native/lzw.cpp alone, as phase image_in has loaded the LZW
              decoders already), ccitt_decode_ms per
@@ -313,15 +313,18 @@ script exits non-zero without its final line:
              and float samples, palette + alpha; a subsampled lossless
              JPEG; the raster formats Pillow decodes itself: Netpbm, Targa,
              QOI, ICO, CUR, DIB, PCX, DCX, SGI, Sun raster, PSD, XBM, XPM,
-             FITS) decoded to Pillow's mode, shape, pixel and RGB digests;
-             ms per decode (median of 5), raster_decode_ms for the 512x512
-             RLE Targa, QOI and PackBits PSD.
+             FITS; the block-compressed textures: DDS in BC1-BC7, masked
+             RGB, L, LA, P and R8G8B8A8, BLP1 and BLP2, FTEX) decoded to
+             Pillow's mode, shape, pixel and RGB digests; ms per decode
+             (median of 5), raster_decode_ms for the 512x512 RLE Targa, QOI
+             and PackBits PSD, bcn_decode_ms for 512x512 BC1, BC6H and BC7
+             DDS files made from seeds (BLOCKS_512), held to their digests.
  22. train_data: training from image folders at SD v1-4 width, bf16,
              batch 2: `train_ldm --data-dir` over 8 640x480 JPEGs, all of
              them replaced by fixtures (FORMAT_SLOTS): a 16-bit PPM, the
-             progressive JPEG, a QOI, the BMP, an RLE Targa named .jpg (in
+             progressive JPEG, a DXT5 DDS and an RLE Targa named .jpg (in
              the synset tree .JPEG, so the extension-filtered loader reads
-             it), the WebP, GIF and LZW TIFF, with captions.jsonl (3
+             them), the BMP, the WebP, GIF and LZW TIFF, with captions.jsonl (3
              steps), over a synset tree with
              class conditioning (2 steps) and `--conditioning superres
              --synthetic` (2 steps, BSRGAN-light rows): launches exactly
@@ -331,8 +334,8 @@ script exits non-zero without its final line:
              steps, then one with `--lpips-ckpt` on a seeded file in
              taming's `vgg.pth` + torchvision's VGG16 layout, loaded
              parameter-exact); `train_searcher --image-dir` on the folder
-             (its .jpg files, the Targa among them, and the WebP: JAX's
-             script lists no .ppm, .qoi, .bmp, .gif or .tif).
+             (its .jpg files, the DDS and the Targa among them, and the
+             WebP: JAX's script lists no .ppm, .bmp, .gif or .tif).
  23. legacy_vg: `infer_vg_msdn` at LayoutConfig() width on the card vs
              the same model on the CPU (centers within 1e-4, the same
              files), and 3 steps of each legacy trainer (LegacyConfig(),
@@ -407,6 +410,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -462,10 +466,16 @@ RESIZE_SHA256 = "752fcb85a65ae4cfb968441617023db3013b4c21aa21c6add79f034d89b91eb
 # orbax and Pillow); the DATA_IMAGES slots the fixture images take
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "port_formats")
-FORMAT_SLOTS = {0: "rgb16.ppm", 1: "progressive.jpg", 2: "blocks.qoi", 3: "rgb24.bmp",
+FORMAT_SLOTS = {0: "rgb16.ppm", 1: "progressive.jpg", 2: "dxt5_texture.jpg", 3: "rgb24.bmp",
                 4: "tga_rle.jpg", 5: "lossy.webp", 6: "frame.gif", 7: "lzw.tif"}
 # phase formats: the 512x512 fixtures whose decode times it reports apart
 RASTER_FIXTURES = ("tga_rle.jpg", "blocks.qoi", "blocks.psd")
+# phase formats: 512x512 block-compressed DDS files made from a seed (BCn,
+# DXGI format or None for FOURCC DXT1, seed), the same bytes as
+# `tests/helpers/port_formats.block_file_512`; Pillow's digests of them are
+# digests.json["generated"]
+BLOCKS_512 = {"bc1_512.dds": (1, None, 51), "bc6h_512.dds": (6, 95, 52),
+              "bc7_512.dds": (7, 98, 53)}
 # phase image_in's bf16 --init (an Adam7 palette PNG) and --mask (a 1-bit TIFF)
 INIT_FIXTURE, MASK_FIXTURE = "adam7_palette.png", "mask.tif"
 
@@ -3660,6 +3670,21 @@ def _time_ms(fn, n: int = 5) -> float:
     return statistics.median(times)
 
 
+def block_file_512(name: str) -> bytes:
+    """One BLOCKS_512 file: a DDS header and seeded random blocks."""
+    import numpy as np
+
+    n, dxgi, seed = BLOCKS_512[name]
+    size = 8 if n == 1 else 16
+    blocks = np.random.RandomState(seed).randint(0, 256, 128 * 128 * size).astype(np.uint8)
+    head = struct.pack("<4s7I44x", b"DDS ", 124, 0x1007, 512, 512, 0, 0, 1)
+    head += struct.pack("<II4sI4I", 32, 0x4, b"DXT1" if dxgi is None else b"DX10", 0, 0, 0, 0, 0)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + blocks.tobytes()
+
+
 def phase_image_io(smi: str):
     """The port's image I/O on the card's machine (no PIL there): the JPEG
     codec built by g++ at first use; its bytes for the seeded 640x480 image
@@ -3734,6 +3759,7 @@ def phase_formats(smi: str):
     from diffusion_spacetime_attn_tpu_torch.models.vae import AutoencoderKL
     from diffusion_spacetime_attn_tpu_torch.scripts import sample_diffusion
     from diffusion_spacetime_attn_tpu_torch.utils import (
+        bcn,
         ccitt,
         image_io,
         lzw,
@@ -3748,7 +3774,7 @@ def phase_formats(smi: str):
     t_phase = time.perf_counter()
     with open(os.path.join(FIXTURES, "digests.json")) as f:
         want = json.load(f)
-    libs = {"zstd": zstd, "webp": webp, "lzw": lzw, "ccitt": ccitt}
+    libs = {"zstd": zstd, "webp": webp, "lzw": lzw, "ccitt": ccitt, "bcn": bcn}
     built_s = {}
 
     def build(name):
@@ -3809,8 +3835,20 @@ def phase_formats(smi: str):
                         and hashlib.sha256(rgb.tobytes()).hexdigest() == d["rgb"])
         ms[name] = _time_ms(lambda: image_io.read_image(data, name))
     fax = {k: v for k, v in ms.items() if k.startswith("fax_")}
+    generated, bcn_ms = {}, {}
+    for name, d in sorted(want["generated"].items()):   # the 512x512 BCn files
+        data = block_file_512(name)
+        pic = image_io.read_image(data, name)
+        rgb = image_io.convert(pic, "RGB")
+        generated[name] = (hashlib.sha256(data).hexdigest() == d["file"]
+                           and pic.mode == d["mode"] and list(pic.pixels.shape) == d["shape"]
+                           and hashlib.sha256(pic.pixels.tobytes()).hexdigest() == d["pixels"]
+                           and hashlib.sha256(rgb.tobytes()).hexdigest() == d["rgb"])
+        bcn_ms[name] = _time_ms(lambda: image_io.read_image(data, name))
+    images.update(generated)
     emit({"phase": "formats", "build_s": build_s, "library_build_s": built_s,
           "ccitt_decode_ms": fax, "raster_decode_ms": {k: ms[k] for k in RASTER_FIXTURES},
+          "bcn_decode_ms": bcn_ms,
           "restore_s": restore_s, "arrays": len(got),
           "state_digests_equal_orbax": state_equal, "ema_sample": sample,
           "digests_equal_pil": images, "decode_ms": ms,
@@ -3836,8 +3874,8 @@ def _write_jpeg_folder(root: str) -> dict:
     """DATA_IMAGES 640x480 images with captions.jsonl, an LSUN-style split of
     them and a two-synset tree of the same files: port-written JPEGs, but
     the FORMAT_SLOTS, which hold fixture files (the tree lists what JAX's
-    `imagenet_tree` lists: no PPM, QOI, GIF or TIFF; the Targa named .jpg
-    goes in as .JPEG)."""
+    `imagenet_tree` lists: no PPM, GIF or TIFF; the DDS and the Targa named
+    .jpg go in as .JPEG)."""
     from diffusion_spacetime_attn_tpu_torch.utils.jpeg import encode_jpeg
 
     d = os.path.join(root, "jpegs")

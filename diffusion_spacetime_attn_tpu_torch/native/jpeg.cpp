@@ -1203,8 +1203,8 @@ Decoded decode(const uint8_t* d, size_t n, int colour = -1) {
         t.built = false;
         p += 17 + cnt;
       }
-    } else if (m == 0xDD) {
-      if (slen < 2) throw short_seg();
+    } else if (m == 0xDD) {                   // jdmarker.c get_dri: a length of 4 only
+      if (slen != 2) throw Error{"bad DRI length at offset " + hexoff(moff)};
       restart = (seg[0] << 8) | seg[1];
     } else if (m == 0xE0) {
       if (slen >= 14 && std::memcmp(seg, "JFIF", 5) == 0) jfif = true;

@@ -17,39 +17,25 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from .native_bpe import NativeBuildError, compile_shared
+from .native_bpe import load_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "ccitt.cpp"
 
-_lock = threading.Lock()
 _state: dict = {}
 _ERR = 256
+_SIGNATURES = {"ccitt_decode": (ctypes.c_int, [
+    ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+    ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p, ctypes.c_int])}
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded decoders, built on first use; a failed build is raised
     again on every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the CCITT decoders failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(compile_shared(SOURCE, "ccitt_decoder")))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            lib.ccitt_decode.restype = ctypes.c_int
-            lib.ccitt_decode.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-                                         ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
-                                         ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p,
-                                         ctypes.c_int]
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "ccitt_decoder", "the CCITT decoders", _SIGNATURES)
 
 
 def decode(coding: int, options: int, data: bytes, width: int, rows: int,

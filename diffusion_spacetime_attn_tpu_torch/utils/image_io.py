@@ -23,24 +23,30 @@ the format's name too.  The port reads (`READ`):
   and CUR (`utils/ico.py`), PCX and DCX (`utils/pcx.py`), SGI
   (`utils/sgi.py`), Sun raster (`utils/sun.py`), PSD (`utils/psd.py`),
   XBM (`utils/xbm.py`), XPM (`utils/xpm.py`), FITS (`utils/fits.py`);
-  their byte-run loops are `native/lzw.cpp`'s (`utils/lzw.py`).
+  their byte-run loops are `native/lzw.cpp`'s (`utils/lzw.py`);
+* the block-compressed textures: DDS (`utils/dds.py`: BC1-BC7, masked
+  RGB, "L", "LA", "P" with an RGBA palette, R8G8B8A8), BLP1 and BLP2
+  (`utils/blp.py`) and FTEX (`utils/ftex.py`); their blocks are
+  `native/bcn.cpp`'s (`utils/bcn.py`).
 
 What Pillow identifies and the port does not read raises `ValueError`
-naming the format: AVIF, BLP, DDS, FLI, FTEX, GBR, JPEG 2000, ICNS, IM,
-IMT, IPTC, MCIDAS, MSP, PCD, PIXAR, SPIDER and XV thumbnails are queued
-(ROADMAP A.12); EPS (no Ghostscript), WMF and the BUFR, GRIB, HDF5 and
-MPEG stubs are refused by Pillow too.  Where Pillow reads a file other
-than the format's specification says (FITS samples byte-swapped, Sun RLE
-rows without their padding, PCX rows of the wrong stride, PSD Lab with
-the sign bit of a and b flipped, one- and four-digit XBM values, short
-and long XPM colours, and the TIFF cases of `utils/tiff.py`), the port
-raises naming ROADMAP A.12 rather than copy the misreading.  Corrupt and
+naming the format: AVIF, FLI, GBR, JPEG 2000, ICNS, IM, IMT, IPTC,
+MCIDAS, MSP, PCD, PIXAR, SPIDER and XV thumbnails are queued (ROADMAP
+A.12); EPS (no Ghostscript), WMF and the BUFR, GRIB, HDF5 and MPEG stubs
+are refused by Pillow too.  Where Pillow reads a file other than the
+format's specification says (FITS samples byte-swapped, Sun RLE rows
+without their padding, PCX rows of the wrong stride, PSD Lab with the
+sign bit of a and b flipped, one- and four-digit XBM values, short and
+long XPM colours, the TIFF cases of `utils/tiff.py` and the BLP and
+signed BC6H cases of `utils/blp.py` and `utils/bcn.py`), the port raises
+naming ROADMAP A.12 rather than copy the misreading.  Corrupt and
 truncated files raise `ValueError` where Pillow refuses them, and where
 Pillow only warns (an icon's PNG of another size than its directory's).
 
 `convert(picture, mode)` is Pillow's `convert("RGB")` / `convert("L")` in
 its integer arithmetic: alpha dropped, grey repeated, "1" as 0 / 255, a
-palette looked up ("P" and "PA"; indices past a short palette black),
+palette looked up ("P" and "PA"; indices past a short palette black; a
+DDS's RGBA palette without its alpha),
 16-bit grey clipped to 255, 32-bit integers ("I") clipped to 0-255, floats
 ("F") clipped and truncated (−5.5, 127.6 and 300.2 give 0, 127 and 255;
 NaN 0), CMYK as (255 − K) − (C·(255 − K))/255 with Pillow's rounded
@@ -58,12 +64,12 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
-from . import fits, ico, netpbm, pcx, psd, qoi, sgi, sun, tga, xbm, xpm
+from . import blp, dds, fits, ftex, ico, netpbm, pcx, psd, qoi, sgi, sun, tga, xbm, xpm
 from .bmp import accept_dib, decode_bmp, decode_dib
 from .gif import decode_gif
-from .jpeg import decode_jpeg
+from .jpeg import decode_jpeg, pillow_header
 from .png import decode_picture, to_grey, to_rgb
-from .raster import NotThisFormat
+from .raster import NotThisFormat, cmyk_rgb
 from .tiff import decode_tiff
 from .webp import decode_webp
 
@@ -75,6 +81,7 @@ class Picture(NamedTuple):
 
 
 def _jpeg(data: bytes, name: str):
+    pillow_header(data, name)               # Pillow's marker walk: it passes the file on
     img = decode_jpeg(data, name)
     return img, "L" if img.ndim == 2 else {3: "RGB", 4: "CMYK"}[img.shape[-1]], None
 
@@ -220,12 +227,12 @@ FORMATS = (
     ("PNG", lambda p: p[:8] == b"\x89PNG\r\n\x1a\n", decode_picture),
     ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
      Refused(QUEUED + ", through libavif 1.3.0")),
-    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), Refused(QUEUED + ", block-compressed")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
     ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), Refused(REFUSED + ", a stub")),
     ("CUR", ico.accept_cur, ico.decode_cur),
     ("PCX", pcx.accept, pcx.decode_pcx),
     ("DCX", pcx.accept_dcx, pcx.decode_dcx),
-    ("DDS", lambda p: p[:4] == b"DDS ", Refused(QUEUED + ", block-compressed")),
+    ("DDS", dds.accept, dds.decode_dds),
     ("EPS", lambda p: p[:4] == b"%!PS" or p[:4] == b"\xc5\xd0\xd3\xc6",
      Refused(REFUSED + " without Ghostscript")),
     ("FITS", fits.accept, fits.decode_fits),
@@ -233,7 +240,7 @@ FORMATS = (
      and p[14:16] in (b"\0\0", b"\3\0"),
      Refused(QUEUED, lambda d: d[20:22] == b"\0\0" and d[42:80] == bytes(38)
              and d[88:128] == bytes(len(d[88:128])))),
-    ("FTEX", lambda p: p[:4] == b"FTEX", Refused(QUEUED + ", block-compressed")),
+    ("FTEX", lambda p: p[:4] == b"FTEX", ftex.decode_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32be(p, 0) >= 20 and _u32be(p, 4) in (1, 2),
      Refused(QUEUED, lambda d: len(d) >= 20 and _u32be(d, 8) and _u32be(d, 12)
              and _u32be(d, 16) in (1, 4))),
@@ -306,13 +313,6 @@ def read_image(data: bytes, name: str = "<bytes>") -> Picture:
     return read_format(data, name)[1]
 
 
-def _cmyk_rgb(px: np.ndarray) -> np.ndarray:
-    """Convert.c cmyk2rgb: nk − MULDIV255(c, nk) per channel, nk = 255 − K."""
-    nk = 255 - px[..., 3:].astype(np.int32)
-    t = px[..., :3].astype(np.int32) * nk + 128
-    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
-
-
 def convert(pic: Picture, mode: str) -> np.ndarray:
     """`np.asarray(image.convert(mode))` for mode "RGB" or "L"."""
     if mode not in ("RGB", "L"):
@@ -334,7 +334,7 @@ def convert(pic: Picture, mode: str) -> np.ndarray:
     if pic.mode in ("P", "PA") or pic.palette is not None:
         rgb = pic.palette[px[..., 0] if pic.mode == "PA" else px]
     elif pic.mode == "CMYK":
-        rgb = _cmyk_rgb(px)
+        rgb = cmyk_rgb(px)
     else:
         img = px[..., None] if px.ndim == 2 else px
         return to_rgb(img) if mode == "RGB" else to_grey(img)

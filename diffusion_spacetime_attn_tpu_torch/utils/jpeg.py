@@ -24,54 +24,35 @@ raises `NativeBuildError`.  Nothing is built when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from .native_bpe import NativeBuildError, compile_shared
+from .native_bpe import load_shared
+from .raster import NotThisFormat
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "jpeg.cpp"
 
-_lock = threading.Lock()
 _state: dict = {}
 _ERR = 512
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_IP = ctypes.POINTER(ctypes.c_int)
+_SIGNATURES = {
+    "jpeg_encode": (ctypes.c_int, [_U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(_U8P), ctypes.POINTER(ctypes.c_size_t),
+                                   ctypes.c_char_p, ctypes.c_int]),
+    "jpeg_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(_U8P), _IP,
+                                   _IP, _IP, ctypes.c_char_p, ctypes.c_int]),
+    "jpeg_decode_as": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                                      ctypes.POINTER(_U8P), _IP, _IP, _IP, ctypes.c_char_p,
+                                      ctypes.c_int]),
+    "jpeg_free": (None, [ctypes.c_void_p])}
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded codec, built on first use; a failed build is raised again
     on every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the JPEG codec failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(compile_shared(SOURCE, "jpeg_codec")))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            lib.jpeg_encode.restype = ctypes.c_int
-            lib.jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_int, ctypes.POINTER(u8p),
-                                        ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p,
-                                        ctypes.c_int]
-            lib.jpeg_decode.restype = ctypes.c_int
-            lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p),
-                                        ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
-                                        ctypes.c_int]
-            lib.jpeg_decode_as.restype = ctypes.c_int
-            lib.jpeg_decode_as.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                                           ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_int),
-                                           ctypes.POINTER(ctypes.c_int),
-                                           ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
-                                           ctypes.c_int]
-            lib.jpeg_free.restype = None
-            lib.jpeg_free.argtypes = [ctypes.c_void_p]
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "jpeg_codec", "the JPEG codec", _SIGNATURES)
 
 
 def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
@@ -121,3 +102,110 @@ def decode_jpeg(data: bytes, name: str = "<bytes>", colour: int = -1) -> np.ndar
                              np.uint8).reshape(shape).copy()
     finally:
         lib.jpeg_free(out)
+
+
+def _i16(s: bytes, at: int = 0) -> int:
+    if len(s) < at + 2:
+        raise NotThisFormat("JPEG: a field cut short")
+    return int.from_bytes(s[at:at + 2], "big")
+
+
+def _photoshop(seg: bytes) -> None:
+    """The 8BIM resource walk of Pillow's APP13 handler: a field cut short
+    ends it, a resource name's length byte past the end is "not this
+    format" (its IndexError)."""
+    at = 14
+    while seg[at:at + 4] == b"8BIM":
+        if len(seg) < at + 6:
+            return
+        code = _i16(seg, at + 4)
+        at += 6
+        if at >= len(seg):
+            raise NotThisFormat("JPEG: a Photoshop resource cut short")
+        at += 1 + seg[at]
+        at += at & 1
+        if len(seg) < at + 4:
+            return
+        n = int.from_bytes(seg[at:at + 4], "big")
+        at += 4
+        if code == 0x03ED and len(seg[at:at + n]) < 14:
+            return
+        at += n + ((at + n) & 1)
+
+
+def pillow_header(data: bytes, name: str = "<bytes>") -> None:
+    """`JpegImageFile._open`'s walk over the markers up to the first SOS,
+    with Pillow's checks: what Pillow takes as "not this format" (another
+    magic, an unknown marker, a segment too short for its fields, a frame
+    of other than 8 bits or 1, 3 or 4 components, no frame before the scan)
+    raises `NotThisFormat`; a segment longer than the file (Pillow's
+    "Truncated File Read") `ValueError`.  libjpeg's own checks are
+    `decode_jpeg`'s."""
+    if data[:3] != b"\xff\xd8\xff":
+        raise NotThisFormat("not a JPEG file")
+    pos, s, layers, size, icc = 3, b"\xff", 0, (0, 0), []
+
+    def segment() -> bytes:
+        nonlocal pos
+        n = _i16(data[pos:pos + 2]) - 2
+        pos += 2
+        if n > 0 and pos + n > len(data):
+            raise ValueError(f"{name}: JPEG segment past the end (Truncated File Read)")
+        out = data[pos:pos + max(n, 0)]
+        pos += max(n, 0)
+        return out
+
+    while True:
+        if not s:
+            raise NotThisFormat("JPEG: no scan")
+        if s[0] != 0xFF:                          # junk between markers
+            s, pos = data[pos:pos + 1], pos + 1
+            continue
+        s, pos = s + data[pos:pos + 1], pos + 1
+        marker = _i16(s)
+        if marker == 0xFFFF:
+            s = b"\xff"
+            continue
+        if marker == 0xFF00:
+            s, pos = data[pos:pos + 1], pos + 1
+            continue
+        if marker < 0xFFC0:
+            raise NotThisFormat("JPEG: no marker found")
+        low = marker & 0xFF
+        if low in (0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF, 0xFE):       # Skip, COM
+            segment()
+        elif 0xE0 <= low <= 0xEF:                                   # APP
+            seg = segment()
+            if (low == 0xE0 and seg[:4] == b"JFIF") or (low == 0xEE and seg[:5] == b"Adobe"):
+                _i16(seg, 5)
+            elif low == 0xE2 and seg[:12] == b"ICC_PROFILE\0":
+                icc.append(seg)
+            elif low == 0xED and seg[:14] == b"Photoshop 3.0\0":
+                _photoshop(seg)
+        elif low == 0xDB:                                           # DQT
+            seg = segment()
+            while seg:
+                n = 1 + 64 * (1 if seg[0] < 16 else 2)
+                if len(seg) < n:
+                    raise NotThisFormat("JPEG: bad quantization table marker")
+                seg = seg[n:]
+        elif low in (0xC8,) or 0xD0 <= low <= 0xD9 or 0xF0 <= low <= 0xFD:
+            pass                                                    # no segment
+        else:                                                       # SOF, DHP
+            seg = segment()
+            size = (_i16(seg, 3), _i16(seg, 1))
+            if seg[0] != 8:
+                raise NotThisFormat(f"JPEG: cannot handle {seg[0]}-bit layers")
+            if len(seg) < 6 or seg[5] not in (1, 3, 4):
+                raise NotThisFormat("JPEG: cannot handle this many layers")
+            layers = seg[5]
+            if icc and len(sorted(icc)[0]) < 14:
+                raise NotThisFormat("JPEG: an ICC profile segment cut short")
+            icc = []
+            if (len(seg) - 6) % 3:
+                raise NotThisFormat("JPEG: a component cut short")
+        if marker == 0xFFDA:
+            break
+        s, pos = data[pos:pos + 1], pos + 1
+    if not layers or size[0] <= 0 or size[1] <= 0:
+        raise NotThisFormat("JPEG: no frame before the scan")

@@ -20,12 +20,11 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from .native_bpe import NativeBuildError, compile_shared
+from .native_bpe import load_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "lzw.cpp"
 
@@ -37,44 +36,26 @@ LOOPS = {"packbits_rows_decode": ("size", "size"),          # row bytes, rows
          "sun_rle_decode": ("size", "size"),
          "qoi_decode": ("size", "int")}                      # pixels, bands
 _CTYPE = {"int": ctypes.c_int, "size": ctypes.c_size_t}
-_lock = threading.Lock()
 _state: dict = {}
 _ERR = 256
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_SIGNATURES = {
+    "gif_lzw_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int,
+                                      ctypes.c_char_p, ctypes.c_int]),
+    "tiff_unpack": (ctypes.c_int, [ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, _U8P,
+                                   ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
+                                   ctypes.c_char_p, ctypes.c_int]),
+    "thunder_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                                      _U8P, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]),
+    **{fn: (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t] + [_CTYPE[a] for a in args]
+            + [_U8P, ctypes.c_char_p, ctypes.c_int]) for fn, args in LOOPS.items()}}
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded decoders, built on first use; a failed build is raised
     again on every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the LZW decoders failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(compile_shared(SOURCE, "lzw_decoder")))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            lib.gif_lzw_decode.restype = ctypes.c_int
-            lib.gif_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p,
-                                           ctypes.c_int, ctypes.c_char_p, ctypes.c_int]
-            lib.tiff_unpack.restype = ctypes.c_int
-            lib.tiff_unpack.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t, u8p,
-                                        ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
-                                        ctypes.c_char_p, ctypes.c_int]
-            lib.thunder_decode.restype = ctypes.c_int
-            lib.thunder_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                                           ctypes.c_int, u8p, ctypes.c_size_t, ctypes.c_char_p,
-                                           ctypes.c_int]
-            size = ctypes.c_size_t
-            for fn, args in LOOPS.items():
-                getattr(lib, fn).restype = ctypes.c_int
-                getattr(lib, fn).argtypes = ([ctypes.c_char_p, size]
-                                             + [_CTYPE[a] for a in args]
-                                             + [u8p, ctypes.c_char_p, ctypes.c_int])
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "lzw_decoder", "the LZW decoders", _SIGNATURES)
 
 
 def gif_frame(data: bytes, bits: int, canvas: np.ndarray, x0: int, y0: int, w: int, h: int,

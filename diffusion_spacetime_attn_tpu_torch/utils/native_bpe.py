@@ -26,7 +26,7 @@ SOURCE = Path(__file__).resolve().parents[2] / "native" / "bpe.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
 
-_lock = threading.Lock()
+_locks: dict = {}
 _state: dict = {}
 
 
@@ -37,7 +37,8 @@ class NativeBuildError(RuntimeError):
 def compile_shared(source: Path, name: str) -> Path:
     """Compile one C++ source into `_build/lib<name>_<hash>.so` unless this
     source and these flags are built already; returns the library's path.
-    The JPEG codec (`utils/jpeg.py`) is built the same way."""
+    The host decoders (`utils/{jpeg,zstd,lzw,webp,ccitt,bcn}.py`) are built
+    the same way and loaded through `load_shared`."""
     if not source.is_file():
         raise NativeBuildError(f"no source {source}")
     digest = hashlib.sha256(" ".join(FLAGS).encode() + source.read_bytes()).hexdigest()[:16]
@@ -64,28 +65,38 @@ def build() -> Path:
     return compile_shared(SOURCE, "bpe")
 
 
+def load_shared(state: dict, source: Path, name: str, what: str,
+                signatures: dict) -> ctypes.CDLL:
+    """The library `compile_shared(source, name)` builds, loaded with its
+    functions' `signatures` ({function: (restype, argtypes)}) and kept in
+    the caller's `state`; a failed build is raised again ("`what` failed to
+    build") on every later call without compiling again.  Each library has
+    its own lock, so different libraries build side by side."""
+    with _locks.setdefault(name, threading.Lock()):
+        if "error" in state:
+            raise NativeBuildError(f"{what} failed to build") from state["error"]
+        if "lib" not in state:
+            try:
+                lib = ctypes.CDLL(str(compile_shared(source, name)))
+            except (NativeBuildError, OSError) as e:
+                state["error"] = e
+                raise NativeBuildError(str(e)) from e
+            for fn, (restype, argtypes) in signatures.items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            state["lib"] = lib
+        return state["lib"]
+
+
 def load_library() -> ctypes.CDLL:
     """The loaded core, built on first use; a failed build is raised again on
     every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the native BPE core failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(build()))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            lib.bpe_create.restype = ctypes.c_void_p
-            lib.bpe_create.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
-                                       ctypes.c_int32, ctypes.c_char_p, ctypes.c_int32]
-            lib.bpe_encode.restype = ctypes.c_int32
-            lib.bpe_encode.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
-                                       ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]
-            lib.bpe_free.restype = None
-            lib.bpe_free.argtypes = [ctypes.c_void_p]
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "bpe", "the native BPE core", {
+        "bpe_create": (ctypes.c_void_p, [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int32),
+                                         ctypes.c_int32, ctypes.c_char_p, ctypes.c_int32]),
+        "bpe_encode": (ctypes.c_int32, [ctypes.c_void_p, ctypes.c_char_p,
+                                        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32]),
+        "bpe_free": (None, [ctypes.c_void_p])})
 
 
 class NativeBPE(_RobertaIds):

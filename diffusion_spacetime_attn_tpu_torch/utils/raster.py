@@ -19,7 +19,8 @@ library only.
 * `palette`: a raw palette as `putpalette` holds it: [256, 3], the entries
   after the given ones black.
 * `rows_from`: stored rows as the raw decoder places them (bottom-up or
-  top-down).
+  top-down);
+* `cmyk_rgb`: Pillow's CMYK to RGB conversion.
 """
 from __future__ import annotations
 
@@ -150,3 +151,10 @@ def planar_palette(raw: bytes) -> np.ndarray:
     """An "RGB;L" palette (every red, then every green, then every blue)."""
     n = len(raw) // 3
     return palette(np.frombuffer(raw[:3 * n], np.uint8).reshape(3, n).T)
+
+
+def cmyk_rgb(px: np.ndarray) -> np.ndarray:
+    """Convert.c cmyk2rgb: nk − MULDIV255(c, nk) per channel, nk = 255 − K."""
+    nk = 255 - px[..., 3:].astype(np.int32)
+    t = px[..., :3].astype(np.int32) * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

@@ -15,41 +15,28 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import numpy as np
 
-from .native_bpe import NativeBuildError, compile_shared
+from .native_bpe import load_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "webp.cpp"
 
-_lock = threading.Lock()
 _state: dict = {}
 _ERR = 256
+_IP = ctypes.POINTER(ctypes.c_int)
+_SIGNATURES = {
+    "webp_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t,
+                                   ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), _IP, _IP, _IP,
+                                   ctypes.c_char_p, ctypes.c_int]),
+    "webp_free": (None, [ctypes.c_void_p])}
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded decoder, built on first use; a failed build is raised again
     on every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the WebP decoder failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(compile_shared(SOURCE, "webp_decoder")))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            ip = ctypes.POINTER(ctypes.c_int)
-            lib.webp_decode.restype = ctypes.c_int
-            lib.webp_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p),
-                                        ip, ip, ip, ctypes.c_char_p, ctypes.c_int]
-            lib.webp_free.restype = None
-            lib.webp_free.argtypes = [ctypes.c_void_p]
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "webp_decoder", "the WebP decoder", _SIGNATURES)
 
 
 def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:

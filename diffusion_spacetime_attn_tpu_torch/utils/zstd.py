@@ -18,49 +18,33 @@ when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from .native_bpe import NativeBuildError, compile_shared
+from .native_bpe import load_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "zstd.cpp"
 
-_lock = threading.Lock()
 _state: dict = {}
 _ERR = 256
+_SZ = ctypes.c_size_t
+_SIGNATURES = {
+    "zstd_content_size": (ctypes.c_int64, [ctypes.c_void_p, _SZ]),
+    "zstd_decode_into": (ctypes.c_int, [ctypes.c_void_p, _SZ, ctypes.c_void_p, _SZ,
+                                        ctypes.POINTER(_SZ), ctypes.c_char_p, ctypes.c_int]),
+    "zstd_decode_alloc": (ctypes.c_int, [ctypes.c_void_p, _SZ,
+                                         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                                         ctypes.POINTER(_SZ), ctypes.c_char_p, ctypes.c_int]),
+    "zstd_free": (None, [ctypes.c_void_p]),
+    "zstd_crc32c": (ctypes.c_uint32, [ctypes.c_void_p, _SZ])}
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded decoder, built on first use; a failed build is raised again
     on every later call without compiling again."""
-    with _lock:
-        if "error" in _state:
-            raise NativeBuildError("the zstd decoder failed to build") from _state["error"]
-        if "lib" not in _state:
-            try:
-                lib = ctypes.CDLL(str(compile_shared(SOURCE, "zstd_decoder")))
-            except (NativeBuildError, OSError) as e:
-                _state["error"] = e
-                raise NativeBuildError(str(e)) from e
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            sz = ctypes.c_size_t
-            lib.zstd_content_size.restype = ctypes.c_int64
-            lib.zstd_content_size.argtypes = [ctypes.c_void_p, sz]
-            lib.zstd_decode_into.restype = ctypes.c_int
-            lib.zstd_decode_into.argtypes = [ctypes.c_void_p, sz, ctypes.c_void_p, sz,
-                                             ctypes.POINTER(sz), ctypes.c_char_p, ctypes.c_int]
-            lib.zstd_decode_alloc.restype = ctypes.c_int
-            lib.zstd_decode_alloc.argtypes = [ctypes.c_void_p, sz, ctypes.POINTER(u8p),
-                                              ctypes.POINTER(sz), ctypes.c_char_p, ctypes.c_int]
-            lib.zstd_free.restype = None
-            lib.zstd_free.argtypes = [ctypes.c_void_p]
-            lib.zstd_crc32c.restype = ctypes.c_uint32
-            lib.zstd_crc32c.argtypes = [ctypes.c_void_p, sz]
-            _state["lib"] = lib
-        return _state["lib"]
+    return load_shared(_state, SOURCE, "zstd_decoder", "the zstd decoder", _SIGNATURES)
 
 
 def _src(data) -> np.ndarray:

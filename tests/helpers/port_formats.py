@@ -57,10 +57,10 @@ UNET = dict(model_channels=32, channel_mult=(1,), num_res_blocks=1, attention_re
             num_heads=1, dtype="float32")
 LATENT = 8
 TRAIN = ("progressive.jpg", "rgb24.bmp", "lossy.webp", "frame.gif", "lzw.tif", "rgb16.ppm",
-         "blocks.qoi", "tga_rle.jpg")
+         "dxt5_texture.jpg", "tga_rle.jpg")
 IMAGE_SUFFIXES = (".jpg", ".bmp", ".webp", ".png", ".gif", ".tif", ".pbm", ".pgm", ".ppm",
                   ".pfm", ".tga", ".qoi", ".ico", ".cur", ".dib", ".pcx", ".dcx", ".sgi", ".ras",
-                  ".psd", ".xbm", ".xpm", ".fits")
+                  ".psd", ".xbm", ".xpm", ".fits", ".dds", ".blp", ".ftc", ".ftu")
 # the 512x512 files of phase formats' decode times (Targa RLE, QOI, PSD PackBits)
 BLOCKS = ("tga_rle.jpg", "blocks.qoi", "blocks.psd")
 # phase image_in's --init and --mask (img2img and inpaint)
@@ -300,6 +300,109 @@ def raster_images() -> dict:
     }
 
 
+def _bc6_untransformed(blocks: np.ndarray) -> np.ndarray:
+    """Random BC6H blocks set to the two modes without a delta transform
+    (11110, two regions of 6 bits; 00011, one of 10 bits), in which Pillow
+    reads signed endpoints as the specification does."""
+    out = blocks.copy()
+    out[:, 0] = (out[:, 0] & 0xE0) | np.where(np.arange(len(out)) % 2, 0x1E, 0x03)
+    return out
+
+
+def random_blocks(n: int, w: int, h: int, seed: int) -> bytes:
+    """Seeded random blocks covering w x h pixels of BCn `n`: for BC2-BC7
+    every 16 bytes (BC1, BC4: 8) are a block, so random data reaches every
+    mode, partition, rotation and index of BC6H and BC7."""
+    size = 8 if n in (1, 4) else 16
+    r = np.random.RandomState(seed)
+    return r.randint(0, 256, ((w + 3) // 4) * ((h + 3) // 4) * size).astype(np.uint8).tobytes()
+
+
+# phase formats' 512x512 block-compressed decode times: files made from a
+# seed here and in chip_smoke.py alike; only their digests are committed
+BLOCKS_512 = {"bc1_512.dds": (1, None, 51), "bc6h_512.dds": (6, 95, 52),
+              "bc7_512.dds": (7, 98, 53)}
+
+
+def block_file_512(name: str) -> bytes:
+    """One BLOCKS_512 file: a DDS header (FOURCC DXT1, or DX10 with the
+    DXGI format) and seeded random blocks."""
+    from helpers import raw_images as raw
+
+    n, dxgi, seed = BLOCKS_512[name]
+    blocks = random_blocks(n, 512, 512, seed)
+    if dxgi is None:
+        return raw.dds_file(512, 512, blocks, fourcc=b"DXT1")
+    return raw.dds_file(512, 512, blocks, dxgi=dxgi)
+
+
+def block_images() -> dict:
+    """{name: bytes} of the block-compressed texture formats: Pillow writes
+    the DXT1 / DXT3 / DXT5 / BC2 / BC3 / BC5 DDS files (its BCn encoder),
+    the L, LA and 32-bit masked DDS, and the BLP palette files (RGB
+    palettes); `helpers/raw_images.py` the rest around seeded random blocks
+    (BC4, BC5 signed, BC6H unsigned and signed, BC7), Pillow's DXT blocks
+    (BLP2 DXT1 / DXT3 / DXT5, FTEX format 0) or a Pillow JPEG (BLP1)."""
+    from PIL import Image
+
+    from helpers import raw_images as raw
+
+    def save(img, fmt, **kw):
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    def payload(dds: bytes) -> bytes:
+        return dds[148:] if dds[84:88] == b"DX10" else dds[128:]
+
+    r = np.random.RandomState(61)
+    rgba = Image.fromarray(_image(36, 52, 62, c=4))
+    odd = Image.fromarray(_image(29, 37, 63, c=4))
+    rgb = Image.fromarray(_image(40, 56, 64))
+    quant = rgb.quantize(80)
+    bgra = np.zeros((256, 4), np.uint8)
+    bgra[:80, :3] = np.asarray(quant.getpalette("RGB")[:240], np.uint8).reshape(80, 3)[:, ::-1]
+    bgra[:, 3] = r.randint(0, 256, 256)
+    dxt = {k: payload(save(rgba, "DDS", pixel_format=k)) for k in ("DXT1", "DXT3", "DXT5")}
+    jpeg = save(rgb, "JPEG", quality=85)
+    sos = jpeg.index(b"\xff\xda")
+    blocks6 = np.frombuffer(random_blocks(6, 44, 36, 65), np.uint8).reshape(-1, 16)
+    masked = _image(30, 42, 66, c=2)
+    rgb565 = ((masked[..., 0].astype(np.uint16) << 8) | masked[..., 1]).astype("<u2")
+    return {
+        "dxt1.dds": save(rgba, "DDS", pixel_format="DXT1"),
+        "dxt3_odd.dds": save(odd, "DDS", pixel_format="DXT3"),
+        "dxt5.dds": save(rgba, "DDS", pixel_format="DXT5"),
+        "bc2_dx10.dds": save(odd, "DDS", pixel_format="BC2"),
+        "bc3_dx10.dds": save(rgba, "DDS", pixel_format="BC3"),
+        "bc5u.dds": save(rgba.convert("RGB"), "DDS", pixel_format="BC5"),
+        "bc4.dds": raw.dds_file(45, 27, random_blocks(4, 45, 27, 67), fourcc=b"ATI1"),
+        "bc5s.dds": raw.dds_file(33, 20, random_blocks(5, 33, 20, 68), fourcc=b"BC5S"),
+        "bc6h_uf16.dds": raw.dds_file(44, 36, random_blocks(6, 44, 36, 69), dxgi=95),
+        "bc6h_sf16.dds": raw.dds_file(44, 36, _bc6_untransformed(blocks6).tobytes(), dxgi=96),
+        "bc7.dds": raw.dds_file(64, 64, random_blocks(7, 64, 64, 70), dxgi=98),
+        "bc7_srgb_odd.dds": raw.dds_file(37, 23, random_blocks(7, 37, 23, 71), dxgi=99),
+        "rgb565.dds": raw.dds_file(42, 30, rgb565.tobytes(), pfflags=0x40, bitcount=16,
+                                   masks=(0xF800, 0x07E0, 0x001F, 0)),
+        "argb32.dds": save(rgba, "DDS"),
+        "l8.dds": save(rgb.convert("L"), "DDS"),
+        "la16.dds": save(rgba.convert("LA"), "DDS"),
+        "palette.dds": raw.dds_file(56, 40, np.asarray(quant).tobytes(), pfflags=0x20,
+                                    bitcount=8, palette=bgra[:, [2, 1, 0, 3]].tobytes()),
+        "r8g8b8a8.dds": raw.dds_file(31, 17, _image(17, 31, 72, c=4).tobytes(), dxgi=28),
+        "palette1.blp": save(quant, "BLP", blp_version="BLP1"),
+        "jpeg1.blp": raw.blp1_file(56, 40, 0, 0, [jpeg[sos:]], jpeg_header=jpeg[:sos]),
+        "palette2.blp": save(quant, "BLP"),
+        "dxt1_alpha2.blp": raw.blp2_file(52, 36, 2, 1, 0, [dxt["DXT1"]], bgra.tobytes()),
+        "dxt3_2.blp": raw.blp2_file(52, 36, 2, 4, 1, [dxt["DXT3"]], bgra.tobytes()),
+        "dxt5_2.blp": raw.blp2_file(52, 36, 2, 8, 7, [dxt["DXT5"]], bgra.tobytes()),
+        "dxt1.ftc": raw.ftex_file(52, 36, 0, dxt["DXT1"]),
+        "rgb.ftu": raw.ftex_file(56, 40, 1, np.asarray(rgb).tobytes()),
+        "dxt5_texture.jpg": save(Image.fromarray(_image(96, 128, 73, c=4)), "DDS",
+                                 pixel_format="DXT5"),
+    }
+
+
 def write_images(out: Path) -> None:
     from PIL import Image
 
@@ -329,7 +432,7 @@ def write_images(out: Path) -> None:
         img.save(buf, **kw)
         (out / name).write_bytes(buf.getvalue())
     for name, data in {**raw_images(), **jpeg_images(), **tiff_images(),
-                       **raster_images()}.items():
+                       **raster_images(), **block_images()}.items():
         (out / name).write_bytes(data)
 
 
@@ -345,6 +448,22 @@ def image_digests(out: Path) -> dict:
                        "mode": im.mode, "shape": list(px.shape),
                        "pixels": hashlib.sha256(px.tobytes()).hexdigest(),
                        "rgb": hashlib.sha256(np.asarray(im.convert("RGB")).tobytes()).hexdigest()}
+    return d
+
+
+def generated_digests() -> dict:
+    """{name: {"file", "mode", "pixels", "rgb", "shape"}} of the BLOCKS_512
+    files, as `image_digests` gives them for a committed file."""
+    from PIL import Image
+
+    d = {}
+    for name in BLOCKS_512:
+        data = block_file_512(name)
+        im = Image.open(io.BytesIO(data))
+        px = np.asarray(im)
+        d[name] = {"file": hashlib.sha256(data).hexdigest(), "mode": im.mode,
+                   "shape": list(px.shape), "pixels": hashlib.sha256(px.tobytes()).hexdigest(),
+                   "rgb": hashlib.sha256(np.asarray(im.convert("RGB")).tobytes()).hexdigest()}
     return d
 
 
@@ -424,7 +543,8 @@ def build(out: Path) -> dict:
         shutil.rmtree(out)
     out.mkdir(parents=True)
     write_images(out)
-    return {"state": write_state(out), "images": image_digests(out)}
+    return {"state": write_state(out), "images": image_digests(out),
+            "generated": generated_digests()}
 
 
 if __name__ == "__main__":

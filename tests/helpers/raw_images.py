@@ -10,7 +10,9 @@ Pillow: Pillow opens each file these write and is the oracle.
   (`lzw_gif`);
 * `tiff_file`: one IFD, little- or big-endian, strips or tiles, chunky or
   planar samples, compression none, PackBits, LZW or Deflate, predictor 2,
-  any photometric interpretation and extra tags.
+  any photometric interpretation and extra tags;
+* `dds_file`, `blp1_file`, `blp2_file`, `ftex_file`: texture containers
+  around data the caller gives (block-compressed, masked, palette, JPEG).
 """
 from __future__ import annotations
 
@@ -686,3 +688,56 @@ def tga_file(indices: np.ndarray, colormap=None, map_depth: int = 24, map_start:
                        map_start if ncol else 0, ncol, map_depth if ncol else 0, 0, 0, w, h,
                        depth, origin)
     return head + image_id + cmap + data
+
+
+def dds_file(width: int, height: int, payload: bytes, pfflags: int = 0x4, fourcc: bytes = b"",
+             bitcount: int = 0, masks=(0, 0, 0, 0), dxgi: int = None,
+             palette: bytes = b"") -> bytes:
+    """A DDS file: the 124-byte header (pixel format flags, FOURCC, bit
+    count, masks), the DX10 header with `dxgi` when given (FOURCC DX10),
+    then `palette` and `payload`."""
+    fourcc = b"DX10" if dxgi is not None else fourcc
+    head = struct.pack("<4s7I44x", b"DDS ", 124, 0x1007, height, width, 0, 0, 1)
+    head += struct.pack("<II4sI4I", 32, pfflags, fourcc.ljust(4, b"\0"), bitcount, *masks)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + palette + payload
+
+
+def _mips(start: int, mips) -> tuple:
+    """(offsets + lengths table, data) of mips stored from byte `start`."""
+    offsets, at = [], start
+    for m in mips:
+        offsets.append(at)
+        at += len(m)
+    pad = [0] * (16 - len(mips))
+    return (struct.pack("<16I", *offsets, *pad) + struct.pack("<16I", *map(len, mips), *pad),
+            b"".join(mips))
+
+
+def blp1_file(width: int, height: int, compression: int, alpha_bits: int, mips,
+              palette: bytes = b"", jpeg_header: bytes = b"", encoding: int = 5) -> bytes:
+    """A BLP1 file: JPEG (compression 0: the shared `jpeg_header`, then
+    each mip's rest of the stream) or palette (1: the 1024-byte BGRA
+    `palette`, then each mip's indices)."""
+    head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha_bits, width, height, encoding, 0)
+    extra = struct.pack("<I", len(jpeg_header)) + jpeg_header if compression == 0 else palette
+    table, data = _mips(28 + 128 + len(extra), mips)
+    return head + table + extra + data
+
+
+def blp2_file(width: int, height: int, encoding: int, alpha_depth: int, alpha_encoding: int,
+              mips, palette: bytes = bytes(1024)) -> bytes:
+    """A BLP2 file: encoding 1 (palette indices) or 2 (DXT, by
+    `alpha_encoding` 0, 1 or 7) after the 1024-byte BGRA `palette`."""
+    head = b"BLP2" + struct.pack("<ibbbbII", 1, encoding, alpha_depth, alpha_encoding, 1, width,
+                                 height)
+    table, data = _mips(20 + 128 + len(palette), mips)
+    return head + table + palette + data
+
+
+def ftex_file(width: int, height: int, fmt: int, mip: bytes, formats: int = 1) -> bytes:
+    """An FTEX file of one mip: format 0 (DXT1) or 1 (raw RGB)."""
+    return (b"FTEX" + struct.pack("<5i", 0, width, height, 1, formats)
+            + struct.pack("<2i", fmt, 32) + struct.pack("<i", len(mip)) + mip)

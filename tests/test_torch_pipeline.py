@@ -284,7 +284,8 @@ def test_port_imports_nothing_of_jax():
                 *(ROOT / "diffusion_spacetime_attn_tpu_torch" / "utils" / f"{m}.py"
                   for m in ("zstd", "ocdbt", "orbax", "bmp", "webp", "image_io", "png", "gif",
                             "tiff", "lzw", "ccitt", "raster", "netpbm", "tga", "qoi", "ico",
-                            "pcx", "sgi", "sun", "psd", "xbm", "xpm", "fits")),
+                            "pcx", "sgi", "sun", "psd", "xbm", "xpm", "fits", "bcn", "dds",
+                            "blp", "ftex")),
                 ROOT / "diffusion_spacetime_attn_tpu_torch" / "training" / "jax_checkpoints.py",
                 ROOT / "tests" / "helpers" / "torch_ranks.py"):
         assert new in files, new

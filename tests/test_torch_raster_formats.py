@@ -10,7 +10,8 @@ program compiled):
   port's at two sizes and two filters;
 * identification as Pillow's: a file under a wrong suffix reads the same,
   each format Pillow identifies but the port does not read raises naming
-  it (queued, or refused by Pillow too);
+  it (queued, or refused by Pillow too); the BLP, DDS and FTEX files once
+  named so read as Pillow reads them;
 * a seeded corpus (random strings, each new format's header with random
   tails, truncations and byte flips of every committed fixture): the port
   and Pillow both refuse, or both give the same format, mode and pixels;
@@ -249,13 +250,12 @@ def _others() -> dict:
 
     be = struct.pack
     return {
-        "AVIF": new("AVIF"), "BLP": new("BLP", "P"), "DDS": new("DDS", "RGBA"),
+        "AVIF": new("AVIF"),
         "EPS": new("EPS"), "JPEG2000": new("JPEG2000"), "ICNS": new("ICNS", "RGBA", (32, 32)),
         "IM": new("IM"), "MSP": new("MSP", "1"), "SPIDER": new("SPIDER", "F"),
         "BUFR": b"BUFR" + bytes(60), "GRIB": b"GRIB\0\0\0\1" + bytes(40),
         "HDF5": b"\x89HDF\r\n\x1a\n" + bytes(40), "MPEG": b"\0\0\1\xb3\x01\x00\x10" + bytes(40),
         "FLI": struct.pack("<IHHHHH", 0, 0xAF11, 1, 16, 16, 8) + bytes(128),
-        "FTEX": b"FTEX" + struct.pack("<i2i2i2ii", 0, 4, 4, 1, 1, 1, 0, 64) + bytes(64),
         "GBR": be(">IIIII", 28, 2, 4, 4, 1) + b"GIMP" + be(">I", 10) + b"x\0" + bytes(16),
         "IMT": b"width 4\nheight 2\npixel n8\n\x0c" + bytes(8),
         "IPTC": (b"\x1c\x03\x3c\x00\x02\x01\x00\x1c\x03\x14\x00\x02\x00\x04\x1c\x03\x1e\x00\x02"
@@ -272,6 +272,10 @@ def _others() -> dict:
 
 OTHERS = _others()
 PILLOW_REFUSES = ("EPS", "WMF", "BUFR", "GRIB", "HDF5", "MPEG")
+# the files this test named as refused until the port read them
+NOW_READ = {"BLP": save(Image.new("P", (16, 16), 7), "BLP"),
+            "DDS": save(Image.new("RGBA", (16, 16), 7), "DDS"),
+            "FTEX": b"FTEX" + struct.pack("<i2i2i2ii", 0, 4, 4, 1, 1, 1, 0, 64) + bytes(64)}
 
 
 @pytest.mark.parametrize("fmt", sorted(OTHERS))
@@ -288,6 +292,16 @@ def test_other_formats_raise_naming_them(fmt):
     if fmt in PILLOW_REFUSES:
         with pytest.raises(Exception):
             im.load()
+
+
+@pytest.mark.parametrize("fmt", sorted(NOW_READ))
+def test_formats_once_refused_read_as_pil(fmt):
+    """The BLP, DDS and FTEX files `test_other_formats_raise_naming_them`
+    held refused: read as Pillow reads them (`utils/{blp,dds,ftex}.py`)."""
+    data = NOW_READ[fmt]
+    assert Image.open(io.BytesIO(data)).format == fmt
+    assert image_io.read_format(data)[0] == fmt
+    assert_like_pil(data, fmt)
 
 
 def test_netpbm_quirks_as_pillow():
